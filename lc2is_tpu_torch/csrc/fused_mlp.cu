@@ -3,6 +3,10 @@
 //   pre  (swin block):    out = [x +] W2 · act(W1 · LN(x) + b1) + b2
 //   post (torch layer):   out = LN([x +] W2 · act(W1 · x + b1) + b2)
 //
+// With upre non-null the kernel also writes the (T, F) pre-activation
+// W1 · h + b1, rounded to T, which the training backward differentiates from
+// (lc2is_tpu/ops/fused_mlp.py:178-183 saves the same tensor).
+//
 // Replaces the TPU kernel lc2is_tpu/ops/fused_mlp.py::_kernel (:110, entry
 // fused_mlp :318).
 //
@@ -149,8 +153,9 @@ __global__ void __launch_bounds__(kThreads)
 fused_mlp_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
                     const bf16* __restrict__ lnb, const bf16* __restrict__ w1,
                     const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                    const bf16* __restrict__ b2, bf16* __restrict__ out, int n_tok, int F,
-                    int act, int pre, int residual, float eps) {
+                    const bf16* __restrict__ b2, bf16* __restrict__ out,
+                    bf16* __restrict__ upre, int n_tok, int F, int act, int pre, int residual,
+                    float eps) {
   using namespace nvcuda;
   using L = TcLayout<C>;
   constexpr int NJ = C / 32;
@@ -194,8 +199,9 @@ fused_mlp_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
     __syncthreads();
     for (int idx = tid; idx < kBM * kTcFC; idx += kThreads) {
       const int r = idx / kTcFC, f = idx - r * kTcFC;
-      ub[r * kLdu + f] =
-          __float2bfloat16(activate(us[r * kLds + f] + __bfloat162float(b1[f0 + f]), act));
+      const float pa = us[r * kLds + f] + __bfloat162float(b1[f0 + f]);
+      ub[r * kLdu + f] = __float2bfloat16(activate(pa, act));
+      if (upre && row0 + r < n_tok) upre[(size_t)(row0 + r) * F + f0 + f] = __float2bfloat16(pa);
     }
     __syncthreads();
 #pragma unroll
@@ -255,8 +261,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 fused_mlp_fma_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                      const float* __restrict__ lnb, const float* __restrict__ w1,
                      const float* __restrict__ b1, const float* __restrict__ w2,
-                     const float* __restrict__ b2, float* __restrict__ out, int n_tok, int F,
-                     int act, int pre, int residual, float eps) {
+                     const float* __restrict__ b2, float* __restrict__ out,
+                     float* __restrict__ upre, int n_tok, int F, int act, int pre, int residual,
+                     float eps) {
   constexpr int C = NJ * 32;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* hs = reinterpret_cast<float*>(smem_raw);  // [kBM][C]: FF input rows
@@ -300,8 +307,11 @@ fused_mlp_fma_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
       }
       const float bias = b1[f0 + lane];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
+      for (int i = 0; i < kRows; ++i) {
+        const int g = row0 + warp * kRows + i;
         us[(warp * kRows + i) * kFC + lane] = activate(acc[i] + bias, act);
+        if (upre && g < n_tok) upre[(size_t)g * F + f0 + lane] = acc[i] + bias;
+      }
     }
     __syncthreads();
     for (int idx = tid; idx < C * kFC; idx += kThreads) {
@@ -333,30 +343,31 @@ fused_mlp_fma_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 template <typename T, typename K>
 cudaError_t launch_kernel(K kernel, size_t smem, const void* x, const void* lnw,
                           const void* lnb, const void* w1, const void* b1, const void* w2,
-                          const void* b2, void* out, int n_tok, int F, int act, int pre,
-                          int residual, float eps, cudaStream_t stream) {
+                          const void* b2, void* out, void* upre, int n_tok, int F, int act,
+                          int pre, int residual, float eps, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n_tok + kBM - 1) / kBM);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(lnw), static_cast<const T*>(lnb),
       static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), n_tok, F, act, pre, residual, eps);
+      static_cast<const T*>(b2), static_cast<T*>(out), static_cast<T*>(upre), n_tok, F, act, pre,
+      residual, eps);
   return cudaGetLastError();
 }
 
 template <int NJ>
 cudaError_t launch_c(int dtype, const void* x, const void* lnw, const void* lnb,
                      const void* w1, const void* b1, const void* w2, const void* b2, void* out,
-                     int n_tok, int F, int act, int pre, int residual, float eps,
+                     void* upre, int n_tok, int F, int act, int pre, int residual, float eps,
                      cudaStream_t stream) {
   if (dtype == kBF16)
     return launch_kernel<bf16>(fused_mlp_tc_kernel<NJ * 32>, TcLayout<NJ * 32>::kBytes, x,
-                               lnw, lnb, w1, b1, w2, b2, out, n_tok, F, act, pre, residual,
-                               eps, stream);
+                               lnw, lnb, w1, b1, w2, b2, out, upre, n_tok, F, act, pre,
+                               residual, eps, stream);
   if (dtype == kF32)
     return launch_kernel<float>(fused_mlp_fma_kernel<NJ>, FmaLayout<NJ>::kBytes, x, lnw, lnb,
-                                w1, b1, w2, b2, out, n_tok, F, act, pre, residual, eps,
+                                w1, b1, w2, b2, out, upre, n_tok, F, act, pre, residual, eps,
                                 stream);
   return cudaErrorInvalidValue;
 }
@@ -365,17 +376,18 @@ cudaError_t launch_c(int dtype, const void* x, const void* lnw, const void* lnb,
 }  // namespace lc2
 
 // C in {96, 128, 192, 256, 384, 512, 768}; F % 64 == 0.  act: 0 relu,
-// 1 erf-gelu, 2 polynomial gelu.  All tensors contiguous, one dtype.
+// 1 erf-gelu, 2 polynomial gelu.  All tensors contiguous, one dtype; upre
+// (n_tok, F) or null.
 extern "C" int lc2_fused_mlp(int dtype, const void* x, const void* lnw, const void* lnb,
                              const void* w1, const void* b1, const void* w2,
-                             const void* b2, void* out, int n_tok, int C, int F, int act,
-                             int pre, int residual, float eps, void* stream) {
+                             const void* b2, void* out, void* upre, int n_tok, int C, int F,
+                             int act, int pre, int residual, float eps, void* stream) {
   if (F % lc2::kTcFC != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define LC2_MLP_CASE(NJ)                                                                 \
   case NJ * 32:                                                                          \
-    return lc2::launch_c<NJ>(dtype, x, lnw, lnb, w1, b1, w2, b2, out, n_tok, F, act, pre, \
-                             residual, eps, s);
+    return lc2::launch_c<NJ>(dtype, x, lnw, lnb, w1, b1, w2, b2, out, upre, n_tok, F, act, \
+                             pre, residual, eps, s);
   switch (C) {
     LC2_MLP_CASE(3)
     LC2_MLP_CASE(4)

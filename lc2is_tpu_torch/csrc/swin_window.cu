@@ -1,7 +1,10 @@
 // swin_window_block: one swin attention half straight on the (B, H, W, C)
 // canvas, in HF SwinLayer semantics:
 //
-//   out = x + Wo · WindowAttention(QKV(pad(LN(x)) rolled by -shift)) + bo
+//   out = [x +] Wo · WindowAttention(QKV(pad(LN(x)) rolled by -shift)) + bo
+//
+// (residual = 0 returns the branch alone: the stochastic-depth training path
+// adds the residual outside, as lc2is_tpu/nn/swin.py:316-335 does).
 //
 // Replaces two TPU kernels that compute this same function and were split
 // only by VMEM and compile gates (lc2is_tpu/nn/swin.py:277-306):
@@ -64,7 +67,7 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
                    const T* __restrict__ bqkv, const T* __restrict__ wo,
                    const T* __restrict__ bo, const float* __restrict__ bias,
                    T* __restrict__ out, int H, int W, int C, int heads, int win,
-                   int shift, int nww, float eps) {
+                   int shift, int nww, int residual, float eps) {
   using Lay = Layout<DH>;
   const int N = win * win;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -247,7 +250,7 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         const int c = n0 + lane + 32 * j;
         if (c < C) {
           const size_t o = (size_t)pix * C + c;
-          ob[o] = from_f<T>(acc[i][j] + to_f(bo[c]) + to_f(xb[o]));
+          ob[o] = from_f<T>(acc[i][j] + to_f(bo[c]) + (residual ? to_f(xb[o]) : 0.0f));
         }
       }
     }
@@ -266,7 +269,7 @@ template <typename T, int DH>
 cudaError_t launch(const void* x, const void* lnw, const void* lnb, const void* wqkv,
                    const void* bqkv, const void* wo, const void* bo, const float* bias,
                    void* out, int B, int H, int W, int C, int heads, int win, int shift,
-                   float eps, cudaStream_t stream) {
+                   int residual, float eps, cudaStream_t stream) {
   const int nwh = (H + win - 1) / win, nww = (W + win - 1) / win;
   const size_t smem = smem_bytes<DH>(win * win, C);
   if (smem > 232448) return cudaErrorInvalidValue;
@@ -278,7 +281,7 @@ cudaError_t launch(const void* x, const void* lnw, const void* lnb, const void* 
       static_cast<const T*>(x), static_cast<const T*>(lnw), static_cast<const T*>(lnb),
       static_cast<const T*>(wqkv), static_cast<const T*>(bqkv), static_cast<const T*>(wo),
       static_cast<const T*>(bo), bias, static_cast<T*>(out), H, W, C, heads, win, shift,
-      nww, eps);
+      nww, residual, eps);
   return cudaGetLastError();
 }
 
@@ -286,18 +289,18 @@ template <typename T>
 cudaError_t dispatch_dh(const void* x, const void* lnw, const void* lnb, const void* wqkv,
                         const void* bqkv, const void* wo, const void* bo, const float* bias,
                         void* out, int B, int H, int W, int C, int heads, int win, int shift,
-                        float eps, cudaStream_t stream) {
+                        int residual, float eps, cudaStream_t stream) {
   if (heads < 1 || C % heads != 0) return cudaErrorInvalidValue;
   switch (C / heads) {
     case 16:
       return launch<T, 16>(x, lnw, lnb, wqkv, bqkv, wo, bo, bias, out, B, H, W, C, heads,
-                           win, shift, eps, stream);
+                           win, shift, residual, eps, stream);
     case 32:
       return launch<T, 32>(x, lnw, lnb, wqkv, bqkv, wo, bo, bias, out, B, H, W, C, heads,
-                           win, shift, eps, stream);
+                           win, shift, residual, eps, stream);
     case 64:
       return launch<T, 64>(x, lnw, lnb, wqkv, bqkv, wo, bo, bias, out, B, H, W, C, heads,
-                           win, shift, eps, stream);
+                           win, shift, residual, eps, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -308,22 +311,23 @@ cudaError_t dispatch_dh(const void* x, const void* lnw, const void* lnb, const v
 
 // x, out (B, H, W, C) contiguous; wqkv (3C, C) packed q|k|v torch layout with
 // 1/sqrt(dh) folded into the q rows; bqkv (3C,); wo (C, C); bo, lnw, lnb (C,);
-// bias (heads, win², win²) f32 in standard token order.  win <= 8,
+// bias (heads, win², win²) f32 in standard token order; residual 0 drops the
+// + x.  win <= 8,
 // 0 <= shift < win, C % 32 == 0, C / heads in {16, 32, 64}.
 extern "C" int lc2_swin_window(int dtype, const void* x, const void* lnw, const void* lnb,
                                const void* wqkv, const void* bqkv, const void* wo,
                                const void* bo, const void* bias, void* out, int B, int H,
-                               int W, int C, int heads, int win, int shift, float eps,
-                               void* stream) {
+                               int W, int C, int heads, int win, int shift, int residual,
+                               float eps, void* stream) {
   if (win < 1 || win * win > lc2::kNP || shift < 0 || shift >= win || C % lc2::kKT != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* bf = static_cast<const float*>(bias);
   if (dtype == lc2::kF32)
     return lc2::dispatch_dh<float>(x, lnw, lnb, wqkv, bqkv, wo, bo, bf, out, B, H, W, C,
-                                   heads, win, shift, eps, s);
+                                   heads, win, shift, residual, eps, s);
   if (dtype == lc2::kBF16)
     return lc2::dispatch_dh<__nv_bfloat16>(x, lnw, lnb, wqkv, bqkv, wo, bo, bf, out, B, H,
-                                           W, C, heads, win, shift, eps, s);
+                                           W, C, heads, win, shift, residual, eps, s);
   return cudaErrorInvalidValue;
 }

@@ -1,4 +1,4 @@
-"""The flagship ``PromptAuxCrossA`` serving forward, counterpart of
+"""The flagship ``PromptAuxCrossA``, serving and training forward, counterpart of
 ``lc2is_tpu/models/zoo.py`` (``_norm``/``_score_map``/``default_denseclip_cfg``
 :49-76, ``PromptContextBase`` :311-349, ``_FinalBase`` :389-443,
 ``_PromptFinalBase`` :490-506, ``_AuxMixin`` :541-545, ``PromptAuxCrossA``
@@ -17,9 +17,15 @@ casts at the same point (``ops/attention.scaled_dot_product_attention``).
 The prompt result is cast to the compute dtype where JAX casts it
 (``zoo.py:583-584``).
 
-Only the default head is ported: ``predict_masks=True`` (the
-``score_upsample_argmax`` kernel) and ``return_score_map=True`` (training)
-raise, naming the ROADMAP item that ports them.
+Heads: the default returns the ×4-upsampled score map; ``return_score_map=True``
+(the training head, ``zoo.py:438-442``) returns the low-res score map
+(B, K, H/4, W/4), whose ×4 upsample folds into the fused upsample-CE loss
+(``ops/fused_ce.py``).  ``predict_masks=True`` (the ``score_upsample_argmax``
+kernel) is not ported yet and raises, naming the ROADMAP item that ports it.
+
+Training: ``forward(inputs, generator=...)`` in training mode draws the swin
+drop-path masks from that generator (``nn/swin.py``); ``FROZEN_PREFIXES``
+names the parameters the reference freezes (``zoo.py:617-625``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,9 @@ from lc2is_tpu_torch.ops.bpe import tokenize
 from lc2is_tpu_torch.ops.resize import resize
 
 ADE20K_NUM_CLASSES = 151
+
+# parameter prefixes the reference freezes (requires_grad=False), zoo.py:617-625
+FROZEN_PREFIXES = {"prompt_aux_cross_a": ("prompt.text_encoder",)}
 
 
 def _norm(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -109,11 +118,8 @@ class _FinalBase(nn.Module):
         if predict_masks:
             raise NotImplementedError(
                 "predict_masks=True needs the score_upsample_argmax kernel "
-                "(ROADMAP.md §2, to-port item 1); this port serves the score map")
-        if return_score_map:
-            raise NotImplementedError(
-                "return_score_map=True is the training head (fused upsample-CE, "
-                "ROADMAP.md §2 training kernels); not ported yet")
+                "(ROADMAP.md §2, to-port item 1: the next slice); this port serves the score map")
+        self.return_score_map = return_score_map
         self.class_names = tuple(class_names)
         self.swin_cfg = dict(swin_cfg or SWIN_SMALL)
         self.in_dims = tuple(self.swin_cfg["embed_dim"] * 2 ** i
@@ -123,9 +129,13 @@ class _FinalBase(nn.Module):
                                 tie_block_weights=tie_block_weights, device=device)
 
     def _finish(self, v_tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """Score-map head: cosine scores at the stage-1 grid, bilinear ×4."""
+        """Score-map head: cosine scores at the stage-1 grid, bilinear ×4 (or
+        the low-res map itself with ``return_score_map``)."""
         grid = int(round(v_tokens.shape[1] ** 0.5))
-        return resize(_score_map(v_tokens, t, grid), scale_factor=4, method="bilinear")
+        score_map = _score_map(v_tokens, t, grid)
+        if self.return_score_map:
+            return score_map
+        return resize(score_map, scale_factor=4, method="bilinear")
 
 
 class _PromptFinalBase(_FinalBase):
@@ -159,8 +169,10 @@ class PromptAuxCrossA(_PromptFinalBase, _AuxMixin):
         self.aux_linear = Linear(self.in_dims[-2], self.cfg["text_dim"], device=device)
         self.vision_decoder = HierarchicalCrossA(self.in_dims, **self._decoder_kw)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        v = self.vision_encoder(inputs["pixel_values"])[:4]
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``generator`` draws the swin drop-path masks in training mode."""
+        v = self.vision_encoder(inputs["pixel_values"], generator)[:4]
         t = self.prompt(v[2], text_static=inputs.get("text_static")).to(v[-1].dtype)
         low = self._aux_map(v[2], t)
         x = self.vision_decoder(v, t)

@@ -11,6 +11,12 @@ slices -> LayerNorm -> reduction in plain torch (the JAX package's merge-conv,
 
 ``forward`` returns HF's ``hidden_states``: the patch embedding (after
 ``embed_norm``) followed by each stage's output after patch merging.
+
+Stochastic depth (training): ``drop_path_rate`` is spread over the blocks by
+``linspace`` (``swin.py:525,534``).  In training mode with a rate above 0 the
+kernels run with ``residual=False`` and the per-sample drop-path mask and the
+residual add happen outside them (``swin.py:316-335``); the masks come from
+the ``torch.Generator`` passed to ``forward``, never from a global state.
 """
 
 from __future__ import annotations
@@ -88,11 +94,21 @@ class _Dense(nn.Module):
         self.dense = Linear(d_in, d_out, device=device)
 
 
+def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Per-sample stochastic depth (``swin.py:256-261``): each image's branch
+    is kept with probability 1 - rate, and scaled by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
+    mask = mask.reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
-                 mlp_ratio: float = 4.0, device=None):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0, device=None):
         super().__init__()
         self.num_heads, self.window, self.shift = num_heads, window, shift
+        self.drop_path = drop_path
         ff = int(dim * mlp_ratio)
         self.layernorm_before = LayerNorm(dim, device=device)
         self.attention = SwinAttention(dim, num_heads, window, device=device)
@@ -100,9 +116,12 @@ class SwinBlock(nn.Module):
         self.intermediate = _Dense(dim, ff, device=device)
         self.output = _Dense(ff, dim, device=device)
 
-    def forward(self, x, hw: Tuple[int, int]):
+    def forward(self, x, hw: Tuple[int, int], generator: Optional[torch.Generator] = None):
         h, w = hw
         b, p, c = x.shape
+        rate = self.drop_path if self.training else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError("stochastic depth in training mode needs an explicit torch.Generator")
         # HF: no shift and a smaller window when the grid is smaller (swin.py:267-268)
         shift = self.shift if min(h, w) > self.window else 0
         win = min(self.window, h, w)
@@ -112,11 +131,15 @@ class SwinBlock(nn.Module):
         y = swin_window_block(x.reshape(b, h, w, c), self.layernorm_before.weight,
                               self.layernorm_before.bias, wqkv, bqkv, dense.weight, dense.bias,
                               sa.bias(win), self.num_heads, win, shift,
-                              eps=self.layernorm_before.eps).reshape(b, p, c)
-        return fused_mlp(y, self.layernorm_after.weight, self.layernorm_after.bias,
-                         self.intermediate.dense.weight, self.intermediate.dense.bias,
-                         self.output.dense.weight, self.output.dense.bias,
-                         activation="gelu", ln_position="pre", eps=self.layernorm_after.eps)
+                              eps=self.layernorm_before.eps, residual=rate == 0.0).reshape(b, p, c)
+        if rate > 0.0:
+            y = x + drop_path(y, rate, generator)
+        z = fused_mlp(y, self.layernorm_after.weight, self.layernorm_after.bias,
+                      self.intermediate.dense.weight, self.intermediate.dense.bias,
+                      self.output.dense.weight, self.output.dense.bias,
+                      activation="gelu", ln_position="pre", residual=rate == 0.0,
+                      eps=self.layernorm_after.eps)
+        return y + drop_path(z, rate, generator) if rate > 0.0 else z
 
 
 class SwinPatchMerging(nn.Module):
@@ -140,17 +163,17 @@ class SwinPatchMerging(nn.Module):
 
 class SwinStage(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window: int, downsample: bool,
-                 device=None):
+                 drop_path_rates: Sequence[float], device=None):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window, shift=0 if i % 2 == 0 else window // 2,
-                      device=device)
+                      drop_path=drop_path_rates[i], device=device)
             for i in range(depth))
         self.downsample_mod = SwinPatchMerging(dim, device=device) if downsample else None
 
-    def forward(self, x, hw):
+    def forward(self, x, hw, generator: Optional[torch.Generator] = None):
         for blk in self.blocks:
-            x = blk(x, hw)
+            x = blk(x, hw, generator)
         if self.downsample_mod is not None:
             x = self.downsample_mod(x, hw)
             hw = ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
@@ -184,21 +207,27 @@ class SwinModel(nn.Module):
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window: int = 7,
-                 patch_size: int = 4, dtype: torch.dtype = torch.float32, device=None):
+                 patch_size: int = 4, drop_path_rate: float = 0.1,
+                 dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
         self.dtype = dtype
         self.patch_proj = SwinPatchEmbed(embed_dim, patch_size, device=device)
         self.embed_norm = LayerNorm(embed_dim, device=device)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        starts = np.cumsum((0,) + tuple(depths)).tolist()
         self.stages = nn.ModuleList(
             SwinStage(embed_dim * 2 ** i, depth, num_heads[i], window,
-                      downsample=i < len(depths) - 1, device=device)
+                      downsample=i < len(depths) - 1,
+                      drop_path_rates=dpr[starts[i]:starts[i] + depth], device=device)
             for i, depth in enumerate(depths))
 
-    def forward(self, pixel_values) -> List[torch.Tensor]:
+    def forward(self, pixel_values, generator: Optional[torch.Generator] = None
+                ) -> List[torch.Tensor]:
+        """``generator`` draws the drop-path masks in training mode."""
         x, hw = self.patch_proj(pixel_values.to(self.dtype))
         x = self.embed_norm(x)
         hidden_states = [x]
         for stage in self.stages:
-            x, hw = stage(x, hw)
+            x, hw = stage(x, hw, generator)
             hidden_states.append(x)
         return hidden_states

@@ -1,15 +1,17 @@
 """Build the Hopper kernels of ``lc2is_tpu_torch/csrc`` and bind them.
 
-All ``csrc/*.cu`` files compile with one ``nvcc`` call into one shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds, not minutes), which ``ctypes`` loads.  The library is named by a
-hash of the sources and flags and kept in ``build/lc2is_tpu_torch/`` at the
-repository root (git-ignored): it is built at first use and rebuilt only when
-a source changes.
+Each ``csrc/*.cu`` file compiles to an object with its own ``nvcc``
+process, all started together, and one more ``nvcc`` links them into one
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds to a minute or two, not many minutes), which ``ctypes``
+loads.  The library is named by a hash of the sources and flags and kept in
+``build/lc2is_tpu_torch/`` at the repository root (git-ignored): it is built
+at first use and rebuilt only when a source changes.
 
 Every C entry point takes its pointers and the stream as ``c_void_p`` and
-returns ``cudaGetLastError()`` after its launch; :func:`launch` raises when
-that is not 0, so a launch that CUDA refuses never passes silently.
+returns ``cudaGetLastError()`` after its launch (or its first failing
+launch, for an entry point that launches a sequence); :func:`launch` raises
+when that is not 0, so a launch that CUDA refuses never passes silently.
 """
 
 from __future__ import annotations
@@ -29,15 +31,25 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "lc2is_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every entry point (see the extern "C" signatures in csrc/)
 SIGNATURES = {
-    "lc2_fused_mlp": [_I] + [_P] * 8 + [_I] * 6 + [_F, _P],
+    "lc2_fused_mlp": [_I] + [_P] * 9 + [_I] * 6 + [_F, _P],
     "lc2_attn_block": [_I] + [_P] * 10 + [_I] * 5 + [_F, _P],
+    "lc2_attn_block_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_F, _P],
     "lc2_upsample": [_I, _P, _P] + [_I] * 5 + [_P],
-    "lc2_swin_window": [_I] + [_P] * 9 + [_I] * 7 + [_F, _P],
+    "lc2_upsample_adjoint": [_I, _P, _P] + [_I] * 5 + [_P],
+    "lc2_swin_window": [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+    "lc2_swin_window_bwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _P],
+    "lc2_fused_ce": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+}
+# entry points returning a size (floats of scratch a kernel needs)
+SIZE_SIGNATURES = {
+    "lc2_swin_window_bwd_workspace": [_I] * 5,
+    "lc2_attn_block_bwd_workspace": [_I] * 5,
+    "lc2_fused_ce_partials": [_I] * 3,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,15 +81,33 @@ def build(verbose: bool = False) -> Tuple[Path, str]:
     so = _library_path()
     if so.exists():
         return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objdir = BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+    objdir.mkdir(parents=True, exist_ok=True)
+    tool = nvcc()
+    extra = ("-Xptxas", "-v") if verbose else ()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = objdir / f"{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [tool, *NVCC_FLAGS, *extra, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for obj, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{obj.stem}.cu ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    link = subprocess.run([tool, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o",
+                           str(tmp), *(str(obj) for obj, _ in jobs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
     os.replace(tmp, so)
-    return so, proc.stdout + proc.stderr
+    shutil.rmtree(objdir, ignore_errors=True)
+    return so, "".join(log) + link.stdout + link.stderr
 
 
 def library() -> ctypes.CDLL:
@@ -90,6 +120,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+            for name, argtypes in SIZE_SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_longlong
             lib.lc2_error_string.argtypes = [ctypes.c_int]
             lib.lc2_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -104,6 +138,11 @@ def launch(name: str, device: torch.device, *args) -> None:
         err = getattr(lib, name)(*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} ({lib.lc2_error_string(err).decode()})")
+
+
+def size(name: str, *args) -> int:
+    """Value of size entry point ``name`` (scratch floats for a launch)."""
+    return int(getattr(library(), name)(*args))
 
 
 def stream_of(t: torch.Tensor) -> int:

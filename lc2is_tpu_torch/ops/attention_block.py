@@ -8,6 +8,13 @@ tensor :func:`fused_attn_block` launches ``csrc/attention_block.cu`` with
 1/√dh folded into wq/bq (``attention_block.py:155-160``); on a CPU tensor it
 runs :func:`fused_attn_block_plain`, the module composition of
 ``attention_block.py:93-113``.
+
+Training: on a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
+whose backward is :func:`fused_attn_block_bwd` (``csrc/attention_block_bwd.cu``,
+the port of ``attention_block.py::_bwd_kernel`` :264).  The 1/√dh fold into
+wq/bq happens outside the Function as differentiable torch ops, and so do the
+K/V projections, so autograd carries dK and dV back through them.  On a CPU
+tensor autograd runs through the plain version.
 """
 
 from __future__ import annotations
@@ -39,13 +46,7 @@ def fused_attn_block_plain(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1
     return F.layer_norm(s, (c,), ln_w.float(), ln_b.float(), eps).to(dt)
 
 
-def fused_attn_block(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
-    """out = LN(x + Wo·MHA(Wq·x + bq, k, v) + bo)  (torch post-norm layer half).
-
-    x (B, P, C) queries; k, v (B, L, C) projected keys/values, heads packed in
-    C; wq, wo (C, C) torch layout; bq, bo, ln_w, ln_b (C,)."""
-    if not use_kernel(x):
-        return fused_attn_block_plain(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps)
+def _check(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads):
     b, p, c = x.shape
     l = k.shape[1]
     dh = c // num_heads
@@ -56,19 +57,90 @@ def fused_attn_block(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
     _build.check_operands(x.device, k=(k, (b, l, c)), v=(v, (b, l, c)), wq=(wq, (c, c)),
                           bq=(bq, (c,)), wo=(wo, (c, c)), bo=(bo, (c,)), ln_w=(ln_w, (c,)),
                           ln_b=(ln_b, (c,)))
+
+
+def fold_q_scale(wq, bq, num_heads):
+    """(wq, bq) · 1/√dh in f32 before any rounding (``attention_block.py:155-160``);
+    differentiable."""
+    scale = 1.0 / math.sqrt(wq.shape[0] // num_heads)
+    return wq.float() * scale, bq.float() * scale
+
+
+def _launch_fwd(x, k, v, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads, eps):
+    b, p, c = x.shape
     dt = x.dtype
-    scale = 1.0 / math.sqrt(dh)
-    wq_s = (wq.float() * scale).to(dt).contiguous()  # 1/√dh folded before rounding
-    bq_s = (bq.float() * scale).to(dt).contiguous()
     xc, kc, vc = (t.to(dt).contiguous() for t in (x, k, v))
-    rest = [t.to(dt).contiguous() for t in (wo, bo, ln_w, ln_b)]
+    rest = [t.to(dt).contiguous() for t in (wq_s, bq_s, wo, bo, ln_w, ln_b)]
     out = torch.empty_like(xc)
     _build.launch(
         "lc2_attn_block", xc.device, _build.dtype_code(xc), xc.data_ptr(), kc.data_ptr(),
-        vc.data_ptr(), wq_s.data_ptr(), bq_s.data_ptr(), *(t.data_ptr() for t in rest),
-        out.data_ptr(), b, p, l, c, num_heads, float(eps), _build.stream_of(xc))
+        vc.data_ptr(), *(t.data_ptr() for t in rest), out.data_ptr(), b, p, k.shape[1], c,
+        num_heads, float(eps), _build.stream_of(xc))
     fused_attn_block.launches += 1
     return out
+
+
+def fused_attn_block_bwd(x, k, v, g, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
+    """Gradients of :func:`fused_attn_block` with respect to (x, k, v, wq_s,
+    bq_s, wo, bo, ln_w, ln_b), given g = d loss / d out; ``wq_s``/``bq_s``
+    carry the 1/√dh fold (:func:`fold_q_scale`).  x, k, v, g are CUDA tensors
+    of the compute dtype; dx comes back in it, the rest in f32.  The forward
+    is recomputed inside (``csrc/attention_block_bwd.cu``)."""
+    b, p, c = x.shape
+    l = k.shape[1]
+    _check(x, k, v, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads)
+    _build.check_operands(x.device, g=(g, tuple(x.shape)))
+    dt = x.dtype
+    xc, kc, vc, gc = (t.to(dt).contiguous() for t in (x, k, v, g))
+    # f32 operands holding exactly the values the forward kernel used
+    wq, bq, woc, boc, lnw = (t.to(dt).float().contiguous() for t in (wq_s, bq_s, wo, bo, ln_w))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dk, dv = torch.empty((b, l, c), **f32), torch.empty((b, l, c), **f32)
+    grads = [torch.zeros(s, **f32) for s in ((c, c), (c,), (c, c), (c,), (c,), (c,))]
+    dx = torch.empty_like(xc)
+    ws = torch.empty(_build.size("lc2_attn_block_bwd_workspace", b, p, l, c, num_heads), **f32)
+    _build.launch(
+        "lc2_attn_block_bwd", xc.device, _build.dtype_code(xc), xc.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), gc.data_ptr(), wq.data_ptr(), bq.data_ptr(), woc.data_ptr(),
+        boc.data_ptr(), lnw.data_ptr(), dx.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *(t.data_ptr() for t in grads), ws.data_ptr(), b, p, l, c, num_heads, float(eps),
+        _build.stream_of(xc))
+    fused_attn_block_bwd.launches += 1
+    return (dx, dk, dv, *grads)
+
+
+fused_attn_block_bwd.launches = 0
+
+
+class _FusedAttnBlock(torch.autograd.Function):
+    """The kernel forward with :func:`fused_attn_block_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, k, v, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads, eps):
+        ctx.save_for_backward(x, k, v, wq_s, bq_s, wo, bo, ln_w, ln_b)
+        ctx.cfg = (num_heads, eps)
+        return _launch_fwd(x, k, v, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, k, v, *params = ctx.saved_tensors
+        dx, dk, dv, *dparams = fused_attn_block_bwd(x, k, v, g, *params, *ctx.cfg)
+        return (dx, dk.to(k.dtype), dv.to(v.dtype),
+                *(d.to(p.dtype) for d, p in zip(dparams, params)), None, None)
+
+
+def fused_attn_block(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
+    """out = LN(x + Wo·MHA(Wq·x + bq, k, v) + bo)  (torch post-norm layer half).
+
+    x (B, P, C) queries; k, v (B, L, C) projected keys/values, heads packed in
+    C; wq, wo (C, C) torch layout; bq, bo, ln_w, ln_b (C,).  Differentiable on
+    both devices."""
+    if not use_kernel(x):
+        return fused_attn_block_plain(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps)
+    _check(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads)
+    wq_s, bq_s = fold_q_scale(wq, bq, num_heads)
+    return _FusedAttnBlock.apply(x, k.to(x.dtype), v.to(x.dtype), wq_s, bq_s, wo, bo, ln_w, ln_b,
+                                 num_heads, eps)
 
 
 fused_attn_block.launches = 0

@@ -1,6 +1,6 @@
 """One swin attention half on the (B, H, W, C) canvas, HF SwinLayer semantics:
 
-    out = x + proj(window_attention(qkv(LN(x)) padded, rolled, partitioned))
+    out = [x +] proj(window_attention(qkv(LN(x)) padded, rolled, partitioned))
 
 Counterpart of both ``lc2is_tpu/ops/swin_canvas.py::swin_canvas_block``
 (:974, swin stages 1-3) and ``lc2is_tpu/ops/window_attention.py::
@@ -10,7 +10,17 @@ a CUDA tensor :func:`swin_window_block` launches ``csrc/swin_window.cu``
 tensor it runs :func:`swin_window_block_plain`, HF's pipeline written out:
 LN, zero pad to window multiples (pad AFTER the LN), roll by -shift,
 partition, attention with the relative-position bias and the 9-region
--100 mask, reverse, roll back, crop, out-projection, residual.
+-100 mask, reverse, roll back, crop, out-projection, residual
+(``residual=False`` drops the residual: the stochastic-depth training path
+adds it outside, ``lc2is_tpu/nn/swin.py:316-335``).
+
+Training: on a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
+whose backward is :func:`swin_window_block_bwd` (``csrc/swin_window_bwd.cu``,
+the port of ``swin_canvas.py::_canvas_bwd_kernel`` :530 and
+``window_attention.py::_block_bwd_kernel`` :701).  The 1/√dh fold into the q
+rows and the relative-position table gather stay outside the Function as
+differentiable torch ops, so autograd carries the q-row and bias gradients
+back through them.  On a CPU tensor autograd runs through the plain version.
 """
 
 from __future__ import annotations
@@ -39,7 +49,7 @@ def _region_labels(hp: int, wp: int, win: int, shift: int, device) -> torch.Tens
 
 
 def swin_window_block_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win,
-                            shift, eps=1e-5):
+                            shift, eps=1e-5, residual=True):
     """Plain PyTorch version of :func:`swin_window_block` (any device)."""
     b, h, w, c = x.shape
     dt = x.dtype
@@ -67,19 +77,11 @@ def swin_window_block_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, 
     if shift:
         o = torch.roll(o, (shift, shift), dims=(1, 2))
     o = o[:, :h, :w]
-    return x + F.linear(o, wo.to(dt), bo.to(dt))
+    y = F.linear(o, wo.to(dt), bo.to(dt))
+    return x + y if residual else y
 
 
-def swin_window_block(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, shift,
-                      eps=1e-5):
-    """out = x + proj(window_attn(qkv(LN(x)))) straight on the canvas.
-
-    x (B, H, W, C) channels-last; wqkv (3C, C) packed q|k|v torch layout,
-    bqkv (3C,); wo (C, C), bo (C,); bias (heads, win², win²) relative-position
-    bias in standard token order."""
-    if not use_kernel(x):
-        return swin_window_block_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads,
-                                       win, shift, eps)
+def _check(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, shift):
     b, h, w, c = x.shape
     dh = c // num_heads
     if (c % 32 or c % num_heads or dh not in (16, 32, 64) or not 1 <= win <= 8
@@ -89,23 +91,102 @@ def swin_window_block(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, s
     _build.check_operands(x.device, ln_w=(ln_w, (c,)), ln_b=(ln_b, (c,)),
                           wqkv=(wqkv, (3 * c, c)), bqkv=(bqkv, (3 * c,)), wo=(wo, (c, c)),
                           bo=(bo, (c,)), bias=(bias, (num_heads, win * win, win * win)))
+
+
+def fold_q_scale(wqkv, bqkv, num_heads):
+    """(wqkv, bqkv) with 1/√dh folded into the q rows, weights AND bias, in
+    f32 before any rounding (``window_attention.py:554-561``); differentiable."""
+    c = wqkv.shape[1]
+    scale = 1.0 / math.sqrt(c // num_heads)
+    return (torch.cat([wqkv[:c].float() * scale, wqkv[c:].float()]),
+            torch.cat([bqkv[:c].float() * scale, bqkv[c:].float()]))
+
+
+def _launch_fwd(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shift, eps,
+                residual):
+    b, h, w, c = x.shape
     dt = x.dtype
-    scale = 1.0 / math.sqrt(dh)
-    # fold 1/√dh into the q rows (weights AND bias) before rounding, as
-    # window_attention.py:554-561 does
-    wqkv_s = torch.cat([wqkv[:c].float() * scale, wqkv[c:].float()]).to(dt).contiguous()
-    bqkv_s = torch.cat([bqkv[:c].float() * scale, bqkv[c:].float()]).to(dt).contiguous()
     xc = x.contiguous()
-    lnw, lnb, woc, boc = (t.to(dt).contiguous() for t in (ln_w, ln_b, wo, bo))
+    lnw, lnb, wq, bq, woc, boc = (t.to(dt).contiguous() for t in (ln_w, ln_b, wqkv_s, bqkv_s,
+                                                                   wo, bo))
     biasc = bias.float().contiguous()
     out = torch.empty_like(xc)
     _build.launch(
         "lc2_swin_window", xc.device, _build.dtype_code(xc), xc.data_ptr(), lnw.data_ptr(),
-        lnb.data_ptr(), wqkv_s.data_ptr(), bqkv_s.data_ptr(), woc.data_ptr(), boc.data_ptr(),
-        biasc.data_ptr(), out.data_ptr(), b, h, w, c, num_heads, win, shift, float(eps),
-        _build.stream_of(xc))
+        lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(), woc.data_ptr(), boc.data_ptr(),
+        biasc.data_ptr(), out.data_ptr(), b, h, w, c, num_heads, win, shift, int(residual),
+        float(eps), _build.stream_of(xc))
     swin_window_block.launches += 1
     return out
+
+
+def swin_window_block_bwd(x, g, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win,
+                          shift, eps=1e-5, residual=True):
+    """Gradients of :func:`swin_window_block` with respect to (x, ln_w, ln_b,
+    wqkv_s, bqkv_s, wo, bo, bias), given g = d loss / d out; ``wqkv_s`` and
+    ``bqkv_s`` carry the 1/√dh fold (:func:`fold_q_scale`).  x and g are CUDA
+    tensors of the compute dtype; dx comes back in it, the rest in f32.  The
+    forward is recomputed inside (``csrc/swin_window_bwd.cu``)."""
+    b, h, w, c = x.shape
+    _check(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shift)
+    _build.check_operands(x.device, g=(g, tuple(x.shape)))
+    dt = x.dtype
+    xc, gc = x.contiguous(), g.to(dt).contiguous()
+    # f32 operands holding exactly the values the forward kernel used
+    lnw, lnb, wq, bq, woc = (t.to(dt).float().contiguous() for t in (ln_w, ln_b, wqkv_s, bqkv_s,
+                                                                      wo))
+    biasc = bias.float().contiguous()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    grads = [torch.zeros(s, **f32) for s in ((c,), (c,), (3 * c, c), (3 * c,), (c, c), (c,),
+                                             tuple(bias.shape))]
+    dx = torch.empty_like(xc)
+    ws = torch.empty(_build.size("lc2_swin_window_bwd_workspace", b, h, w, c, win), **f32)
+    _build.launch(
+        "lc2_swin_window_bwd", xc.device, _build.dtype_code(xc), xc.data_ptr(), gc.data_ptr(),
+        lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(), woc.data_ptr(),
+        biasc.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in grads), ws.data_ptr(), b, h, w,
+        c, num_heads, win, shift, int(residual), float(eps), _build.stream_of(xc))
+    swin_window_block_bwd.launches += 1
+    return (dx, *grads)
+
+
+swin_window_block_bwd.launches = 0
+
+
+class _SwinWindowBlock(torch.autograd.Function):
+    """The kernel forward with :func:`swin_window_block_bwd` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shift, eps,
+                residual):
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias)
+        ctx.cfg = (num_heads, win, shift, eps, residual)
+        return _launch_fwd(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shift,
+                           eps, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        grads = swin_window_block_bwd(saved[0], g, *saved[1:], *ctx.cfg)
+        # parameter grads in the parameters' own dtypes (f32 masters)
+        return (grads[0], *(d.to(p.dtype) for d, p in zip(grads[1:], saved[1:])),
+                None, None, None, None, None)
+
+
+def swin_window_block(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, shift,
+                      eps=1e-5, residual=True):
+    """out = [x +] proj(window_attn(qkv(LN(x)))) straight on the canvas.
+
+    x (B, H, W, C) channels-last; wqkv (3C, C) packed q|k|v torch layout,
+    bqkv (3C,); wo (C, C), bo (C,); bias (heads, win², win²) relative-position
+    bias in standard token order.  Differentiable on both devices."""
+    if not use_kernel(x):
+        return swin_window_block_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads,
+                                       win, shift, eps, residual)
+    _check(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, shift)
+    wqkv_s, bqkv_s = fold_q_scale(wqkv, bqkv, num_heads)
+    return _SwinWindowBlock.apply(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win,
+                                  shift, eps, residual)
 
 
 swin_window_block.launches = 0

@@ -9,6 +9,11 @@ CPU tensor it runs :func:`upsample_tokens_plain`.
 
 Both blend along W first, round the widened rows to the element type, then
 blend along H, as the TPU kernel does.
+
+Training: on a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
+whose backward is :func:`upsample_tokens_adjoint` (``csrc/upsample.cu``, the
+port of ``upsample.py::_adj_kernel`` :186); on a CPU tensor autograd runs
+through the plain version.
 """
 
 from __future__ import annotations
@@ -45,6 +50,49 @@ def upsample_tokens_plain(x: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
     return out.to(x.dtype).reshape(b, h * r * w * r, c)
 
 
+def upsample_tokens_adjoint(g: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
+    """The backward of :func:`upsample_tokens`: (B, rH·rW, C) output gradient
+    -> (B, H·W, C) input gradient, ``grid_hw`` the INPUT grid.  CUDA tensors
+    only (``csrc/upsample.cu``)."""
+    b, p_out, c = g.shape
+    h, w = grid_hw
+    if p_out != h * r * w * r:
+        raise ValueError(f"{p_out} output tokens do not match grid {grid_hw} x {r}")
+    gc = g.contiguous()
+    dx = torch.empty((b, h * w, c), dtype=g.dtype, device=g.device)
+    _build.launch("lc2_upsample_adjoint", gc.device, _build.dtype_code(gc), gc.data_ptr(),
+                  dx.data_ptr(), b, h, w, c, r, _build.stream_of(gc))
+    upsample_tokens_adjoint.launches += 1
+    return dx
+
+
+upsample_tokens_adjoint.launches = 0
+
+
+def _launch_fwd(x: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
+    b, p, c = x.shape
+    h, w = grid_hw
+    xc = x.contiguous()
+    out = torch.empty((b, h * r * w * r, c), dtype=x.dtype, device=x.device)
+    _build.launch("lc2_upsample", xc.device, _build.dtype_code(xc), xc.data_ptr(), out.data_ptr(),
+                  b, h, w, c, r, _build.stream_of(xc))
+    upsample_tokens.launches += 1
+    return out
+
+
+class _UpsampleTokens(torch.autograd.Function):
+    """The kernel forward with :func:`upsample_tokens_adjoint` as its backward."""
+
+    @staticmethod
+    def forward(ctx, x, grid_hw, r):
+        ctx.cfg = (tuple(grid_hw), r)
+        return _launch_fwd(x, grid_hw, r)
+
+    @staticmethod
+    def backward(ctx, g):
+        return upsample_tokens_adjoint(g, *ctx.cfg), None, None
+
+
 def upsample_tokens(x: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
     """(B, H·W, C) -> (B, rH·rW, C), torch-bilinear half-pixel semantics."""
     if int(r) != r or r < 2:
@@ -56,12 +104,7 @@ def upsample_tokens(x: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
         raise ValueError(f"grid {grid_hw} does not match {p} tokens")
     if not use_kernel(x):
         return upsample_tokens_plain(x, (h, w), r)
-    xc = x.contiguous()
-    out = torch.empty((b, h * r * w * r, c), dtype=x.dtype, device=x.device)
-    _build.launch("lc2_upsample", xc.device, _build.dtype_code(xc), xc.data_ptr(), out.data_ptr(),
-                  b, h, w, c, r, _build.stream_of(xc))
-    upsample_tokens.launches += 1
-    return out
+    return _UpsampleTokens.apply(x, (h, w), r)
 
 
 upsample_tokens.launches = 0

@@ -18,6 +18,7 @@ from lc2is_tpu.nn.swin import SwinModel as JSwinModel
 from lc2is_tpu_torch.models import zoo
 from lc2is_tpu_torch.nn.decoders import HierarchicalCrossA
 from lc2is_tpu_torch.nn.swin import SwinModel
+from lc2is_tpu_torch.ops.resize import resize
 
 # window 7 on a 72² input: 18² -> 21² HF-padded canvas, shifted blocks, odd
 # merges (9² -> 5²) and the shrunken window of the small late stages
@@ -94,9 +95,24 @@ def test_prompt_aux_cross_a(slice_run, cached_text):
 
 
 @pytest.mark.parametrize("head", ["predict_masks", "return_score_map"])
-def test_unported_heads_raise(head):
-    """The argmax and training heads are not ported: asking for one fails
-    loudly instead of serving another head."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        zoo.PromptAuxCrossA(swin_cfg=TINY_SWIN, cfg=small_denseclip_cfg(),
-                            class_names=("a",), **{head: True})
+def test_unported_heads_raise(head, slice_run):
+    """The argmax head (``predict_masks``) is not ported: asking for it fails
+    loudly instead of serving another head.  The training head
+    (``return_score_map``) is ported: it returns the low-res score map
+    (B, K, H/4, W/4), whose bilinear ×4 is the default head's output, and the
+    same low_score_map."""
+    kw = dict(cfg=small_denseclip_cfg(), swin_cfg=TINY_SWIN,
+              class_names=tuple(f"c{i}" for i in range(7)))
+    if head == "predict_masks":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            zoo.PromptAuxCrossA(predict_masks=True, **kw)
+        return
+    port, x = slice_run[:2]
+    train_head = zoo.PromptAuxCrossA(return_score_map=True, **kw).eval()
+    train_head.load_state_dict(port.state_dict(), strict=True)
+    with torch.no_grad():
+        full, low = port({"pixel_values": t(x)}), train_head({"pixel_values": t(x)})
+    assert tuple(low["outputs"].shape) == (2, 7, 16, 16)
+    close(resize(low["outputs"], scale_factor=4, method="bilinear"), full["outputs"].numpy(),
+          rtol=0, atol=1e-6)
+    close(low["low_score_map"], full["low_score_map"].numpy(), rtol=0, atol=0)
