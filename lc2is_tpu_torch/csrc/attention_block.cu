@@ -24,6 +24,10 @@
 //   4. out-projection, residual and LayerNorm with f32 statistics, one row per
 //      warp-shuffle reduction.
 // Heads <= 8 (one warp each), dh in {16, 32, 64}, C % 32 == 0, C <= 512.
+//
+// lc2_attn_block_q is the int8 serving variant of the same kernel, the
+// quant=True branch of the TPU kernel (attention_block.py:38-96, forward
+// only): int8 q- and out-projections, the attention itself as above.
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -70,14 +74,53 @@ __device__ __forceinline__ void project(const float* A, int lda, const T* __rest
   }
 }
 
-template <typename T, int NJ, int DH>
+// Rows 4w..4w+3 (warp w) of src, f32: each row's int8 scale into sc[r] and
+// its codes, as f32 integers, into dst (dst may be src).
+template <int NJ>
+__device__ __forceinline__ void quantize_rows(const float* src, int lds, float* dst, int ldd,
+                                              float* sc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int r = warp * kRows + i;
+    float v[NJ], m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      v[j] = src[r * lds + lane + 32 * j];
+      m = fmaxf(m, fabsf(v[j]));
+    }
+    const float s = quant_scale(warp_max(m));
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      dst[r * ldd + lane + 32 * j] = static_cast<float>(quant_code(v[j], s));
+    if (lane == 0) sc[r] = s;
+  }
+}
+
+// floats of the K/V-or-weight-tile region
+template <int C>
+__host__ __device__ constexpr int kv_floats() {
+  return (2 * kBK * C > C * (kKT + 1)) ? 2 * kBK * C : C * (kKT + 1);
+}
+
+// TW = T: the float block.  TW = int8_t: the int8 serving variant (the
+// quant=True branch of the TPU kernel, attention_block.py:38-96): wq, wo
+// hold per-output-channel codes with scales wqs, wos (C,), and x and the
+// head outputs are quantised per row right before their projections
+// (common.cuh: quant_scale / quant_code / dequant).  The products stay on
+// the CUDA cores: each sums integer-valued f32 products, exact while
+// |acc| < 2^24 (C·127² <= 8.3e6 at C <= 512), so the f32 sum equals the
+// TPU's s32 one.
+template <typename T, typename TW, int NJ, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ wq,
-                  const T* __restrict__ bq, const T* __restrict__ wo,
+                  const T* __restrict__ v, const TW* __restrict__ wq,
+                  const float* __restrict__ wqs, const T* __restrict__ bq,
+                  const TW* __restrict__ wo, const float* __restrict__ wos,
                   const T* __restrict__ bo, const T* __restrict__ lnw,
                   const T* __restrict__ lnb, T* __restrict__ out, int P, int L,
                   int heads, float eps) {
+  constexpr bool kQ = sizeof(TW) == 1;
   constexpr int C = NJ * 32;
   constexpr int LDQ = C + 4;  // keeps float4 rows 16-byte aligned, spreads banks
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -86,6 +129,7 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
   float* kv = qs + kBQ * LDQ;                        // K/V tiles, or a weight tile
   float* ks = kv;                                    // [kBK][C]
   float* vs = kv + kBK * C;                          // [kBK][C]
+  float* rsc = kv + kv_floats<C>();                  // [kBQ] int8 row scales
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, p0 = blockIdx.x * kBQ;
@@ -97,14 +141,25 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
   }
 
   float acc[kRows][NJ];
-  project<T, NJ>(xs, C, wq, kv, acc);
+  if (kQ) {
+    __syncthreads();  // the x tile is complete
+    quantize_rows<NJ>(xs, C, qs, LDQ, rsc);
+    project<TW, NJ>(qs, LDQ, wq, kv, acc);
+    __syncthreads();  // every warp done reading the codes before q overwrites them
+  } else {
+    project<TW, NJ>(xs, C, wq, kv, acc);
+  }
 #pragma unroll
-  for (int i = 0; i < kRows; ++i)
+  for (int i = 0; i < kRows; ++i) {
+    const int r = warp * kRows + i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = lane + 32 * j;
-      qs[(warp * kRows + i) * LDQ + c] = round_t<T>(acc[i][j] + to_f(bq[c]));
+      const float bias = to_f(bq[c]);
+      qs[r * LDQ + c] = round_t<T>(kQ ? dequant(acc[i][j], rsc[r], wqs[c], bias)
+                                      : acc[i][j] + bias);
     }
+  }
   __syncthreads();
 
   // ---- attention: warp = head, lane = query row; online softmax over K/V ----
@@ -173,7 +228,8 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
   __syncthreads();
 
   // ---- out-projection + residual + LayerNorm ----
-  project<T, NJ>(qs, LDQ, wo, kv, acc);
+  if (kQ) quantize_rows<NJ>(qs, LDQ, qs, LDQ, rsc);  // a warp's own rows, in place
+  project<TW, NJ>(qs, LDQ, wo, kv, acc);
   T* ob = out + (size_t)b * P * C;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -184,7 +240,8 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = lane + 32 * j;
-      s[j] = acc[i][j] + to_f(bo[c]) + xs[r * C + c];
+      s[j] = kQ ? __fadd_rn(dequant(acc[i][j], rsc[r], wos[c], to_f(bo[c])), xs[r * C + c])
+                : acc[i][j] + to_f(bo[c]) + xs[r * C + c];
       a += s[j];
     }
     const float mean = warp_sum(a) / C;
@@ -201,65 +258,73 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
   }
 }
 
-template <typename T, int NJ, int DH>
-cudaError_t launch(const void* x, const void* k, const void* v, const void* wq,
-                   const void* bq, const void* wo, const void* bo, const void* lnw,
-                   const void* lnb, void* out, int B, int P, int L, int heads, float eps,
-                   cudaStream_t stream) {
+struct AttnArgs {
+  const void *x, *k, *v, *wq, *wqs, *bq, *wo, *wos, *bo, *lnw, *lnb;
+  void* out;
+  int B, P, L, heads;
+  float eps;
+};
+
+template <typename T, typename TW, int NJ, int DH>
+cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
   constexpr int C = NJ * 32;
-  constexpr int kv_floats = (2 * kBK * C > C * (kKT + 1)) ? 2 * kBK * C : C * (kKT + 1);
-  const size_t smem = sizeof(float) * (kBQ * C + kBQ * (C + 4) + kv_floats);
-  auto kernel = attn_block_kernel<T, NJ, DH>;
+  const size_t smem = sizeof(float) * (kBQ * C + kBQ * (C + 4) + kv_floats<C>() + kBQ);
+  auto kernel = attn_block_kernel<T, TW, NJ, DH>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((P + kBQ - 1) / kBQ, B);
+  const dim3 grid((a.P + kBQ - 1) / kBQ, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(wq), static_cast<const T*>(bq), static_cast<const T*>(wo),
-      static_cast<const T*>(bo), static_cast<const T*>(lnw), static_cast<const T*>(lnb),
-      static_cast<T*>(out), P, L, heads, eps);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const TW*>(a.wq), static_cast<const float*>(a.wqs),
+      static_cast<const T*>(a.bq), static_cast<const TW*>(a.wo),
+      static_cast<const float*>(a.wos), static_cast<const T*>(a.bo),
+      static_cast<const T*>(a.lnw), static_cast<const T*>(a.lnb), static_cast<T*>(a.out), a.P,
+      a.L, a.heads, a.eps);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
-cudaError_t dispatch_c(int C, const void* x, const void* k, const void* v, const void* wq,
-                       const void* bq, const void* wo, const void* bo, const void* lnw,
-                       const void* lnb, void* out, int B, int P, int L, int heads,
-                       float eps, cudaStream_t stream) {
-#define LC2_ATTN_CASE(NJ)                                                              \
-  case NJ * 32:                                                                        \
-    return launch<T, NJ, DH>(x, k, v, wq, bq, wo, bo, lnw, lnb, out, B, P, L, heads,  \
-                             eps, stream);
+template <typename T, typename TW, int DH>
+cudaError_t dispatch_c(int C, const AttnArgs& a, cudaStream_t stream) {
   switch (C) {
-    LC2_ATTN_CASE(2)
-    LC2_ATTN_CASE(4)
-    LC2_ATTN_CASE(8)
-    LC2_ATTN_CASE(16)
+    case 64:
+      return launch<T, TW, 2, DH>(a, stream);
+    case 128:
+      return launch<T, TW, 4, DH>(a, stream);
+    case 256:
+      return launch<T, TW, 8, DH>(a, stream);
+    case 512:
+      return launch<T, TW, 16, DH>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
-#undef LC2_ATTN_CASE
 }
 
-template <typename T>
-cudaError_t dispatch_dh(int C, int heads, const void* x, const void* k, const void* v,
-                        const void* wq, const void* bq, const void* wo, const void* bo,
-                        const void* lnw, const void* lnb, void* out, int B, int P, int L,
-                        float eps, cudaStream_t stream) {
-  if (heads < 1 || heads > 8 || C % heads != 0) return cudaErrorInvalidValue;
-  switch (C / heads) {
+template <typename T, typename TW>
+cudaError_t dispatch_dh(int C, const AttnArgs& a, cudaStream_t stream) {
+  if (a.heads < 1 || a.heads > 8 || C % a.heads != 0) return cudaErrorInvalidValue;
+  switch (C / a.heads) {
     case 16:
-      return dispatch_c<T, 16>(C, x, k, v, wq, bq, wo, bo, lnw, lnb, out, B, P, L, heads,
-                               eps, stream);
+      return dispatch_c<T, TW, 16>(C, a, stream);
     case 32:
-      return dispatch_c<T, 32>(C, x, k, v, wq, bq, wo, bo, lnw, lnb, out, B, P, L, heads,
-                               eps, stream);
+      return dispatch_c<T, TW, 32>(C, a, stream);
     case 64:
-      return dispatch_c<T, 64>(C, x, k, v, wq, bq, wo, bo, lnw, lnb, out, B, P, L, heads,
-                               eps, stream);
+      return dispatch_c<T, TW, 64>(C, a, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// kQ false: the float block (weights in dtype); true: the int8 one
+template <bool kQ>
+cudaError_t dispatch(int dtype, int C, const AttnArgs& a, void* stream) {
+  if (a.L < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return kQ ? dispatch_dh<float, int8_t>(C, a, s) : dispatch_dh<float, float>(C, a, s);
+  if (dtype == kBF16)
+    return kQ ? dispatch_dh<__nv_bfloat16, int8_t>(C, a, s)
+              : dispatch_dh<__nv_bfloat16, __nv_bfloat16>(C, a, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -272,13 +337,18 @@ extern "C" int lc2_attn_block(int dtype, const void* x, const void* k, const voi
                               const void* bo, const void* lnw, const void* lnb, void* out,
                               int B, int P, int L, int C, int heads, float eps,
                               void* stream) {
-  if (L < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == lc2::kF32)
-    return lc2::dispatch_dh<float>(C, heads, x, k, v, wq, bq, wo, bo, lnw, lnb, out, B, P,
-                                   L, eps, s);
-  if (dtype == lc2::kBF16)
-    return lc2::dispatch_dh<__nv_bfloat16>(C, heads, x, k, v, wq, bq, wo, bo, lnw, lnb,
-                                           out, B, P, L, eps, s);
-  return cudaErrorInvalidValue;
+  const lc2::AttnArgs a{x, k, v, wq, nullptr, bq, wo, nullptr, bo, lnw, lnb, out, B, P, L,
+                        heads, eps};
+  return lc2::dispatch<false>(dtype, C, a, stream);
+}
+
+// The int8 variant: wq, wo (C, C) int8 codes with f32 per-output-channel
+// scales wqs, wos (C,); everything else as lc2_attn_block.
+extern "C" int lc2_attn_block_q(int dtype, const void* x, const void* k, const void* v,
+                                const void* wq, const void* wqs, const void* bq,
+                                const void* wo, const void* wos, const void* bo,
+                                const void* lnw, const void* lnb, void* out, int B, int P,
+                                int L, int C, int heads, float eps, void* stream) {
+  const lc2::AttnArgs a{x, k, v, wq, wqs, bq, wo, wos, bo, lnw, lnb, out, B, P, L, heads, eps};
+  return lc2::dispatch<true>(dtype, C, a, stream);
 }

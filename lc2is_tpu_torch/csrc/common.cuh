@@ -27,6 +27,9 @@ __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+template <>
+__device__ __forceinline__ float to_f<int8_t>(int8_t v) { return static_cast<float>(v); }
+
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
@@ -48,6 +51,21 @@ __device__ __forceinline__ float warp_sum(float v) {
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// Int8 serving scheme of lc2is_tpu/ops/quant.py: a row's scale is
+// max(max|h| / 127, 1e-12) and its codes are round-half-even(h / s), by a
+// true division (not a multiply by 1/s); an s8 x s8 product summed exactly is
+// dequantised as (acc · s_row) · s_col + bias, left to right, with no fused
+// multiply-add, as the reference's f32 ops round.
+__device__ __forceinline__ float quant_scale(float absmax) {
+  return fmaxf(absmax / 127.0f, 1e-12f);
+}
+
+__device__ __forceinline__ int quant_code(float h, float s) { return __float2int_rn(h / s); }
+
+__device__ __forceinline__ float dequant(float acc, float s_row, float s_col, float bias) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(acc, s_row), s_col), bias);
 }
 
 // Raise the dynamic shared-memory cap of a kernel above the 48 KB default.

@@ -39,6 +39,15 @@
 //      out-projection, + bo and the residual run per 128-column chunk.
 // The TPU's head-pair MXU packing is not carried over.
 // Shared memory: 49·C floats for the head outputs + tiles (≈ 200 KB at C = 768).
+//
+// lc2_swin_window_q is the int8 serving variant of the same kernel, the
+// quant=True branch of window_attention.py::_block_kernel (:414-418,
+// :468-476, forward only): the LN output, in f32 and re-zeroed at pad tokens,
+// is quantised per token for an int8 packed QKV product, and the head
+// outputs per token for an int8 out-projection (common.cuh: quant_scale /
+// quant_code / dequant; per-output-channel weight codes with f32 scales).
+// Both products stay on the CUDA cores as integer-valued f32 sums, exact
+// while |acc| < 2^24 (C·127² <= 1.24e7 at C <= 768).
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -60,14 +69,24 @@ struct Layout {
   static constexpr int kLDH = DH + 1;
 };
 
-template <typename T, int DH>
+// LayerNorm of one value with the int8 variant's fixed rounding: the same
+// value wherever it is evaluated (the row max and the A tile)
+__device__ __forceinline__ float ln_value(float x, float mu, float rs, float w, float b) {
+  return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rs), w), b);
+}
+
+// TW = T: the float block; TW = int8_t: the int8 variant (wqkvs, wos: the
+// f32 scales of the weight codes, unused by the float block)
+template <typename T, typename TW, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
-                   const T* __restrict__ lnb, const T* __restrict__ wqkv,
-                   const T* __restrict__ bqkv, const T* __restrict__ wo,
+                   const T* __restrict__ lnb, const TW* __restrict__ wqkv,
+                   const float* __restrict__ wqkvs, const T* __restrict__ bqkv,
+                   const TW* __restrict__ wo, const float* __restrict__ wos,
                    const T* __restrict__ bo, const float* __restrict__ bias,
                    T* __restrict__ out, int H, int W, int C, int heads, int win,
                    int shift, int nww, int residual, float eps) {
+  constexpr bool kQ = sizeof(TW) == 1;
   using Lay = Layout<DH>;
   const int N = win * win;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -81,7 +100,9 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
   float* ps = vs + kNP * Lay::kLDH;                   // [8 warps][kNP] probabilities
   float* mean = ps + 8 * kNP;                         // [kNP]
   float* rstd = mean + kNP;                           // [kNP]
-  int* tok = reinterpret_cast<int*>(rstd + kNP);      // [kNP] canvas pixel, -1 = HF pad
+  float* qsc = rstd + kNP;                            // [kNP] int8: LN-output row scales
+  float* osc = qsc + kNP;                             // [kNP] int8: head-output row scales
+  int* tok = reinterpret_cast<int*>(osc + kNP);       // [kNP] canvas pixel, -1 = HF pad
   int* lab = tok + kNP;                               // [kNP] shift region
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -105,6 +126,7 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
     }
     tok[tid] = t_pix;
     lab[tid] = t_lab;
+    qsc[tid] = quant_scale(0.0f);  // a pad token's LN output is zero
   }
   __syncthreads();
 
@@ -123,6 +145,13 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         q += d * d;
       }
       rs = rsqrtf(warp_sum(q) / C + eps);
+      if (kQ) {
+        float m = 0.0f;
+        for (int c = lane; c < C; c += 32)
+          m = fmaxf(m, fabsf(ln_value(to_f(xr[c]), mu, rs, to_f(lnw[c]), to_f(lnb[c]))));
+        m = warp_max(m);
+        if (lane == 0) qsc[t] = quant_scale(m);
+      }
     }
     if (lane == 0) {
       mean[t] = mu;
@@ -145,7 +174,12 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         float a = 0.0f;
         if (m < N) {
           const int pix = tok[m];
-          if (pix >= 0)
+          if (pix >= 0 && kQ)
+            a = static_cast<float>(quant_code(
+                ln_value(to_f(xb[(size_t)pix * C + c]), mean[m], rstd[m], to_f(lnw[c]),
+                         to_f(lnb[c])),
+                qsc[m]));
+          else if (pix >= 0)
             a = round_t<T>((to_f(xb[(size_t)pix * C + c]) - mean[m]) * rstd[m] * to_f(lnw[c]) +
                            to_f(lnb[c]));
         }
@@ -172,11 +206,15 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
     }
 #pragma unroll
     for (int j = 0; j < Lay::kQJ; ++j) {
-      const int n = tx + 16 * j, part = n / DH, d = n % DH;
-      const float bb = to_f(bqkv[part * C + hd * DH + d]);
+      const int n = tx + 16 * j, part = n / DH, d = n % DH, wrow = part * C + hd * DH + d;
+      const float bb = to_f(bqkv[wrow]);
       float* dst = part == 0 ? qs : (part == 1 ? ks : vs);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dst[(ty * 4 + i) * Lay::kLDH + d] = round_t<T>(acc[i][j] + bb);
+      for (int i = 0; i < 4; ++i) {
+        const int m = ty * 4 + i;
+        dst[m * Lay::kLDH + d] =
+            round_t<T>(kQ ? dequant(acc[i][j], qsc[m], wqkvs[wrow], bb) : acc[i][j] + bb);
+      }
     }
     __syncthreads();
 
@@ -209,6 +247,18 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         as[t * C + hd * DH + d] = round_t<T>(o);
       }
       __syncwarp();
+    }
+  }
+
+  if (kQ) {  // the head outputs' row scales and codes, in place
+    __syncthreads();
+    for (int t = warp; t < N; t += 8) {
+      float m = 0.0f;
+      for (int c = lane; c < C; c += 32) m = fmaxf(m, fabsf(as[t * C + c]));
+      const float s = quant_scale(warp_max(m));
+      for (int c = lane; c < C; c += 32)
+        as[t * C + c] = static_cast<float>(quant_code(as[t * C + c], s));
+      if (lane == 0) osc[t] = s;
     }
   }
 
@@ -250,7 +300,14 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         const int c = n0 + lane + 32 * j;
         if (c < C) {
           const size_t o = (size_t)pix * C + c;
-          ob[o] = from_f<T>(acc[i][j] + to_f(bo[c]) + (residual ? to_f(xb[o]) : 0.0f));
+          float y;
+          if (kQ) {
+            y = dequant(acc[i][j], osc[m], wos[c], to_f(bo[c]));
+            if (residual) y = __fadd_rn(y, to_f(xb[o]));
+          } else {
+            y = acc[i][j] + to_f(bo[c]) + (residual ? to_f(xb[o]) : 0.0f);
+          }
+          ob[o] = from_f<T>(y);
         }
       }
     }
@@ -261,49 +318,63 @@ template <int DH>
 size_t smem_bytes(int N, int C) {
   using Lay = Layout<DH>;
   return sizeof(float) * ((size_t)N * C + Lay::kTileRows * kLD + 3 * kNP * Lay::kLDH +
-                          8 * kNP + 2 * kNP) +
+                          8 * kNP + 4 * kNP) +
          sizeof(int) * 2 * kNP;
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* x, const void* lnw, const void* lnb, const void* wqkv,
-                   const void* bqkv, const void* wo, const void* bo, const float* bias,
-                   void* out, int B, int H, int W, int C, int heads, int win, int shift,
-                   int residual, float eps, cudaStream_t stream) {
-  const int nwh = (H + win - 1) / win, nww = (W + win - 1) / win;
-  const size_t smem = smem_bytes<DH>(win * win, C);
+struct SwinArgs {
+  const void *x, *lnw, *lnb, *wqkv, *wqkvs, *bqkv, *wo, *wos, *bo;
+  const float* bias;
+  void* out;
+  int B, H, W, C, heads, win, shift, residual;
+  float eps;
+};
+
+template <typename T, typename TW, int DH>
+cudaError_t launch(const SwinArgs& a, cudaStream_t stream) {
+  const int nwh = (a.H + a.win - 1) / a.win, nww = (a.W + a.win - 1) / a.win;
+  const size_t smem = smem_bytes<DH>(a.win * a.win, a.C);
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = swin_window_kernel<T, DH>;
+  auto kernel = swin_window_kernel<T, TW, DH>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(nwh * nww, B);
+  const dim3 grid(nwh * nww, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(lnw), static_cast<const T*>(lnb),
-      static_cast<const T*>(wqkv), static_cast<const T*>(bqkv), static_cast<const T*>(wo),
-      static_cast<const T*>(bo), bias, static_cast<T*>(out), H, W, C, heads, win, shift,
-      nww, residual, eps);
+      static_cast<const T*>(a.x), static_cast<const T*>(a.lnw), static_cast<const T*>(a.lnb),
+      static_cast<const TW*>(a.wqkv), static_cast<const float*>(a.wqkvs),
+      static_cast<const T*>(a.bqkv), static_cast<const TW*>(a.wo),
+      static_cast<const float*>(a.wos), static_cast<const T*>(a.bo), a.bias,
+      static_cast<T*>(a.out), a.H, a.W, a.C, a.heads, a.win, a.shift, nww, a.residual, a.eps);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_dh(const void* x, const void* lnw, const void* lnb, const void* wqkv,
-                        const void* bqkv, const void* wo, const void* bo, const float* bias,
-                        void* out, int B, int H, int W, int C, int heads, int win, int shift,
-                        int residual, float eps, cudaStream_t stream) {
-  if (heads < 1 || C % heads != 0) return cudaErrorInvalidValue;
-  switch (C / heads) {
+template <typename T, typename TW>
+cudaError_t dispatch_dh(const SwinArgs& a, cudaStream_t stream) {
+  if (a.heads < 1 || a.C % a.heads != 0) return cudaErrorInvalidValue;
+  switch (a.C / a.heads) {
     case 16:
-      return launch<T, 16>(x, lnw, lnb, wqkv, bqkv, wo, bo, bias, out, B, H, W, C, heads,
-                           win, shift, residual, eps, stream);
+      return launch<T, TW, 16>(a, stream);
     case 32:
-      return launch<T, 32>(x, lnw, lnb, wqkv, bqkv, wo, bo, bias, out, B, H, W, C, heads,
-                           win, shift, residual, eps, stream);
+      return launch<T, TW, 32>(a, stream);
     case 64:
-      return launch<T, 64>(x, lnw, lnb, wqkv, bqkv, wo, bo, bias, out, B, H, W, C, heads,
-                           win, shift, residual, eps, stream);
+      return launch<T, TW, 64>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// kQ false: the float block (weights in dtype); true: the int8 one
+template <bool kQ>
+cudaError_t dispatch(int dtype, const SwinArgs& a, void* stream) {
+  if (a.win < 1 || a.win * a.win > kNP || a.shift < 0 || a.shift >= a.win || a.C % kKT != 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return kQ ? dispatch_dh<float, int8_t>(a, s) : dispatch_dh<float, float>(a, s);
+  if (dtype == kBF16)
+    return kQ ? dispatch_dh<__nv_bfloat16, int8_t>(a, s)
+              : dispatch_dh<__nv_bfloat16, __nv_bfloat16>(a, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -319,15 +390,23 @@ extern "C" int lc2_swin_window(int dtype, const void* x, const void* lnw, const 
                                const void* bo, const void* bias, void* out, int B, int H,
                                int W, int C, int heads, int win, int shift, int residual,
                                float eps, void* stream) {
-  if (win < 1 || win * win > lc2::kNP || shift < 0 || shift >= win || C % lc2::kKT != 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* bf = static_cast<const float*>(bias);
-  if (dtype == lc2::kF32)
-    return lc2::dispatch_dh<float>(x, lnw, lnb, wqkv, bqkv, wo, bo, bf, out, B, H, W, C,
-                                   heads, win, shift, residual, eps, s);
-  if (dtype == lc2::kBF16)
-    return lc2::dispatch_dh<__nv_bfloat16>(x, lnw, lnb, wqkv, bqkv, wo, bo, bf, out, B, H,
-                                           W, C, heads, win, shift, residual, eps, s);
-  return cudaErrorInvalidValue;
+  const lc2::SwinArgs a{x, lnw, lnb, wqkv, nullptr, bqkv, wo, nullptr, bo,
+                        static_cast<const float*>(bias), out, B, H, W, C, heads, win, shift,
+                        residual, eps};
+  return lc2::dispatch<false>(dtype, a, stream);
+}
+
+// The int8 variant: wqkv (3C, C) and wo (C, C) int8 codes with f32
+// per-output-channel scales wqkvs (3C,), wos (C,); everything else as
+// lc2_swin_window.
+extern "C" int lc2_swin_window_q(int dtype, const void* x, const void* lnw, const void* lnb,
+                                 const void* wqkv, const void* wqkvs, const void* bqkv,
+                                 const void* wo, const void* wos, const void* bo,
+                                 const void* bias, void* out, int B, int H, int W, int C,
+                                 int heads, int win, int shift, int residual, float eps,
+                                 void* stream) {
+  const lc2::SwinArgs a{x, lnw, lnb, wqkv, wqkvs, bqkv, wo, wos, bo,
+                        static_cast<const float*>(bias), out, B, H, W, C, heads, win, shift,
+                        residual, eps};
+  return lc2::dispatch<true>(dtype, a, stream);
 }

@@ -20,8 +20,22 @@ The prompt result is cast to the compute dtype where JAX casts it
 Heads: the default returns the ×4-upsampled score map; ``return_score_map=True``
 (the training head, ``zoo.py:438-442``) returns the low-res score map
 (B, K, H/4, W/4), whose ×4 upsample folds into the fused upsample-CE loss
-(``ops/fused_ce.py``).  ``predict_masks=True`` (the ``score_upsample_argmax``
-kernel) is not ported yet and raises, naming the ROADMAP item that ports it.
+(``ops/fused_ce.py``).  ``predict_masks=True`` (the served head,
+``zoo.py:423-437``) returns int32 masks (B, H, W) through
+``ops/upsample_argmax.score_upsample_argmax`` at every grid, which never
+writes the (B, K, H, W) map.  The JAX package sends a grid that is not a
+multiple of 8 through argmax(resize(score map, ×4)) only because its TPU
+kernel works in blocks of 8 rows; the card's kernel takes any grid, and on
+the CPU the op's plain version computes the same masks.
+
+``quant_int8=True`` (``zoo.py:401,408-418``) is the int8 serving row: int8
+matmuls in the swin blocks and the decoder layers (``ops/quant.py``); the
+prompt tower, the aux linear, the SR reduce convs and the head stay float.
+It is serving only: a forward in training mode raises.
+
+Parameters and buffers live on ``device``, the card by default; a caller
+that wants the CPU passes ``device="cpu"``.  Without a card the default
+raises.
 
 Training: ``forward(inputs, generator=...)`` in training mode draws the swin
 drop-path masks from that generator (``nn/swin.py``); ``FROZEN_PREFIXES``
@@ -42,6 +56,7 @@ from lc2is_tpu_torch.nn.layers import Linear, _param
 from lc2is_tpu_torch.nn.swin import SWIN_SMALL, SwinModel
 from lc2is_tpu_torch.ops.bpe import tokenize
 from lc2is_tpu_torch.ops.resize import resize
+from lc2is_tpu_torch.ops.upsample_argmax import l2_normalize, score_upsample_argmax
 
 ADE20K_NUM_CLASSES = 151
 
@@ -49,17 +64,11 @@ ADE20K_NUM_CLASSES = 151
 FROZEN_PREFIXES = {"prompt_aux_cross_a": ("prompt.text_encoder",)}
 
 
-def _norm(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """torch F.normalize(p=2): x / max(||x||, eps), norm taken in f32."""
-    n = x.float().square().sum(dim=dim, keepdim=True).sqrt()
-    return (x / n.clamp_min(1e-12).to(x.dtype)).to(x.dtype)
-
-
 def _score_map(v_tokens: torch.Tensor, t: torch.Tensor, grid: int) -> torch.Tensor:
     """L2-normalised cosine classification: (B,P,C) x (B,K,C) -> (B,K,H,W)."""
     b, p, c = v_tokens.shape
-    v = _norm(v_tokens.reshape(b, grid, grid, c), dim=-1)
-    return torch.einsum("bhwc,bkc->bkhw", v, _norm(t, dim=2))
+    v = l2_normalize(v_tokens.reshape(b, grid, grid, c), dim=-1)
+    return torch.einsum("bhwc,bkc->bkhw", v, l2_normalize(t, dim=2))
 
 
 def default_denseclip_cfg() -> Dict[str, Any]:
@@ -106,6 +115,16 @@ class PromptContextBase(nn.Module):
         return t + self.gamma.to(t.dtype) * text_diff
 
 
+def _model_device(device) -> torch.device:
+    """The models' device: the card unless the caller names another; no
+    quiet move to the CPU when there is no card."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the models live on the card by default; "
+                           "pass device='cpu' to build one on the CPU")
+    return device
+
+
 class _FinalBase(nn.Module):
     """Shared wiring of the v4 models: swin backbone, pyramid decoder, head."""
 
@@ -113,25 +132,31 @@ class _FinalBase(nn.Module):
                  dec_dim: int = 512, dec_depth: Sequence[int] = (1, 1, 1), nhead: int = 8,
                  tie_block_weights: bool = True, dtype: torch.dtype = torch.float32,
                  swin_cfg: Optional[Dict[str, Any]] = None, predict_masks: bool = False,
-                 return_score_map: bool = False, device=None):
+                 return_score_map: bool = False, quant_int8: bool = False, device="cuda"):
         super().__init__()
-        if predict_masks:
-            raise NotImplementedError(
-                "predict_masks=True needs the score_upsample_argmax kernel "
-                "(ROADMAP.md §2, to-port item 1: the next slice); this port serves the score map")
-        self.return_score_map = return_score_map
+        device = _model_device(device)
+        self.predict_masks, self.return_score_map = predict_masks, return_score_map
+        self.quant_int8 = quant_int8
         self.class_names = tuple(class_names)
         self.swin_cfg = dict(swin_cfg or SWIN_SMALL)
         self.in_dims = tuple(self.swin_cfg["embed_dim"] * 2 ** i
                              for i in range(len(self.swin_cfg["depths"])))
-        self.vision_encoder = SwinModel(dtype=dtype, device=device, **self.swin_cfg)
+        self.vision_encoder = SwinModel(dtype=dtype, quant=quant_int8, device=device,
+                                        **self.swin_cfg)
         self._decoder_kw = dict(depth=tuple(dec_depth), dim=dec_dim, nhead=nhead,
-                                tie_block_weights=tie_block_weights, device=device)
+                                tie_block_weights=tie_block_weights, quant=quant_int8,
+                                device=device)
+
+    def _check_serving(self):
+        if self.quant_int8 and self.training:
+            raise RuntimeError("quant_int8 is serving only: call .eval() (no int8 training)")
 
     def _finish(self, v_tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """Score-map head: cosine scores at the stage-1 grid, bilinear ×4 (or
-        the low-res map itself with ``return_score_map``)."""
+        """The head at the stage-1 grid: int32 masks (``predict_masks``), the
+        low-res score map (``return_score_map``) or the score map ×4."""
         grid = int(round(v_tokens.shape[1] ** 0.5))
+        if self.predict_masks:
+            return score_upsample_argmax(v_tokens, l2_normalize(t, 2), grid, r=4)
         score_map = _score_map(v_tokens, t, grid)
         if self.return_score_map:
             return score_map
@@ -139,7 +164,7 @@ class _FinalBase(nn.Module):
 
 
 class _PromptFinalBase(_FinalBase):
-    def __init__(self, cfg: Optional[Dict[str, Any]] = None, device=None, **kw):
+    def __init__(self, cfg: Optional[Dict[str, Any]] = None, device="cuda", **kw):
         super().__init__(device=device, **kw)
         self.cfg = cfg or default_denseclip_cfg()
         self.prompt = PromptContextBase(self.cfg, self.class_names,
@@ -163,7 +188,7 @@ class PromptAuxCrossA(_PromptFinalBase, _AuxMixin):
     """``final.py:288-361``, the canonical model: prompt tower on stage 3, aux
     score map on stage 3, every decoder stream cross-attends to the classes."""
 
-    def __init__(self, device=None, **kw):
+    def __init__(self, device="cuda", **kw):
         super().__init__(device=device, **kw)
         # the reference hardcodes nn.Linear(in_dims[-2], 512); 512 == text_dim
         self.aux_linear = Linear(self.in_dims[-2], self.cfg["text_dim"], device=device)
@@ -172,6 +197,7 @@ class PromptAuxCrossA(_PromptFinalBase, _AuxMixin):
     def forward(self, inputs: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """``generator`` draws the swin drop-path masks in training mode."""
+        self._check_serving()
         v = self.vision_encoder(inputs["pixel_values"], generator)[:4]
         t = self.prompt(v[2], text_static=inputs.get("text_static")).to(v[-1].dtype)
         low = self._aux_map(v[2], t)

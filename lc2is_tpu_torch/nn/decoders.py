@@ -6,7 +6,8 @@ Every ×2 upsample is ``ops/resize.resize_tokens`` (the ``upsample_tokens``
 kernel on CUDA).  The last block of each stream does not upsample: the
 three streams are summed at stage-2 resolution and the final ×2 runs once,
 after the sum (the deferred upsample of ``decoders.py:252-263``, a linear
-reassociation).
+reassociation).  ``quant`` (int8 serving) reaches every SR decoder layer
+(``decoders.py:172-250``); the top-down linears stay float.
 """
 
 from __future__ import annotations
@@ -32,12 +33,13 @@ class CrossABlock(nn.Module):
     ``tie_weights`` reproduces the reference's one shared layer instance."""
 
     def __init__(self, d_model: int, nhead: int, depth: int = 1, sr_ratio: int = 2,
-                 upsample: int = 2, tie_weights: bool = True, device=None):
+                 upsample: int = 2, tie_weights: bool = True, quant: bool = False, device=None):
         super().__init__()
         self.depth, self.upsample, self.tie_weights = depth, upsample, tie_weights
         n_distinct = 1 if tie_weights else depth
         self.layers = nn.ModuleList(
-            SRTransformerDecoderLayer(d_model, nhead, sr_ratio=sr_ratio, device=device)
+            SRTransformerDecoderLayer(d_model, nhead, sr_ratio=sr_ratio, quant=quant,
+                                      device=device)
             for _ in range(n_distinct))
 
     def forward(self, tgt, memory):
@@ -54,7 +56,7 @@ class HierarchicalCrossA(nn.Module):
     """``model/hierarchical.py:71-131``: every stream cross-attends to text."""
 
     def __init__(self, in_dims: Sequence[int], depth: Sequence[int], dim: int, nhead: int = 8,
-                 tie_block_weights: bool = True, device=None):
+                 tie_block_weights: bool = True, quant: bool = False, device=None):
         super().__init__()
         if len(in_dims) != 4:
             raise ValueError(f"four pyramid stages expected, got {in_dims}")
@@ -65,7 +67,8 @@ class HierarchicalCrossA(nn.Module):
         self.linear2_stage_2 = Linear(in_dims[1], dim, **kw)
         self.linear2_stage_3 = Linear(in_dims[2], dim, **kw)
         self.linear2_stage_4 = Linear(in_dims[3], dim, **kw)
-        blk = dict(d_model=dim, nhead=nhead, sr_ratio=2, tie_weights=tie_block_weights, **kw)
+        blk = dict(d_model=dim, nhead=nhead, sr_ratio=2, tie_weights=tie_block_weights,
+                   quant=quant, **kw)
         self.attention_stage_2 = nn.ModuleList([CrossABlock(**blk, depth=depth[0], upsample=1)])
         self.attention_stage_3 = nn.ModuleList(
             CrossABlock(**blk, depth=depth[1], upsample=1 if i == 1 else 2) for i in range(2))

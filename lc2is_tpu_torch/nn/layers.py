@@ -10,7 +10,10 @@ The decoder layers run post-norm through the fused halves, as the JAX
 package does on the TPU (``layers.py:427-457``): each attention half is
 ``ops/attention_block.fused_attn_block`` (K/V projected outside the kernel,
 ``:437-455``) and the feed-forward half is ``ops/fused_mlp.fused_mlp``
-(``_ff_res_norm`` :269-301).
+(``_ff_res_norm`` :269-301).  With ``quant=True`` (int8 serving,
+``layers.py:284-290,425-458``) both attention halves take the int8 q- and
+out-projections and the feed-forward half is ``ops/quant.fused_mlp_q``; the
+K and V projections stay float, outside the kernel.
 """
 
 from __future__ import annotations
@@ -22,8 +25,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from lc2is_tpu_torch.ops.attention import merge_heads, scaled_dot_product_attention, split_heads
-from lc2is_tpu_torch.ops.attention_block import fused_attn_block
+from lc2is_tpu_torch.ops.attention_block import fused_attn_block, fused_attn_block_q
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp
+from lc2is_tpu_torch.ops.quant import fused_mlp_q
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -128,23 +132,25 @@ class MultiheadAttention(nn.Module):
 
 def _ff_res_norm(layer, x, norm: LayerNorm, *, pre: bool):
     """The FF half of a transformer layer, ``x + ff(norm(x))`` (pre) or
-    ``norm(x + ff(x))`` (post), through ``fused_mlp`` (``layers.py:269-301``)."""
-    return fused_mlp(x, norm.weight, norm.bias, layer.linear1.weight, layer.linear1.bias,
-                     layer.linear2.weight, layer.linear2.bias, activation=layer.activation,
-                     ln_position="pre" if pre else "post", eps=norm.eps)
+    ``norm(x + ff(x))`` (post), through ``fused_mlp`` or, for an int8 layer,
+    ``fused_mlp_q`` (``layers.py:269-301``)."""
+    mlp = fused_mlp_q if layer.quant else fused_mlp
+    return mlp(x, norm.weight, norm.bias, layer.linear1.weight, layer.linear1.bias,
+               layer.linear2.weight, layer.linear2.bias, activation=layer.activation,
+               ln_position="pre" if pre else "post", eps=norm.eps)
 
 
 class TransformerDecoderLayer(nn.Module):
     """torch ``nn.TransformerDecoderLayer`` (batch_first, post-norm) with the
     reference's asymmetric cross-attention (``d_kv`` sets kdim = vdim),
     ``layers.py:376-487``, evaluated through the fused halves (serving: no
-    dropout)."""
+    dropout); ``quant`` selects their int8 serving variants."""
 
     def __init__(self, d_model: int, nhead: int, d_kv: Optional[int] = None,
                  dim_feedforward: int = 2048, activation: str = "relu",
-                 layer_norm_eps: float = 1e-5, device=None):
+                 layer_norm_eps: float = 1e-5, quant: bool = False, device=None):
         super().__init__()
-        self.nhead, self.activation = nhead, activation
+        self.nhead, self.activation, self.quant = nhead, activation, quant
         self.self_attn = MultiheadAttention(d_model, nhead, device=device)
         self.multihead_attn = MultiheadAttention(d_model, nhead, kdim=d_kv, vdim=d_kv,
                                                  device=device)
@@ -160,9 +166,10 @@ class TransformerDecoderLayer(nn.Module):
 
     def _attn_half(self, mha: MultiheadAttention, norm: LayerNorm, x, kv_src):
         wq, wk, wv, bq, bk, bv = mha.proj_weights(x.dtype)
-        return fused_attn_block(x, F.linear(kv_src, wk, bk), F.linear(kv_src, wv, bv), wq, bq,
-                                mha.out_proj.weight, mha.out_proj.bias, norm.weight, norm.bias,
-                                self.nhead, eps=norm.eps)
+        block = fused_attn_block_q if self.quant else fused_attn_block
+        return block(x, F.linear(kv_src, wk, bk), F.linear(kv_src, wv, bv), wq, bq,
+                     mha.out_proj.weight, mha.out_proj.bias, norm.weight, norm.bias, self.nhead,
+                     eps=norm.eps)
 
     def forward(self, tgt, memory):
         x = self._attn_half(self.self_attn, self.norm1, tgt, self._sa_kv_source(tgt))

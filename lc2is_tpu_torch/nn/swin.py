@@ -17,6 +17,15 @@ Stochastic depth (training): ``drop_path_rate`` is spread over the blocks by
 kernels run with ``residual=False`` and the per-sample drop-path mask and the
 residual add happen outside them (``swin.py:316-335``); the masks come from
 the ``torch.Generator`` passed to ``forward``, never from a global state.
+
+Int8 serving (``quant=True``, ``swin.py:245,324-329,385-390``): the MLP half
+goes through ``ops/quant.fused_mlp_q`` whenever drop path is off.  The
+attention half is int8 (``swin_window_block_q``) only where the JAX package
+takes its windowed kernel, which has the int8 branch; where it takes the
+canvas kernel, which has none, the half stays float.  That is the canvas gate
+of ``swin.py:290-306`` at its default values: C <= 384 and the canvas fits
+(bf16, or H·W·C·4 bytes <= 4 MiB in f32), so in bf16 only stage 4 is int8,
+and in f32 at 512² stage 1 is too.
 """
 
 from __future__ import annotations
@@ -30,9 +39,21 @@ from torch import nn
 
 from lc2is_tpu_torch.nn.layers import LayerNorm, Linear, _param, s2d_matmul
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp
-from lc2is_tpu_torch.ops.swin_window import swin_window_block
+from lc2is_tpu_torch.ops.quant import fused_mlp_q
+from lc2is_tpu_torch.ops.swin_window import swin_window_block, swin_window_block_q
 
 SWIN_SMALL = dict(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24))
+
+# the JAX package's canvas-kernel gate at its defaults (swin.py:290-296)
+CANVAS_MAX_C = 384
+CANVAS_MAX_F32_BYTES = 4 * 1024 * 1024
+
+
+def takes_canvas_kernel(h: int, w: int, c: int, dtype: torch.dtype) -> bool:
+    """Whether the JAX package serves this attention half with its canvas
+    kernel (no int8 branch) rather than its windowed one."""
+    fits = dtype == torch.bfloat16 or h * w * c * dtype.itemsize <= CANVAS_MAX_F32_BYTES
+    return c <= CANVAS_MAX_C and fits
 
 
 @functools.lru_cache(maxsize=32)
@@ -105,10 +126,11 @@ def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, shift: int,
-                 mlp_ratio: float = 4.0, drop_path: float = 0.0, device=None):
+                 mlp_ratio: float = 4.0, drop_path: float = 0.0, quant: bool = False,
+                 device=None):
         super().__init__()
         self.num_heads, self.window, self.shift = num_heads, window, shift
-        self.drop_path = drop_path
+        self.drop_path, self.quant = drop_path, quant
         ff = int(dim * mlp_ratio)
         self.layernorm_before = LayerNorm(dim, device=device)
         self.attention = SwinAttention(dim, num_heads, window, device=device)
@@ -125,20 +147,23 @@ class SwinBlock(nn.Module):
         # HF: no shift and a smaller window when the grid is smaller (swin.py:267-268)
         shift = self.shift if min(h, w) > self.window else 0
         win = min(self.window, h, w)
+        quant = self.quant and rate == 0.0  # int8 is serving only
         sa = self.attention.self
         wqkv, bqkv = sa.packed()
         dense = self.attention.output.dense
-        y = swin_window_block(x.reshape(b, h, w, c), self.layernorm_before.weight,
-                              self.layernorm_before.bias, wqkv, bqkv, dense.weight, dense.bias,
-                              sa.bias(win), self.num_heads, win, shift,
-                              eps=self.layernorm_before.eps, residual=rate == 0.0).reshape(b, p, c)
+        attn = (swin_window_block_q if quant and not takes_canvas_kernel(h, w, c, x.dtype)
+                else swin_window_block)
+        y = attn(x.reshape(b, h, w, c), self.layernorm_before.weight, self.layernorm_before.bias,
+                 wqkv, bqkv, dense.weight, dense.bias, sa.bias(win), self.num_heads, win, shift,
+                 eps=self.layernorm_before.eps, residual=rate == 0.0).reshape(b, p, c)
         if rate > 0.0:
             y = x + drop_path(y, rate, generator)
-        z = fused_mlp(y, self.layernorm_after.weight, self.layernorm_after.bias,
-                      self.intermediate.dense.weight, self.intermediate.dense.bias,
-                      self.output.dense.weight, self.output.dense.bias,
-                      activation="gelu", ln_position="pre", residual=rate == 0.0,
-                      eps=self.layernorm_after.eps)
+        mlp = fused_mlp_q if quant else fused_mlp
+        z = mlp(y, self.layernorm_after.weight, self.layernorm_after.bias,
+                self.intermediate.dense.weight, self.intermediate.dense.bias,
+                self.output.dense.weight, self.output.dense.bias,
+                activation="gelu", ln_position="pre", residual=rate == 0.0,
+                eps=self.layernorm_after.eps)
         return y + drop_path(z, rate, generator) if rate > 0.0 else z
 
 
@@ -163,11 +188,11 @@ class SwinPatchMerging(nn.Module):
 
 class SwinStage(nn.Module):
     def __init__(self, dim: int, depth: int, num_heads: int, window: int, downsample: bool,
-                 drop_path_rates: Sequence[float], device=None):
+                 drop_path_rates: Sequence[float], quant: bool = False, device=None):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window, shift=0 if i % 2 == 0 else window // 2,
-                      drop_path=drop_path_rates[i], device=device)
+                      drop_path=drop_path_rates[i], quant=quant, device=device)
             for i in range(depth))
         self.downsample_mod = SwinPatchMerging(dim, device=device) if downsample else None
 
@@ -203,12 +228,13 @@ class SwinPatchEmbed(nn.Module):
 
 class SwinModel(nn.Module):
     """Returns the HF hidden_states list (embedding + per-stage outputs).
-    ``dtype`` is the compute dtype the pixels are cast to."""
+    ``dtype`` is the compute dtype the pixels are cast to; ``quant`` the int8
+    serving matmuls of the blocks."""
 
     def __init__(self, embed_dim: int = 96, depths: Sequence[int] = (2, 2, 18, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window: int = 7,
                  patch_size: int = 4, drop_path_rate: float = 0.1,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, quant: bool = False, device=None):
         super().__init__()
         self.dtype = dtype
         self.patch_proj = SwinPatchEmbed(embed_dim, patch_size, device=device)
@@ -218,7 +244,8 @@ class SwinModel(nn.Module):
         self.stages = nn.ModuleList(
             SwinStage(embed_dim * 2 ** i, depth, num_heads[i], window,
                       downsample=i < len(depths) - 1,
-                      drop_path_rates=dpr[starts[i]:starts[i] + depth], device=device)
+                      drop_path_rates=dpr[starts[i]:starts[i] + depth], quant=quant,
+                      device=device)
             for i, depth in enumerate(depths))
 
     def forward(self, pixel_values, generator: Optional[torch.Generator] = None

@@ -44,6 +44,11 @@ SIGNATURES = {
     "lc2_swin_window": [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
     "lc2_swin_window_bwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _P],
     "lc2_fused_ce": [_I] + [_P] * 5 + [_I] * 7 + [_P],
+    "lc2_score_upsample_argmax": [_I] + [_P] * 3 + [_I] * 6 + [_F, _P],
+    "lc2_upsample_argmax": [_I, _P, _P] + [_I] * 5 + [_P],
+    "lc2_fused_mlp_q": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    "lc2_attn_block_q": [_I] + [_P] * 12 + [_I] * 5 + [_F, _P],
+    "lc2_swin_window_q": [_I] + [_P] * 11 + [_I] * 8 + [_F, _P],
 }
 # entry points returning a size (floats of scratch a kernel needs)
 SIZE_SIGNATURES = {

@@ -15,6 +15,15 @@ the port of ``attention_block.py::_bwd_kernel`` :264).  The 1/√dh fold into
 wq/bq happens outside the Function as differentiable torch ops, and so do the
 K/V projections, so autograd carries dK and dV back through them.  On a CPU
 tensor autograd runs through the plain version.
+
+Int8 serving (the JAX entry's ``quant=True``, ``attention_block.py:38-96,190-205``):
+:func:`fused_attn_block_q` quantises the folded q weights (1/√dh folded in
+f32, rounded back to wq's dtype, then ``quantize_weight``) and wo per output
+channel, and x and the head outputs per token (``ops/quant.py``); the
+attention itself is the float block's.  On a CUDA tensor it launches the
+int8 variant of ``csrc/attention_block.cu``; on a CPU tensor it runs
+:func:`fused_attn_block_q_plain`.  Forward only: it raises if autograd needs
+a gradient through it, as the JAX entry has no VJP on this branch.
 """
 
 from __future__ import annotations
@@ -26,24 +35,36 @@ import torch.nn.functional as F
 
 from lc2is_tpu_torch.ops import _build
 from lc2is_tpu_torch.ops.dispatch import use_kernel
+from lc2is_tpu_torch.ops.quant import forward_only, qdot, quantize_weight
+
+
+def _block_plain(x, k, v, q_proj, out_proj, ln_w, ln_b, num_heads, eps, softmax):
+    """The plain block around its two projections: q = q_proj(x) in x's dtype;
+    per head, f32 logits, ``softmax(logits)`` rounded to x's dtype, the
+    weighted sum of v summed in f32 and rounded; s = out_proj(heads merged),
+    the f32 pre-LN sum with the residual; LN(s) in f32, rounded."""
+    b, p, c = x.shape
+    dt = x.dtype
+    dh = c // num_heads
+
+    def heads(a):
+        return a.reshape(a.shape[0], a.shape[1], num_heads, dh).transpose(1, 2).float()
+
+    logits = torch.einsum("bhqd,bhkd->bhqk", heads(q_proj(x)), heads(k.to(dt)))
+    probs = softmax(logits).to(dt)
+    attn = torch.einsum("bhqk,bhkd->bhqd", probs.float(), heads(v.to(dt))).to(dt)
+    s = out_proj(attn.transpose(1, 2).reshape(b, p, c))
+    return F.layer_norm(s, (c,), ln_w, ln_b, eps).to(dt)
 
 
 def fused_attn_block_plain(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
     """Plain PyTorch version of :func:`fused_attn_block` (any device)."""
-    b, p, c = x.shape
     dt = x.dtype
-    dh = c // num_heads
-    q = F.linear(x, wq.to(dt), bq.to(dt))
-
-    def heads(a):
-        return a.reshape(a.shape[0], a.shape[1], num_heads, dh).transpose(1, 2)
-
-    logits = torch.einsum("bhqd,bhkd->bhqk", heads(q).float(), heads(k.to(dt)).float())
-    probs = torch.softmax(logits / math.sqrt(dh), dim=-1).to(dt)
-    out = torch.einsum("bhqk,bhkd->bhqd", probs, heads(v.to(dt)))
-    out = out.transpose(1, 2).reshape(b, p, c)
-    s = (F.linear(out, wo.to(dt), bo.to(dt)) + x).float()
-    return F.layer_norm(s, (c,), ln_w.float(), ln_b.float(), eps).to(dt)
+    root = math.sqrt(x.shape[-1] // num_heads)
+    return _block_plain(
+        x, k, v, lambda a: F.linear(a, wq.to(dt), bq.to(dt)),
+        lambda a: (F.linear(a, wo.to(dt), bo.to(dt)) + x).float(), ln_w.float(), ln_b.float(),
+        num_heads, eps, lambda logits: torch.softmax(logits / root, dim=-1))
 
 
 def _check(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads):
@@ -144,3 +165,53 @@ def fused_attn_block(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
 
 
 fused_attn_block.launches = 0
+
+
+def _q_weights(wq, bq, wo, num_heads):
+    """(wq codes, scales, folded bq, wo codes, scales): 1/√dh folded into wq
+    and bq in f32 and rounded back to their dtypes (``attention_block.py:155-160``),
+    then both weights quantised per output channel (:190-195)."""
+    wq_s, bq_s = fold_q_scale(wq, bq, num_heads)
+    return (*quantize_weight(wq_s.to(wq.dtype)), bq_s.to(bq.dtype), *quantize_weight(wo))
+
+
+def fused_attn_block_q_plain(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
+    """Plain PyTorch version of :func:`fused_attn_block_q` (any device): the
+    TPU kernel's quant branch, softmax by a per-row reciprocal as there."""
+    dt = x.dtype
+    wqq, wqs, bq_s, woq, wos = _q_weights(wq, bq, wo, num_heads)
+
+    def softmax(logits):
+        e = torch.exp(logits - logits.amax(-1, keepdim=True))
+        return e * (1.0 / e.sum(-1, keepdim=True))
+
+    return _block_plain(
+        x, k, v, lambda a: (qdot(a, wqq, wqs) + bq_s.to(dt).float()).to(dt),
+        lambda a: qdot(a, woq, wos) + bo.to(dt).float() + x.float(), ln_w.to(dt).float(),
+        ln_b.to(dt).float(), num_heads, eps, softmax)
+
+
+def fused_attn_block_q(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
+    """Int8 twin of :func:`fused_attn_block` (serving only): int8 q- and
+    out-projections, float attention.  Arguments as there."""
+    forward_only("fused_attn_block_q", x, k, v, wq, bq, wo, bo, ln_w, ln_b)
+    if not use_kernel(x):
+        return fused_attn_block_q_plain(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps)
+    _check(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads)
+    b, p, c = x.shape
+    dt = x.dtype
+    wqq, wqs, bq_s, woq, wos = _q_weights(wq, bq, wo, num_heads)
+    xc, kc, vc = (t.to(dt).contiguous() for t in (x, k, v))
+    bqc, boc, lnw, lnb = (t.to(dt).contiguous() for t in (bq_s, bo, ln_w, ln_b))
+    wqs, wos = wqs.contiguous(), wos.contiguous()
+    out = torch.empty_like(xc)
+    _build.launch(
+        "lc2_attn_block_q", xc.device, _build.dtype_code(xc), xc.data_ptr(), kc.data_ptr(),
+        vc.data_ptr(), wqq.data_ptr(), wqs.data_ptr(), bqc.data_ptr(), woq.data_ptr(),
+        wos.data_ptr(), boc.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), out.data_ptr(), b, p,
+        k.shape[1], c, num_heads, float(eps), _build.stream_of(xc))
+    fused_attn_block_q.launches += 1
+    return out
+
+
+fused_attn_block_q.launches = 0

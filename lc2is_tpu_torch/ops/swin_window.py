@@ -21,6 +21,15 @@ the port of ``swin_canvas.py::_canvas_bwd_kernel`` :530 and
 rows and the relative-position table gather stay outside the Function as
 differentiable torch ops, so autograd carries the q-row and bias gradients
 back through them.  On a CPU tensor autograd runs through the plain version.
+
+Int8 serving: :func:`swin_window_block_q` is the ``quant=True`` branch of
+``window_attention.py::_block_kernel`` (:414-418, :468-476; weights folded and
+quantised as :614-624): the f32 LN output, re-zeroed at HF pad tokens, is
+quantised per token for an int8 packed QKV product, and the head outputs per
+token for an int8 out-projection (``ops/quant.py``).  On a CUDA tensor it
+launches the int8 variant of ``csrc/swin_window.cu``; on a CPU tensor it runs
+:func:`swin_window_block_q_plain`.  Forward only: it raises if autograd needs
+a gradient through it.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import torch.nn.functional as F
 
 from lc2is_tpu_torch.ops import _build
 from lc2is_tpu_torch.ops.dispatch import use_kernel
+from lc2is_tpu_torch.ops.quant import forward_only, qdot, quantize_weight
 
 
 def _padded(n: int, win: int) -> int:
@@ -48,23 +58,27 @@ def _region_labels(hp: int, wp: int, win: int, shift: int, device) -> torch.Tens
     return img.reshape(hp // win, win, wp // win, win).transpose(1, 2).reshape(-1, win * win)
 
 
-def swin_window_block_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win,
-                            shift, eps=1e-5, residual=True):
-    """Plain PyTorch version of :func:`swin_window_block` (any device)."""
+def _window_pipeline(x, hs, qkv_fn, bias, num_heads, win, shift, folded):
+    """The plain versions' shared middle: hs (B, H, W, C) post-LN canvas ->
+    zero pad to window multiples (HF pads after layernorm_before), roll by
+    -shift, partition, ``qkv_fn`` -> attention with the relative-position bias
+    and the 9-region -100 mask -> reverse, roll back, crop: the (B, H, W, C)
+    head outputs in x's dtype.  ``folded``: 1/√dh is already in the q rows."""
     b, h, w, c = x.shape
     dt = x.dtype
     dh = c // num_heads
     n = win * win
     hp, wp = _padded(h, win), _padded(w, win)
-    hs = F.layer_norm(x.float(), (c,), ln_w.float(), ln_b.float(), eps).to(dt)
-    hs = F.pad(hs, (0, 0, 0, wp - w, 0, hp - h))  # HF pads after layernorm_before
+    hs = F.pad(hs, (0, 0, 0, wp - w, 0, hp - h))
     if shift:
         hs = torch.roll(hs, (-shift, -shift), dims=(1, 2))
     nwh, nww = hp // win, wp // win
     tw = hs.reshape(b, nwh, win, nww, win, c).transpose(2, 3).reshape(-1, n, c)
-    qkv = F.linear(tw, wqkv.to(dt), bqkv.to(dt))
+    qkv = qkv_fn(tw)
     q, k, v = (t.reshape(-1, n, num_heads, dh).transpose(1, 2) for t in qkv.split(c, -1))
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(dh)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    if not folded:
+        logits = logits / math.sqrt(dh)
     logits = logits + bias.float()[None]
     if shift:
         lab = _region_labels(hp, wp, win, shift, x.device)
@@ -76,7 +90,17 @@ def swin_window_block_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, 
     o = o.transpose(2, 3).reshape(b, hp, wp, c)
     if shift:
         o = torch.roll(o, (shift, shift), dims=(1, 2))
-    o = o[:, :h, :w]
+    return o[:, :h, :w]
+
+
+def swin_window_block_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win,
+                            shift, eps=1e-5, residual=True):
+    """Plain PyTorch version of :func:`swin_window_block` (any device)."""
+    c = x.shape[-1]
+    dt = x.dtype
+    hs = F.layer_norm(x.float(), (c,), ln_w.float(), ln_b.float(), eps).to(dt)
+    o = _window_pipeline(x, hs, lambda tw: F.linear(tw, wqkv.to(dt), bqkv.to(dt)), bias,
+                         num_heads, win, shift, folded=False)
     y = F.linear(o, wo.to(dt), bo.to(dt))
     return x + y if residual else y
 
@@ -190,3 +214,54 @@ def swin_window_block(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, s
 
 
 swin_window_block.launches = 0
+
+
+def _q_weights(wqkv, bqkv, wo, num_heads):
+    """(wqkv codes, scales, folded bqkv, wo codes, scales): 1/√dh folded into
+    the q rows in f32 and rounded back to the weights' dtypes
+    (``window_attention.py:554-560``), then per-output-channel codes (:614-618)."""
+    wqkv_s, bqkv_s = fold_q_scale(wqkv, bqkv, num_heads)
+    return (*quantize_weight(wqkv_s.to(wqkv.dtype)), bqkv_s.to(bqkv.dtype),
+            *quantize_weight(wo))
+
+
+def swin_window_block_q_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win,
+                              shift, eps=1e-5, residual=True):
+    """Plain PyTorch version of :func:`swin_window_block_q` (any device)."""
+    c = x.shape[-1]
+    dt = x.dtype
+    wq_q, wq_s, bqkv_s, wo_q, wo_s = _q_weights(wqkv, bqkv, wo, num_heads)
+    hs = F.layer_norm(x.float(), (c,), ln_w.to(dt).float(), ln_b.to(dt).float(), eps)
+    o = _window_pipeline(
+        x, hs, lambda tw: (qdot(tw, wq_q, wq_s) + bqkv_s.to(dt).float()).to(dt), bias,
+        num_heads, win, shift, folded=True)
+    y = qdot(o, wo_q, wo_s) + bo.to(dt).float()
+    return (x.float() + y if residual else y).to(dt)
+
+
+def swin_window_block_q(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, shift,
+                        eps=1e-5, residual=True):
+    """Int8 twin of :func:`swin_window_block` (serving only): int8 packed
+    QKV and out-projection, float attention.  Arguments as there."""
+    forward_only("swin_window_block_q", x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias)
+    if not use_kernel(x):
+        return swin_window_block_q_plain(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads,
+                                         win, shift, eps, residual)
+    _check(x, ln_w, ln_b, wqkv, bqkv, wo, bo, bias, num_heads, win, shift)
+    b, h, w, c = x.shape
+    dt = x.dtype
+    wq_q, wq_s, bqkv_s, wo_q, wo_s = _q_weights(wqkv, bqkv, wo, num_heads)
+    xc = x.contiguous()
+    lnw, lnb, bq, boc = (t.to(dt).contiguous() for t in (ln_w, ln_b, bqkv_s, bo))
+    wq_s, wo_s, biasc = wq_s.contiguous(), wo_s.contiguous(), bias.float().contiguous()
+    out = torch.empty_like(xc)
+    _build.launch(
+        "lc2_swin_window_q", xc.device, _build.dtype_code(xc), xc.data_ptr(), lnw.data_ptr(),
+        lnb.data_ptr(), wq_q.data_ptr(), wq_s.data_ptr(), bq.data_ptr(), wo_q.data_ptr(),
+        wo_s.data_ptr(), boc.data_ptr(), biasc.data_ptr(), out.data_ptr(), b, h, w, c,
+        num_heads, win, shift, int(residual), float(eps), _build.stream_of(xc))
+    swin_window_block_q.launches += 1
+    return out
+
+
+swin_window_block_q.launches = 0

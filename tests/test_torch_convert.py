@@ -28,7 +28,7 @@ def jax_params():
 
 def test_every_parameter_loads_strict(jax_params):
     sd = params_to_state_dict(jax_params)
-    port = zoo.PromptAuxCrossA(**KW)
+    port = zoo.PromptAuxCrossA(device="cpu", **KW)
     assert set(sd) == set(port.state_dict())
     load_jax_params(port, jax_params)
     n_jax = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(jax_params))
@@ -49,7 +49,7 @@ def test_trap_keys_present(jax_params, key):
 
 
 def test_texts_buffer_is_rebuilt_not_loaded(jax_params):
-    port = zoo.PromptAuxCrossA(**KW)
+    port = zoo.PromptAuxCrossA(device="cpu", **KW)
     assert "prompt.texts" not in params_to_state_dict(jax_params)
     assert "prompt.texts" not in port.state_dict()
     assert tuple(port.prompt.texts.shape) == (3, CFG["context_length"])

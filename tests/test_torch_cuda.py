@@ -16,6 +16,12 @@ Gradients (the backward kernels against autograd through the plain
 versions) are held norm-relative, ‖Δ‖ / ‖ref‖, because the weight gradients
 are sums over every token: f32 <= 1e-4, bf16 <= 2e-2 (the plain backward
 rounds every intermediate to bf16, the kernels accumulate in f32).
+Masks (the argmax head) equal their plain version's except at near-ties, a
+pixel whose two best blended scores are within 1e-5 (f32) or, where each
+side rounds its scores to bf16, two bf16 steps at the largest score (a score
+differs by at most one step, and the blend is convex).
+Int8 kernels: |Δ| <= 1e-3 · max |ref| (f32), 2e-2 · max |ref| (bf16): a code
+that rounds the other way moves an output by one step of its scale.
 """
 
 import numpy as np
@@ -23,17 +29,25 @@ import pytest
 import torch
 
 from lc2is_tpu_torch.ops.attention_block import (fused_attn_block, fused_attn_block_bwd,
-                                                 fused_attn_block_plain)
+                                                 fused_attn_block_plain, fused_attn_block_q,
+                                                 fused_attn_block_q_plain)
 from lc2is_tpu_torch.ops.fused_ce import upsampled_cross_entropy, upsampled_cross_entropy_plain
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
+from lc2is_tpu_torch.ops.quant import fused_mlp_q, fused_mlp_q_plain
 from lc2is_tpu_torch.ops.swin_window import (swin_window_block, swin_window_block_bwd,
-                                             swin_window_block_plain)
+                                             swin_window_block_plain, swin_window_block_q,
+                                             swin_window_block_q_plain)
+from lc2is_tpu_torch.ops.upsample_argmax import (l2_normalize, score_map_plain,
+                                                 score_upsample_argmax,
+                                                 score_upsample_argmax_plain, upsample_argmax,
+                                                 upsample_argmax_plain, upsample_blend_plain)
 from lc2is_tpu_torch.ops.upsample import (upsample_tokens, upsample_tokens_adjoint,
                                           upsample_tokens_plain)
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4), torch.bfloat16: dict(atol=5e-2, rtol=2e-2)}
+INT8_REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
 
@@ -126,6 +140,111 @@ def test_swin_window_block_kernel(cuda, dtype, h, w, c, heads, win, shift):
            shift)
 
 
+def _near_tie(dtype, blended):
+    if dtype != torch.bfloat16:
+        return 1e-5
+    return 2 * 2.0 ** (np.floor(np.log2(blended.abs().max().item())) - 7)
+
+
+def _check_masks(fn, got, want, blended, dtype):
+    """``dtype``: the one both sides round their scores to."""
+    torch.cuda.synchronize()
+    assert fn.launches > 0 and got.dtype == torch.int32 and got.shape == want.shape
+    differ = got != want
+    top2 = blended.topk(2, dim=1).values
+    assert (top2[:, 0] - top2[:, 1])[differ].le(_near_tie(dtype, blended)).all(), int(differ.sum())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,grid,k,c,r", [
+    (2, 16, 151, 64, 4),
+    (1, 13, 7, 33, 4),     # ragged tiles, C not a multiple of the channel chunk
+    (1, 24, 200, 512, 4),  # K over one class pass
+    (2, 9, 5, 16, 2),
+])
+def test_score_upsample_argmax_kernel(cuda, dtype, b, grid, k, c, r):
+    rs = np.random.RandomState(11)
+    v = _rand(rs, b, grid * grid, c, dtype=dtype)
+    tn = l2_normalize(_rand(rs, b, k, c, dtype=dtype), 2)
+    before = score_upsample_argmax.launches
+    got = score_upsample_argmax(v, tn, grid, r)
+    assert score_upsample_argmax.launches == before + 1
+    _check_masks(score_upsample_argmax, got, score_upsample_argmax_plain(v, tn, grid, r),
+                 upsample_blend_plain(score_map_plain(v, tn, grid), r), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,r", [((2, 151, 12, 20), 4), ((1, 5, 7, 9), 3), ((1, 256, 8, 8), 4)])
+def test_upsample_argmax_kernel(cuda, dtype, shape, r):
+    x = _rand(np.random.RandomState(12), *shape, dtype=dtype)
+    before = upsample_argmax.launches
+    got = upsample_argmax(x, r)
+    assert upsample_argmax.launches == before + 1
+    # both sides blend the same values in f32
+    _check_masks(upsample_argmax, got, upsample_argmax_plain(x, r), upsample_blend_plain(x, r),
+                 torch.float32)
+
+
+def _check_int8(fn, kernel_fn, plain_fn, *args, **kw):
+    before = fn.launches
+    with torch.no_grad():
+        got = kernel_fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        want = plain_fn(*args, **kw)
+    assert got.shape == want.shape and got.dtype == want.dtype and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= INT8_REL[got.dtype] * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_tok,c,act,pos,residual", [
+    (77, 96, "gelu", "pre", True),
+    (33, 768, "gelu", "pre", True),
+    (50, 512, "relu", "post", True),
+    (5, 128, "relu", "post", False),
+    (40, 192, "gelu", "pre", False),
+])
+def test_fused_mlp_q_kernel(cuda, dtype, n_tok, c, act, pos, residual):
+    rs = np.random.RandomState(13)
+    f = 4 * c
+    args = (_rand(rs, n_tok, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.1), _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
+            _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
+    _check_int8(fused_mlp_q, fused_mlp_q, fused_mlp_q_plain, *args, activation=act,
+                ln_position=pos, residual=residual)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,l,c,heads", [(40, 7, 512, 8), (33, 151, 512, 8), (70, 1030, 512, 8),
+                                         (16, 17, 64, 4), (45, 64, 128, 4)])
+def test_fused_attn_block_q_kernel(cuda, dtype, p, l, c, heads):
+    rs = np.random.RandomState(14)
+    args = (_rand(rs, 2, p, c, dtype=dtype), _rand(rs, 2, l, c, dtype=dtype),
+            _rand(rs, 2, l, c, dtype=dtype), _rand(rs, c, c, scale=c ** -0.5),
+            _rand(rs, c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, c, scale=0.1, offset=1.0), _rand(rs, c, scale=0.1))
+    _check_int8(fused_attn_block_q, fused_attn_block_q, fused_attn_block_q_plain, *args, heads)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,c,heads,win,shift", [
+    (18, 18, 32, 2, 7, 3),
+    (14, 21, 64, 4, 7, 0),   # dh 16, one side padded
+    (12, 12, 64, 1, 4, 2),   # dh 64, window 4
+    (16, 16, 768, 24, 7, 3),  # stage 4: 16² canvas padded to 21²
+    (4, 4, 96, 3, 4, 0),     # window shrunk to a 4² grid
+])
+def test_swin_window_block_q_kernel(cuda, dtype, h, w, c, heads, win, shift):
+    rs = np.random.RandomState(15)
+    args = (_rand(rs, 2, h, w, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
+            _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, heads, win * win, win * win, scale=0.1))
+    _check_int8(swin_window_block_q, swin_window_block_q, swin_window_block_q_plain, *args,
+                heads, win, shift)
+
+
 def test_unsupported_shapes_raise(cuda):
     """A shape the kernel does not take raises on the card; it never falls
     back to the plain version."""
@@ -180,7 +299,7 @@ def test_small_model_on_card(cuda):
                        context_decoder=dict(transformer_width=64, transformer_heads=4,
                                             transformer_layers=1),
                        context_length=5, text_dim=512))
-    cpu = seeded_init_(PromptAuxCrossA(**kw), seed=5).eval()
+    cpu = seeded_init_(PromptAuxCrossA(device="cpu", **kw), seed=5).eval()
     gpu = PromptAuxCrossA(device=cuda, **kw).eval()
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     x = _rand(np.random.RandomState(6), 2, 3, 128, 128, device="cpu")
@@ -347,7 +466,7 @@ def test_small_train_step_on_card(cuda):
                                             transformer_layers=1),
                        context_length=5, text_dim=512))
     frozen = FROZEN_PREFIXES["prompt_aux_cross_a"]
-    cpu = seeded_init_(PromptAuxCrossA(**kw), seed=5)
+    cpu = seeded_init_(PromptAuxCrossA(device="cpu", **kw), seed=5)
     gpu = PromptAuxCrossA(device=cuda, **kw)
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     before = {k: v.clone() for k, v in cpu.state_dict().items()}
@@ -382,3 +501,77 @@ def test_small_train_step_on_card(cuda):
                                        atol=1e-2 * lr + 1e-7)
         if name.startswith(frozen[0] + "."):
             assert torch.equal(q.detach().cpu(), before[name]), name
+
+
+def test_small_model_masks_and_int8_on_card(cuda):
+    """The small PromptAuxCrossA of test_small_model_on_card with the served
+    head, float and int8 (f32 at 128²: every int8 kernel runs, the window
+    block at stage 4), on the card against the CPU: masks equal except
+    near-ties of the CPU's score map, the int8 low score map within 1e-2 of
+    its max."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models.zoo import PromptAuxCrossA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(class_names=("wall", "sky", "tree", "person", "road"), dec_dim=512, nhead=8,
+              swin_cfg=SMALL_SWIN,
+              cfg=dict(text_encoder=dict(context_length=10, vocab_size=49408,
+                                         transformer_width=512, transformer_heads=8,
+                                         transformer_layers=2, embed_dim=512),
+                       context_decoder=dict(transformer_width=64, transformer_heads=4,
+                                            transformer_layers=1),
+                       context_length=5, text_dim=512))
+    state = seeded_init_(PromptAuxCrossA(device="cpu", **kw), seed=5).state_dict()
+    x = _rand(np.random.RandomState(6), 2, 3, 128, 128, device="cpu")
+    runs = {}
+    with torch.no_grad():
+        for quant in (False, True):
+            for dev in ("cpu", cuda):
+                m = PromptAuxCrossA(device=dev, predict_masks=True, quant_int8=quant, **kw).eval()
+                m.load_state_dict(state, strict=True)
+                out = m({"pixel_values": x.to(dev)})
+                runs[quant, str(dev)] = {k: v.cpu() for k, v in out.items()}
+        full = PromptAuxCrossA(device="cpu", **kw).eval()
+        full.load_state_dict(state, strict=True)
+        scores = full({"pixel_values": x})["outputs"]
+    top2 = scores.topk(2, dim=1).values
+    differ = runs[False, "cpu"]["outputs"] != runs[False, "cuda"]["outputs"]
+    assert (top2[:, 0] - top2[:, 1])[differ].le(1e-5).all()
+    cpu_q, gpu_q = runs[True, "cpu"], runs[True, "cuda"]
+    ref = cpu_q["low_score_map"]
+    assert (gpu_q["low_score_map"] - ref).abs().max() <= 1e-2 * ref.abs().max()
+    assert (gpu_q["outputs"] == cpu_q["outputs"]).float().mean() >= 0.99
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid", [13, 125])
+def test_mask_head_at_grids_not_a_multiple_of_8_on_card(cuda, dtype, grid):
+    """The served head of the model (``_finish`` with ``predict_masks``) at
+    grids that are not a multiple of 8 (125 is a 500² image's stage-1 grid)
+    launches the fused kernel on the card, and its masks equal the CPU's
+    except near-ties.  The head is driven directly: the whole model's decoder
+    output grid is 8x its stage-4 grid, so a forward never gives it such a
+    grid."""
+    from lc2is_tpu_torch.models.zoo import PromptAuxCrossA
+
+    kw = dict(class_names=("wall", "sky", "tree", "person", "road"), swin_cfg=SMALL_SWIN,
+              predict_masks=True, dtype=dtype)
+    rs = np.random.RandomState(13)
+    v = _rand(rs, 2, grid * grid, 512, dtype=dtype, device="cpu")
+    t = _rand(rs, 2, 5, 512, dtype=dtype, device="cpu")
+    want = PromptAuxCrossA(device="cpu", **kw).eval()._finish(v, t)
+    before = score_upsample_argmax.launches
+    got = PromptAuxCrossA(device=cuda, **kw).eval()._finish(v.to(cuda), t.to(cuda))
+    assert score_upsample_argmax.launches == before + 1
+    assert tuple(got.shape) == (2, 4 * grid, 4 * grid)
+    _check_masks(score_upsample_argmax, got.cpu(), want,
+                 upsample_blend_plain(score_map_plain(v, l2_normalize(t, 2), grid), 4), dtype)
+
+
+def test_model_defaults_to_the_card(cuda):
+    """Built without ``device``, every parameter and buffer is on the card."""
+    from lc2is_tpu_torch.models.zoo import PromptAuxCrossA
+
+    model = PromptAuxCrossA(class_names=("wall", "sky"), swin_cfg=SMALL_SWIN)
+    assert {t.device.type for t in list(model.parameters()) + list(model.buffers())} == {"cuda"}

@@ -73,7 +73,7 @@ def slice_run():
                 jm.apply(p, {"pixel_values": px, "text_static": ts}))
 
     want = jax.jit(both_paths)(params, jnp.asarray(x))
-    return (load_jax_params(zoo.PromptAuxCrossA(**kw), params), x) + tuple(want)
+    return (load_jax_params(zoo.PromptAuxCrossA(device="cpu", **kw), params), x) + tuple(want)
 
 
 @pytest.mark.parametrize("cached_text", [False, True])
@@ -96,23 +96,43 @@ def test_prompt_aux_cross_a(slice_run, cached_text):
 
 @pytest.mark.parametrize("head", ["predict_masks", "return_score_map"])
 def test_unported_heads_raise(head, slice_run):
-    """The argmax head (``predict_masks``) is not ported: asking for it fails
-    loudly instead of serving another head.  The training head
-    (``return_score_map``) is ported: it returns the low-res score map
-    (B, K, H/4, W/4), whose bilinear ×4 is the default head's output, and the
-    same low_score_map."""
+    """Both other heads of the model are ported.  The served head
+    (``predict_masks``) returns int32 masks equal to the argmax over classes
+    of the score-map head's output on the same weights, except at near-ties
+    (the two best scores within 1e-5, f32: the two heads blend in another
+    order).  The training head (``return_score_map``) returns the low-res
+    score map (B, K, H/4, W/4), whose bilinear ×4 is the default head's
+    output, and the same low_score_map."""
     kw = dict(cfg=small_denseclip_cfg(), swin_cfg=TINY_SWIN,
-              class_names=tuple(f"c{i}" for i in range(7)))
-    if head == "predict_masks":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            zoo.PromptAuxCrossA(predict_masks=True, **kw)
-        return
+              class_names=tuple(f"c{i}" for i in range(7)), device="cpu")
     port, x = slice_run[:2]
-    train_head = zoo.PromptAuxCrossA(return_score_map=True, **kw).eval()
-    train_head.load_state_dict(port.state_dict(), strict=True)
+    other = zoo.PromptAuxCrossA(**{head: True}, **kw).eval()
+    other.load_state_dict(port.state_dict(), strict=True)
     with torch.no_grad():
-        full, low = port({"pixel_values": t(x)}), train_head({"pixel_values": t(x)})
+        full, low = port({"pixel_values": t(x)}), other({"pixel_values": t(x)})
+    close(low["low_score_map"], full["low_score_map"].numpy(), rtol=0, atol=0)
+    if head == "predict_masks":
+        masks = low["outputs"]
+        assert masks.dtype == torch.int32 and tuple(masks.shape) == (2, 64, 64)
+        top2 = full["outputs"].topk(2, dim=1).values
+        differ = masks != full["outputs"].argmax(1)
+        assert (top2[:, 0] - top2[:, 1])[differ].le(1e-5).all()
+        assert differ.float().mean() <= 1e-3
+        return
     assert tuple(low["outputs"].shape) == (2, 7, 16, 16)
     close(resize(low["outputs"], scale_factor=4, method="bilinear"), full["outputs"].numpy(),
           rtol=0, atol=1e-6)
-    close(low["low_score_map"], full["low_score_map"].numpy(), rtol=0, atol=0)
+
+
+def test_models_default_to_the_card():
+    """Without ``device`` a model lives on the card; where there is none the
+    constructor raises instead of building on the CPU quietly."""
+    kw = dict(cfg=small_denseclip_cfg(), swin_cfg=TINY_SWIN,
+              class_names=tuple(f"c{i}" for i in range(7)))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            zoo.PromptAuxCrossA(**kw)
+        return
+    model = zoo.PromptAuxCrossA(**kw)
+    assert {p.device.type for p in model.parameters()} == {"cuda"}
+    assert model.prompt.texts.device.type == "cuda"

@@ -65,7 +65,7 @@ def step_run():
     updates, _ = tx.update(grads, tx.init(params), params)
     new = optax.apply_updates(params, updates)
 
-    port = load_jax_params(zoo.PromptAuxCrossA(return_score_map=True, **KW), params)
+    port = load_jax_params(zoo.PromptAuxCrossA(return_score_map=True, device="cpu", **KW), params)
     before = {k: v.clone() for k, v in port.state_dict().items()}
     opt = make_optimizer(port, lr=LR, frozen_prefixes=FROZEN)
     losses = train_step(port, opt, {"pixel_values": t(x)}, torch.from_numpy(y).long())
@@ -156,7 +156,7 @@ def test_frozen_mask_matches_jax():
     params = numpy_params(jm, {"pixel_values": jnp.zeros((1, 3, 64, 64))})["params"]
     want = params_to_state_dict(jax.tree_util.tree_map(
         lambda tr: np.float32(tr), jax_frozen_mask(params, FROZEN)))
-    got = frozen_mask(zoo.PromptAuxCrossA(**KW), FROZEN)
+    got = frozen_mask(zoo.PromptAuxCrossA(device="cpu", **KW), FROZEN)
     assert set(got) == set(want)
     assert all(got[k] == bool(want[k]) for k in got)
     assert not all(got.values()) and any(got.values())
