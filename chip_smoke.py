@@ -16,7 +16,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    time beside the plain version's and, where one PyTorch call computes the
    same function, that call's (CUDA events, median of 20 after warm-up), and
    the least time the card could take (bytes at 3.35 TB/s against operations
-   at the type's peak);
+   at the type's peak).  Flash attention (the v1 path) at the CLIP ViT-B/16
+   and v1 decoder shapes, held to a share of its largest output, with
+   controls that must fail the same gate (the kernel over all keys but the
+   last 64-key tile; the key-padding case run without its mask) and a case
+   of fully-masked batch entries whose NaN rows must match the plain
+   version's exactly; the v1 shapes of
+   fused_mlp and fused_attn_block (timed, not summed into the flagship
+   forward);
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
@@ -50,10 +57,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    (b) bf16, batch 8, 512², drop path 0.1 from a seeded generator: two
        warm-up steps, the launch counts of one step asserted, six timed steps
        (step ms, img/s), finite losses, trainable parameters changed.
-7. a JSON line of the kernels (launches over one run of the path that uses
-   each: the served-mask forward, the int8 forward or the training step),
-   the nvidia-smi line, and as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+7. the v1 CLIP family (ViT-B/16 at 512², the 12-layer CLIP text tower),
+   weights from a numpy seed, ids from ops/bpe.tokenize on class-name
+   prompts padded to 77, attention_mask = ids != 0:
+   (a) BaseModelWithText (out 128²): f32 batch 1 on the card against the
+       same model's plain run on the CPU (feature_mm, feature_t, feature_v
+       relative to max |ref|, per-pixel argmax agreement with near-ties
+       only); bf16 batch 16 against f32 on the card; launch counts of one
+       forward; three answered bf16 batch-16 batches timed; a torch.profiler
+       table of one more forward;
+   (b) ContrastiveModel and DenseClip: the same f32 batch-1 check (logits;
+       score_map and out) over the 151 class prompts, launch counts, bf16
+       batch 16 timed.
+8. a JSON line of the kernels (launches over one run of the path that uses
+   each: the served-mask forward, the int8 forward, the training step or
+   the v1 BaseModelWithText forward), the nvidia-smi line, and as the last
+   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Phase 6b ends with a torch.profiler trace of one more bf16 step (device time
 by kernel, idle share).  With no CUDA device, or outside a checkout of the
@@ -79,6 +98,10 @@ BATCH = 16
 N_CLASSES = 151
 # stated bounds of a kernel against its plain version: |Δ| <= atol + rtol·|ref|
 BOUNDS = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (5e-2, 2e-2)}
+# flash attention: |Δ| <= FLASH_REL·max|ref|.  Its outputs are averages of v,
+# about 0.05 over 1025 unit-normal keys, so BOUNDS' bf16 atol alone would pass
+# a kernel that dropped a 64-key tile (about 1e-2 off)
+FLASH_REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 # the f32 slice on the card against its plain run on the CPU (cosine scores)
 SLICE_F32_MAX_ABS = 1e-2
 SLICE_F32_ARGMAX_AGREE = 0.99
@@ -157,6 +180,27 @@ STEP_PARAM_ATOL = 1e-2 * TRAIN_LR + 1e-7
 EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES, swin_window_block_bwd=22,
                                fused_attn_block_bwd=12, upsample_tokens_adjoint=6,
                                upsampled_cross_entropy=2)
+# the v1 family at 512²: a ViT-B/16 of 12 layers (1025 tokens: flash), the
+# fusion decoders' self-attention over 1024 or 1025 tokens (flash), their FF
+# halves (fused_mlp) and DenseClip's post-norm prompt decoder (fused halves)
+V1_OUT = 128
+EXPECTED_V1_LAUNCHES = {"BaseModelWithText": {"flash_attention": 13, "fused_mlp": 1},
+                        "ContrastiveModel": {"flash_attention": 12},
+                        "DenseClip": {"flash_attention": 20, "fused_attn_block": 16,
+                                      "fused_mlp": 16}}
+# f32 batch 1, card vs the CPU plain run: |Δ| <= V1_F32_MAX_REL · max |ref| on
+# every output; the argmax over the classes agrees on >= V1_F32_ARGMAX_AGREE
+# of the pixels, each differing pixel a near-tie (top-2 gap <= V1_NEAR_TIE_REL
+# · max |ref|).  bf16 batch 16 against f32 on the card: max and mean |Δ|
+# relative to max |ref| (the outputs are dot products, not cosines).
+V1_F32_MAX_REL = 1e-3
+V1_F32_ARGMAX_AGREE = 0.999
+V1_NEAR_TIE_REL = 1e-5
+V1_BF16_MAX_REL = 0.1
+V1_BF16_MEAN_REL = 1e-2
+# the first 16 ADE20K classes, then placeholders: the v1 prompts
+ADE_NAMES = ("wall", "building", "sky", "floor", "tree", "ceiling", "road", "bed", "windowpane",
+             "grass", "cabinet", "sidewalk", "person", "earth", "door", "table")
 
 
 # kernel: (CUDA source, the TPU kernel it replaces)
@@ -187,6 +231,8 @@ SOURCES = {
     "swin_window_block_q": ("lc2is_tpu_torch/csrc/swin_window.cu",
                             "lc2is_tpu/ops/window_attention.py:386 (quant branch :414-418, "
                             ":468-476)"),
+    "flash_attention": ("lc2is_tpu_torch/csrc/flash_attention.cu",
+                        "lc2is_tpu/ops/flash_attention.py:42"),
 }
 BACKWARD_KERNELS = ("swin_window_block_bwd", "fused_attn_block_bwd", "upsample_tokens_adjoint",
                     "upsampled_cross_entropy")
@@ -279,6 +325,21 @@ def argmax_blend_ops(b, k, h, w, r):
     return b * k * h * w * r * r * (4 + 3 / r)
 
 
+def flash_work(b, h, lq, lk, d, dt, kept=None):
+    """q, k, v in and the output out (and a mask row of bytes); the two
+    products over the kept keys only (``kept``: kept keys summed over the
+    batch, all of them when None)."""
+    keys = b * lk if kept is None else kept
+    return (dt.itemsize * b * h * d * (2 * lq + 2 * lk) + (0 if kept is None else b * lk),
+            {mm_type(dt): 4 * h * lq * d * keys})
+
+
+def v1_prompts(n):
+    """n class-name prompts (ADE20K's first classes, then placeholders)."""
+    names = ADE_NAMES + tuple(f"class {i}" for i in range(len(ADE_NAMES), n))
+    return [f"a photo of a {name}." for name in names[:n]]
+
+
 def kernel_cases(rs, dt):
     """Every main-path shape of the 512² / batch-16 forwards: dicts of kernel
     name, shape label, launches per forward, kernel call, plain call, check
@@ -288,6 +349,8 @@ def kernel_cases(rs, dt):
 
     from lc2is_tpu_torch.ops.attention_block import (fused_attn_block, fused_attn_block_plain,
                                                      fused_attn_block_q, fused_attn_block_q_plain)
+    from lc2is_tpu_torch.ops.bpe import tokenize
+    from lc2is_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from lc2is_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
     from lc2is_tpu_torch.ops.quant import fused_mlp_q, fused_mlp_q_plain
     from lc2is_tpu_torch.ops.swin_window import (swin_window_block, swin_window_block_plain,
@@ -303,9 +366,14 @@ def kernel_cases(rs, dt):
     cases = []
 
     def case(name, label, count, kern, plain, work, check="close", library=None, scores=None,
-             tie_dt=None):
+             tie_dt=None, control=None):
+        """``count``: launches per forward of the path the kernel's JSON row
+        reports (0: one call, on no path; None: checked and timed, not
+        summed); ``control``: (what, a wrong call) that must fail the same
+        check."""
         cases.append(dict(name=name, label=label, count=count, kern=kern, plain=plain, work=work,
-                          check=check, library=library, scores=scores, tie_dt=tie_dt))
+                          check=check, library=library, scores=scores, tie_dt=tie_dt,
+                          control=control))
 
     def w(o, i):
         return rand(rs, o, i, scale=i ** -0.5)
@@ -384,6 +452,54 @@ def kernel_cases(rs, dt):
          (b * N_CLASSES * g * g * e + 4 * b * 16 * g * g,
           {"f32": argmax_blend_ops(b, N_CLASSES, g, g, 4)}),
          check="mask", scores=lambda: smap.float(), tie_dt=torch.float32)
+    # flash attention, per BaseModelWithText forward: the ViT-B/16's 12
+    # layers at 512² and the fusion decoder's self-attention (1024 tokens);
+    # DenseClip's f32 decoder layers (1025 tokens) are checked, not summed
+    shapes = [(12, 1025, 64, 12, "ViT-B/16 self"), (8, 1024, 96, 1, "v1 decoder self")]
+    if dt == torch.float32:
+        shapes.append((8, 1025, 96, None, "DenseClip decoder self"))
+    for h, l, d, count, what in shapes:
+        fqkv = tuple(rand(rs, b, h, l, d, dtype=dt) for _ in range(3))
+        short = (fqkv[0],) + tuple(t[:, :, :l - 64].contiguous() for t in fqkv[1:])
+        case("flash_attention", f"{what} ({b},{h},{l},{d})", count,
+             lambda a=fqkv: flash_attention(*a), lambda a=fqkv: flash_attention_plain(*a),
+             flash_work(b, h, l, l, d, dt), check="flash",
+             library=lambda a=fqkv: F.scaled_dot_product_attention(*a),
+             control=("the kernel over all keys but the last 64",
+                      lambda a=short: flash_attention(*a)))
+    # the v1 cross-attention shape (1024 queries over the 77 text tokens) with
+    # the collator's mask: the gate keeps it on the einsum path, the kernel
+    # must take it; run without its mask it must fail (the control)
+    mask = torch.from_numpy(tokenize(v1_prompts(b), context_length=77) == 0).cuda()
+    fqkv = (rand(rs, b, 8, 1024, 96, dtype=dt), rand(rs, b, 8, 77, 96, dtype=dt),
+            rand(rs, b, 8, 77, 96, dtype=dt))
+    full = mask.clone().index_fill_(0, torch.arange(3, device=mask.device), True)
+    for m, what, control in [(mask, "ids != 0 mask", True),
+                             (full, "3 entries fully masked", False)]:
+        case("flash_attention", f"({b},8,1024,96) over 77 keys, {what}", None,
+             lambda a=fqkv, m_=m: flash_attention(*a, m_),
+             lambda a=fqkv, m_=m: flash_attention_plain(*a, m_),
+             flash_work(b, 8, 1024, 77, 96, dt, int((~m).sum())), check="flash",
+             library=lambda a=fqkv, m_=m: F.scaled_dot_product_attention(
+                 *a, attn_mask=~m_[:, None, None, :]),
+             control=("the kernel without its mask",
+                      lambda a=fqkv: flash_attention(*a)) if control else None)
+    # fused_mlp / fused_attn_block at the v1 decoders' shapes (f32 on the bf16
+    # path, by JAX's promotion): checked and timed, not summed
+    for p, c, pos in [(1024, 768, "pre"), (1025, 768, "pre"), (N_CLASSES, 512, "post")]:
+        margs = (rand(rs, b * p, c, dtype=dt), vec(c, 1.0), vec(c), w(2048, c), vec(2048),
+                 w(c, 2048), vec(c))
+        case("fused_mlp", f"v1 ({b * p},{c}) relu {pos}", None,
+             lambda a=margs, ps=pos: fused_mlp(*a, activation="relu", ln_position=ps),
+             lambda a=margs, ps=pos: fused_mlp_plain(*a, activation="relu", ln_position=ps),
+             mlp_work(b * p, c, 2048, dt))
+    prompts = rand(rs, b, N_CLASSES, 512, dtype=dt)
+    for l in (N_CLASSES, 1025):
+        aargs = (prompts, rand(rs, b, l, 512, dtype=dt), rand(rs, b, l, 512, dtype=dt),
+                 w(512, 512), vec(512), w(512, 512), vec(512), vec(512, 1.0), vec(512))
+        case("fused_attn_block", f"DenseClip prompt ({b},{N_CLASSES},512) L{l} h8", None,
+             lambda a=aargs: fused_attn_block(*a, 8), lambda a=aargs: fused_attn_block_plain(*a, 8),
+             attn_work(b, N_CLASSES, l, 512, dt))
     return cases
 
 
@@ -410,6 +526,16 @@ def near_tie_bound(dt, scores):
 
 def compare(c, got, want, dt):
     """(ok, error, message) of a kernel's output against its plain version's."""
+    if c["check"] == "flash":  # NaN rows equal exactly, the rest to a share of the max
+        nan_w = torch.isnan(want)
+        same = bool(torch.equal(torch.isnan(got), nan_w))
+        d = (got.float() - want.float())[~nan_w].abs()
+        lim = FLASH_REL[dt] * want.float()[~nan_w].abs().max().item()
+        ok = same and bool((d <= lim).all()) and bool(torch.isfinite(d).all())
+        return ok, d.max().item(), (f"max {d.max().item():.3e} mean {d.mean().item():.3e} (<= "
+                                    f"{FLASH_REL[dt]}·max|plain| = {lim:.3e}); NaN rows "
+                                    f"{int(nan_w.all(-1).sum())} in the plain output, "
+                                    f"{'the same' if same else 'NOT the same'} in the kernel's")
     if c["check"] == "mask":
         scores = c["scores"]()
         tie = near_tie_bound(c["tie_dt"], scores)
@@ -459,18 +585,27 @@ def check_kernels(smi):
                 ok, err, msg = compare(c, got, want, dt)
                 k_ms, p_ms = time_ms(c["kern"]), time_ms(c["plain"])
                 lib_ms = time_ms(c["library"]) if c["library"] else None
+                ctl = compare(c, c["control"][1](), want, dt) if c["control"] else None
             b_ms, by = least_time(*c["work"])
             lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
+            per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
             print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
-                  f"{lib} bound {b_ms:7.3f} ({by}) x{c['count']}/fwd; {msg} "
+                  f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"{c['name']} {c['label']} {dt}: kernel disagrees with its "
                                      f"plain version: {msg}")
+            if ctl is not None:
+                print(f"    control, {c['control'][0]}: {ctl[2]}: "
+                      f"{'passes' if ctl[0] else 'fails, as it must'}", flush=True)
+                if ctl[0]:
+                    raise AssertionError(f"{c['name']} {c['label']}: the check passes its "
+                                         f"control, {c['control'][0]}")
             s = stats.setdefault(c["name"], dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                                  bound_ms=0.0, library_ms=None, by={}))
             s["max_abs_err"] = max(s["max_abs_err"], err)
-            if dt == torch.bfloat16:  # per 512² / batch-16 bf16 forward (count 0: one call)
+            if dt == torch.bfloat16 and c["count"] is not None:
+                # per 512² / batch-16 bf16 forward (count 0: one call)
                 n = c["count"] or 1
                 s["ms"] += n * k_ms
                 s["plain_ms"] += n * p_ms
@@ -484,7 +619,7 @@ def check_kernels(smi):
 
 
 def check_unported_rows(smi):
-    """Phase 3r: for the TPU kernels not yet ported (PERF.md §6 rows 8, 15,
+    """Phase 3r: for the TPU kernels not yet ported (PERF.md §6 rows 8 and
     16), the least time the card could take and the time of the one PyTorch
     call that computes the same function, bf16, at the shapes their callers
     would give them.  Timed for the table only; the port calls none of these."""
@@ -509,21 +644,17 @@ def check_unported_rows(smi):
         print(f"  row 8  window attention ({nw},{heads},49,{c // heads}) + mask: one-call "
               f"{ms:.3f} ms, bound {b_ms:.3f} ({by}) x{n}/fwd", flush=True)
     print(f"  row 8  per forward: one-call {total_ms:.3f} ms, bound {total_bound:.3f} ms")
-    # rows 15, 16: flash attention of the CLIP ViT-B/16 at 512² (1025 tokens,
+    # row 16: the flash backward of the CLIP ViT-B/16 at 512² (1025 tokens,
     # 12 heads x 64), batch 16, one layer
     q, k, v, g = (rand(rs, BATCH, 12, 1025, 64, dtype=bf) for _ in range(4))
     ops = 4 * BATCH * 12 * 1025 * 1025 * 64
     nbytes = 4 * BATCH * 1025 * 768 * 2
-    ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    b_ms, by = least_time(nbytes, {"bf16": ops})
-    print(f"  row 15 flash attention ({BATCH},12,1025,64): one-call {ms:.3f} ms, bound "
-          f"{b_ms:.3f} ({by}) per layer", flush=True)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg)
     ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), g, retain_graph=True), reps=5)
     b_ms, by = least_time(2 * nbytes, {"bf16": 5 * ops // 2})
-    print(f"  row 16 its backward: one-call {ms:.3f} ms, bound {b_ms:.3f} ({by}) per layer",
-          flush=True)
+    print(f"  row 16 flash backward ({BATCH},12,1025,64): one-call {ms:.3f} ms, bound "
+          f"{b_ms:.3f} ({by}) per layer", flush=True)
 
 
 def backward_cases(rs, dt):
@@ -703,6 +834,7 @@ def build_models(state):
 def launch_counters():
     from lc2is_tpu_torch.ops.attention_block import (fused_attn_block, fused_attn_block_bwd,
                                                      fused_attn_block_q)
+    from lc2is_tpu_torch.ops.flash_attention import flash_attention
     from lc2is_tpu_torch.ops.fused_ce import upsampled_cross_entropy
     from lc2is_tpu_torch.ops.fused_mlp import fused_mlp
     from lc2is_tpu_torch.ops.quant import fused_mlp_q
@@ -716,15 +848,15 @@ def launch_counters():
                                     fused_attn_block_bwd, upsample_tokens_adjoint,
                                     upsampled_cross_entropy, score_upsample_argmax,
                                     upsample_argmax, fused_mlp_q, fused_attn_block_q,
-                                    swin_window_block_q)}
+                                    swin_window_block_q, flash_attention)}
 
 
-def serve_batches(model, batches, ts, counters, expected, label, smi):
-    """Answer ``batches[1:]`` after a warm-up on ``batches[0]``, the launch
-    counters set to 0 just before the first timed batch and read just after
-    it; assert the counts.  Returns (outputs of the first timed batch, ms,
-    the counts)."""
-    model({"pixel_values": batches[0], "text_static": ts})  # warm-up
+def serve_batches(model, batches, extra, counters, expected, label, smi):
+    """Answer ``batches[1:]`` (with the other inputs ``extra``) after a
+    warm-up on ``batches[0]``, the launch counters set to 0 just before the
+    first timed batch and read just after it; assert the counts.  Returns
+    (outputs of the first timed batch, ms, the counts)."""
+    model({"pixel_values": batches[0], **extra})  # warm-up
     torch.cuda.synchronize()
     times, first = [], None
     for i, px in enumerate(batches[1:]):
@@ -732,7 +864,7 @@ def serve_batches(model, batches, ts, counters, expected, label, smi):
             for f in counters.values():
                 f.launches = 0
         t0 = time.perf_counter()
-        out = model({"pixel_values": px, "text_static": ts})
+        out = model({"pixel_values": px, **extra})
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
@@ -798,8 +930,8 @@ def check_slice(smi, state):
         # (b) bf16, batch 16: answer a few batches
         batches = [rand(np.random.RandomState(SEED + 10 + i), BATCH, 3, IMG, IMG,
                         dtype=torch.bfloat16) for i in range(4)]
-        outs = serve_batches(gpu16, batches, ts_gpu, launch_counters(), EXPECTED_LAUNCHES,
-                             "slice (b)", smi)[0]
+        outs = serve_batches(gpu16, batches, {"text_static": ts_gpu}, launch_counters(),
+                             EXPECTED_LAUNCHES, "slice (b)", smi)[0]
         for key, shape in (("outputs", (BATCH, N_CLASSES, IMG, IMG)),
                            ("low_score_map", (BATCH, N_CLASSES, IMG // 16, IMG // 16))):
             o = outs[key]
@@ -844,8 +976,9 @@ def check_masks(smi, state, cpu_head, x1, ts_gpu, batches):
             raise AssertionError("f32 masks on the card disagree with the CPU plain masks")
         del gpu32
         gpu16 = model_from(state, dtype=torch.bfloat16, predict_masks=True).eval()
-        first, _, counts = serve_batches(gpu16, batches, ts_gpu, launch_counters(),
-                                         EXPECTED_MASK_LAUNCHES, "masks (b)", smi)
+        first, _, counts = serve_batches(gpu16, batches, {"text_static": ts_gpu},
+                                         launch_counters(), EXPECTED_MASK_LAUNCHES, "masks (b)",
+                                         smi)
         check_masks_out(first["outputs"], "masks (b)")
     return counts, first["outputs"]
 
@@ -976,8 +1109,8 @@ def check_int8(smi, state, x1, ts_cpu, ts_gpu, batches, masks16):
         del gpu_f
         gpu16 = model_from(state, dtype=torch.bfloat16, predict_masks=True,
                            quant_int8=True).eval()
-        first, _, counts = serve_batches(gpu16, batches, ts_gpu, launch_counters(),
-                                         EXPECTED_INT8_LAUNCHES, "int8 (b)", smi)
+        first, _, counts = serve_batches(gpu16, batches, {"text_static": ts_gpu},
+                                         launch_counters(), EXPECTED_INT8_LAUNCHES, "int8 (b)", smi)
         check_masks_out(first["outputs"], "int8 (b)")
         agree = (first["outputs"] == masks16).float().mean().item()
         print(f"[int8] (b) bf16 b{BATCH} masks agree with the bf16 masks of 4m on {agree:.5f} of "
@@ -1104,11 +1237,11 @@ def check_train_bf16(smi, state):
     print(f"[train] (b) bf16 b{TRAIN_BATCH} {IMG}² step (host clock to synchronize): "
           f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = "
           f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s on {smi}", flush=True)
-    profile_step(lambda: train_step(model, opt, inputs, y, generator=gen))
+    profile_step(lambda: train_step(model, opt, inputs, y, generator=gen), "one bf16 step")
     return counts, ms
 
 
-def profile_step(step):
+def profile_step(step, label, rows=40):
     """torch.profiler over one step: device time by kernel and idle share."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1126,10 +1259,133 @@ def profile_step(step):
             busy += b - end
             end = b
     span = spans[-1][1] - spans[0][0] if spans else 0.0
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=40)
-    print(f"[profile] one bf16 step: {len(events)} device kernels, busy {busy / 1e3:.2f} ms "
+    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows)
+    print(f"[profile] {label}: {len(events)} device kernels, busy {busy / 1e3:.2f} ms "
           f"in a {span / 1e3:.2f} ms first-to-last span (idle {100 * (1 - busy / span):.1f} %)")
     print(table, flush=True)
+
+
+def v1_text(n, device):
+    """input_ids (n, 77) from ops/bpe.tokenize on n class-name prompts and
+    attention_mask = ids != 0 (the collator's)."""
+    from lc2is_tpu_torch.ops.bpe import tokenize
+
+    ids = torch.from_numpy(tokenize(v1_prompts(n), context_length=77))
+    return {"input_ids": ids.to(device), "attention_mask": (ids != 0).long().to(device)}
+
+
+# per v1 model: constructor arguments, prompts at batch 1 and 16, output
+# names (None where the model returns None), the output whose argmax over the
+# classes is checked with its class axis, and the one the bf16 gate holds
+V1_MODELS = {
+    "BaseModelWithText": (dict(out_size=V1_OUT), 1, BATCH,
+                          ("feature_t", "feature_v", "feature_mm"), ("feature_mm", 1),
+                          "feature_mm"),
+    "ContrastiveModel": (dict(out_size=V1_OUT), N_CLASSES, N_CLASSES,
+                         ("feature_t", "feature_v", "logits"), ("logits", -1), None),
+    "DenseClip": (dict(), N_CLASSES, N_CLASSES, (None, "score_map", "out"), ("score_map", 1),
+                  None),
+}
+
+
+def rel_err(got, want):
+    """(max, mean) |Δ| relative to max |ref|."""
+    top = want.float().abs().max().item()
+    d = (got.float() - want.float()).abs()
+    return d.max().item() / top, d.mean().item() / top
+
+
+def check_v1_f32(name, got, want, names, argmax_of):
+    """Phase 7 f32 batch 1: every output of the card within V1_F32_MAX_REL of
+    the CPU plain run; the argmax over the classes agrees, near-ties only."""
+    for key, g, w in zip(names, got, want):
+        if key is None:
+            if g is not None or w is not None:
+                raise AssertionError(f"v1 {name}: expected None")
+            continue
+        g = g.cpu()
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"v1 {name} {key}: shape {tuple(g.shape)} / non-finite")
+        mx, mean = rel_err(g, w)
+        msg = ""
+        ok = mx <= V1_F32_MAX_REL
+        if key == argmax_of[0]:
+            dim = argmax_of[1]
+            differ = g.argmax(dim) != w.argmax(dim)
+            agree = 1.0 - differ.float().mean().item()
+            top2 = w.topk(2, dim=dim).values
+            gaps = (top2.select(dim, 0) - top2.select(dim, 1))[differ]
+            gap = (gaps.max().item() if gaps.numel() else 0.0) / w.abs().max().item()
+            ok = ok and agree >= V1_F32_ARGMAX_AGREE and gap <= V1_NEAR_TIE_REL
+            msg = (f"; argmax over the classes agrees on {agree:.6f} (bound "
+                   f"{V1_F32_ARGMAX_AGREE}), largest top-2 gap where it differs {gap:.3e} x max "
+                   f"|ref| (bound {V1_NEAR_TIE_REL})")
+        print(f"[v1] (a) {name} f32 b1 {key} {tuple(g.shape)}: card vs CPU plain max |Δ| "
+              f"{mx:.3e} (bound {V1_F32_MAX_REL}) mean {mean:.3e} x max |ref| "
+              f"{w.abs().max().item():.4g}{msg}", flush=True)
+        if not ok:
+            raise AssertionError(f"v1 {name} f32 on the card disagrees with the CPU plain run "
+                                 f"({key})")
+
+
+def check_v1(smi):
+    """Phase 7: the v1 CLIP family.  Returns {model: (launch counts of one
+    bf16 forward, median forward ms)}."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models import zoo
+
+    x1 = rand(np.random.RandomState(SEED + 40), 1, 3, IMG, IMG, device="cpu")
+    batches = [rand(np.random.RandomState(SEED + 50 + i), BATCH, 3, IMG, IMG,
+                    dtype=torch.bfloat16) for i in range(4)]
+    counters = launch_counters()
+    results = {}
+    for name, (kw, n1, n16, names, argmax_of, gated) in V1_MODELS.items():
+        cls = getattr(zoo, name)
+        t0 = time.time()
+        cpu = seeded_init_(cls(in_size=IMG, device="cpu", **kw), SEED).eval()
+        state = cpu.state_dict()
+        n_par = sum(p.numel() for p in cpu.parameters())
+        with torch.no_grad():
+            t1 = time.time()
+            want = cpu({"pixel_values": x1, **v1_text(n1, "cpu")})
+            cpu_s = time.time() - t1
+            del cpu
+            gpu32 = cls(in_size=IMG, **kw)
+            gpu32.load_state_dict(state, strict=True)
+            gpu32.eval()
+            got = gpu32({"pixel_values": x1.cuda(), **v1_text(n1, "cuda")})
+            torch.cuda.synchronize()
+            print(f"\n[v1] {name}, CLIP ViT-B/16 at {IMG}² + 12-layer text tower: {n_par} "
+                  f"parameters from numpy seed {SEED} ({t1 - t0:.1f} s); CPU plain forward b1 "
+                  f"{cpu_s:.1f} s", flush=True)
+            check_v1_f32(name, got, want, names, argmax_of)
+            del got, want
+            gpu16 = cls(in_size=IMG, dtype=torch.bfloat16, **kw)
+            gpu16.load_state_dict(state, strict=True)
+            gpu16.eval()
+            text = v1_text(n16, "cuda")
+            first, ms, counts = serve_batches(gpu16, batches, text, counters,
+                                              EXPECTED_V1_LAUNCHES[name], f"v1 {name}", smi)
+            if name == "BaseModelWithText":
+                profile_step(lambda: gpu16({"pixel_values": batches[1], **text}),
+                             f"one bf16 b{BATCH} {name} forward", rows=25)
+            ref = gpu32({"pixel_values": batches[1].float(), **text})
+            for key, o, r in zip(names, first, ref):
+                if key is None:
+                    continue
+                if o.shape != r.shape or not torch.isfinite(o).all():
+                    raise AssertionError(f"v1 {name} bf16 {key}: {tuple(o.shape)} or non-finite")
+                mx, mean = rel_err(o, r)
+                bound = (f" (bounds {V1_BF16_MAX_REL}, {V1_BF16_MEAN_REL})" if key == gated
+                         else " (printed, not gated)")
+                print(f"[v1] (b) {name} bf16 b{BATCH} {key} {tuple(o.shape)} {o.dtype} vs f32 on "
+                      f"the card: max |Δ| {mx:.3e} mean {mean:.3e} x max |ref|{bound}", flush=True)
+                if key == gated and (mx > V1_BF16_MAX_REL or mean > V1_BF16_MEAN_REL):
+                    raise AssertionError(f"v1 {name} bf16 outside its bound of f32 ({key})")
+        results[name] = (counts, ms)
+        del gpu32, gpu16, first, ref
+        torch.cuda.empty_cache()
+    return results
 
 
 def main() -> int:
@@ -1177,6 +1433,9 @@ def main() -> int:
     check_train_f32(state)
     train_counts, step_ms = check_train_bf16(smi, state)
     counts.update({k: v for k, v in train_counts.items() if k in BACKWARD_KERNELS})
+    del state
+    v1 = check_v1(smi)
+    counts["flash_attention"] = v1["BaseModelWithText"][0]["flash_attention"]
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts.get(name, 0), max_abs_err=stats[name]["max_abs_err"],
@@ -1188,14 +1447,17 @@ def main() -> int:
     print(f"\n[summary] launches: over one run of the path that uses the kernel: the bf16 "
           f"batch-{BATCH} {IMG}² served-mask forward (phase 4m) for the float forward kernels "
           f"and the head, the int8 forward (phase 5) for the *_q kernels, one bf16 "
-          f"batch-{TRAIN_BATCH} training step (phase 6b) for the backwards and the fused CE; "
+          f"batch-{TRAIN_BATCH} training step (phase 6b) for the backwards and the fused CE, "
+          f"the bf16 batch-{BATCH} BaseModelWithText forward (phase 7) for flash_attention; "
           f"upsample_argmax is on no path (the JAX package calls it from tests only). ms / "
           f"plain_ms / bound_ms / library_ms: bf16 at the main-path shapes, summed per forward "
           f"or per training step as the launches (upsample_argmax: one call at the served "
           f"shape); library_ms: one PyTorch call of the same function (F.interpolate and its "
-          f"backward), null where none exists; max_abs_err of a mask kernel: the largest top-2 "
+          f"backward, F.scaled_dot_product_attention), null where none exists; max_abs_err of "
+          f"a mask kernel: the largest top-2 "
           f"score gap at a pixel where it differs from its plain version. Training step "
-          f"{step_ms:.2f} ms on {smi}")
+          f"{step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
+          f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,7 +29,7 @@ from torch import nn
 
 from lc2is_tpu_torch.nn.layers import LayerNorm
 
-LIST_NAMES = frozenset({"stages", "blocks", "resblocks", "decoder", "layers",
+LIST_NAMES = frozenset({"stages", "blocks", "resblocks", "decoder", "layers", "encoder_layers",
                         "attention_stage_2", "attention_stage_3", "attention_stage_4"})
 
 

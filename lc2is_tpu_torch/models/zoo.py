@@ -1,6 +1,8 @@
-"""The flagship ``PromptAuxCrossA``, serving and training forward, counterpart of
-``lc2is_tpu/models/zoo.py`` (``_norm``/``_score_map``/``default_denseclip_cfg``
-:49-76, ``PromptContextBase`` :311-349, ``_FinalBase`` :389-443,
+"""The flagship ``PromptAuxCrossA`` (serving and training forward) and the v1
+CLIP family (serving), counterparts of ``lc2is_tpu/models/zoo.py``
+(``_norm``/``_score_map``/``default_denseclip_cfg`` :49-76,
+``BaseModelWithText`` :84-143, ``ContrastiveModel`` :146-176, ``DenseClip``
+:179-214, ``PromptContextBase`` :311-349, ``_FinalBase`` :389-443,
 ``_PromptFinalBase`` :490-506, ``_AuxMixin`` :541-545, ``PromptAuxCrossA``
 :569-587).
 
@@ -40,6 +42,14 @@ raises.
 Training: ``forward(inputs, generator=...)`` in training mode draws the swin
 drop-path masks from that generator (``nn/swin.py``); ``FROZEN_PREFIXES``
 names the parameters the reference freezes (``zoo.py:617-625``).
+
+The v1 models take ``pixel_values`` with ``input_ids`` and an optional
+``attention_mask`` (1 = keep) and return the JAX package's tuples, maps in
+NCHW.  The CLIP ViT computes in ``dtype``, the text tower in f32, and mixed
+operands are promoted where JAX promotes them: under bf16 the first v1
+decoder layer's cross-attention projects the f32 text with bf16-rounded
+weights, so from there on the decoder, the bicubic ×4 and the scores are f32
+(``nn/layers.py``).  Serving only: the flash kernel's backward is not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +60,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from lc2is_tpu_torch.nn.decoders import HierarchicalCrossA
+from lc2is_tpu_torch.nn.clip import CLIPTextTransformer, CLIPVisionTransformer
+from lc2is_tpu_torch.nn.decoders import DecoderBlock, HierarchicalCrossA, TextToPatch
 from lc2is_tpu_torch.nn.denseclip import CLIPTextContextEncoder, ContextDecoder
 from lc2is_tpu_torch.nn.layers import Linear, _param
 from lc2is_tpu_torch.nn.swin import SWIN_SMALL, SwinModel
@@ -65,10 +76,18 @@ FROZEN_PREFIXES = {"prompt_aux_cross_a": ("prompt.text_encoder",)}
 
 
 def _score_map(v_tokens: torch.Tensor, t: torch.Tensor, grid: int) -> torch.Tensor:
-    """L2-normalised cosine classification: (B,P,C) x (B,K,C) -> (B,K,H,W)."""
+    """L2-normalised cosine classification: (B,P,C) x (B,K,C) -> (B,K,H,W),
+    each side normalised in its own dtype, the product in the promoted one."""
     b, p, c = v_tokens.shape
     v = l2_normalize(v_tokens.reshape(b, grid, grid, c), dim=-1)
-    return torch.einsum("bhwc,bkc->bkhw", v, l2_normalize(t, dim=2))
+    t = l2_normalize(t, dim=2)
+    dt = torch.promote_types(v.dtype, t.dtype)
+    return torch.einsum("bhwc,bkc->bkhw", v.to(dt), t.to(dt))
+
+
+def _promoted_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
 
 
 def default_denseclip_cfg() -> Dict[str, Any]:
@@ -123,6 +142,133 @@ def _model_device(device) -> torch.device:
         raise RuntimeError("no CUDA device: the models live on the card by default; "
                            "pass device='cpu' to build one on the CPU")
     return device
+
+
+# ---------------------------------------------------------------------------
+# v1: the CLIP dual-encoder family (model/model.py), serving
+# ---------------------------------------------------------------------------
+
+
+class _ClipBase(nn.Module):
+    """The CLIP ViT (at ``in_size``) and text tower of every v1 model;
+    ``vision_kwargs`` / ``text_kwargs`` override their widths (tests)."""
+
+    def __init__(self, patch_size: int, in_size: int, out_size: int, dtype: torch.dtype,
+                 vision_kwargs: Optional[Dict[str, Any]], text_kwargs: Optional[Dict[str, Any]],
+                 device):
+        super().__init__()
+        self.patch_size, self.in_size, self.out_size = patch_size, in_size, out_size
+        self.vision_encoder = CLIPVisionTransformer(image_size=in_size, patch_size=patch_size,
+                                                   dtype=dtype, device=device,
+                                                   **(vision_kwargs or {}))
+        self.text_encoder = CLIPTextTransformer(device=device, **(text_kwargs or {}))
+
+    def _upsample4(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, g², C) tokens -> (B, out_size², C) by the bicubic ×4 of ``model.py:43``."""
+        h = self.in_size // self.patch_size
+        b, _, c = tokens.shape
+        x = resize(tokens.reshape(b, h, h, c).permute(0, 3, 1, 2), scale_factor=4,
+                   method="bicubic")
+        return x.permute(0, 2, 3, 1).reshape(b, self.out_size * self.out_size, c)
+
+
+class BaseModelWithText(_ClipBase):
+    """``model/model.py:12-56``: CLIP towers, a ``norm_first`` fusion decoder of
+    the image tokens over the text (key-padding mask from ``attention_mask``),
+    bicubic ×4, and the per-pixel product with the 151 class prototypes.
+    Returns (feature_t (151, C), feature_v (B, P, C), feature_mm (B, 151, H, W)).
+
+    ``class_prototypes`` is a parameter: ``prototypes`` (151, C), the
+    reference's ``ade20k_prototypes.pt``, fills it; otherwise it comes from a
+    state dict or ``core/convert.seeded_init_``."""
+
+    def __init__(self, patch_size: int = 16, in_size: int = 224, out_size: int = 224,
+                 num_layers: int = 1, prototypes: Optional[np.ndarray] = None,
+                 vision_kwargs: Optional[Dict[str, Any]] = None,
+                 text_kwargs: Optional[Dict[str, Any]] = None, nhead: int = 8,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        device = _model_device(device)
+        super().__init__(patch_size, in_size, out_size, dtype, vision_kwargs, text_kwargs, device)
+        text_dim = self.text_encoder.hidden_size
+        vis_dim = self.vision_encoder.hidden_size
+        self.class_prototypes = _param(ADE20K_NUM_CLASSES, text_dim, device=device)
+        if prototypes is not None:
+            with torch.no_grad():
+                self.class_prototypes.copy_(torch.as_tensor(np.asarray(prototypes, np.float32)))
+        self.vision_decoder = DecoderBlock(vis_dim, nhead, num_layers, d_kv=text_dim,
+                                           norm_first=True, device=device)
+        self.pixel_patch = TextToPatch(text_dim, vis_dim, out=text_dim, device=device)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        mask = inputs.get("attention_mask")
+        enc_t, _ = self.text_encoder(inputs["input_ids"], mask)
+        enc_v = self.vision_encoder(inputs["pixel_values"])[0][:, 1:]  # CLS dropped
+        kpm = None if mask is None else mask != 1  # polarity flip (model.py:38)
+        dec_v = self._upsample4(self.vision_decoder(enc_v, enc_t, memory_key_padding_mask=kpm))
+        feature_t, feature_v = self.pixel_patch(dec_v, self.class_prototypes.to(dec_v.dtype))
+        mm = _promoted_matmul(feature_v, feature_t.T)  # (B, P, 151)
+        mm = mm.reshape(mm.shape[0], self.out_size, self.out_size, -1).permute(0, 3, 1, 2)
+        return feature_t, feature_v, mm
+
+
+class ContrastiveModel(_ClipBase):
+    """``model/model.py:59-103``: no fusion decoder; the bicubic ×4 image
+    tokens against the pooled text.  Returns (feature_t (K, E),
+    feature_v (B, P, E), logits (B, P, K))."""
+
+    def __init__(self, patch_size: int = 16, in_size: int = 224, out_size: int = 224,
+                 embed_dim: int = 512, vision_kwargs: Optional[Dict[str, Any]] = None,
+                 text_kwargs: Optional[Dict[str, Any]] = None,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        device = _model_device(device)
+        super().__init__(patch_size, in_size, out_size, dtype, vision_kwargs, text_kwargs, device)
+        self.pixel_patch = TextToPatch(self.text_encoder.hidden_size,
+                                       self.vision_encoder.hidden_size, out=embed_dim,
+                                       device=device)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        _, pooled_t = self.text_encoder(inputs["input_ids"], inputs.get("attention_mask"))
+        enc_v = self._upsample4(self.vision_encoder(inputs["pixel_values"])[0][:, 1:])
+        feature_t, feature_v = self.pixel_patch(enc_v, pooled_t)
+        return feature_t, feature_v, _promoted_matmul(feature_v, feature_t.T)
+
+
+class DenseClip(_ClipBase):
+    """``model/model.py:106-171``: CLS kept; a post-norm ``prompt_decoder`` of
+    the pooled text over the projected image tokens, then a ``norm_first``
+    ``vision_decoder`` of the image tokens over the prompted text.  Returns
+    (None, score_map (B, K, g, g), out (B, 1 + g², C))."""
+
+    def __init__(self, patch_size: int = 16, in_size: int = 224, out_size: int = 224,
+                 embed_dim: int = 512, decoder_layers: int = 8, nhead: int = 8,
+                 vision_kwargs: Optional[Dict[str, Any]] = None,
+                 text_kwargs: Optional[Dict[str, Any]] = None,
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        device = _model_device(device)
+        super().__init__(patch_size, in_size, out_size, dtype, vision_kwargs, text_kwargs, device)
+        vis_dim = self.vision_encoder.hidden_size
+        self.text_patch = TextToPatch(self.text_encoder.hidden_size, vis_dim, out=embed_dim,
+                                      device=device)
+        self.prompt_decoder = DecoderBlock(embed_dim, nhead, decoder_layers, device=device)
+        self.vision_decoder = DecoderBlock(vis_dim, nhead, decoder_layers, d_kv=embed_dim,
+                                           norm_first=True, device=device)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        b = inputs["pixel_values"].shape[0]
+        _, pooled_t = self.text_encoder(inputs["input_ids"], inputs.get("attention_mask"))
+        enc_v, _ = self.vision_encoder(inputs["pixel_values"])
+        feature_t, feature_v = self.text_patch(enc_v, pooled_t)
+        feature_t = feature_t[None].expand(b, *feature_t.shape)
+        v_context = self.prompt_decoder(feature_t, feature_v)
+        text_embeddings = feature_t + 1e-5 * v_context  # model.py:151
+        score_map = _score_map(feature_v[:, 1:], text_embeddings,
+                               self.in_size // self.patch_size)
+        return None, score_map, self.vision_decoder(enc_v, text_embeddings)
+
+
+# ---------------------------------------------------------------------------
+# v4: the FINAL family (model/final.py)
+# ---------------------------------------------------------------------------
 
 
 class _FinalBase(nn.Module):

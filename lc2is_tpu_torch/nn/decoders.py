@@ -1,6 +1,7 @@
-"""Pyramid decoder of the flagship, counterparts of ``lc2is_tpu/nn/decoders.py``:
-``CrossABlock`` (:193-223), ``_HierarchicalBase._top_down`` (:226-278) and
-``HierarchicalCrossA`` (:300-316).
+"""Decoders, counterparts of ``lc2is_tpu/nn/decoders.py``: the v1 fusion stack
+``DecoderBlock`` (:43-72) and ``TextToPatch`` (:405-417); the flagship's
+pyramid ``CrossABlock`` (:193-223), ``_HierarchicalBase._top_down``
+(:226-278) and ``HierarchicalCrossA`` (:300-316).
 
 Every ×2 upsample is ``ops/resize.resize_tokens`` (the ``upsample_tokens``
 kernel on CUDA).  The last block of each stream does not upsample: the
@@ -12,12 +13,12 @@ reassociation).  ``quant`` (int8 serving) reaches every SR decoder layer
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from lc2is_tpu_torch.nn.layers import Linear, SRTransformerDecoderLayer
+from lc2is_tpu_torch.nn.layers import Linear, SRTransformerDecoderLayer, TransformerDecoderLayer
 from lc2is_tpu_torch.ops.resize import resize_tokens
 
 
@@ -26,6 +27,38 @@ def _grid(p: int) -> int:
     if h * h != p:
         raise ValueError(f"{p} tokens do not form a square grid")
     return h
+
+
+class DecoderBlock(nn.Module):
+    """torch ``nn.TransformerDecoder`` over the reference's decoder layers, the
+    v1 fusion block (``model/decoder.py:15-21``); layers under ``layers.{i}``."""
+
+    def __init__(self, d_model: int, nhead: int, num_layers: int, d_kv: Optional[int] = None,
+                 norm_first: bool = False, device=None):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            TransformerDecoderLayer(d_model, nhead, d_kv=d_kv, norm_first=norm_first,
+                                    device=device)
+            for _ in range(num_layers))
+
+    def forward(self, tgt, memory, memory_key_padding_mask=None):
+        x = tgt
+        for layer in self.layers:
+            x = layer(x, memory, memory_key_padding_mask=memory_key_padding_mask)
+        return x
+
+
+class TextToPatch(nn.Module):
+    """``model/text_patch.py:4-18``: project the visual and textual features
+    into one ``out``-wide space; returns (t_feature, v_feature)."""
+
+    def __init__(self, text_dim: int, visual_dim: int, out: int = 512, device=None):
+        super().__init__()
+        self.textual = Linear(text_dim, out, device=device)
+        self.visual = Linear(visual_dim, out, device=device)
+
+    def forward(self, img, text):
+        return self.textual(text), self.visual(img)
 
 
 class CrossABlock(nn.Module):

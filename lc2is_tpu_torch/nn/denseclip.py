@@ -1,5 +1,5 @@
 """DenseCLIP-style prompt modules, counterparts of ``lc2is_tpu/nn/denseclip.py``
-(with ``Embedding`` and ``quick_gelu`` of ``lc2is_tpu/nn/clip.py``).
+(``Embedding`` and ``quick_gelu`` come from ``nn/clip.py``).
 
 - ``CLIPTextContextEncoder``: CLIP text transformer over the SOT token, the
   learned context embeddings and the tokenized class name; causal mask, EOT
@@ -17,21 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lc2is_tpu_torch.nn.clip import Embedding, quick_gelu
 from lc2is_tpu_torch.nn.layers import LayerNorm, Linear, MultiheadAttention, _param
 from lc2is_tpu_torch.ops.attention import merge_heads, scaled_dot_product_attention, split_heads
-
-
-def quick_gelu(x):
-    return x * torch.sigmoid(1.702 * x)
-
-
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings: int, features: int, device=None):
-        super().__init__()
-        self.weight = _param(num_embeddings, features, device=device)
-
-    def forward(self, ids):
-        return F.embedding(ids, self.weight)
 
 
 class ResidualAttentionBlock(nn.Module):

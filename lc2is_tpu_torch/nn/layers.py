@@ -6,11 +6,15 @@ is a name walk.  Parameters are stored in f32 and cast to the input's dtype
 at use, as the flax modules do (``w.astype(x.dtype)``).  Tokens are
 channels-last (B, P, C).
 
-The decoder layers run post-norm through the fused halves, as the JAX
-package does on the TPU (``layers.py:427-457``): each attention half is
-``ops/attention_block.fused_attn_block`` (K/V projected outside the kernel,
-``:437-455``) and the feed-forward half is ``ops/fused_mlp.fused_mlp``
-(``_ff_res_norm`` :269-301).  With ``quant=True`` (int8 serving,
+A post-norm decoder layer with no masks runs through the fused halves, as
+the JAX package does on the TPU (``layers.py:427-457``): each attention half
+is ``ops/attention_block.fused_attn_block`` (K/V projected outside the
+kernel, ``:437-455``).  ``norm_first`` or a key-padding mask takes the
+unfused ``MultiheadAttention`` halves (``:476-485``), whose core is
+``ops/attention.scaled_dot_product_attention`` (the flash kernel where its
+gate sends it).  Either way the feed-forward half is
+``ops/fused_mlp.fused_mlp`` (``_ff_res_norm`` :269-301, ``pre`` for
+``norm_first``).  With ``quant=True`` (int8 serving,
 ``layers.py:284-290,425-458``) both attention halves take the int8 q- and
 out-projections and the feed-forward half is ``ops/quant.fused_mlp_q``; the
 K and V projections stay float, outside the kernel.
@@ -85,6 +89,13 @@ class Conv2d(nn.Module):
         return s2d_matmul(x, self.weight, self.kernel_size) + self.bias.to(x.dtype)
 
 
+def _promoted_linear(x, w, b):
+    """``x @ w.T + b`` in the promoted type of x and w, as JAX computes an f32
+    key against weights rounded to a bf16 query's dtype (``layers.py:223-225``)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return F.linear(x.to(dt), w.to(dt), b.to(dt))
+
+
 class MultiheadAttention(nn.Module):
     """torch ``nn.MultiheadAttention`` (batch_first), ``layers.py:167-245``.
 
@@ -123,8 +134,8 @@ class MultiheadAttention(nn.Module):
     def forward(self, query, key, value, key_padding_mask=None, attn_mask=None):
         wq, wk, wv, bq, bk, bv = self.proj_weights(query.dtype)
         q = split_heads(F.linear(query, wq, bq), self.num_heads)
-        k = split_heads(F.linear(key, wk, bk), self.num_heads)
-        v = split_heads(F.linear(value, wv, bv), self.num_heads)
+        k = split_heads(_promoted_linear(key, wk, bk), self.num_heads)
+        v = split_heads(_promoted_linear(value, wv, bv), self.num_heads)
         out = scaled_dot_product_attention(q, k, v, key_padding_mask=key_padding_mask,
                                            attn_mask=attn_mask)
         return self.out_proj(merge_heads(out))
@@ -141,16 +152,19 @@ def _ff_res_norm(layer, x, norm: LayerNorm, *, pre: bool):
 
 
 class TransformerDecoderLayer(nn.Module):
-    """torch ``nn.TransformerDecoderLayer`` (batch_first, post-norm) with the
-    reference's asymmetric cross-attention (``d_kv`` sets kdim = vdim),
-    ``layers.py:376-487``, evaluated through the fused halves (serving: no
-    dropout); ``quant`` selects their int8 serving variants."""
+    """torch ``nn.TransformerDecoderLayer`` (batch_first) with the reference's
+    asymmetric cross-attention (``d_kv`` sets kdim = vdim), ``layers.py:376-487``,
+    serving only (no dropout).  Post-norm with no masks runs the fused halves;
+    ``norm_first`` or a key-padding mask the unfused ones.  ``quant`` selects
+    the int8 serving variants of the fused halves and of the FF kernel."""
 
     def __init__(self, d_model: int, nhead: int, d_kv: Optional[int] = None,
                  dim_feedforward: int = 2048, activation: str = "relu",
-                 layer_norm_eps: float = 1e-5, quant: bool = False, device=None):
+                 layer_norm_eps: float = 1e-5, norm_first: bool = False, quant: bool = False,
+                 device=None):
         super().__init__()
         self.nhead, self.activation, self.quant = nhead, activation, quant
+        self.norm_first = norm_first
         self.self_attn = MultiheadAttention(d_model, nhead, device=device)
         self.multihead_attn = MultiheadAttention(d_model, nhead, kdim=d_kv, vdim=d_kv,
                                                  device=device)
@@ -171,9 +185,24 @@ class TransformerDecoderLayer(nn.Module):
                      mha.out_proj.weight, mha.out_proj.bias, norm.weight, norm.bias, self.nhead,
                      eps=norm.eps)
 
-    def forward(self, tgt, memory):
-        x = self._attn_half(self.self_attn, self.norm1, tgt, self._sa_kv_source(tgt))
-        x = self._attn_half(self.multihead_attn, self.norm2, x, memory.to(x.dtype))
+    def _sa_block(self, x, key_padding_mask):
+        kv = self._sa_kv_source(x)
+        return self.self_attn(x, kv, kv, key_padding_mask=key_padding_mask)
+
+    def forward(self, tgt, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None):
+        if not self.norm_first and tgt_key_padding_mask is None and memory_key_padding_mask is None:
+            x = self._attn_half(self.self_attn, self.norm1, tgt, self._sa_kv_source(tgt))
+            x = self._attn_half(self.multihead_attn, self.norm2, x, memory.to(x.dtype))
+            return _ff_res_norm(self, x, self.norm3, pre=False)
+        kpm = memory_key_padding_mask
+        if self.norm_first:
+            # a bf16 x over f32 memory: the cross-attention half is f32 (JAX
+            # promotion), and so is x from there on
+            x = tgt + self._sa_block(self.norm1(tgt), tgt_key_padding_mask)
+            x = x + self.multihead_attn(self.norm2(x), memory, memory, key_padding_mask=kpm)
+            return _ff_res_norm(self, x, self.norm3, pre=True)
+        x = self.norm1(tgt + self._sa_block(tgt, tgt_key_padding_mask))
+        x = self.norm2(x + self.multihead_attn(x, memory, memory, key_padding_mask=kpm))
         return _ff_res_norm(self, x, self.norm3, pre=False)
 
 

@@ -1,9 +1,14 @@
 """Multi-head scaled-dot-product core with torch ``F.multi_head_attention_forward``
-semantics, as a plain einsum-softmax.
+semantics, as a plain einsum-softmax or the flash kernel.
 
-Counterpart of ``lc2is_tpu/ops/attention.py:29-86`` (``impl="xla"``).  The
-flash gate there (``:48-54``, Lq·Lk >= 2^20) is never reached by this slice:
-its largest plain attention is the ContextDecoder's 151 x 1024.
+Counterpart of ``lc2is_tpu/ops/attention.py:29-86``, with its dispatch
+(``:48-54``): a call with no dense ``attn_mask`` whose logits are big enough,
+Lq·Lk >= 2^20 (the CLIP ViT-B/16's 1025² at 512², the v1 decoders'
+self-attention), goes to ``ops/flash_attention``'s kernel on a CUDA tensor;
+every other call, and every call on the CPU (as the JAX package keeps its CPU
+backend on XLA), takes the einsum path.  The kernel takes one dtype, so a
+call whose q, k and v differ in dtype stays on the einsum path, which follows
+JAX's promotion.
 
 Masks: ``key_padding_mask`` is boolean (B, S) with True = IGNORE (torch
 polarity); ``attn_mask`` is additive float or boolean (True = masked).  A
@@ -17,6 +22,11 @@ from typing import Optional
 
 import torch
 
+from lc2is_tpu_torch.ops.dispatch import use_kernel
+from lc2is_tpu_torch.ops.flash_attention import flash_attention
+
+FLASH_MIN_LOGITS = 1 << 20  # the gate of lc2is_tpu/ops/attention.py:51
+
 
 def scaled_dot_product_attention(
     q: torch.Tensor,  # (B, H, Lq, Dh)
@@ -25,13 +35,18 @@ def scaled_dot_product_attention(
     key_padding_mask: Optional[torch.Tensor] = None,  # (B, Lk) True = ignore
     attn_mask: Optional[torch.Tensor] = None,  # (Lq, Lk) additive or bool
 ) -> torch.Tensor:
-    """Returns (B, H, Lq, Dh) in q's dtype; logits and softmax in f32.
+    """Returns (B, H, Lq, Dh); logits and softmax in f32.
 
-    JAX promotes a bf16 key/value against f32 queries (the ContextDecoder's
-    cross-attention: f32 text over the bf16 stage-3 memory); torch does not,
-    so k and v are cast here, explicitly: logits from f32 copies of q and k,
-    and v cast to q's dtype before the value product."""
-    dt = q.dtype
+    JAX promotes mixed dtypes where torch does not, so the einsum path casts
+    explicitly, at JAX's points: logits from f32 copies of q and k, the
+    probabilities rounded to q's dtype, and the value product and the result
+    in the promoted type of q and v.  That covers the ContextDecoder's f32
+    text over the bf16 stage-3 memory (an f32 result) and the v1 decoders'
+    bf16 queries over the f32 text (probabilities rounded to bf16, an f32
+    result)."""
+    if (attn_mask is None and use_kernel(q)
+            and q.shape[2] * k.shape[2] >= FLASH_MIN_LOGITS and q.dtype == k.dtype == v.dtype):
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_padding_mask)
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
     if attn_mask is not None:
         if attn_mask.dtype == torch.bool:
@@ -40,8 +55,9 @@ def scaled_dot_product_attention(
             logits = logits + attn_mask.float()
     if key_padding_mask is not None:
         logits = logits.masked_fill(key_padding_mask[:, None, None, :], float("-inf"))
-    probs = torch.softmax(logits, dim=-1).to(dt)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(dt))
+    out_dt = torch.promote_types(q.dtype, v.dtype)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype).to(out_dt)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.to(out_dt))
 
 
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

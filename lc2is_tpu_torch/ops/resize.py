@@ -1,10 +1,12 @@
-"""Torch-semantics bilinear resize as two matrix products, and the
-channels-last token-grid resize.
+"""Torch-semantics bilinear and bicubic resize as two matrix products, and
+the channels-last token-grid resize.
 
-Counterpart of the bilinear ``semantics="torch"`` path of
-``lc2is_tpu/ops/resize.py`` (``resize`` :225, ``resize_tokens`` :287):
-``F.interpolate(mode="bilinear", align_corners=False)`` without antialias,
-written as an [out, in] weight matrix per axis (rows then columns).  In bf16
+Counterpart of the ``semantics="torch"`` path of ``lc2is_tpu/ops/resize.py``
+(``_torch_resize_matrix`` :49-78, ``resize`` :225, ``resize_tokens`` :287):
+``F.interpolate(mode="bilinear" | "bicubic", align_corners=False)`` without
+antialias (bicubic: a = -0.75, clamped taps), written as an [out, in] weight
+matrix per axis (rows then columns).  Plain PyTorch: the JAX package computes
+it outside any Pallas kernel.  In bf16
 each pass accumulates in f32 and rounds to bf16, as ``resize.py:275-279``
 does; f32 runs in full f32.
 
@@ -25,26 +27,40 @@ import torch
 from lc2is_tpu_torch.ops.upsample import upsample_tokens
 
 
+def _cubic(x: np.ndarray) -> np.ndarray:
+    """torch's cubic convolution kernel (a = -0.75)."""
+    a = -0.75
+    ax = np.abs(x)
+    return np.where(ax <= 1.0, (a + 2.0) * ax ** 3 - (a + 3.0) * ax ** 2 + 1.0,
+                    np.where(ax < 2.0, a * ax ** 3 - 5.0 * a * ax ** 2 + 8.0 * a * ax - 4.0 * a,
+                             0.0))
+
+
 @functools.lru_cache(maxsize=64)
-def _bilinear_matrix(in_size: int, out_size: int, scale: Optional[float]) -> np.ndarray:
-    """[out, in] matrix of torch bilinear, half-pixel centres, clamped taps.
-    ``scale`` is in/out (1/scale_factor when a factor was given)."""
+def _resize_matrix(in_size: int, out_size: int, scale: Optional[float],
+                   method: str) -> np.ndarray:
+    """[out, in] matrix of torch bilinear or bicubic, half-pixel centres,
+    clamped taps.  ``scale`` is in/out (1/scale_factor when a factor was given)."""
     s = scale if scale is not None else in_size / out_size
     m = np.zeros((out_size, in_size), dtype=np.float64)
     src = (np.arange(out_size, dtype=np.float64) + 0.5) * s - 0.5
     i0 = np.floor(src).astype(np.int64)
     frac = src - i0
-    for tap, wt in ((i0, 1.0 - frac), (i0 + 1, frac)):
+    if method == "bilinear":
+        taps = ((i0, 1.0 - frac), (i0 + 1, frac))
+    else:
+        taps = tuple((i0 + t, _cubic(t - frac)) for t in range(-1, 3))
+    for tap, wt in taps:
         np.add.at(m, (np.arange(out_size), np.clip(tap, 0, in_size - 1)), wt)
     return m.astype(np.float32)
 
 
 def resize(x: torch.Tensor, size=None, scale_factor: Optional[float] = None,
            method: str = "bilinear") -> torch.Tensor:
-    """Resize the last two axes of ``x`` (torch bilinear semantics).
+    """Resize the last two axes of ``x`` (torch bilinear or bicubic semantics).
     Output size follows torch's ``floor(in * scale_factor)`` rule."""
-    if method != "bilinear":
-        raise ValueError(f"only bilinear is ported, got {method}")
+    if method not in ("bilinear", "bicubic"):
+        raise ValueError(f"only bilinear and bicubic are ported, got {method}")
     in_h, in_w = int(x.shape[-2]), int(x.shape[-1])
     if size is not None:
         out_h, out_w = (size, size) if isinstance(size, int) else map(int, size)
@@ -53,8 +69,8 @@ def resize(x: torch.Tensor, size=None, scale_factor: Optional[float] = None,
         out_h, out_w = int(math.floor(in_h * scale_factor)), int(math.floor(in_w * scale_factor))
         scale = 1.0 / scale_factor
     wdt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    wh = torch.from_numpy(_bilinear_matrix(in_h, out_h, scale)).to(x.device, wdt)
-    ww = torch.from_numpy(_bilinear_matrix(in_w, out_w, scale)).to(x.device, wdt)
+    wh = torch.from_numpy(_resize_matrix(in_h, out_h, scale, method)).to(x.device, wdt)
+    ww = torch.from_numpy(_resize_matrix(in_w, out_w, scale, method)).to(x.device, wdt)
     xc = x.to(wdt)
     y = torch.einsum("oh,...hw->...ow", wh, xc)  # bf16: f32 accumulate, bf16 out
     y = torch.einsum("pw,...ow->...op", ww, y)

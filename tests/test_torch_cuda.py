@@ -31,6 +31,7 @@ import torch
 from lc2is_tpu_torch.ops.attention_block import (fused_attn_block, fused_attn_block_bwd,
                                                  fused_attn_block_plain, fused_attn_block_q,
                                                  fused_attn_block_q_plain)
+from lc2is_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from lc2is_tpu_torch.ops.fused_ce import upsampled_cross_entropy, upsampled_cross_entropy_plain
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from lc2is_tpu_torch.ops.quant import fused_mlp_q, fused_mlp_q_plain
@@ -50,6 +51,16 @@ TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4), torch.bfloat16: dict(atol=5e-2
 INT8_REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
+# attention outputs are averages of v, far below 1 over many keys (about 0.05
+# over 1025 unit-normal keys), so TOL's bf16 atol would pass a kernel that
+# dropped a key tile: bf16 flash is held to a share of the largest output
+FLASH_BF16_REL = 2e-2
+
+
+def flash_tol(want):
+    if want.dtype == torch.float32:
+        return TOL[torch.float32]
+    return dict(atol=FLASH_BF16_REL * want.float().abs().max().item(), rtol=0)
 
 
 @pytest.fixture
@@ -575,3 +586,139 @@ def test_model_defaults_to_the_card(cuda):
 
     model = PromptAuxCrossA(class_names=("wall", "sky"), swin_cfg=SMALL_SWIN)
     assert {t.device.type for t in list(model.parameters()) + list(model.buffers())} == {"cuda"}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lq,lk,d,masked", [
+    (1, 1, 64, False), (63, 77, 96, True), (65, 129, 64, True), (1025, 1025, 64, False),
+    (1025, 1025, 96, True), (65, 1, 96, False), (1, 129, 96, True),
+])
+def test_flash_attention_kernel(cuda, dtype, lq, lk, d, masked):
+    """Ragged query and key tiles, both head widths, key-padding masks with a
+    fully-masked batch entry (NaN rows, lse −∞, in both versions); bf16
+    within FLASH_BF16_REL of the largest output."""
+    rs = np.random.RandomState(lq + lk + d)
+    q = _rand(rs, 3, 2, lq, d, dtype=dtype)
+    k, v = (_rand(rs, 3, 2, lk, d, dtype=dtype) for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.arange(lk)[None] >= rs.randint(1, lk + 1, size=3)[:, None])
+        mask[0] = True
+        mask = mask.to(cuda)
+    before = flash_attention.launches
+    got, lse = flash_attention(q, k, v, mask, with_stats=True)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want, lse_w = flash_attention_plain(q, k, v, mask, with_stats=True)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan) and torch.equal(torch.isneginf(lse),
+                                                               torch.isneginf(lse_w))
+    if masked:
+        assert nan[0].all() and not nan[1:].any()
+    torch.testing.assert_close(got[~nan].float(), want[~nan].float(), **flash_tol(want[~nan]))
+    fin = torch.isfinite(lse_w)
+    torch.testing.assert_close(lse[fin], lse_w[fin], **TOL[torch.float32])
+
+
+def test_flash_attention_raises(cuda):
+    """What the kernel does not take raises on the card, and so does a
+    gradient through it (its backward, TPU row 16, is not ported)."""
+    rs = np.random.RandomState(20)
+    q, k, v = (_rand(rs, 1, 2, 8, 80) for _ in range(3))
+    with pytest.raises(ValueError, match="D in"):
+        flash_attention(q, k, v)
+    q, k, v = (_rand(rs, 1, 8, 2, 64).transpose(1, 2) for _ in range(3))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, k, v)
+    q, k, v = (_rand(rs, 1, 2, 8, 64) for _ in range(3))
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v)
+    out = flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(RuntimeError, match="row 16"):
+        out.sum().backward()
+
+
+def test_attention_gate_on_card(cuda):
+    """ops/attention.py sends a call with Lq·Lk >= 2^20 and no dense mask to
+    the flash kernel on the card, and keeps a smaller one, a dense mask or
+    mixed dtypes on the einsum path; each result matches the plain flash
+    version (a zero dense mask is no mask)."""
+    from lc2is_tpu_torch.ops.attention import scaled_dot_product_attention as sdpa
+
+    rs = np.random.RandomState(23)
+    q, k, v = (_rand(rs, 1, 2, 1024, 96) for _ in range(3))
+    mask = torch.zeros(1, 1024, dtype=torch.bool, device=cuda)
+    mask[0, 900:] = True
+    for kw, launched in [(dict(key_padding_mask=mask), 1), (dict(), 1),
+                         (dict(attn_mask=torch.zeros(1024, 1024, device=cuda)), 0)]:
+        before = flash_attention.launches
+        got = sdpa(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + launched, kw.keys()
+        torch.testing.assert_close(got, flash_attention_plain(q, k, v, kw.get("key_padding_mask")),
+                                   **TOL[torch.float32])
+    before = flash_attention.launches
+    sdpa(q[:, :, :1000], k, v)  # 1000 x 1024 < 2^20
+    sdpa(q.bfloat16(), k, v)
+    assert flash_attention.launches == before
+
+
+def _small_v1(cls, cuda, **kw):
+    """A small v1 model at 512² (1025 ViT tokens of 2 heads x 64, so the
+    flash gate is crossed) on the CPU, seeded, and its twin on the card."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+
+    kw = dict(in_size=512, vision_kwargs=dict(hidden_size=128, num_layers=1, num_heads=2,
+                                              mlp_dim=256),
+              text_kwargs=dict(hidden_size=64, num_layers=1, num_heads=1, mlp_dim=128), **kw)
+    cpu = seeded_init_(cls(device="cpu", **kw), seed=21).eval()
+    gpu = cls(device=cuda, **kw).eval()
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    return cpu, gpu
+
+
+def _v1_text(n, device):
+    from lc2is_tpu_torch.ops.bpe import tokenize
+
+    ids = torch.from_numpy(tokenize([f"a photo of a {w}." for w in ("wall", "sky", "tree")][:n],
+                                    context_length=77))
+    return {"input_ids": ids.to(device), "attention_mask": (ids != 0).long().to(device)}
+
+
+def test_small_v1_models_on_card(cuda):
+    """A small BaseModelWithText and DenseClip at 512² on the card against
+    their plain runs on the CPU, f32, every output within 1e-3 of max |ref|;
+    the flash kernel launched once per ViT layer and per fusion-decoder
+    self-attention."""
+    from lc2is_tpu_torch.models.zoo import BaseModelWithText, DenseClip
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _rand(np.random.RandomState(22), 2, 3, 512, 512, device="cpu")
+    for cls, kw, n_text, n_flash in [
+            (BaseModelWithText, dict(out_size=128, nhead=2), 2, 2),
+            (DenseClip, dict(embed_dim=128, decoder_layers=2, nhead=2), 3, 3)]:
+        cpu, gpu = _small_v1(cls, cuda, **kw)
+        before = flash_attention.launches
+        with torch.no_grad():
+            want = cpu({"pixel_values": x, **_v1_text(n_text, "cpu")})
+            got = gpu({"pixel_values": x.to(cuda), **_v1_text(n_text, cuda)})
+            torch.cuda.synchronize()
+        assert flash_attention.launches == before + n_flash, cls.__name__
+        for g, w in zip(got, want):
+            if w is None:
+                assert g is None
+                continue
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-3 * w.abs().max().item())
+
+
+def test_v1_models_default_to_the_card(cuda):
+    from lc2is_tpu_torch.models.zoo import BaseModelWithText, ContrastiveModel, DenseClip
+
+    small = dict(in_size=32, vision_kwargs=dict(hidden_size=32, num_layers=1, num_heads=2,
+                                                mlp_dim=64),
+                 text_kwargs=dict(hidden_size=32, num_layers=1, num_heads=2, mlp_dim=64))
+    for cls in (BaseModelWithText, ContrastiveModel, DenseClip):
+        model = cls(**small)
+        assert {t.device.type for t in model.parameters()} == {"cuda"}, cls.__name__

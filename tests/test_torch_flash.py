@@ -1,0 +1,130 @@
+"""The port's flash attention (``ops/flash_attention.py``) against lc2is_tpu's
+Pallas kernel, run in interpret mode as ``tests/test_flash_attention.py``
+runs it (``_flash_forward(..., interpret=True)``, 64 x 64 blocks so that
+ragged lengths span several blocks), on the same numpy-seeded inputs.
+
+Stated tolerances: f32 rtol = atol = 2e-4 (both sum in f32, in other
+orders).  bf16 rtol = atol = 1e-2: the output is rounded to bf16 (2^-8
+relative), and the kernel rounds each block's p = exp(s − running max) to
+bf16 where the plain version rounds p relative to the row's final max, so a
+probability may differ by one bf16 step.  The LSE is f32 on both sides
+(2e-4).
+
+Fully-masked rows: the port gives NaN (lse −∞), as the JAX package's
+``_reference`` and torch do; the Pallas kernel gives the mean of v over the
+block-padded key length instead (its −1e30 bias), which a separate test pins
+so the difference stays recorded."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_port_util import TOL, close
+
+from lc2is_tpu.ops import flash_attention as jfa
+from lc2is_tpu_torch.ops import attention
+from lc2is_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+BF16_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def _qkv(seed, b, h, lq, lk, d):
+    rs = np.random.RandomState(seed)
+    return tuple(rs.randn(b, h, n, d).astype(np.float32) for n in (lq, lk, lk))
+
+
+def _mask(seed, b, lk, full_rows=()):
+    """Key-padding mask, True = ignore: a random kept prefix per batch entry
+    (at least one key), and every key of the entries in ``full_rows``."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(1, lk + 1, size=b)
+    m = np.arange(lk)[None] >= lens[:, None]
+    m[list(full_rows)] = True
+    return m
+
+
+def _pallas(q, k, v, mask, dtype, **kw):
+    """The Pallas forward in interpret mode, jitted once: (out, lse (B, H, Lq))."""
+    b, h, lq, _ = q.shape
+
+    def fn(q, k, v, m):
+        args = [a.astype(dtype) for a in (q, k, v)]
+        out, lse = jfa._flash_forward(*args, m, interpret=True, with_stats=True, **kw)
+        return out.astype(jnp.float32), lse[:, :lq, 0].reshape(b, h, lq)
+
+    jm = None if mask is None else jnp.asarray(mask)
+    return jax.jit(fn)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 96])
+@pytest.mark.parametrize("lq,lk,masked", [(130, 77, False), (130, 77, True), (200, 300, False),
+                                          (200, 300, True)])
+def test_plain_matches_pallas(dtype, d, lq, lk, masked):
+    q, k, v = _qkv(lq + lk + d, 2, 2, lq, lk, d)
+    mask = _mask(lk, 2, lk) if masked else None
+    want, want_lse = _pallas(q, k, v, mask, getattr(jnp, dtype), block_q=64, block_k=64)
+    tdt = getattr(torch, dtype)
+    got, lse = flash_attention(*(torch.from_numpy(a).to(tdt) for a in (q, k, v)),
+                               None if mask is None else torch.from_numpy(mask),
+                               with_stats=True)
+    assert got.dtype == tdt and lse.dtype == torch.float32 and tuple(lse.shape) == (2, 2, lq)
+    assert torch.isfinite(got).all()
+    close(got, want, **(TOL if dtype == "float32" else BF16_TOL))
+    close(lse, want_lse)
+
+
+def test_fully_masked_rows_give_nan():
+    """Batch entry 1 has every key masked: NaN output and lse −∞ there, as
+    the JAX package's ``_reference`` (:303) gives; the other entry agrees."""
+    q, k, v = _qkv(7, 2, 3, 40, 90, 64)
+    mask = _mask(8, 2, 90, full_rows=(1,))
+    got, lse = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask),
+                               with_stats=True)
+    want = jax.jit(jfa._reference)(*(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask))
+    assert torch.isnan(got[1]).all() and np.isnan(np.asarray(want[1])).all()
+    assert torch.isneginf(lse[1]).all() and torch.isfinite(lse[0]).all()
+    close(got[0], want[0])
+
+
+def test_pallas_fully_masked_row_is_the_mean_of_v():
+    """What the Pallas kernel returns on a fully-masked row (the port returns
+    NaN there): with every key biased by −1e30, every logit rounds to −1e30
+    in f32 and every p = 1, so the row is Σv over the block-padded key
+    length (the padding rows are 0) divided by that length, 256 for 200 keys
+    at the default blocks."""
+    q, k, v = _qkv(9, 1, 1, 4, 200, 64)
+    mask = np.ones((1, 200), bool)
+    out = jax.jit(lambda *a: jfa._flash_forward(*a, interpret=True))(
+        *(jnp.asarray(a) for a in (q, k, v)), jnp.asarray(mask))
+    want = np.broadcast_to(v[0, 0].sum(0) / 256.0, (4, 64))
+    np.testing.assert_allclose(np.asarray(out)[0, 0], want, rtol=1e-5, atol=1e-6)
+    ported = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask))
+    assert torch.isnan(ported).all()
+
+
+def test_plain_gradients_match_softmax_attention():
+    """On the CPU autograd runs through the plain version: its gradients are
+    those of softmax(q·kᵀ/√D + mask)·v."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(11, 2, 2, 9, 13, 64))
+    mask = torch.from_numpy(_mask(12, 2, 13))
+    g = torch.from_numpy(np.random.RandomState(13).randn(2, 2, 9, 64).astype(np.float32))
+    got = torch.autograd.grad(flash_attention(q, k, v, mask), (q, k, v), g)
+    s = (q @ k.transpose(-1, -2) / 8.0).masked_fill(mask[:, None, None], -math.inf)
+    want = torch.autograd.grad(torch.softmax(s, -1) @ v, (q, k, v), g)
+    for a, b in zip(got, want):
+        close(a, b.detach().numpy())
+
+
+def test_gate_keeps_the_cpu_on_the_einsum_path():
+    """ops/attention.py sends nothing to the kernel on the CPU, even above the
+    2^20-logit gate, and its result there equals the plain flash version."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(14, 1, 2, 1024, 1024, 64))
+    before = flash_attention.launches
+    got = attention.scaled_dot_product_attention(q, k, v)
+    assert flash_attention.launches == before
+    assert q.shape[2] * k.shape[2] >= attention.FLASH_MIN_LOGITS
+    close(got, flash_attention_plain(q, k, v).numpy())

@@ -19,6 +19,8 @@ mods = [m.name for m in pkgutil.walk_packages(lc2is_tpu_torch.__path__, "lc2is_t
 for name in mods:
     importlib.import_module(name)
 assert len(mods) >= 17, mods
+new = {"lc2is_tpu_torch.nn.clip", "lc2is_tpu_torch.ops.flash_attention"}  # the v1 slice
+assert new <= set(mods), sorted(new - set(mods))
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "lc2is_tpu")
 assert not ref, ref  # nothing of the JAX package either
