@@ -21,21 +21,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    controls that must fail the same gate (the kernel over all keys but the
    last 64-key tile; the key-padding case run without its mask) and a case
    of fully-masked batch entries whose NaN rows must match the plain
-   version's exactly; the v1 shapes of
+   version's exactly; flash at head widths 16, 40, 48 and 128; the v1 shapes of
    fused_mlp and fused_attn_block (timed, not summed into the flagship
    forward);
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
    against the stated bound, and the kernel's time beside the plain
-   backward's (CUDA events, median of 5 after warm-up);
+   backward's (CUDA events, median of 5 after warm-up); the flash backward
+   (dq and dk/dv kernels) against flash_attention_backward_plain at the v1
+   training shapes (ViT-B/16 (16, 12, 1025, 64), decoder (16, 8, 1024, 96)),
+   masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
+   that must fail (the kernel over all keys but the last 64; the masked case
+   run unmasked) and SDPA's backward timed beside it;
+3r. the least time and one-call time of the one TPU kernel not yet ported
+   (window attention, row 8);
 4. slice: PromptAuxCrossA at full width (swin-small, decoder 512, 12-layer
    text tower, 151 classes), weights from a numpy seed, embed_text once:
    (a) f32, batch 1: the card's score maps against the same model's plain run
        on the CPU;
    (b) bf16, batch 16: a few batches answered, shape and finiteness checked,
        held against the f32 output on the card, forward time and img/s; the
-       kernels' launch counts over one forward are asserted.
+       kernels' launch counts over one forward are asserted (stage 4 of the
+       swin runs on no path: no model reads it).
 4m. the served head (predict_masks=True, as bench.py serves it): (a) f32
    batch 1, the card's masks against the CPU plain masks of 4a's decoder
    output (agreement and near-ties only); (b) bf16 batch 16: a few batches
@@ -69,10 +77,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    (b) ContrastiveModel and DenseClip: the same f32 batch-1 check (logits;
        score_map and out) over the 151 class prompts, launch counts, bf16
        batch 16 timed.
-8. a JSON line of the kernels (launches over one run of the path that uses
-   each: the served-mask forward, the int8 forward, the training step or
-   the v1 BaseModelWithText forward), the nvidia-smi line, and as the last
-   line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+8. v1 training (engine.train_step on BaseModelWithText: plain CE of
+   feature_mm on 128² labels, AdamW lr 1e-5, nothing frozen):
+   (a) f32, batch 1, 512²: the card's step against the same step on the CPU
+       (the loss, every gradient, the parameters after AdamW);
+   (b) bf16, batch 16, dropout 0: two warm-up steps, the launch counts of
+       one step asserted (flash forward and backward 13 each, fused_mlp 1),
+       six timed steps (step ms, img/s), a torch.profiler table of one more;
+   (c) bf16, dropout 0.1 from a seeded generator: the self-attention on the
+       einsum path (flash 12 and 12), finite losses, the same seed repeating
+       the loss bit for bit.
+9. a JSON line of the kernels (launches over one run of the path that uses
+   each: the served-mask forward, the int8 forward, the training step, the
+   v1 BaseModelWithText forward or its training step), the nvidia-smi line,
+   and as the last line
+   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Phase 6b ends with a torch.profiler trace of one more bf16 step (device time
 by kernel, idle share).  With no CUDA device, or outside a checkout of the
@@ -108,17 +127,19 @@ SLICE_F32_ARGMAX_AGREE = 0.99
 # the bf16 slice against the f32 slice on the card (cosine scores)
 SLICE_BF16_MAX_ABS = 0.1
 SLICE_BF16_MEAN_ABS = 1e-2
-# per-forward launches of each kernel (swin-small: 2+2+18+2 blocks; 6 decoder layers)
-EXPECTED_LAUNCHES = {"swin_window_block": 24, "fused_mlp": 30, "fused_attn_block": 12,
+# per-forward launches of each kernel (swin-small: 2+2+18 blocks run; the 2
+# of stage 4 do not, since every model reads hidden_states[:4], as XLA drops
+# them; 6 decoder layers)
+EXPECTED_LAUNCHES = {"swin_window_block": 22, "fused_mlp": 28, "fused_attn_block": 12,
                      "upsample_tokens": 6}
 # the served head: one fused score + upsample + argmax kernel a forward
 EXPECTED_MASK_LAUNCHES = dict(EXPECTED_LAUNCHES, score_upsample_argmax=1)
 # the bf16 int8 row: stages 1-3 keep the float attention half (the JAX
-# package's canvas kernel has no int8 branch, nn/swin.py), stage 4's two
-# blocks take the int8 window block; every MLP and decoder attention is int8
-EXPECTED_INT8_LAUNCHES = {"swin_window_block": 22, "swin_window_block_q": 2, "fused_mlp_q": 30,
-                          "fused_attn_block_q": 12, "upsample_tokens": 6,
-                          "score_upsample_argmax": 1}
+# package's canvas kernel has no int8 branch, nn/swin.py); stage 4, whose two
+# blocks would take the int8 window block, does not run; every MLP and
+# decoder attention is int8
+EXPECTED_INT8_LAUNCHES = {"swin_window_block": 22, "fused_mlp_q": 28, "fused_attn_block_q": 12,
+                          "upsample_tokens": 6, "score_upsample_argmax": 1}
 # masks: a pixel may differ from the plain version only where the plain
 # version's two best blended scores lie within the near-tie bound of each
 # other, and at most MASK_DIFFER_SHARE of the pixels may differ.  f32: the two
@@ -174,9 +195,8 @@ GRAD_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-3
 STEP_PARAM_ATOL = 1e-2 * TRAIN_LR + 1e-7
-# per-step launches of the training step: the forward's, the backwards
-# (stage 4's two blocks are dead code: the model reads hidden_states[:4], so
-# autograd runs 22 swin backwards), one fused CE kernel per loss
+# per-step launches of the training step: the forward's, the backwards (22
+# swin blocks run, so 22 swin backwards), one fused CE kernel per loss
 EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES, swin_window_block_bwd=22,
                                fused_attn_block_bwd=12, upsample_tokens_adjoint=6,
                                upsampled_cross_entropy=2)
@@ -188,6 +208,13 @@ EXPECTED_V1_LAUNCHES = {"BaseModelWithText": {"flash_attention": 13, "fused_mlp"
                         "ContrastiveModel": {"flash_attention": 12},
                         "DenseClip": {"flash_attention": 20, "fused_attn_block": 16,
                                       "fused_mlp": 16}}
+# per-step launches of the v1 BaseModelWithText training step (phase 8b): the
+# ViT's 12 layers and the decoder's self-attention, forward and backward, and
+# the decoder's feed-forward.  At dropout 0.1 (8c) the self-attention takes
+# the einsum path (JAX's gate) and the feed-forward the unfused modules.
+EXPECTED_V1_TRAIN_LAUNCHES = {"flash_attention": 13, "flash_attention_bwd": 13, "fused_mlp": 1}
+EXPECTED_V1_DROPOUT_LAUNCHES = {"flash_attention": 12, "flash_attention_bwd": 12}
+V1_DROPOUT = 0.1
 # f32 batch 1, card vs the CPU plain run: |Δ| <= V1_F32_MAX_REL · max |ref| on
 # every output; the argmax over the classes agrees on >= V1_F32_ARGMAX_AGREE
 # of the pixels, each differing pixel a near-tie (top-2 gap <= V1_NEAR_TIE_REL
@@ -233,6 +260,9 @@ SOURCES = {
                             ":468-476)"),
     "flash_attention": ("lc2is_tpu_torch/csrc/flash_attention.cu",
                         "lc2is_tpu/ops/flash_attention.py:42"),
+    "flash_attention_bwd": ("lc2is_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "lc2is_tpu/ops/flash_attention.py:163; "
+                            "lc2is_tpu/ops/flash_attention.py:194"),
 }
 BACKWARD_KERNELS = ("swin_window_block_bwd", "fused_attn_block_bwd", "upsample_tokens_adjoint",
                     "upsampled_cross_entropy")
@@ -381,10 +411,12 @@ def kernel_cases(rs, dt):
     def vec(n, offset=0.0):
         return rand(rs, n, scale=0.1, offset=offset)
 
-    # swin stages: (grid, C, heads, blocks per shift); the int8 row takes the
-    # int8 window block at stage 4 (and, in f32, at stage 1: nn/swin.py's gate)
+    # swin stages: (grid, C, heads, blocks per shift); stage 4 runs on no
+    # path (no model reads it): its kernels are checked and timed, not summed,
+    # and the int8 window block, which the int8 row took there (and, in f32,
+    # takes at stage 1: nn/swin.py's gate), is reported as one call a shift
     for s, (grid, c, heads, n) in enumerate([(g, 96, 3, 1), (g // 2, 192, 6, 1),
-                                             (g // 4, 384, 12, 9), (g // 8, 768, 24, 1)]):
+                                             (g // 4, 384, 12, 9), (g // 8, 768, 24, None)]):
         x = rand(rs, b, grid, grid, c, dtype=dt)
         args = (x, vec(c, 1.0), vec(c), w(3 * c, c), vec(3 * c), w(c, c), vec(c),
                 rand(rs, heads, 49, 49, scale=0.1))
@@ -395,7 +427,7 @@ def kernel_cases(rs, dt):
                  lambda a=args, h=heads, sh_=shift: swin_window_block_plain(*a, h, 7, sh_),
                  swin_work(b, grid, grid, c, heads, dt))
             if s == 3 or (s == 0 and dt == torch.float32):
-                case("swin_window_block_q", lab, n if s == 3 else 0,
+                case("swin_window_block_q", lab, 0,
                      lambda a=args, h=heads, sh_=shift: swin_window_block_q(*a, h, 7, sh_),
                      lambda a=args, h=heads, sh_=shift: swin_window_block_q_plain(*a, h, 7, sh_),
                      swin_work(b, grid, grid, c, heads, dt, quant=True), check="int8")
@@ -403,7 +435,8 @@ def kernel_cases(rs, dt):
         margs = (xt, vec(c, 1.0), vec(c), w(4 * c, c), vec(4 * c), w(c, 4 * c), vec(c))
         for name, kern, plain, q in [("fused_mlp", fused_mlp, fused_mlp_plain, False),
                                      ("fused_mlp_q", fused_mlp_q, fused_mlp_q_plain, True)]:
-            case(name, f"swin{s + 1} ({b * grid * grid},{c}) gelu pre", 2 * n,
+            case(name, f"swin{s + 1} ({b * grid * grid},{c}) gelu pre",
+                 None if n is None else 2 * n,
                  lambda a=margs, k=kern: k(*a, activation="gelu", ln_position="pre"),
                  lambda a=margs, p_=plain: p_(*a, activation="gelu", ln_position="pre"),
                  mlp_work(b * grid * grid, c, 4 * c, dt, q), check="int8" if q else "close")
@@ -467,6 +500,15 @@ def kernel_cases(rs, dt):
              library=lambda a=fqkv: F.scaled_dot_product_attention(*a),
              control=("the kernel over all keys but the last 64",
                       lambda a=short: flash_attention(*a)))
+    # other head widths (1 to 128; DP = D rounded up to 16, zero-filled
+    # columns): 16, 48, 128 and 40, which is no multiple of 16 (nhead 16 over
+    # the ViT-B width gives 48); checked and timed, not summed
+    for d in (16, 40, 48, 128):
+        fqkv = tuple(rand(rs, b, 8, 1024, d, dtype=dt) for _ in range(3))
+        case("flash_attention", f"D {d} ({b},8,1024,{d})", None,
+             lambda a=fqkv: flash_attention(*a), lambda a=fqkv: flash_attention_plain(*a),
+             flash_work(b, 8, 1024, 1024, d, dt), check="flash",
+             library=lambda a=fqkv: F.scaled_dot_product_attention(*a))
     # the v1 cross-attention shape (1024 queries over the 77 text tokens) with
     # the collator's mask: the gate keeps it on the einsum path, the kernel
     # must take it; run without its mask it must fail (the control)
@@ -619,10 +661,10 @@ def check_kernels(smi):
 
 
 def check_unported_rows(smi):
-    """Phase 3r: for the TPU kernels not yet ported (PERF.md §6 rows 8 and
-    16), the least time the card could take and the time of the one PyTorch
-    call that computes the same function, bf16, at the shapes their callers
-    would give them.  Timed for the table only; the port calls none of these."""
+    """Phase 3r: for the TPU kernel not yet ported (PERF.md §6 row 8), the
+    least time the card could take and the time of the one PyTorch call that
+    computes the same function, bf16, at the shapes its callers would give
+    it.  Timed for the table only; the port calls none of these."""
     import torch.nn.functional as F
 
     rs = np.random.RandomState(SEED + 5)
@@ -644,17 +686,6 @@ def check_unported_rows(smi):
         print(f"  row 8  window attention ({nw},{heads},49,{c // heads}) + mask: one-call "
               f"{ms:.3f} ms, bound {b_ms:.3f} ({by}) x{n}/fwd", flush=True)
     print(f"  row 8  per forward: one-call {total_ms:.3f} ms, bound {total_bound:.3f} ms")
-    # row 16: the flash backward of the CLIP ViT-B/16 at 512² (1025 tokens,
-    # 12 heads x 64), batch 16, one layer
-    q, k, v, g = (rand(rs, BATCH, 12, 1025, 64, dtype=bf) for _ in range(4))
-    ops = 4 * BATCH * 12 * 1025 * 1025 * 64
-    nbytes = 4 * BATCH * 1025 * 768 * 2
-    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg)
-    ms = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), g, retain_graph=True), reps=5)
-    b_ms, by = least_time(2 * nbytes, {"bf16": 5 * ops // 2})
-    print(f"  row 16 flash backward ({BATCH},12,1025,64): one-call {ms:.3f} ms, bound "
-          f"{b_ms:.3f} ({by}) per layer", flush=True)
 
 
 def backward_cases(rs, dt):
@@ -752,6 +783,120 @@ def backward_cases(rs, dt):
     return cases
 
 
+def flash_bwd_work(b, h, lq, lk, d, dt, kept=None):
+    """q, k, v, the output and its gradient in, dq, dk, dv out, the f32 lse
+    (and a mask row of bytes); five products over the kept keys (the
+    recomputed scores, dO·vᵀ, dv, dq, dk: 2 operations per multiply-add)."""
+    keys = b * lk if kept is None else kept
+    return (dt.itemsize * b * h * d * (4 * lq + 4 * lk) + 4 * b * h * lq
+            + (0 if kept is None else b * lk), {mm_type(dt): 10 * h * lq * d * keys})
+
+
+def flash_backward_cases(rs, dt):
+    """The flash backward rows of phase 3b, at the shapes of the v1 training
+    step (batch 16, 512²: the ViT-B/16's 12 layers and the fusion decoder's
+    self-attention) and beside them: (label, launches per phase-8b step, or
+    None for checked and timed but not summed, (q, k, v, g, key-padding mask),
+    control or None)."""
+    b = BATCH
+
+    def inputs(h, lq, lk, d, mask=None):
+        return tuple(rand(rs, b, h, n, d, dtype=dt) for n in (lq, lk, lk, lq)) + (mask,)
+
+    keep = torch.from_numpy(rs.randint(512, 1025, size=b)).cuda()
+    mask = torch.arange(1024, device="cuda")[None] >= keep[:, None]
+    return [("ViT-B/16 self (16,12,1025,64)", 12, inputs(12, 1025, 1025, 64), "short"),
+            ("v1 decoder self (16,8,1024,96)", 1, inputs(8, 1024, 1024, 96), None),
+            ("masked (16,8,1024,96), 512-1024 keys kept", None,
+             inputs(8, 1024, 1024, 96, mask), "unmasked"),
+            ("D 48 (16,16,1024,48)", None, inputs(16, 1024, 1024, 48), None),
+            ("ragged Lq 77 over Lk 1025 (16,12,77,64)", None, inputs(12, 77, 1025, 64), None)]
+
+
+def check_flash_backward(stats):
+    """Phase 3b, flash: flash_attention_bwd (the dq and the dk/dv kernels)
+    against flash_attention_backward_plain on the kernel forward's output and
+    lse, ‖Δ‖/‖ref‖ of each of dq, dk, dv within GRAD_BOUNDS; two controls must
+    fail the same gate: the kernel over all keys but the last 64 (its dk and
+    dv zero there), and the masked case run unmasked.  Times: CUDA events,
+    the kernel, the plain version and SDPA's backward (one call)."""
+    import torch.nn.functional as F
+
+    from lc2is_tpu_torch.ops.flash_attention import (flash_attention,
+                                                     flash_attention_backward_plain,
+                                                     flash_attention_bwd)
+
+    def rel_of(got, want):
+        return max(((a.float() - b_.float()).norm() / b_.float().norm().clamp_min(1e-30)).item()
+                   for a, b_ in zip(got, want))
+
+    for dt in (torch.bfloat16, torch.float32):
+        bound = GRAD_BOUNDS[dt]
+        print(f"\n[backward] flash, {dt}: bound ‖kernel - plain‖ / ‖plain‖ <= {bound} over "
+              f"dq, dk, dv", flush=True)
+        rs = np.random.RandomState(SEED + 4)
+        for label, count, (q, k, v, g, mask), control in flash_backward_cases(rs, dt):
+            with torch.no_grad():
+                out, lse = flash_attention(q, k, v, mask, with_stats=True)
+
+                def kern(q=q, k=k, v=v, g=g, mask=mask, out=out, lse=lse):
+                    return flash_attention_bwd(q, k, v, mask, out, lse, g)
+
+                def plain(q=q, k=k, v=v, g=g, mask=mask, out=out, lse=lse):
+                    return flash_attention_backward_plain(q, k, v, mask, out, lse, g)
+
+                got = kern()
+                torch.cuda.synchronize()
+                want = plain()
+                rel = rel_of(got, want)
+                mx = max((a.float() - b_.float()).abs().max().item() for a, b_ in zip(got, want))
+                ok = rel <= bound and all(bool(torch.isfinite(a).all()) for a in got)
+                if control == "short":
+                    what = "the kernel over all keys but the last 64"
+                    dq, dk, dv = flash_attention_bwd(q, k[:, :, :-64].contiguous(),
+                                                     v[:, :, :-64].contiguous(), None, out, lse,
+                                                     g)
+                    pad = torch.zeros_like(dk[:, :, :64])
+                    ctl = rel_of((dq, torch.cat([dk, pad], 2), torch.cat([dv, pad], 2)), want)
+                elif control == "unmasked":
+                    what = "the masked case run unmasked"
+                    ctl = rel_of(flash_attention_bwd(q, k, v, None, out, lse, g), want)
+                k_ms = time_ms(kern, reps=5, warmup=1)
+                p_ms = time_ms(plain, reps=5, warmup=1)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            o = F.scaled_dot_product_attention(
+                *leaves, attn_mask=None if mask is None else ~mask[:, None, None, :])
+            lib_ms = time_ms(lambda: torch.autograd.grad(o, leaves, g, retain_graph=True),
+                             reps=5, warmup=1)
+            b, h, lq, d = q.shape
+            kept = None if mask is None else int((~mask).sum())
+            b_ms, by = least_time(*flash_bwd_work(b, h, lq, k.shape[2], d, dt, kept))
+            per = "not summed" if count is None else f"x{count}/step"
+            print(f"  {'flash_attention_bwd':23s} {label:46s} max {mx:.3e} rel {rel:.3e} kernel "
+                  f"{k_ms:8.3f} ms plain {p_ms:8.3f} one-call {lib_ms:8.3f} bound {b_ms:7.3f} "
+                  f"({by}) {per} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"flash_attention_bwd {label} {dt}: backward kernels "
+                                     f"disagree with the plain backward (rel {rel:.3e})")
+            if control is not None:
+                print(f"    control, {what}: rel {ctl:.3e}: "
+                      f"{'passes' if ctl <= bound else 'fails, as it must'}", flush=True)
+                if ctl <= bound:
+                    raise AssertionError(f"flash_attention_bwd {label}: the gate passes its "
+                                         f"control, {what}")
+            st = stats.setdefault("flash_attention_bwd", dict(
+                max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, by={}))
+            st["max_abs_err"] = max(st["max_abs_err"], mx)
+            if dt == torch.bfloat16 and count is not None:  # per phase-8b step
+                st["ms"] += count * k_ms
+                st["plain_ms"] += count * p_ms
+                st["bound_ms"] += count * b_ms
+                st["library_ms"] += count * lib_ms
+                st["by"][by] = st["by"].get(by, 0.0) + count * b_ms
+            del got, want, out, lse, leaves, o
+        torch.cuda.empty_cache()
+
+
 def check_backward_kernels():
     """Phase 3b.  Returns per-kernel stats for the JSON line."""
     stats = {}
@@ -798,6 +943,7 @@ def check_backward_kernels():
                     st["library_ms"] = (st["library_ms"] or 0.0) + count * lib_ms
             del got, want, out_p, ka, pa
         torch.cuda.empty_cache()
+    check_flash_backward(stats)
     return stats
 
 
@@ -834,7 +980,7 @@ def build_models(state):
 def launch_counters():
     from lc2is_tpu_torch.ops.attention_block import (fused_attn_block, fused_attn_block_bwd,
                                                      fused_attn_block_q)
-    from lc2is_tpu_torch.ops.flash_attention import flash_attention
+    from lc2is_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
     from lc2is_tpu_torch.ops.fused_ce import upsampled_cross_entropy
     from lc2is_tpu_torch.ops.fused_mlp import fused_mlp
     from lc2is_tpu_torch.ops.quant import fused_mlp_q
@@ -848,7 +994,7 @@ def launch_counters():
                                     fused_attn_block_bwd, upsample_tokens_adjoint,
                                     upsampled_cross_entropy, score_upsample_argmax,
                                     upsample_argmax, fused_mlp_q, fused_attn_block_q,
-                                    swin_window_block_q, flash_attention)}
+                                    swin_window_block_q, flash_attention, flash_attention_bwd)}
 
 
 def serve_batches(model, batches, extra, counters, expected, label, smi):
@@ -1388,6 +1534,189 @@ def check_v1(smi):
     return results
 
 
+def v1_train_models(state, **kw):
+    """A BaseModelWithText at 512² (out 128²) from ``state`` and its AdamW
+    (lr 1e-5; nothing is frozen for this model)."""
+    from lc2is_tpu_torch.engine.optim import make_optimizer
+    from lc2is_tpu_torch.models.zoo import BaseModelWithText
+
+    m = BaseModelWithText(in_size=IMG, out_size=V1_OUT, **kw)
+    m.load_state_dict(state, strict=True)
+    return m, make_optimizer(m, lr=TRAIN_LR)
+
+
+def exact_zero_partner(name):
+    """For a parameter whose gradient is 0 in exact arithmetic (f32 noise on
+    both devices), the parameter whose gradient norm that noise is held to: a
+    key bias (softmax is invariant to the q·bk a row's logits share) against
+    its layer's query bias; the prototypes' projection bias (it adds
+    feature_v·b to every class's logit alike) against the visual one."""
+    if name.endswith("k_proj.bias"):
+        return name.replace("k_proj", "q_proj")
+    if name == "pixel_patch.textual.bias":
+        return "pixel_patch.visual.bias"
+    return None
+
+
+def check_v1_train_f32(state):
+    """Phase 8a: one f32 BaseModelWithText step at batch 1, 512², card vs
+    CPU: the loss, every gradient, the parameters after AdamW."""
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    cpu, opt_c = v1_train_models(state, device="cpu")
+    gpu, opt_g = v1_train_models(state)
+    x = rand(np.random.RandomState(SEED + 60), 1, 3, IMG, IMG, device="cpu")
+    y = seeded_labels(SEED + 61, 1, V1_OUT, V1_OUT, device="cpu")
+    t0 = time.time()
+    want = train_step(cpu, opt_c, {"pixel_values": x, **v1_text(1, "cpu")}, y)
+    cpu_s = time.time() - t0
+    got = train_step(gpu, opt_g, {"pixel_values": x.cuda(), **v1_text(1, "cuda")}, y.cuda())
+    torch.cuda.synchronize()
+    g_, w_ = got["train_loss"].item(), want["train_loss"].item()
+    print(f"\n[v1 train] (a) f32 b1 {IMG}² BaseModelWithText train_loss: card {g_:.6f} CPU "
+          f"{w_:.6f} (bound {STEP_LOSS_RTOL} relative)", flush=True)
+    if not (np.isfinite(g_) and abs(g_ - w_) <= STEP_LOSS_RTOL * abs(w_)):
+        raise AssertionError(f"v1 f32 step train_loss: card {g_} vs CPU {w_}")
+    cp, gp = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+    rels, worst_param, unread = {}, 0.0, []
+    for name, p in cp.items():
+        q = gp[name]
+        if p.grad is None or q.grad is None:
+            if (p.grad is None) != (q.grad is None):
+                raise AssertionError(f"{name}: gradient on one device only")
+            unread.append(name)
+            continue
+        partner = exact_zero_partner(name)
+        ref = cp[partner or name].grad
+        rels[name] = ((q.grad.cpu() - p.grad).norm() / ref.norm().clamp_min(1e-30)).item()
+        if partner:
+            continue
+        sure = p.grad.abs() >= torch.clamp(1e-3 * p.grad.abs().max(), min=1e-6)
+        d = (q.detach().cpu() - p.detach())[sure].abs()
+        worst_param = max(worst_param, d.max().item() if d.numel() else 0.0)
+    worst = max(rels, key=rels.get)
+    named = {n: f"{rels[n]:.3e}" for n in ("vision_encoder.encoder_layers.0.self_attn.q_proj."
+                                           "weight", "vision_encoder.encoder_layers.0.self_attn."
+                                           "k_proj.weight", "vision_encoder.encoder_layers.11."
+                                           "self_attn.v_proj.weight", "class_prototypes")}
+    print(f"[v1 train] (a) {len(rels)} gradients, card vs CPU: worst norm-relative "
+          f"{rels[worst]:.3e} ({worst}; bound {STEP_GRAD_REL}; the key biases and the "
+          f"prototypes' projection bias, 0 in exact arithmetic, against their partner's norm); "
+          f"{named}; no gradient on either device: {unread} (not read by the model); "
+          f"parameters after AdamW max |Δ| {worst_param:.3e} (bound {STEP_PARAM_ATOL:.1e}); "
+          f"CPU step {cpu_s:.1f} s", flush=True)
+    if rels[worst] > STEP_GRAD_REL or worst_param > STEP_PARAM_ATOL:
+        raise AssertionError("v1 f32 training step on the card disagrees with the CPU run")
+
+
+def v1_train_batch():
+    x = rand(np.random.RandomState(SEED + 62), BATCH, 3, IMG, IMG, dtype=torch.bfloat16)
+    y = seeded_labels(SEED + 63, BATCH, V1_OUT, V1_OUT)
+    return {"pixel_values": x, **v1_text(BATCH, "cuda")}, y
+
+
+def step_counts(counters, step):
+    """Run ``step`` with every launch counter at 0; (its output, the counts)."""
+    for f in counters.values():
+        f.launches = 0
+    out = step()
+    torch.cuda.synchronize()
+    return out, {name: f.launches for name, f in counters.items() if f.launches}
+
+
+def check_v1_train_bf16(smi, state):
+    """Phase 8b: the bf16 batch-16 BaseModelWithText step at dropout 0: two
+    warm-up steps, six timed, the launch counts of the first timed step, a
+    profile of one more.  Returns (the counts, median step ms)."""
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    model, opt = v1_train_models(state, dtype=torch.bfloat16)
+    inputs, y = v1_train_batch()
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    counters = launch_counters()
+    for _ in range(2):  # warm-up
+        train_step(model, opt, inputs, y)
+    torch.cuda.synchronize()
+    times, losses = [], []
+    for i in range(6):
+        t0 = time.perf_counter()
+        if i == 0:
+            out, counts = step_counts(counters, lambda: train_step(model, opt, inputs, y))
+        else:
+            out = train_step(model, opt, inputs, y)
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(out["train_loss"].item())
+    print(f"\n[v1 train] (b) bf16 b{BATCH} {IMG}², labels {V1_OUT}², dropout 0: losses per step "
+          f"{[round(v, 5) for v in losses]}")
+    print(f"[v1 train] (b) launches over one step: {counts} (expected "
+          f"{EXPECTED_V1_TRAIN_LAUNCHES})")
+    if counts != EXPECTED_V1_TRAIN_LAUNCHES:
+        raise AssertionError(f"v1 training launch counts {counts} != {EXPECTED_V1_TRAIN_LAUNCHES}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite v1 training loss")
+    stuck = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach(), start[n]) and not exact_zero_partner(n)
+             and p.grad is not None]
+    if stuck:
+        raise AssertionError(f"v1 parameters not updated after 8 steps: {stuck[:5]}")
+    ms = statistics.median(times)
+    print(f"[v1 train] (b) bf16 b{BATCH} {IMG}² step (host clock to synchronize): "
+          f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = {BATCH * 1e3 / ms:.2f} "
+          f"img/s on {smi}", flush=True)
+    profile_step(lambda: train_step(model, opt, inputs, y), f"one bf16 b{BATCH} v1 step")
+    return counts, ms
+
+
+def check_v1_train_dropout(state):
+    """Phase 8c: one bf16 step at dropout 0.1 from a seeded generator, three
+    times from the same weights: seeds s, s, s + 1.  The launch counts of the
+    first; finite losses; the same seed repeats the loss bit for bit, the
+    other seed does not."""
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    inputs, y = v1_train_batch()
+    counters = launch_counters()
+    runs = []
+    for seed in (SEED, SEED, SEED + 1):
+        model, opt = v1_train_models(state, dtype=torch.bfloat16, dropout=V1_DROPOUT)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        out, counts = step_counts(counters,
+                                  lambda: train_step(model, opt, inputs, y, generator=gen))
+        runs.append((out["train_loss"], counts,
+                     {n: p.detach().clone() for n, p in model.named_parameters()}))
+        del model, opt
+    (l0, counts, p0), (l1, _, p1), (l2, _, _) = runs
+    drift = max((p0[n].float() - p1[n].float()).abs().max().item() for n in p0)
+    same = "bit for bit" if torch.equal(l0, l1) else "DIFFERENT"
+    print(f"\n[v1 train] (c) bf16 b{BATCH} dropout {V1_DROPOUT}: launches over one step "
+          f"{counts} (expected {EXPECTED_V1_DROPOUT_LAUNCHES}); train_loss seed {SEED}: "
+          f"{l0.item():.6f} and again {l1.item():.6f} ({same}), seed {SEED + 1}: "
+          f"{l2.item():.6f}; largest parameter difference between the two seed-{SEED} steps "
+          f"{drift:.3e} (printed, not gated)", flush=True)
+    if counts != EXPECTED_V1_DROPOUT_LAUNCHES:
+        raise AssertionError(f"v1 dropout launch counts {counts} != "
+                             f"{EXPECTED_V1_DROPOUT_LAUNCHES}")
+    if not all(torch.isfinite(v) for v in (l0, l1, l2)):
+        raise AssertionError("non-finite v1 dropout loss")
+    if not torch.equal(l0, l1) or torch.equal(l0, l2):
+        raise AssertionError("v1 dropout step does not follow its generator seed")
+
+
+def check_v1_train(smi):
+    """Phase 8: v1 training.  Returns (launch counts of one 8b step, its ms)."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models.zoo import BaseModelWithText
+
+    state = seeded_init_(BaseModelWithText(in_size=IMG, out_size=V1_OUT, device="cpu"),
+                         SEED).state_dict()
+    check_v1_train_f32(state)
+    result = check_v1_train_bf16(smi, state)
+    torch.cuda.empty_cache()
+    check_v1_train_dropout(state)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1436,6 +1765,8 @@ def main() -> int:
     del state
     v1 = check_v1(smi)
     counts["flash_attention"] = v1["BaseModelWithText"][0]["flash_attention"]
+    v1_train_counts, v1_step_ms = check_v1_train(smi)
+    counts["flash_attention_bwd"] = v1_train_counts["flash_attention_bwd"]
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts.get(name, 0), max_abs_err=stats[name]["max_abs_err"],
@@ -1448,15 +1779,18 @@ def main() -> int:
           f"batch-{BATCH} {IMG}² served-mask forward (phase 4m) for the float forward kernels "
           f"and the head, the int8 forward (phase 5) for the *_q kernels, one bf16 "
           f"batch-{TRAIN_BATCH} training step (phase 6b) for the backwards and the fused CE, "
-          f"the bf16 batch-{BATCH} BaseModelWithText forward (phase 7) for flash_attention; "
+          f"the bf16 batch-{BATCH} BaseModelWithText forward (phase 7) for flash_attention, "
+          f"one bf16 batch-{BATCH} BaseModelWithText training step (phase 8b) for "
+          f"flash_attention_bwd; "
           f"upsample_argmax is on no path (the JAX package calls it from tests only). ms / "
           f"plain_ms / bound_ms / library_ms: bf16 at the main-path shapes, summed per forward "
           f"or per training step as the launches (upsample_argmax: one call at the served "
           f"shape); library_ms: one PyTorch call of the same function (F.interpolate and its "
-          f"backward, F.scaled_dot_product_attention), null where none exists; max_abs_err of "
+          f"backward, F.scaled_dot_product_attention and its backward), null where none "
+          f"exists; max_abs_err of "
           f"a mask kernel: the largest top-2 "
           f"score gap at a pixel where it differs from its plain version. Training step "
-          f"{step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
+          f"{step_ms:.2f} ms; v1 training step {v1_step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
           f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)

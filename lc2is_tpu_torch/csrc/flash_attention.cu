@@ -11,13 +11,18 @@
 // must never reach device memory and the products belong on the tensor cores.
 //
 // Design: the TPU's sequential KV grid axis becomes a loop inside the block.
-// One block owns one (b · h, 64-query tile); each of its 4 warps owns 16 of
+// One block owns one (b · h, 64-query tile), from a one-dimensional grid
+// (so B·H is not capped at gridDim.y's 65535); each of its 4 warps owns 16 of
 // the query rows, so the online softmax of a row never leaves its warp.  The
 // block streams 64-key tiles of k and v through shared memory; per tile a
 // warp computes its 16 x 64 scores, updates the running max m and sum l of
 // its rows, rescales its accumulator and adds P · V.  At the end it writes
 // o = acc · (1 / l) (a per-row reciprocal, as the TPU kernel does) and lse.
 // Ragged Lq and Lk are masked here: nothing is padded in device memory.
+// Head dims: any D from 1 to 128, instantiated per DP = D rounded up to a
+// multiple of 16; the loaders zero columns D .. DP - 1 (flash_common.cuh), so
+// q · k over DP columns is q · k over D, and only D output columns are
+// written.  D > 128 is refused (the wrapper raises).
 // - bf16: both products on the tensor cores through WMMA (16x16x16 bf16,
 //   f32 accumulators); the q fragments stay in registers, the scores pass
 //   through shared memory in f32, p is rounded to bf16 before P · V (as the
@@ -34,50 +39,19 @@
 #include <math.h>
 #include <mma.h>
 
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace lc2 {
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block: 4 warps x 16
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 128;
+using flash::align128;
+using flash::kept_keys;
+using flash::load_tile;
+constexpr int kBQ = flash::kRows;  // query rows per block: 4 warps x 16
+constexpr int kBK = flash::kRows;  // keys per tile
+constexpr int kThreads = flash::kThreads;
 
 using bf16 = __nv_bfloat16;
-
-constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-// Rows r0 .. r0 + 63 of a (n, D) matrix into shared memory at row stride LD,
-// zeros past row n; 16-byte loads (D · sizeof(T) is a multiple of 16).
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_tile(const T* __restrict__ src, int r0, int n,
-                                          T* __restrict__ dst) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int idx = threadIdx.x; idx < kBK * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow, c = (idx - r * kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < n) val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c));
-    if constexpr ((LD * sizeof(T)) % 16 == 0) {
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    } else {
-      const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) dst[r * LD + c + i] = e[i];
-    }
-  }
-}
-
-// Which of the lane's 8 keys k0 + lx + 8j of this tile count: inside Lk and
-// not masked (mask row: nonzero = ignore).
-__device__ __forceinline__ void kept_keys(const uint8_t* __restrict__ mrow, int k0, int lk,
-                                          int lx, bool (&keep)[8]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int key = k0 + lx + 8 * j;
-    keep[j] = key < lk && !(mrow != nullptr && mrow[key] != 0);
-  }
-}
 
 // One key tile's online-softmax update of a lane's 4 rows.  s holds the raw
 // q · k products of its keys lx + 8j; on return s holds p = exp(s · scale −
@@ -119,12 +93,12 @@ __device__ __forceinline__ void online_softmax(float (&s)[4][8], const bool (&ke
 // bf16: tensor cores (WMMA)
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DP>
 struct TcLayout {
-  static constexpr int kLdQ = D + 8;    // bf16 q / k / v rows (WMMA: multiple of 8)
+  static constexpr int kLdQ = DP + 8;   // bf16 q / k / v rows (WMMA: multiple of 8)
   static constexpr int kLdS = kBK + 4;  // f32 scores
   static constexpr int kLdP = kBK + 8;  // bf16 probabilities
-  static constexpr int kLdO = D + 4;    // f32 accumulator
+  static constexpr int kLdO = DP + 4;   // f32 accumulator
   static constexpr size_t kOffK = align128(sizeof(bf16) * kBQ * kLdQ);
   static constexpr size_t kOffV = kOffK + align128(sizeof(bf16) * kBK * kLdQ);
   static constexpr size_t kOffS = kOffV + align128(sizeof(bf16) * kBK * kLdQ);
@@ -133,14 +107,14 @@ struct TcLayout {
   static constexpr size_t kBytes = kOffO + sizeof(float) * kBQ * kLdO;
 };
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                 bf16* __restrict__ out, float* __restrict__ lse, int heads, int lq, int lk,
-                float scale) {
+                int d, float scale) {
   using namespace nvcuda;
-  using L = TcLayout<D>;
+  using L = TcLayout<DP>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);
   bf16* ks = reinterpret_cast<bf16*>(smem_raw + L::kOffK);
@@ -150,17 +124,18 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* pw = reinterpret_cast<bf16*>(smem_raw + L::kOffP) + warp * 16 * L::kLdP;
   float* ow = reinterpret_cast<float*>(smem_raw + L::kOffO) + warp * 16 * L::kLdO;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const bf16* kb = k + (size_t)bh * lk * D;
-  const bf16* vb = v + (size_t)bh * lk * D;
+  int bh, q0;
+  flash::block_tile((lq + kBQ - 1) / kBQ, bh, q0);
+  const bf16* kb = k + (size_t)bh * lk * d;
+  const bf16* vb = v + (size_t)bh * lk * d;
   const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
 
-  load_tile<bf16, D, L::kLdQ>(q + (size_t)bh * lq * D, q0, lq, qs);
+  load_tile<bf16, DP, L::kLdQ>(q + (size_t)bh * lq * d, q0, lq, d, qs);
   for (int idx = lane; idx < 16 * L::kLdO; idx += 32) ow[idx] = 0.0f;
   __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[DP / 16];
 #pragma unroll
-  for (int dk = 0; dk < D / 16; ++dk)
+  for (int dk = 0; dk < DP / 16; ++dk)
     wmma::load_matrix_sync(qa[dk], qs + warp * 16 * L::kLdQ + dk * 16, L::kLdQ);
 
   float m[4], l[4], alpha[4];
@@ -173,15 +148,15 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // every warp is done with the previous k / v tile
-    load_tile<bf16, D, L::kLdQ>(kb, k0, lk, ks);
-    load_tile<bf16, D, L::kLdQ>(vb, k0, lk, vs);
+    load_tile<bf16, DP, L::kLdQ>(kb, k0, lk, d, ks);
+    load_tile<bf16, DP, L::kLdQ>(vb, k0, lk, d, vs);
     __syncthreads();
 #pragma unroll
     for (int nt = 0; nt < kBK / 16; ++nt) {  // S = Q · Kᵀ: B[d][n] = K[n][d]
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> sa;
       wmma::fill_fragment(sa, 0.0f);
 #pragma unroll
-      for (int dk = 0; dk < D / 16; ++dk) {
+      for (int dk = 0; dk < DP / 16; ++dk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
         wmma::load_matrix_sync(kf, ks + nt * 16 * L::kLdQ + dk * 16, L::kLdQ);
         wmma::mma_sync(sa, qa[dk], kf, sa);
@@ -202,11 +177,11 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j)
         pw[(4 * ly + i) * L::kLdP + lx + 8 * j] = __float2bfloat16(s[i][j]);
-      for (int c = lx; c < D; c += 8) ow[(4 * ly + i) * L::kLdO + c] *= alpha[i];
+      for (int c = lx; c < DP; c += 8) ow[(4 * ly + i) * L::kLdO + c] *= alpha[i];
     }
     __syncwarp();
 #pragma unroll
-    for (int ct = 0; ct < D / 16; ++ct) {  // acc += P · V
+    for (int ct = 0; ct < DP / 16; ++ct) {  // acc += P · V
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> oa;
       wmma::load_matrix_sync(oa, ow + ct * 16, L::kLdO, wmma::mem_row_major);
 #pragma unroll
@@ -227,8 +202,8 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = q0 + warp * 16 + 4 * ly + i;
     if (row >= lq) continue;
     const float inv = 1.0f / l[i];  // l = 0 (no kept key): 0 · ∞ = NaN
-    bf16* orow = out + ((size_t)bh * lq + row) * D;
-    for (int c = lx; c < D; c += 8)
+    bf16* orow = out + ((size_t)bh * lq + row) * d;
+    for (int c = lx; c < d; c += 8)
       orow[c] = __float2bfloat16(ow[(4 * ly + i) * L::kLdO + c] * inv);
     if (lse != nullptr && lx == 0) lse[(size_t)bh * lq + row] = m[i] + logf(l[i]);
   }
@@ -238,10 +213,10 @@ flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // f32: CUDA cores
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int DP>
 struct FmaLayout {
-  static constexpr int kLdQ = D + 1;    // odd strides: a lane's rows fall in distinct banks
-  static constexpr int kLdV = D;
+  static constexpr int kLdQ = DP + 1;   // odd strides: a lane's rows fall in distinct banks
+  static constexpr int kLdV = DP;
   static constexpr int kLdP = kBK + 1;
   static constexpr size_t kOffK = align128(sizeof(float) * kBQ * kLdQ);
   static constexpr size_t kOffV = kOffK + align128(sizeof(float) * kBK * kLdQ);
@@ -249,14 +224,14 @@ struct FmaLayout {
   static constexpr size_t kBytes = kOffP + sizeof(float) * kBQ * kLdP;
 };
 
-template <int D>
+template <int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
                  float* __restrict__ out, float* __restrict__ lse, int heads, int lq, int lk,
-                 float scale) {
-  using L = FmaLayout<D>;
-  constexpr int NC = D / 8;  // accumulator columns a lane owns: lx + 8c
+                 int d, float scale) {
+  using L = FmaLayout<DP>;
+  constexpr int NC = DP / 8;  // accumulator columns a lane owns: lx + 8c
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* qs = reinterpret_cast<float*>(smem_raw);
   float* ks = reinterpret_cast<float*>(smem_raw + L::kOffK);
@@ -265,12 +240,13 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* pw = reinterpret_cast<float*>(smem_raw + L::kOffP) + warp * 16 * L::kLdP;
   const float* qw = qs + (warp * 16 + 4 * ly) * L::kLdQ;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const float* kb = k + (size_t)bh * lk * D;
-  const float* vb = v + (size_t)bh * lk * D;
+  int bh, q0;
+  flash::block_tile((lq + kBQ - 1) / kBQ, bh, q0);
+  const float* kb = k + (size_t)bh * lk * d;
+  const float* vb = v + (size_t)bh * lk * d;
   const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
 
-  load_tile<float, D, L::kLdQ>(q + (size_t)bh * lq * D, q0, lq, qs);
+  load_tile<float, DP, L::kLdQ>(q + (size_t)bh * lq * d, q0, lq, d, qs);
   float acc[4][NC], m[4], l[4], alpha[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -283,8 +259,8 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
     __syncthreads();  // q written / every warp done with the previous k / v tile
-    load_tile<float, D, L::kLdQ>(kb, k0, lk, ks);
-    load_tile<float, D, L::kLdV>(vb, k0, lk, vs);
+    load_tile<float, DP, L::kLdQ>(kb, k0, lk, d, ks);
+    load_tile<float, DP, L::kLdV>(vb, k0, lk, d, vs);
     __syncthreads();
     float s[4][8];
 #pragma unroll
@@ -292,12 +268,12 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int dd = 0; dd < DP; ++dd) {
       float qv[4], kv[8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qw[i * L::kLdQ + d];
+      for (int i = 0; i < 4; ++i) qv[i] = qw[i * L::kLdQ + dd];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = ks[(lx + 8 * j) * L::kLdQ + d];
+      for (int j = 0; j < 8; ++j) kv[j] = ks[(lx + 8 * j) * L::kLdQ + dd];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -334,9 +310,10 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + warp * 16 + 4 * ly + i;
     if (row >= lq) continue;
     const float inv = 1.0f / l[i];  // l = 0 (no kept key): 0 · ∞ = NaN
-    float* orow = out + ((size_t)bh * lq + row) * D;
+    float* orow = out + ((size_t)bh * lq + row) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[lx + 8 * c] = acc[i][c] * inv;
+    for (int c = 0; c < NC; ++c)
+      if (lx + 8 * c < d) orow[lx + 8 * c] = acc[i][c] * inv;
     if (lse != nullptr && lx == 0) lse[(size_t)bh * lq + row] = m[i] + logf(l[i]);
   }
 }
@@ -344,44 +321,45 @@ flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <typename T, typename K>
 cudaError_t launch_kernel(K kernel, size_t smem, const void* q, const void* k, const void* v,
                           const void* mask, void* out, void* lse, int bh, int heads, int lq,
-                          int lk, float scale, cudaStream_t stream) {
+                          int lk, int d, float scale, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((lq + kBQ - 1) / kBQ, bh);
+  const dim3 grid(((lq + kBQ - 1) / kBQ) * bh);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse), heads,
-      lq, lk, scale);
+      lq, lk, d, scale);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int DP>
 cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, const void* mask,
-                     void* out, void* lse, int bh, int heads, int lq, int lk, float scale,
+                     void* out, void* lse, int bh, int heads, int lq, int lk, int d, float scale,
                      cudaStream_t stream) {
   if (dtype == kBF16)
-    return launch_kernel<bf16>(flash_tc_kernel<D>, TcLayout<D>::kBytes, q, k, v, mask, out, lse,
-                               bh, heads, lq, lk, scale, stream);
+    return launch_kernel<bf16>(flash_tc_kernel<DP>, TcLayout<DP>::kBytes, q, k, v, mask, out,
+                               lse, bh, heads, lq, lk, d, scale, stream);
   if (dtype == kF32)
-    return launch_kernel<float>(flash_fma_kernel<D>, FmaLayout<D>::kBytes, q, k, v, mask, out,
-                                lse, bh, heads, lq, lk, scale, stream);
+    return launch_kernel<float>(flash_fma_kernel<DP>, FmaLayout<DP>::kBytes, q, k, v, mask, out,
+                                lse, bh, heads, lq, lk, d, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace lc2
 
-// q (bh, lq, D), k and v (bh, lk, D), out like q, all contiguous, one dtype,
-// 16-byte aligned; D in {64, 96}.  mask: null or (bh / heads, lk) bytes,
-// nonzero = ignore the key.  lse: null or (bh, lq) f32.  scale = 1 / √D.
+// q (bh, lq, d), k and v (bh, lk, d), out like q, all contiguous, one dtype,
+// 16-byte aligned; 1 <= d <= 128.  mask: null or (bh / heads, lk) bytes,
+// nonzero = ignore the key.  lse: null or (bh, lq) f32.  scale = 1 / √d.
 extern "C" int lc2_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                    const void* mask, void* out, void* lse, int bh, int heads,
                                    int lq, int lk, int d, float scale, void* stream) {
-  if (bh <= 0 || bh > 65535 || heads <= 0 || lq <= 0 || lk <= 0) return cudaErrorInvalidValue;
+  if (bh <= 0 || heads <= 0 || lq <= 0 || lk <= 0 || d <= 0 || d > lc2::flash::kMaxD ||
+      !lc2::flash::grid_fits(bh, lq))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return lc2::launch_d<64>(dtype, q, k, v, mask, out, lse, bh, heads, lq, lk, scale, s);
-  if (d == 96)
-    return lc2::launch_d<96>(dtype, q, k, v, mask, out, lse, bh, heads, lq, lk, scale, s);
-  return cudaErrorInvalidValue;
+  return lc2::flash::with_dp(d, [&](auto dp) {
+    return lc2::launch_d<decltype(dp)::value>(dtype, q, k, v, mask, out, lse, bh, heads, lq, lk,
+                                              d, scale, s);
+  });
 }

@@ -1,6 +1,6 @@
 """The flagship ``PromptAuxCrossA`` (serving and training forward) and the v1
-CLIP family (serving), counterparts of ``lc2is_tpu/models/zoo.py``
-(``_norm``/``_score_map``/``default_denseclip_cfg`` :49-76,
+CLIP family (serving; ``BaseModelWithText`` also trains), counterparts of
+``lc2is_tpu/models/zoo.py`` (``_norm``/``_score_map``/``default_denseclip_cfg`` :49-76,
 ``BaseModelWithText`` :84-143, ``ContrastiveModel`` :146-176, ``DenseClip``
 :179-214, ``PromptContextBase`` :311-349, ``_FinalBase`` :389-443,
 ``_PromptFinalBase`` :490-506, ``_AuxMixin`` :541-545, ``PromptAuxCrossA``
@@ -49,7 +49,11 @@ NCHW.  The CLIP ViT computes in ``dtype``, the text tower in f32, and mixed
 operands are promoted where JAX promotes them: under bf16 the first v1
 decoder layer's cross-attention projects the f32 text with bf16-rounded
 weights, so from there on the decoder, the bicubic ×4 and the scores are f32
-(``nn/layers.py``).  Serving only: the flash kernel's backward is not ported.
+(``nn/layers.py``).  ``BaseModelWithText`` trains (``engine/engine.py``): the
+flash kernels have their backward, and ``dropout`` (0 by default, as
+``zoo.py:90``) reaches its fusion decoder, its masks drawn from the generator
+given to ``forward``; no parameter of it is frozen (``FROZEN_PREFIXES`` has no
+``base_with_text`` entry, ``zoo.py:617-626``).
 """
 
 from __future__ import annotations
@@ -183,7 +187,8 @@ class BaseModelWithText(_ClipBase):
     state dict or ``core/convert.seeded_init_``."""
 
     def __init__(self, patch_size: int = 16, in_size: int = 224, out_size: int = 224,
-                 num_layers: int = 1, prototypes: Optional[np.ndarray] = None,
+                 dropout: float = 0.0, num_layers: int = 1,
+                 prototypes: Optional[np.ndarray] = None,
                  vision_kwargs: Optional[Dict[str, Any]] = None,
                  text_kwargs: Optional[Dict[str, Any]] = None, nhead: int = 8,
                  dtype: torch.dtype = torch.float32, device="cuda"):
@@ -196,15 +201,19 @@ class BaseModelWithText(_ClipBase):
             with torch.no_grad():
                 self.class_prototypes.copy_(torch.as_tensor(np.asarray(prototypes, np.float32)))
         self.vision_decoder = DecoderBlock(vis_dim, nhead, num_layers, d_kv=text_dim,
-                                           norm_first=True, device=device)
+                                           dropout=dropout, norm_first=True, device=device)
         self.pixel_patch = TextToPatch(text_dim, vis_dim, out=text_dim, device=device)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the fusion decoder's dropout masks in training
+        mode (needed only when ``dropout`` > 0)."""
         mask = inputs.get("attention_mask")
         enc_t, _ = self.text_encoder(inputs["input_ids"], mask)
         enc_v = self.vision_encoder(inputs["pixel_values"])[0][:, 1:]  # CLS dropped
         kpm = None if mask is None else mask != 1  # polarity flip (model.py:38)
-        dec_v = self._upsample4(self.vision_decoder(enc_v, enc_t, memory_key_padding_mask=kpm))
+        dec_v = self._upsample4(self.vision_decoder(enc_v, enc_t, memory_key_padding_mask=kpm,
+                                                    generator=generator))
         feature_t, feature_v = self.pixel_patch(dec_v, self.class_prototypes.to(dec_v.dtype))
         mm = _promoted_matmul(feature_v, feature_t.T)  # (B, P, 151)
         mm = mm.reshape(mm.shape[0], self.out_size, self.out_size, -1).permute(0, 3, 1, 2)
@@ -249,17 +258,21 @@ class DenseClip(_ClipBase):
         vis_dim = self.vision_encoder.hidden_size
         self.text_patch = TextToPatch(self.text_encoder.hidden_size, vis_dim, out=embed_dim,
                                       device=device)
-        self.prompt_decoder = DecoderBlock(embed_dim, nhead, decoder_layers, device=device)
+        self.prompt_decoder = DecoderBlock(embed_dim, nhead, decoder_layers, dropout=0.1,
+                                           device=device)
         self.vision_decoder = DecoderBlock(vis_dim, nhead, decoder_layers, d_kv=embed_dim,
                                            norm_first=True, device=device)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the prompt decoder's dropout masks (0.1, as
+        ``zoo.py:197-198``) in training mode."""
         b = inputs["pixel_values"].shape[0]
         _, pooled_t = self.text_encoder(inputs["input_ids"], inputs.get("attention_mask"))
         enc_v, _ = self.vision_encoder(inputs["pixel_values"])
         feature_t, feature_v = self.text_patch(enc_v, pooled_t)
         feature_t = feature_t[None].expand(b, *feature_t.shape)
-        v_context = self.prompt_decoder(feature_t, feature_v)
+        v_context = self.prompt_decoder(feature_t, feature_v, generator=generator)
         text_embeddings = feature_t + 1e-5 * v_context  # model.py:151
         score_map = _score_map(feature_v[:, 1:], text_embeddings,
                                self.in_size // self.patch_size)
@@ -344,7 +357,7 @@ class PromptAuxCrossA(_PromptFinalBase, _AuxMixin):
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """``generator`` draws the swin drop-path masks in training mode."""
         self._check_serving()
-        v = self.vision_encoder(inputs["pixel_values"], generator)[:4]
+        v = self.vision_encoder(inputs["pixel_values"], generator, num_hidden=4)
         t = self.prompt(v[2], text_static=inputs.get("text_static")).to(v[-1].dtype)
         low = self._aux_map(v[2], t)
         x = self.vision_decoder(v, t)

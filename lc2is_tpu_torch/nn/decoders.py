@@ -34,17 +34,20 @@ class DecoderBlock(nn.Module):
     v1 fusion block (``model/decoder.py:15-21``); layers under ``layers.{i}``."""
 
     def __init__(self, d_model: int, nhead: int, num_layers: int, d_kv: Optional[int] = None,
-                 norm_first: bool = False, device=None):
+                 dropout: float = 0.0, norm_first: bool = False, device=None):
         super().__init__()
         self.layers = nn.ModuleList(
-            TransformerDecoderLayer(d_model, nhead, d_kv=d_kv, norm_first=norm_first,
-                                    device=device)
+            TransformerDecoderLayer(d_model, nhead, d_kv=d_kv, dropout=dropout,
+                                    norm_first=norm_first, device=device)
             for _ in range(num_layers))
 
-    def forward(self, tgt, memory, memory_key_padding_mask=None):
+    def forward(self, tgt, memory, memory_key_padding_mask=None,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks in training mode."""
         x = tgt
         for layer in self.layers:
-            x = layer(x, memory, memory_key_padding_mask=memory_key_padding_mask)
+            x = layer(x, memory, memory_key_padding_mask=memory_key_padding_mask,
+                      generator=generator)
         return x
 
 

@@ -14,7 +14,13 @@ unfused ``MultiheadAttention`` halves (``:476-485``), whose core is
 ``ops/attention.scaled_dot_product_attention`` (the flash kernel where its
 gate sends it).  Either way the feed-forward half is
 ``ops/fused_mlp.fused_mlp`` (``_ff_res_norm`` :269-301, ``pre`` for
-``norm_first``).  With ``quant=True`` (int8 serving,
+``norm_first``).  Dropout (training): ``dropout``, ``dropout1-3`` and
+``dropout_ff`` sit where the JAX layer puts them (``:376-487``), and the MHA
+drops its attention probabilities (``:232-242``), every mask drawn from the
+``torch.Generator`` passed to ``forward``.  The fused halves keep JAX's gate:
+only out of training or at dropout 0 (``:471-472``, ``_ff_res_norm``
+:276); a layer in training with dropout above 0 takes the unfused halves
+and the plain feed-forward.  With ``quant=True`` (int8 serving,
 ``layers.py:284-290,425-458``) both attention halves take the int8 q- and
 out-projections and the feed-forward half is ``ops/quant.fused_mlp_q``; the
 K and V projections stay float, outside the kernel.
@@ -28,7 +34,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lc2is_tpu_torch.ops.attention import merge_heads, scaled_dot_product_attention, split_heads
+from lc2is_tpu_torch.ops.attention import (dropout, merge_heads, scaled_dot_product_attention,
+                                           split_heads)
 from lc2is_tpu_torch.ops.attention_block import fused_attn_block, fused_attn_block_q
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp
 from lc2is_tpu_torch.ops.quant import fused_mlp_q
@@ -38,6 +45,18 @@ def _param(*shape, device=None) -> nn.Parameter:
     """Uninitialised f32 parameter: weights come from ``core/convert.py``
     (a JAX params tree, or values drawn from a numpy seed)."""
     return nn.Parameter(torch.empty(*shape, device=device))
+
+
+class Dropout(nn.Module):
+    """``layers.py:156-164``: inverted dropout in training mode, its mask from
+    the generator given to ``forward``; the identity in eval mode or at 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return dropout(x, self.rate, generator) if self.training else x
 
 
 class Linear(nn.Module):
@@ -104,8 +123,9 @@ class MultiheadAttention(nn.Module):
     ``v_proj_weight`` (E, vdim)."""
 
     def __init__(self, embed_dim: int, num_heads: int, kdim: Optional[int] = None,
-                 vdim: Optional[int] = None, device=None):
+                 vdim: Optional[int] = None, dropout: float = 0.0, device=None):
         super().__init__()
+        self.dropout = dropout
         e = embed_dim
         kdim = e if kdim is None else kdim
         vdim = e if vdim is None else vdim
@@ -131,20 +151,32 @@ class MultiheadAttention(nn.Module):
         bq, bk, bv = self.in_proj_bias.to(dt).split(e)
         return wq, wk, wv, bq, bk, bv
 
-    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None):
+    def forward(self, query, key, value, key_padding_mask=None, attn_mask=None,
+                generator: Optional[torch.Generator] = None):
         wq, wk, wv, bq, bk, bv = self.proj_weights(query.dtype)
         q = split_heads(F.linear(query, wq, bq), self.num_heads)
         k = split_heads(_promoted_linear(key, wk, bk), self.num_heads)
         v = split_heads(_promoted_linear(value, wv, bv), self.num_heads)
         out = scaled_dot_product_attention(q, k, v, key_padding_mask=key_padding_mask,
-                                           attn_mask=attn_mask)
+                                           attn_mask=attn_mask,
+                                           dropout_rate=self.dropout if self.training else 0.0,
+                                           generator=generator)
         return self.out_proj(merge_heads(out))
 
 
-def _ff_res_norm(layer, x, norm: LayerNorm, *, pre: bool):
+_ACTIVATIONS = {"relu": F.relu, "gelu": lambda x: F.gelu(x, approximate="tanh")}  # jax.nn's
+
+
+def _ff_res_norm(layer, x, norm: LayerNorm, *, pre: bool,
+                 generator: Optional[torch.Generator] = None):
     """The FF half of a transformer layer, ``x + ff(norm(x))`` (pre) or
     ``norm(x + ff(x))`` (post), through ``fused_mlp`` or, for an int8 layer,
-    ``fused_mlp_q`` (``layers.py:269-301``)."""
+    ``fused_mlp_q`` (``layers.py:269-301``); in training with dropout above 0
+    the unfused modules with their dropouts (``:299-301``)."""
+    if layer.training and layer.dropout > 0.0:
+        if pre:
+            return x + layer._ff_block(norm(x), generator)
+        return norm(x + layer._ff_block(x, generator))
     mlp = fused_mlp_q if layer.quant else fused_mlp
     return mlp(x, norm.weight, norm.bias, layer.linear1.weight, layer.linear1.bias,
                layer.linear2.weight, layer.linear2.bias, activation=layer.activation,
@@ -153,26 +185,30 @@ def _ff_res_norm(layer, x, norm: LayerNorm, *, pre: bool):
 
 class TransformerDecoderLayer(nn.Module):
     """torch ``nn.TransformerDecoderLayer`` (batch_first) with the reference's
-    asymmetric cross-attention (``d_kv`` sets kdim = vdim), ``layers.py:376-487``,
-    serving only (no dropout).  Post-norm with no masks runs the fused halves;
-    ``norm_first`` or a key-padding mask the unfused ones.  ``quant`` selects
-    the int8 serving variants of the fused halves and of the FF kernel."""
+    asymmetric cross-attention (``d_kv`` sets kdim = vdim), ``layers.py:376-487``.
+    Post-norm with no masks runs the fused halves; ``norm_first``, a
+    key-padding mask or active dropout the unfused ones.  ``quant`` selects
+    the int8 serving variants of the fused halves and of the FF kernel.
+    ``dropout`` is 0 by default: the JAX layer's 0.1 is overridden by every
+    caller but ``DenseClip``'s prompt decoder, which passes it."""
 
     def __init__(self, d_model: int, nhead: int, d_kv: Optional[int] = None,
-                 dim_feedforward: int = 2048, activation: str = "relu",
+                 dim_feedforward: int = 2048, dropout: float = 0.0, activation: str = "relu",
                  layer_norm_eps: float = 1e-5, norm_first: bool = False, quant: bool = False,
                  device=None):
         super().__init__()
         self.nhead, self.activation, self.quant = nhead, activation, quant
-        self.norm_first = norm_first
-        self.self_attn = MultiheadAttention(d_model, nhead, device=device)
+        self.norm_first, self.dropout = norm_first, dropout
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout=dropout, device=device)
         self.multihead_attn = MultiheadAttention(d_model, nhead, kdim=d_kv, vdim=d_kv,
-                                                 device=device)
+                                                 dropout=dropout, device=device)
         self.linear1 = Linear(d_model, dim_feedforward, device=device)
         self.linear2 = Linear(dim_feedforward, d_model, device=device)
         self.norm1 = LayerNorm(d_model, layer_norm_eps, device=device)
         self.norm2 = LayerNorm(d_model, layer_norm_eps, device=device)
         self.norm3 = LayerNorm(d_model, layer_norm_eps, device=device)
+        self.dropout_ff, self.dropout1, self.dropout2, self.dropout3 = (
+            Dropout(dropout) for _ in range(4))
 
     def _sa_kv_source(self, x):
         """K/V source of the self-attention (the SR subclass reduces it)."""
@@ -185,12 +221,25 @@ class TransformerDecoderLayer(nn.Module):
                      mha.out_proj.weight, mha.out_proj.bias, norm.weight, norm.bias, self.nhead,
                      eps=norm.eps)
 
-    def _sa_block(self, x, key_padding_mask):
+    def _sa_block(self, x, key_padding_mask, generator):
         kv = self._sa_kv_source(x)
-        return self.self_attn(x, kv, kv, key_padding_mask=key_padding_mask)
+        x = self.self_attn(x, kv, kv, key_padding_mask=key_padding_mask, generator=generator)
+        return self.dropout1(x, generator)
 
-    def forward(self, tgt, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None):
-        if not self.norm_first and tgt_key_padding_mask is None and memory_key_padding_mask is None:
+    def _mha_block(self, x, memory, key_padding_mask, generator):
+        x = self.multihead_attn(x, memory, memory, key_padding_mask=key_padding_mask,
+                                generator=generator)
+        return self.dropout2(x, generator)
+
+    def _ff_block(self, x, generator):
+        x = self.dropout_ff(_ACTIVATIONS[self.activation](self.linear1(x)), generator)
+        return self.dropout3(self.linear2(x), generator)
+
+    def forward(self, tgt, memory, tgt_key_padding_mask=None, memory_key_padding_mask=None,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks in training mode."""
+        if (not self.norm_first and tgt_key_padding_mask is None
+                and memory_key_padding_mask is None and not (self.training and self.dropout)):
             x = self._attn_half(self.self_attn, self.norm1, tgt, self._sa_kv_source(tgt))
             x = self._attn_half(self.multihead_attn, self.norm2, x, memory.to(x.dtype))
             return _ff_res_norm(self, x, self.norm3, pre=False)
@@ -198,12 +247,12 @@ class TransformerDecoderLayer(nn.Module):
         if self.norm_first:
             # a bf16 x over f32 memory: the cross-attention half is f32 (JAX
             # promotion), and so is x from there on
-            x = tgt + self._sa_block(self.norm1(tgt), tgt_key_padding_mask)
-            x = x + self.multihead_attn(self.norm2(x), memory, memory, key_padding_mask=kpm)
-            return _ff_res_norm(self, x, self.norm3, pre=True)
-        x = self.norm1(tgt + self._sa_block(tgt, tgt_key_padding_mask))
-        x = self.norm2(x + self.multihead_attn(x, memory, memory, key_padding_mask=kpm))
-        return _ff_res_norm(self, x, self.norm3, pre=False)
+            x = tgt + self._sa_block(self.norm1(tgt), tgt_key_padding_mask, generator)
+            x = x + self._mha_block(self.norm2(x), memory, kpm, generator)
+            return _ff_res_norm(self, x, self.norm3, pre=True, generator=generator)
+        x = self.norm1(tgt + self._sa_block(tgt, tgt_key_padding_mask, generator))
+        x = self.norm2(x + self._mha_block(x, memory, kpm, generator))
+        return _ff_res_norm(self, x, self.norm3, pre=False, generator=generator)
 
 
 class SRReduce(nn.Module):

@@ -10,7 +10,11 @@ slices -> LayerNorm -> reduction in plain torch (the JAX package's merge-conv,
 ``swin.py:431-479``, is an exact reassociation of the same function).
 
 ``forward`` returns HF's ``hidden_states``: the patch embedding (after
-``embed_norm``) followed by each stage's output after patch merging.
+``embed_norm``) followed by each stage's output after patch merging.  With
+``num_hidden`` it runs only the stages those first entries need: every model
+reads ``hidden_states[:4]`` (``lc2is_tpu/models/zoo.py:240,270,295,373``), so
+the last stage of a 4-stage backbone never runs, as XLA drops its unread
+blocks under ``jit``.  Its parameters stay (a strict load is unchanged).
 
 Stochastic depth (training): ``drop_path_rate`` is spread over the blocks by
 ``linspace`` (``swin.py:525,534``).  In training mode with a rate above 0 the
@@ -248,13 +252,16 @@ class SwinModel(nn.Module):
                       device=device)
             for i, depth in enumerate(depths))
 
-    def forward(self, pixel_values, generator: Optional[torch.Generator] = None
-                ) -> List[torch.Tensor]:
-        """``generator`` draws the drop-path masks in training mode."""
+    def forward(self, pixel_values, generator: Optional[torch.Generator] = None,
+                num_hidden: Optional[int] = None) -> List[torch.Tensor]:
+        """The first ``num_hidden`` hidden states (all of them when None),
+        running only the stages they need; ``generator`` draws the drop-path
+        masks in training mode."""
         x, hw = self.patch_proj(pixel_values.to(self.dtype))
         x = self.embed_norm(x)
         hidden_states = [x]
-        for stage in self.stages:
+        n_stages = len(self.stages) if num_hidden is None else num_hidden - 1
+        for stage in self.stages[:n_stages]:
             x, hw = stage(x, hw, generator)
             hidden_states.append(x)
         return hidden_states

@@ -31,7 +31,8 @@ import torch
 from lc2is_tpu_torch.ops.attention_block import (fused_attn_block, fused_attn_block_bwd,
                                                  fused_attn_block_plain, fused_attn_block_q,
                                                  fused_attn_block_q_plain)
-from lc2is_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from lc2is_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_backward_plain,
+                                                 flash_attention_bwd, flash_attention_plain)
 from lc2is_tpu_torch.ops.fused_ce import upsampled_cross_entropy, upsampled_cross_entropy_plain
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_plain
 from lc2is_tpu_torch.ops.quant import fused_mlp_q, fused_mlp_q_plain
@@ -516,8 +517,9 @@ def test_small_train_step_on_card(cuda):
 
 def test_small_model_masks_and_int8_on_card(cuda):
     """The small PromptAuxCrossA of test_small_model_on_card with the served
-    head, float and int8 (f32 at 128²: every int8 kernel runs, the window
-    block at stage 4), on the card against the CPU: masks equal except
+    head, float and int8 (f32 at 128²: the int8 MLP and decoder attention
+    kernels run; stage 4, whose blocks took the int8 window block, is not run,
+    since no model reads it), on the card against the CPU: masks equal except
     near-ties of the CPU's score map, the int8 low score map within 1e-2 of
     its max."""
     from lc2is_tpu_torch.core.convert import seeded_init_
@@ -592,11 +594,14 @@ def test_model_defaults_to_the_card(cuda):
 @pytest.mark.parametrize("lq,lk,d,masked", [
     (1, 1, 64, False), (63, 77, 96, True), (65, 129, 64, True), (1025, 1025, 64, False),
     (1025, 1025, 96, True), (65, 1, 96, False), (1, 129, 96, True),
+    (77, 130, 16, True), (130, 77, 40, False), (200, 1025, 48, True), (1025, 65, 128, True),
+    (33, 70, 1, False), (70, 33, 33, True), (64, 64, 80, False), (90, 120, 112, True),
 ])
 def test_flash_attention_kernel(cuda, dtype, lq, lk, d, masked):
-    """Ragged query and key tiles, both head widths, key-padding masks with a
-    fully-masked batch entry (NaN rows, lse −∞, in both versions); bf16
-    within FLASH_BF16_REL of the largest output."""
+    """Ragged query and key tiles, head widths from 1 to 128 (every width the
+    kernel instantiates, and widths that are no multiple of 16 or of a 16-byte
+    load), key-padding masks with a fully-masked batch entry (NaN rows, lse
+    −∞, in both versions); bf16 within FLASH_BF16_REL of the largest output."""
     rs = np.random.RandomState(lq + lk + d)
     q = _rand(rs, 3, 2, lq, d, dtype=dtype)
     k, v = (_rand(rs, 3, 2, lk, d, dtype=dtype) for _ in range(2))
@@ -622,11 +627,12 @@ def test_flash_attention_kernel(cuda, dtype, lq, lk, d, masked):
 
 
 def test_flash_attention_raises(cuda):
-    """What the kernel does not take raises on the card, and so does a
-    gradient through it (its backward, TPU row 16, is not ported)."""
+    """What the kernel does not take raises on the card: a head width above
+    128 (the one limit the JAX kernel does not have), strided or mixed-dtype
+    inputs.  A gradient through it runs the backward kernels."""
     rs = np.random.RandomState(20)
-    q, k, v = (_rand(rs, 1, 2, 8, 80) for _ in range(3))
-    with pytest.raises(ValueError, match="D in"):
+    q, k, v = (_rand(rs, 1, 2, 8, 136) for _ in range(3))
+    with pytest.raises(ValueError, match="D <= 128"):
         flash_attention(q, k, v)
     q, k, v = (_rand(rs, 1, 8, 2, 64).transpose(1, 2) for _ in range(3))
     with pytest.raises(ValueError, match="contiguous"):
@@ -634,9 +640,67 @@ def test_flash_attention_raises(cuda):
     q, k, v = (_rand(rs, 1, 2, 8, 64) for _ in range(3))
     with pytest.raises(TypeError):
         flash_attention(q, k.bfloat16(), v)
+    before = flash_attention_bwd.launches
     out = flash_attention(q.requires_grad_(), k, v)
-    with pytest.raises(RuntimeError, match="row 16"):
-        out.sum().backward()
+    out.sum().backward()
+    assert flash_attention_bwd.launches == before + 1 and torch.isfinite(q.grad).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lq,lk,d,masked", [
+    (1, 2, 64, False), (63, 77, 96, True), (65, 129, 64, True), (1025, 1025, 64, True),
+    (1024, 1024, 96, False), (77, 1025, 96, True), (1025, 3, 64, False), (1, 129, 16, True),
+    (130, 77, 40, True), (200, 300, 48, False), (129, 65, 128, True), (33, 70, 1, True),
+    (70, 33, 33, False), (64, 64, 80, True), (90, 120, 112, False),
+])
+def test_flash_attention_bwd_kernel(cuda, dtype, lq, lk, d, masked):
+    """The backward kernels (dq; dk and dv) against the plain backward on the
+    forward's own output and lse: ragged query and key tiles (at least 2
+    keys: over one key dq is 0 in exact arithmetic, and both sides' values
+    are f32 noise), every head width
+    the kernels instantiate, key-padding masks with a fully-masked batch entry
+    (whose dq rows, dk and dv are 0 in both versions, though its output is
+    NaN), norm-relative within GRAD_TOL; and autograd through the kernel gives
+    the same gradients."""
+    rs = np.random.RandomState(lq + 3 * lk + d)
+    q = _rand(rs, 3, 2, lq, d, dtype=dtype)
+    k, v = (_rand(rs, 3, 2, lk, d, dtype=dtype) for _ in range(2))
+    g = _rand(rs, 3, 2, lq, d, dtype=dtype)
+    mask = None
+    if masked:
+        mask = torch.from_numpy(np.arange(lk)[None] >= rs.randint(1, lk + 1, size=3)[:, None])
+        mask[0] = True
+        mask = mask.to(cuda)
+    out, lse = flash_attention(q, k, v, mask, with_stats=True)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, mask, out, lse, g)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_backward_plain(q, k, v, mask, out, lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape and torch.isfinite(a).all()
+        rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
+        assert rel <= GRAD_TOL[dtype], (name, rel)
+        if masked:
+            assert not a[0].any() and not b[0].any(), name
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(flash_attention(*leaves, mask), leaves, g)
+    for a, b in zip(auto, got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)  # deterministic: no atomics
+
+
+def test_flash_attention_many_heads(cuda):
+    """B·H above 65535 (the old gridDim.y cap): forward and backward against
+    their plain versions."""
+    rs = np.random.RandomState(24)
+    q, k, v, g = (_rand(rs, 2, 32800, 3, 16) for _ in range(4))
+    out, lse = flash_attention(q, k, v, with_stats=True)
+    want, lse_w = flash_attention_plain(q, k, v, with_stats=True)
+    torch.testing.assert_close(out, want, **TOL[torch.float32])
+    torch.testing.assert_close(lse, lse_w, **TOL[torch.float32])
+    for a, b in zip(flash_attention_bwd(q, k, v, None, out, lse, g),
+                    flash_attention_backward_plain(q, k, v, None, out, lse, g)):
+        assert ((a - b).norm() / b.norm()).item() <= GRAD_TOL[torch.float32]
 
 
 def test_attention_gate_on_card(cuda):
@@ -669,9 +733,10 @@ def _small_v1(cls, cuda, **kw):
     flash gate is crossed) on the CPU, seeded, and its twin on the card."""
     from lc2is_tpu_torch.core.convert import seeded_init_
 
-    kw = dict(in_size=512, vision_kwargs=dict(hidden_size=128, num_layers=1, num_heads=2,
-                                              mlp_dim=256),
-              text_kwargs=dict(hidden_size=64, num_layers=1, num_heads=1, mlp_dim=128), **kw)
+    kw = dict(dict(in_size=512, vision_kwargs=dict(hidden_size=128, num_layers=1, num_heads=2,
+                                                   mlp_dim=256),
+                   text_kwargs=dict(hidden_size=64, num_layers=1, num_heads=1, mlp_dim=128)),
+              **kw)
     cpu = seeded_init_(cls(device="cpu", **kw), seed=21).eval()
     gpu = cls(device=cuda, **kw).eval()
     gpu.load_state_dict(cpu.state_dict(), strict=True)
@@ -722,3 +787,88 @@ def test_v1_models_default_to_the_card(cuda):
     for cls in (BaseModelWithText, ContrastiveModel, DenseClip):
         model = cls(**small)
         assert {t.device.type for t in model.parameters()} == {"cuda"}, cls.__name__
+
+
+@pytest.mark.parametrize("vision,nhead", [
+    (dict(hidden_size=128, num_layers=1, num_heads=2, mlp_dim=256), 2),
+    (dict(hidden_size=768, num_layers=1, num_heads=12, mlp_dim=3072), 16),
+])
+def test_small_v1_train_step_on_card(cuda, vision, nhead):
+    """One f32 training step of a small BaseModelWithText at 512² (1025 ViT
+    tokens and the fusion decoder's 1024-token self-attention, both through
+    the flash kernels and their backward), batch 2, 128² labels, on the card
+    against the same step on the CPU: the loss (1e-4 relative), every
+    gradient (norm-relative 1e-3; a key bias and the prototypes' projection
+    bias, 0 in exact arithmetic, held to their partner's norm), the
+    parameters after AdamW (1e-2 · lr) where the gradient is not f32 noise.
+    nhead 16 over the ViT-B width gives decoder heads of 48, which is not
+    one of the v1 defaults' widths (64, 96)."""
+    from lc2is_tpu_torch.engine.engine import train_step
+    from lc2is_tpu_torch.engine.optim import make_optimizer
+    from lc2is_tpu_torch.models.zoo import BaseModelWithText
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, gpu = _small_v1(BaseModelWithText, cuda, out_size=128, nhead=nhead,
+                         vision_kwargs=vision)
+    rs = np.random.RandomState(25)
+    x = _rand(rs, 2, 3, 512, 512, device="cpu")
+    y = torch.from_numpy(rs.randint(0, 151, size=(2, 128, 128)))
+    lr = 1e-3
+    runs = []
+    before = [f.launches for f in (flash_attention, flash_attention_bwd)]
+    for model, dev in ((cpu, "cpu"), (gpu, cuda)):
+        opt = make_optimizer(model, lr=lr)
+        runs.append(train_step(model, opt, {"pixel_values": x.to(dev), **_v1_text(2, dev)},
+                               y.to(dev)))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip((flash_attention, flash_attention_bwd), before)] \
+        == [2, 2]
+    assert abs(runs[1]["train_loss"].item() - runs[0]["train_loss"].item()) \
+        <= 1e-4 * abs(runs[0]["train_loss"].item())
+    gp, cp = dict(gpu.named_parameters()), dict(cpu.named_parameters())
+    partners = {n: n.replace("k_proj", "q_proj") for n in cp if n.endswith("k_proj.bias")}
+    partners["pixel_patch.textual.bias"] = "pixel_patch.visual.bias"
+    for name, p in cpu.named_parameters():
+        q = gp[name]
+        if p.grad is None:  # the pooled CLS's post-LN: not read
+            assert q.grad is None, name
+            continue
+        ref = cp[partners.get(name, name)].grad
+        rel = ((q.grad.cpu() - p.grad).norm() / ref.norm()).item()
+        assert rel <= 1e-3, (name, rel)
+        if name in partners:
+            continue
+        sure = p.grad.abs() >= torch.clamp(1e-3 * p.grad.abs().max(), min=1e-6)
+        torch.testing.assert_close(q.detach().cpu()[sure], p.detach()[sure], rtol=0,
+                                   atol=1e-2 * lr + 1e-7)
+
+
+def test_swin_base_shaped_model_serves_on_card(cuda):
+    """A PromptAuxCrossA on a swin-base-shaped backbone (C 128 .. 1024, one
+    block a stage): its fourth stage, C 1024, where fused_mlp takes C <= 768,
+    is never run (no model reads it), so the model serves on the card, f32
+    against its plain run on the CPU."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models.zoo import PromptAuxCrossA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(class_names=("wall", "sky", "tree"), dec_dim=512, nhead=8,
+              swin_cfg=dict(embed_dim=128, depths=(1, 1, 1, 1), num_heads=(4, 8, 16, 32)),
+              cfg=dict(text_encoder=dict(context_length=10, vocab_size=49408,
+                                         transformer_width=512, transformer_heads=8,
+                                         transformer_layers=1, embed_dim=512),
+                       context_decoder=dict(transformer_width=64, transformer_heads=4,
+                                            transformer_layers=1),
+                       context_length=5, text_dim=512))
+    cpu = seeded_init_(PromptAuxCrossA(device="cpu", **kw), seed=26).eval()
+    gpu = PromptAuxCrossA(device=cuda, **kw).eval()
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    x = _rand(np.random.RandomState(27), 2, 3, 128, 128, device="cpu")
+    with torch.no_grad():
+        want = cpu({"pixel_values": x})
+        got = gpu({"pixel_values": x.to(cuda)})
+    for key in ("outputs", "low_score_map"):
+        assert torch.isfinite(got[key]).all()
+        torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-3, rtol=0)

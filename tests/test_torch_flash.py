@@ -13,7 +13,10 @@ probability may differ by one bf16 step.  The LSE is f32 on both sides
 Fully-masked rows: the port gives NaN (lse −∞), as the JAX package's
 ``_reference`` and torch do; the Pallas kernel gives the mean of v over the
 block-padded key length instead (its −1e30 bias), which a separate test pins
-so the difference stays recorded."""
+so the difference stays recorded.  The same holds for the backward: the
+port's gives 0 on such a row, the Pallas backward differentiates its mean of
+v (both pinned).  The backward's own tolerances are stated where its tests
+begin."""
 
 import math
 
@@ -26,7 +29,8 @@ from torch_port_util import TOL, close
 
 from lc2is_tpu.ops import flash_attention as jfa
 from lc2is_tpu_torch.ops import attention
-from lc2is_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from lc2is_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_backward_plain,
+                                                 flash_attention_bwd, flash_attention_plain)
 
 BF16_TOL = dict(rtol=1e-2, atol=1e-2)
 
@@ -128,3 +132,105 @@ def test_gate_keeps_the_cpu_on_the_einsum_path():
     assert flash_attention.launches == before
     assert q.shape[2] * k.shape[2] >= attention.FLASH_MIN_LOGITS
     close(got, flash_attention_plain(q, k, v).numpy())
+
+
+# The backward.  Both sides start from the Pallas forward's own output and
+# lse, so the comparison isolates the backward.  f32: rtol = atol = 2e-4, as
+# tests/test_flash_attention.py holds the Pallas backward.  bf16: every
+# gradient within 2e-2 · max |ref|: both round ds and p to bf16 at the same
+# points and the gradients to bf16 at the end, but each recomputes p from
+# logits summed in its own order, so a rounded ds may differ by one bf16 step.
+BWD_BF16_REL = 2e-2
+
+
+def _pallas_bwd(q, k, v, mask, g, dtype):
+    """The Pallas forward and backward in interpret mode (64 x 64 blocks),
+    jitted once: (out, lse (B, H, Lq), dq, dk, dv), arrays in f32."""
+    b, h, lq, _ = q.shape
+
+    def fn(q, k, v, m, g):
+        args = [a.astype(dtype) for a in (q, k, v)]
+        out, lse = jfa._flash_forward(*args, m, block_q=64, block_k=64, interpret=True,
+                                      with_stats=True)
+        grads = jfa._flash_backward(*args, m, out, lse, g.astype(dtype), block_q=64,
+                                    block_k=64, interpret=True)
+        return tuple(a.astype(jnp.float32) for a in (out, lse[:, :lq, 0].reshape(b, h, lq),
+                                                      *grads))
+
+    jm = None if mask is None else jnp.asarray(mask)
+    return jax.jit(fn)(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jm, jnp.asarray(g))
+
+
+def _plain_bwd_at(q, k, v, mask, g, out, lse, tdt):
+    """flash_attention_backward_plain on numpy inputs cast to ``tdt``, with
+    the given forward output and lse."""
+    q, k, v, out, g = (torch.from_numpy(np.array(a, np.float32)).to(tdt)
+                       for a in (q, k, v, out, g))
+    return flash_attention_backward_plain(
+        q, k, v, None if mask is None else torch.from_numpy(mask), out,
+        torch.from_numpy(np.array(lse, np.float32)), g)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,lq,lk,masked", [
+    (64, 130, 77, True), (64, 200, 300, False), (96, 130, 77, False), (96, 200, 300, True),
+    (48, 130, 77, True), (40, 200, 300, True)])
+def test_backward_plain_matches_pallas(dtype, d, lq, lk, masked):
+    """flash_attention_backward_plain against the Pallas backward
+    (``_flash_backward``, interpret mode) on the Pallas forward's out and lse:
+    ragged lengths over several blocks, key-padding masks, D 64 and 96 (the
+    v1 shapes) and 48 and 40 (48 is nhead 16 over the ViT-B width; 40 is no
+    multiple of 16)."""
+    q, k, v = _qkv(3 * lq + lk + d, 2, 2, lq, lk, d)
+    g = np.random.RandomState(d).randn(2, 2, lq, d).astype(np.float32)
+    mask = _mask(lk + 1, 2, lk) if masked else None
+    out, lse, *want = _pallas_bwd(q, k, v, mask, g, getattr(jnp, dtype))
+    tdt = getattr(torch, dtype)
+    got = _plain_bwd_at(q, k, v, mask, g, out, lse, tdt)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == tdt and tuple(a.shape) == w.shape, name
+        if dtype == "float32":
+            close(a, w)
+        else:
+            w = np.asarray(w)
+            np.testing.assert_allclose(a.float().numpy(), w, rtol=0,
+                                       atol=BWD_BF16_REL * np.abs(w).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_backward_is_autograd_of_the_plain_forward(masked):
+    """On the CPU autograd differentiates flash_attention_plain; the plain
+    backward, on that forward's out and lse, gives the same gradients (f32,
+    TOL)."""
+    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(15, 2, 3, 37, 50, 40))
+    g = torch.from_numpy(np.random.RandomState(16).randn(2, 3, 37, 40).astype(np.float32))
+    mask = torch.from_numpy(_mask(17, 2, 50)) if masked else None
+    out, lse = flash_attention(q, k, v, mask, with_stats=True)
+    want = torch.autograd.grad(out, (q, k, v), g)
+    got = flash_attention_bwd(q.detach(), k.detach(), v.detach(), mask, out.detach(),
+                              lse.detach(), g)
+    for a, b in zip(got, want):
+        close(a, b.numpy())
+
+
+def test_backward_of_fully_masked_rows():
+    """Batch entry 1 has every key masked (its output NaN, lse −∞): the port's
+    backward gives 0 for its dq rows and for its dk and dv (p = 0 there, Δ =
+    0), and the other entry agrees with the Pallas backward.  Pinned beside
+    it, the Pallas value: its −1e30 bias makes every p of that row exp(0) = 1,
+    so its dv at every key is the sum of g over the queries."""
+    q, k, v = _qkv(18, 2, 2, 40, 90, 64)
+    g = np.random.RandomState(19).randn(2, 2, 40, 64).astype(np.float32)
+    mask = _mask(20, 2, 90, full_rows=(1,))
+    out, lse, *want = _pallas_bwd(q, k, v, mask, g, jnp.float32)
+    want_dv = np.asarray(want[2])
+    np.testing.assert_allclose(want_dv[1], np.broadcast_to(g[1].sum(1, keepdims=True),
+                                                           (2, 90, 64)), rtol=1e-5, atol=1e-5)
+    ported_out, ported_lse = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                                             torch.from_numpy(mask), with_stats=True)
+    assert torch.isnan(ported_out[1]).all() and torch.isneginf(ported_lse[1]).all()
+    got = flash_attention_bwd(*(torch.from_numpy(a) for a in (q, k, v)), torch.from_numpy(mask),
+                              ported_out, ported_lse, torch.from_numpy(g))
+    for a, w in zip(got, want):
+        assert torch.isfinite(a).all() and not a[1].any()
+        close(a[0], np.asarray(w)[0])

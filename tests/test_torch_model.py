@@ -94,6 +94,29 @@ def test_prompt_aux_cross_a(slice_run, cached_text):
         close(got[key], want[key], rtol=0, atol=SLICE_ATOL)
 
 
+def test_unread_last_stage_never_runs(slice_run, monkeypatch):
+    """Every model reads ``hidden_states[:4]`` (``lc2is_tpu/models/zoo.py:240,
+    270,295,373``), and XLA drops the unread stage-4 blocks under ``jit``: the
+    port runs the backbone only as far as those (no forward hook on a stage-4
+    block fires), its parameters stay, and the model's outputs equal, bit for
+    bit, those of a run that goes through every stage."""
+    port, x = slice_run[:2]
+    swin = port.vision_encoder
+    ran = []
+    for blk in swin.stages[3].blocks:
+        monkeypatch.setattr(blk, "forward", lambda *a, _f=blk.forward: ran.append(1) or _f(*a))
+    with torch.no_grad():
+        cut = port({"pixel_values": t(x)})
+        assert not ran and len(swin.stages) == 4
+        full_forward = swin.forward
+        monkeypatch.setattr(swin, "forward", lambda px, gen=None, num_hidden=None:
+                            full_forward(px, gen)[:num_hidden])
+        full = port({"pixel_values": t(x)})
+    assert len(ran) == len(swin.stages[3].blocks)
+    for key in full:
+        assert torch.equal(cut[key], full[key]), key
+
+
 @pytest.mark.parametrize("head", ["predict_masks", "return_score_map"])
 def test_unported_heads_raise(head, slice_run):
     """Both other heads of the model are ported.  The served head
