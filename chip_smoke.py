@@ -34,8 +34,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
    that must fail (the kernel over all keys but the last 64; the masked case
    run unmasked) and SDPA's backward timed beside it;
-3r. the least time and one-call time of the one TPU kernel not yet ported
-   (window attention, row 8);
+3w. window attention (TPU row 8, on no model's path): window_attention
+   against its plain version at swin-small's four stage shapes of a 512²
+   batch-16 forward (N 5776 / 1600 / 400 / 144 windows of 49 tokens, C 96 to
+   768), shift 0 and 3 (labels from region_labels), bf16 and f32, with the
+   shifted case run without its labels as a control that must fail; times
+   beside the plain version's and one SDPA call with the bias and mask as an
+   additive attn_mask, summed over the 22 blocks of stages 1-3 (stage 4 as
+   one call); its recompute backward against autograd through the plain
+   version at stage 3's shape; SwinAttention.forward on the card against
+   its CPU run (stage-3 windows of one 512² image, shifted);
 4. slice: PromptAuxCrossA at full width (swin-small, decoder 512, 12-layer
    text tower, 151 classes), weights from a numpy seed, embed_text once:
    (a) f32, batch 1: the card's score maps against the same model's plain run
@@ -87,11 +95,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    (c) bf16, dropout 0.1 from a seeded generator: the self-attention on the
        einsum path (flash 12 and 12), finite losses, the same seed repeating
        the loss bit for bit.
-9. a JSON line of the kernels (launches over one run of the path that uses
-   each: the served-mask forward, the int8 forward, the training step, the
-   v1 BaseModelWithText forward or its training step), the nvidia-smi line,
-   and as the last line
-   {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+10. the other five v4 models (BaseCrossA, BaseSelfA, PromptCrossA,
+   PromptSelfA, PromptAuxSelfA) at full width, weights from the numpy seed:
+   (a) f32 batch 1, the card against the same model's plain run on the CPU
+       (phase 4a's score-map gates) and the card's masks against the CPU
+       plain masks of the CPU run's decoder output (phase 4m's gates);
+   (b) bf16 batch 16, predict_masks, text cached: three batches answered
+       and timed, the launch counts of one forward asserted (the CrossA
+       models the flagship's; the SelfA models 6 fused_attn_block).
+11. BaseCrossA's training step (the CLI's default model; one fused CE, no
+   frozen part): (a) f32 batch 1, 512² images and labels, card vs CPU under
+   phase 6a's gates; (b) bf16 batch 8, dropout 0, drop path 0.1: two
+   warm-up steps, the launch counts of one step, six timed steps, a
+   torch.profiler table of one more.
+
+Then a JSON line of the kernels (launches over one run of the path that
+uses each: the served-mask forward, the int8 forward, the training step, the
+v1 BaseModelWithText forward or its training step; 0 for upsample_argmax and
+window_attention, which lie on no path), the nvidia-smi line, and as the
+last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Each phase prints its seconds.
 
 Phase 6b ends with a torch.profiler trace of one more bf16 step (device time
 by kernel, idle share).  With no CUDA device, or outside a checkout of the
@@ -263,6 +286,8 @@ SOURCES = {
     "flash_attention_bwd": ("lc2is_tpu_torch/csrc/flash_attention_bwd.cu",
                             "lc2is_tpu/ops/flash_attention.py:163; "
                             "lc2is_tpu/ops/flash_attention.py:194"),
+    "window_attention": ("lc2is_tpu_torch/csrc/window_attention.cu",
+                         "lc2is_tpu/ops/window_attention.py:164"),
 }
 BACKWARD_KERNELS = ("swin_window_block_bwd", "fused_attn_block_bwd", "upsample_tokens_adjoint",
                     "upsampled_cross_entropy")
@@ -612,6 +637,48 @@ def compare(c, got, want, dt):
     return ok, d.max().item(), f"max {d.max().item():.3e} mean {d.mean().item():.3e} (<= {bound})"
 
 
+def run_case(c, dt, stats):
+    """Check one kernel case against its plain version (and its control,
+    which must fail), time it beside its plain version and one-call twin, and
+    add its bf16 numbers, times its launches, to ``stats``."""
+    with torch.no_grad():
+        got = c["kern"]()
+        torch.cuda.synchronize()
+        want = c["plain"]()
+        ok, err, msg = compare(c, got, want, dt)
+        k_ms, p_ms = time_ms(c["kern"]), time_ms(c["plain"])
+        lib_ms = time_ms(c["library"]) if c["library"] else None
+        ctl = compare(c, c["control"][1](), want, dt) if c["control"] else None
+    b_ms, by = least_time(*c["work"])
+    lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
+    per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
+    print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
+          f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{c['name']} {c['label']} {dt}: kernel disagrees with its "
+                             f"plain version: {msg}")
+    if ctl is not None:
+        print(f"    control, {c['control'][0]}: {ctl[2]}: "
+              f"{'passes' if ctl[0] else 'fails, as it must'}", flush=True)
+        if ctl[0]:
+            raise AssertionError(f"{c['name']} {c['label']}: the check passes its "
+                                 f"control, {c['control'][0]}")
+    s = stats.setdefault(c["name"], dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                         bound_ms=0.0, library_ms=None, by={}))
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    if dt == torch.bfloat16 and c["count"] is not None:
+        # per 512² / batch-16 bf16 forward (count 0: one call)
+        n = c["count"] or 1
+        s["ms"] += n * k_ms
+        s["plain_ms"] += n * p_ms
+        s["bound_ms"] += n * b_ms
+        s["by"][by] = s["by"].get(by, 0.0) + n * b_ms
+        if lib_ms is not None:
+            s["library_ms"] = (s["library_ms"] or 0.0) + n * lib_ms
+    return k_ms, p_ms, lib_ms, b_ms
+
+
 def check_kernels(smi):
     """Phase 3.  Returns per-kernel stats for the JSON line: bf16 times,
     bounds and one-call times summed per forward of the path using each."""
@@ -620,72 +687,117 @@ def check_kernels(smi):
         print(f"\n[kernels] {dt} on {smi}", flush=True)
         rs = np.random.RandomState(SEED)
         for c in kernel_cases(rs, dt):
-            with torch.no_grad():
-                got = c["kern"]()
-                torch.cuda.synchronize()
-                want = c["plain"]()
-                ok, err, msg = compare(c, got, want, dt)
-                k_ms, p_ms = time_ms(c["kern"]), time_ms(c["plain"])
-                lib_ms = time_ms(c["library"]) if c["library"] else None
-                ctl = compare(c, c["control"][1](), want, dt) if c["control"] else None
-            b_ms, by = least_time(*c["work"])
-            lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
-            per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
-            print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
-                  f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                raise AssertionError(f"{c['name']} {c['label']} {dt}: kernel disagrees with its "
-                                     f"plain version: {msg}")
-            if ctl is not None:
-                print(f"    control, {c['control'][0]}: {ctl[2]}: "
-                      f"{'passes' if ctl[0] else 'fails, as it must'}", flush=True)
-                if ctl[0]:
-                    raise AssertionError(f"{c['name']} {c['label']}: the check passes its "
-                                         f"control, {c['control'][0]}")
-            s = stats.setdefault(c["name"], dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                                                 bound_ms=0.0, library_ms=None, by={}))
-            s["max_abs_err"] = max(s["max_abs_err"], err)
-            if dt == torch.bfloat16 and c["count"] is not None:
-                # per 512² / batch-16 bf16 forward (count 0: one call)
-                n = c["count"] or 1
-                s["ms"] += n * k_ms
-                s["plain_ms"] += n * p_ms
-                s["bound_ms"] += n * b_ms
-                s["by"][by] = s["by"].get(by, 0.0) + n * b_ms
-                if lib_ms is not None:
-                    s["library_ms"] = (s["library_ms"] or 0.0) + n * lib_ms
-            del got, want
+            run_case(c, dt, stats)
         torch.cuda.empty_cache()
     return stats
 
 
-def check_unported_rows(smi):
-    """Phase 3r: for the TPU kernel not yet ported (PERF.md §6 row 8), the
-    least time the card could take and the time of the one PyTorch call that
-    computes the same function, bf16, at the shapes its callers would give
-    it.  Timed for the table only; the port calls none of these."""
+# swin-small's window-attention shapes in a 512² batch-16 forward: (stage,
+# HF-padded grid, C, heads, blocks per shift a forward; None: stage 4, which
+# runs on no path, timed as one call and not summed)
+WINDOW_STAGES = [(1, 133, 96, 3, 1), (2, 70, 192, 6, 1), (3, 35, 384, 12, 9), (4, 21, 768, 24, None)]
+
+
+def window_work(n, p, c, heads, dt, regions):
+    """q, k, v in and the output out, the bias and the region labels; the two
+    products per head."""
+    return (4 * n * p * c * dt.itemsize + 4 * heads * p * p + (4 * n * p if regions else 0),
+            {mm_type(dt): 4 * n * heads * p * p * (c // heads)})
+
+
+def window_cases(rs, dt):
+    """window_attention (TPU row 8) at the four swin-small stage shapes, shift
+    0 and 3, with SDPA (the bias and the region mask as one additive mask) as
+    its one-call twin; the shifted case run without its labels is the
+    control that must fail."""
     import torch.nn.functional as F
 
-    rs = np.random.RandomState(SEED + 5)
-    bf = torch.bfloat16
-    print(f"\n[unported] one-call times and bounds on {smi}", flush=True)
-    # row 8: the window attention core (bias and region mask as one additive
-    # mask), per 512² batch-16 swin forward: (padded grid, C, heads, blocks)
-    total_ms = total_bound = 0.0
-    for grid, c, heads, n in [(133, 96, 3, 2), (70, 192, 6, 2), (35, 384, 12, 18),
-                              (21, 768, 24, 2)]:
-        nw = BATCH * (grid // 7) ** 2
-        q, k, v = (rand(rs, nw, heads, 49, c // heads, dtype=bf) for _ in range(3))
-        mask = rand(rs, nw, heads, 49, 49, scale=0.1, dtype=bf)
-        ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-        b_ms, by = least_time(4 * nw * 49 * c * 2 + nw * heads * 49 * 49 * 2,
-                              {"bf16": 4 * nw * heads * 49 * 49 * (c // heads)})
-        total_ms += n * ms
-        total_bound += n * b_ms
-        print(f"  row 8  window attention ({nw},{heads},49,{c // heads}) + mask: one-call "
-              f"{ms:.3f} ms, bound {b_ms:.3f} ({by}) x{n}/fwd", flush=True)
-    print(f"  row 8  per forward: one-call {total_ms:.3f} ms, bound {total_bound:.3f} ms")
+    from lc2is_tpu_torch.ops.window_attention import (NEG, region_labels, window_attention,
+                                                      window_attention_plain)
+
+    cases = []
+    for stage, hp, c, heads, count in WINDOW_STAGES:
+        n, p, dh = BATCH * (hp // 7) ** 2, 49, c // heads
+        q, k, v = (rand(rs, n, p, c, dtype=dt) for _ in range(3))
+        bias = rand(rs, heads, p, p, scale=0.5)
+        split = tuple(t.view(n, p, heads, dh).transpose(1, 2) for t in (q, k, v))
+        for shift in (0, 3):
+            reg = region_labels(BATCH, hp, hp, 7, shift, device="cuda")
+            mask = bias[None]
+            if reg is not None:
+                mask = mask + torch.where(reg[:, None, :, None] != reg[:, None, None, :], NEG,
+                                          0.0)
+            mask = mask.to(dt)
+            cases.append(dict(
+                name="window_attention", count=count, check="close", library=(
+                    lambda a=split, m=mask: F.scaled_dot_product_attention(*a, attn_mask=m)),
+                label=f"stage{stage} ({n},{p},{c}) h{heads} shift{shift}",
+                kern=lambda a=(q, k, v, bias, reg), h=heads: window_attention(*a, h),
+                plain=lambda a=(q, k, v, bias, reg), h=heads: window_attention_plain(*a, h),
+                work=window_work(n, p, c, heads, dt, reg is not None), scores=None, tie_dt=None,
+                control=None if reg is None else (
+                    "the shifted case run without its region labels",
+                    lambda a=(q, k, v, bias), h=heads: window_attention(*a, None, h))))
+    return cases
+
+
+def check_window_attention(smi):
+    """Phase 3w: window_attention (TPU row 8) against its plain version on the
+    card at swin-small's four stage shapes, shift 0 and 3, bf16 and f32; its
+    recompute backward against autograd through the plain version at stage
+    3's shape; the windowed module path (SwinAttention.forward) on the card
+    against its CPU run.  Returns the kernel's stats (bf16 times summed over
+    the 22 blocks of stages 1-3)."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.nn.swin import SwinAttention, window_partition
+    from lc2is_tpu_torch.ops.window_attention import (region_labels, window_attention,
+                                                      window_attention_plain)
+
+    stats = {}
+    for dt in (torch.bfloat16, torch.float32):
+        print(f"\n[window] {dt} on {smi}", flush=True)
+        for c in window_cases(np.random.RandomState(SEED + 5), dt):
+            run_case(c, dt, stats)
+        torch.cuda.empty_cache()
+    s = stats["window_attention"]
+    print(f"[window] per forward (22 blocks of stages 1-3, half of them shifted), bf16: "
+          f"kernel {s['ms']:.3f} ms, plain {s['plain_ms']:.3f}, SDPA {s['library_ms']:.3f}, "
+          f"bound {s['bound_ms']:.3f} ms", flush=True)
+
+    rs = np.random.RandomState(SEED + 6)
+    reg = region_labels(BATCH, 35, 35, 7, 3, device="cuda")
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (rand(rs, 400, 49, 384, dtype=dt) for _ in range(3))
+        bias, g = rand(rs, 12, 49, 49, scale=0.5), rand(rs, 400, 49, 384, dtype=dt)
+        grads = []
+        for fn in (window_attention, window_attention_plain):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, bias)]
+            fn(*leaves, reg, 12).backward(g)
+            grads.append([t.grad for t in leaves])
+        rel = max(((a.float() - b.float()).norm() / b.float().norm()).item()
+                  for a, b in zip(*grads))
+        print(f"[window] backward {dt} (400,49,384) h12 shift3, recompute through the plain "
+              f"version vs autograd through it: dq dk dv dbias ‖Δ‖/‖ref‖ <= {rel:.3e} (bound "
+              f"{GRAD_BOUNDS[dt]})", flush=True)
+        if not rel <= GRAD_BOUNDS[dt]:
+            raise AssertionError(f"window_attention backward {dt}: {rel}")
+
+    cpu = seeded_init_(SwinAttention(384, 12, 7), SEED).eval()
+    gpu = SwinAttention(384, 12, 7, device="cuda").eval()
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    x = window_partition(rand(rs, 1, 35, 35, 384, device="cpu"), 7)
+    before = window_attention.launches
+    with torch.no_grad():
+        want, got = cpu(x, (35, 35, 7, 3)), gpu(x.cuda(), (35, 35, 7, 3)).cpu()
+    d = (got - want).abs()
+    atol, rtol = BOUNDS[torch.float32]
+    ok = bool((d <= atol + rtol * want.abs()).all()) and window_attention.launches == before + 1
+    print(f"[window] SwinAttention.forward f32, stage-3 windows of one {IMG}² image (25,49,384) "
+          f"shift 3, card vs CPU: max |Δ| {d.max().item():.3e} (<= {atol} + {rtol}·|CPU|), "
+          f"{window_attention.launches - before} launch {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("SwinAttention.forward on the card disagrees with its CPU run")
+    return stats
 
 
 def backward_cases(rs, dt):
@@ -964,12 +1076,24 @@ def seeded_state():
     return cpu.state_dict()
 
 
-def model_from(state, **kw):
-    from lc2is_tpu_torch.models.zoo import PromptAuxCrossA
+def model_from(state, name="PromptAuxCrossA", **kw):
+    from lc2is_tpu_torch.models import zoo
 
-    m = PromptAuxCrossA(class_names=NAMES, **kw)
+    m = getattr(zoo, name)(class_names=NAMES, **kw)
     m.load_state_dict(state, strict=True)
     return m
+
+
+def frozen_prefixes(name):
+    """The prefixes the reference freezes for model class ``name``."""
+    from lc2is_tpu_torch.models.zoo import FROZEN_PREFIXES, ZOO
+
+    key = {cls.__name__: k for k, cls in ZOO.items()}[name]
+    return FROZEN_PREFIXES.get(key, ())
+
+
+def is_frozen(param, prefixes):
+    return any(param == p or param.startswith(p + ".") for p in prefixes)
 
 
 def build_models(state):
@@ -988,13 +1112,15 @@ def launch_counters():
                                                  swin_window_block_q)
     from lc2is_tpu_torch.ops.upsample import upsample_tokens, upsample_tokens_adjoint
     from lc2is_tpu_torch.ops.upsample_argmax import score_upsample_argmax, upsample_argmax
+    from lc2is_tpu_torch.ops.window_attention import window_attention
 
     return {f.__name__: f for f in (swin_window_block, fused_mlp, fused_attn_block,
                                     upsample_tokens, swin_window_block_bwd,
                                     fused_attn_block_bwd, upsample_tokens_adjoint,
                                     upsampled_cross_entropy, score_upsample_argmax,
                                     upsample_argmax, fused_mlp_q, fused_attn_block_q,
-                                    swin_window_block_q, flash_attention, flash_attention_bwd)}
+                                    swin_window_block_q, flash_attention, flash_attention_bwd,
+                                    window_attention)}
 
 
 def serve_batches(model, batches, extra, counters, expected, label, smi):
@@ -1265,24 +1391,23 @@ def check_int8(smi, state, x1, ts_cpu, ts_gpu, batches, masks16):
     return counts
 
 
-def train_models(state, **kw):
+def train_models(state, name="PromptAuxCrossA", **kw):
     from lc2is_tpu_torch.engine.optim import make_optimizer
-    from lc2is_tpu_torch.models.zoo import FROZEN_PREFIXES
 
-    m = model_from(state, return_score_map=True, **kw)
-    return m, make_optimizer(m, lr=TRAIN_LR, frozen_prefixes=FROZEN_PREFIXES["prompt_aux_cross_a"])
+    m = model_from(state, name, return_score_map=True, **kw)
+    return m, make_optimizer(m, lr=TRAIN_LR, frozen_prefixes=frozen_prefixes(name))
 
 
-def check_train_f32(state):
-    """Phase 6a: one f32 step at batch 1, drop path off, card vs CPU."""
+def check_train_f32(state, name="PromptAuxCrossA", label="train"):
+    """Phase 6a (11a for BaseCrossA): one f32 step at batch 1, 512² images and
+    labels, drop path off, card vs CPU."""
     from lc2is_tpu_torch.engine.engine import train_step
-    from lc2is_tpu_torch.models.zoo import FROZEN_PREFIXES
     from lc2is_tpu_torch.nn.swin import SWIN_SMALL
 
-    frozen = FROZEN_PREFIXES["prompt_aux_cross_a"][0] + "."
+    frozen = frozen_prefixes(name)
     nodrop = dict(swin_cfg=dict(SWIN_SMALL, drop_path_rate=0.0))
-    cpu, opt_c = train_models(state, device="cpu", **nodrop)
-    gpu, opt_g = train_models(state, **nodrop)
+    cpu, opt_c = train_models(state, name, device="cpu", **nodrop)
+    gpu, opt_g = train_models(state, name, **nodrop)
     x = rand(np.random.RandomState(SEED + 20), 1, 3, IMG, IMG, device="cpu")
     y = seeded_labels(SEED + 21, 1, IMG, IMG, device="cpu")
     t0 = time.time()
@@ -1292,50 +1417,53 @@ def check_train_f32(state):
     torch.cuda.synchronize()
     for key in want:
         g_, w_ = got[key].item(), want[key].item()
-        print(f"[train] (a) f32 b1 {IMG}² {key}: card {g_:.6f} CPU {w_:.6f} "
+        print(f"[{label}] (a) {name} f32 b1 {IMG}² {key}: card {g_:.6f} CPU {w_:.6f} "
               f"(bound {STEP_LOSS_RTOL} relative)", flush=True)
         if not (np.isfinite(g_) and abs(g_ - w_) <= STEP_LOSS_RTOL * abs(w_)):
             raise AssertionError(f"f32 step {key}: card {g_} vs CPU {w_}")
     worst, worst_name, n_grads, worst_param = 0.0, "", 0, 0.0
     gp = dict(gpu.named_parameters())
-    for name, p in cpu.named_parameters():
-        q = gp[name]
-        if name.startswith(frozen):
-            if q.grad is not None or not torch.equal(q.detach().cpu(), state[name]):
-                raise AssertionError(f"frozen {name} got a gradient or changed")
+    for pname, p in cpu.named_parameters():
+        q = gp[pname]
+        if is_frozen(pname, frozen):
+            if q.grad is not None or not torch.equal(q.detach().cpu(), state[pname]):
+                raise AssertionError(f"frozen {pname} got a gradient or changed")
             continue
         if p.grad is None or q.grad is None:
             if (p.grad is None) != (q.grad is None):
-                raise AssertionError(f"{name}: gradient on one device only")
+                raise AssertionError(f"{pname}: gradient on one device only")
             continue
         n_grads += 1
         gq = q.grad.cpu()
-        zero_in_exact = name.endswith("attention.self.key.bias")
-        ref = dict(cpu.named_parameters())[name.replace("key.bias", "query.bias")] \
+        zero_in_exact = pname.endswith("attention.self.key.bias")
+        ref = dict(cpu.named_parameters())[pname.replace("key.bias", "query.bias")] \
             if zero_in_exact else p
         rel = ((gq - p.grad).norm() / ref.grad.norm().clamp_min(1e-30)).item()
         if rel > worst:
-            worst, worst_name = rel, name
+            worst, worst_name = rel, pname
         if zero_in_exact:
             continue
         sure = p.grad.abs() >= torch.clamp(1e-3 * p.grad.abs().max(), min=1e-6)
         d = (q.detach().cpu() - p.detach())[sure].abs()
         worst_param = max(worst_param, d.max().item() if d.numel() else 0.0)
-    print(f"[train] (a) {n_grads} trainable gradients, card vs CPU: worst norm-relative "
+    tower = ("frozen " + ", ".join(frozen) + ": no gradient, unchanged bit for bit"
+             if frozen else "nothing frozen")
+    print(f"[{label}] (a) {n_grads} trainable gradients, card vs CPU: worst norm-relative "
           f"{worst:.3e} ({worst_name}; bound {STEP_GRAD_REL}); parameters after AdamW max "
-          f"|Δ| {worst_param:.3e} (bound {STEP_PARAM_ATOL:.1e}); frozen text tower: no "
-          f"gradient, unchanged bit for bit; CPU step {cpu_s:.1f} s", flush=True)
+          f"|Δ| {worst_param:.3e} (bound {STEP_PARAM_ATOL:.1e}); {tower}; CPU step "
+          f"{cpu_s:.1f} s", flush=True)
     if worst > STEP_GRAD_REL or worst_param > STEP_PARAM_ATOL:
         raise AssertionError("f32 training step on the card disagrees with the CPU run")
 
 
-def check_train_bf16(smi, state):
-    """Phase 6b.  Returns (launch counts of one step, median step ms)."""
+def check_train_bf16(smi, state, name="PromptAuxCrossA", expected=None, label="train"):
+    """Phase 6b (11b for BaseCrossA): bf16 batch 8, drop path 0.1, decoder
+    dropout 0.  Returns (launch counts of one step, median step ms)."""
     from lc2is_tpu_torch.engine.engine import train_step
-    from lc2is_tpu_torch.models.zoo import FROZEN_PREFIXES
 
-    frozen = FROZEN_PREFIXES["prompt_aux_cross_a"][0] + "."
-    model, opt = train_models(state, dtype=torch.bfloat16)
+    expected = EXPECTED_TRAIN_LAUNCHES if expected is None else expected
+    frozen = frozen_prefixes(name)
+    model, opt = train_models(state, name, dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = rand(np.random.RandomState(SEED + 30), TRAIN_BATCH, 3, IMG, IMG, dtype=torch.bfloat16)
     y = seeded_labels(SEED + 31, TRAIN_BATCH, IMG, IMG)
@@ -1355,36 +1483,144 @@ def check_train_bf16(smi, state):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
-            counts = {name: f.launches for name, f in counters.items() if f.launches}
+            counts = {k: f.launches for k, f in counters.items() if f.launches}
         losses.append({k: v.item() for k, v in out.items()})
-    print(f"[train] (b) bf16 b{TRAIN_BATCH} {IMG}², drop path 0.1: losses per step "
-          f"{[(round(d['train_loss'], 5), round(d['train_aux_loss'], 5)) for d in losses]}")
-    print(f"[train] launches over one step: {counts} (expected {EXPECTED_TRAIN_LAUNCHES})")
-    if counts != EXPECTED_TRAIN_LAUNCHES:
-        raise AssertionError(f"training launch counts {counts} != {EXPECTED_TRAIN_LAUNCHES}")
+    print(f"[{label}] (b) {name} bf16 b{TRAIN_BATCH} {IMG}², drop path 0.1: losses per step "
+          f"{[tuple(round(v, 5) for v in d.values()) for d in losses]} ({', '.join(losses[0])})")
+    print(f"[{label}] launches over one step: {counts} (expected {expected})")
+    if counts != expected:
+        raise AssertionError(f"{name} training launch counts {counts} != {expected}")
     if not all(np.isfinite(v) for d in losses for v in d.values()):
         raise AssertionError("non-finite training loss")
     changed = [n for n, p in model.named_parameters() if not torch.equal(p.detach(), start[n])]
     trainable = [n for n, p in model.named_parameters() if p.requires_grad]
-    moved_frozen = [n for n in changed if n.startswith(frozen)]
+    moved_frozen = [n for n in changed if is_frozen(n, frozen)]
     # stage 4's blocks are dead code (hidden_states[:4]): no gradient, no
     # update; a swin key bias's gradient is zero in exact arithmetic (softmax
     # is invariant to the q·bk a row's logits share), so it may not move
     dead = [n for n in trainable if n.startswith("vision_encoder.stages.3.blocks.")]
     zero = [n for n in trainable if n.endswith("attention.self.key.bias") and n not in dead]
     stuck = sorted(set(trainable) - set(changed) - set(dead) - set(zero))
-    print(f"[train] {len(changed)} of {len(trainable)} trainable parameters changed after 8 "
+    print(f"[{label}] {len(changed)} of {len(trainable)} trainable parameters changed after 8 "
           f"steps; not required to: the {len(dead)} of stage 4's dead blocks (as in the "
           f"reference) and the {len(zero)} swin key biases ({len(set(zero) - set(changed))} "
           f"did not move); frozen changed: {len(moved_frozen)}", flush=True)
     if stuck or moved_frozen:
         raise AssertionError(f"parameters not updated {stuck[:5]} / frozen moved {moved_frozen[:5]}")
     ms = statistics.median(times)
-    print(f"[train] (b) bf16 b{TRAIN_BATCH} {IMG}² step (host clock to synchronize): "
+    print(f"[{label}] (b) {name} bf16 b{TRAIN_BATCH} {IMG}² step (host clock to synchronize): "
           f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = "
           f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s on {smi}", flush=True)
-    profile_step(lambda: train_step(model, opt, inputs, y, generator=gen), "one bf16 step")
+    profile_step(lambda: train_step(model, opt, inputs, y, generator=gen),
+                 f"one {name} bf16 step")
     return counts, ms
+
+
+# the five other v4 models (phase 10): per-forward launches of the bf16
+# served-mask forward.  The CrossA decoders run the flagship's 6 SR decoder
+# layers (12 attention halves); the SelfA decoders 6 SR encoder layers (one
+# self-attention half each); every decoder layer has one feed-forward, and
+# the swin and the head are the flagship's.
+V4_MODELS = ("BaseCrossA", "BaseSelfA", "PromptCrossA", "PromptSelfA", "PromptAuxSelfA")
+EXPECTED_V4_LAUNCHES = {
+    name: dict(EXPECTED_MASK_LAUNCHES, **({} if "CrossA" in name else {"fused_attn_block": 6}))
+    for name in V4_MODELS}
+# BaseCrossA's training step (phase 11b): the flagship's, with one loss (no
+# low-res map, so one fused CE kernel)
+EXPECTED_V4_TRAIN_LAUNCHES = dict(EXPECTED_TRAIN_LAUNCHES, upsampled_cross_entropy=1)
+
+
+def check_v4_model(smi, name):
+    """Phase 10 for one model: (a) f32 batch 1, the card against the same
+    model's plain run on the CPU under phase 4a's score-map gates, and the
+    card's masks against the CPU plain masks of the CPU run's decoder output
+    under phase 4m's gates; (b) bf16 batch 16 masks with text cached, three
+    batches answered and timed, the launch counts of one forward asserted.
+    Returns (median ms, launch counts)."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models import zoo
+    from lc2is_tpu_torch.ops.upsample_argmax import (l2_normalize, score_map_plain,
+                                                     score_upsample_argmax_plain)
+
+    t0 = time.time()
+    cpu = seeded_init_(getattr(zoo, name)(class_names=NAMES, device="cpu"), SEED).eval()
+    state = cpu.state_dict()
+    prompted = hasattr(cpu, "prompt")
+    print(f"\n[v4] {name}: {sum(p.numel() for p in cpu.parameters())} parameters from numpy "
+          f"seed {SEED} ({time.time() - t0:.1f} s)", flush=True)
+    captured = {}
+    cpu.vision_decoder.register_forward_hook(lambda m, a, out: captured.update(v=out))
+    (cpu.prompt if prompted else cpu.classes).register_forward_hook(
+        lambda m, a, out: captured.update(t=out))
+    gpu = model_from(state, name).eval()
+    x1 = rand(np.random.RandomState(SEED + 1), 1, 3, IMG, IMG, device="cpu")
+    with torch.no_grad():
+        text_c = {"text_static": cpu.embed_text()} if prompted else {}
+        text_g = {"text_static": gpu.embed_text()} if prompted else {}
+        t0 = time.time()
+        want = cpu({"pixel_values": x1, **text_c})
+        cpu_s = time.time() - t0
+        got = gpu({"pixel_values": x1.cuda(), **text_g})
+        torch.cuda.synchronize()
+        for key, w_ in want.items():
+            g_ = got[key].cpu()
+            if tuple(g_.shape) != tuple(w_.shape) or not torch.isfinite(g_).all():
+                raise AssertionError(f"{name} f32 {key}: shape {tuple(g_.shape)} / non-finite")
+            d = (g_ - w_).abs()
+            agree = (g_.argmax(1) == w_.argmax(1)).float().mean().item()
+            print(f"[v4] (a) {name} f32 b1 {key} {tuple(g_.shape)}: card vs CPU plain max |Δ| "
+                  f"{d.max().item():.3e} (bound {SLICE_F32_MAX_ABS}) mean {d.mean().item():.3e}, "
+                  f"argmax agreement {agree:.5f} (bound {SLICE_F32_ARGMAX_AGREE})", flush=True)
+            if d.max().item() > SLICE_F32_MAX_ABS or agree < SLICE_F32_ARGMAX_AGREE:
+                raise AssertionError(f"{name}: f32 {key} on the card disagrees with the CPU")
+        gpu.predict_masks = True
+        masks = gpu({"pixel_values": x1.cuda(), **text_g})["outputs"].cpu()
+        v, tn, grid = captured["v"], l2_normalize(captured["t"], 2), IMG // 4
+        check_masks_out(masks, f"{name} masks (a)")
+        differ = masks != score_upsample_argmax_plain(v, tn, grid)
+        gaps = near_tie_gaps(score_map_plain(v, tn, grid), differ)
+        agree = 1.0 - differ.float().mean().item()
+        worst = gaps.max().item() if gaps.numel() else 0.0
+        print(f"[v4] (a) {name} f32 b1 masks: card vs the CPU plain masks of the CPU decoder "
+              f"output, agreement {agree:.6f} (bound {MASK_F32_AGREE}); {int(differ.sum())} "
+              f"differ, largest top-2 gap there {worst:.3e} (near-tie bound {NEAR_TIE_F32}); "
+              f"CPU forward {cpu_s:.1f} s", flush=True)
+        if agree < MASK_F32_AGREE or worst > NEAR_TIE_F32:
+            raise AssertionError(f"{name}: f32 masks on the card disagree with the CPU")
+        del cpu, gpu, want, got
+        gpu16 = model_from(state, name, dtype=torch.bfloat16, predict_masks=True).eval()
+        text = {"text_static": gpu16.embed_text()} if prompted else {}
+        batches = [rand(np.random.RandomState(SEED + 10 + i), BATCH, 3, IMG, IMG,
+                        dtype=torch.bfloat16) for i in range(4)]
+        first, ms, counts = serve_batches(gpu16, batches, text, launch_counters(),
+                                          EXPECTED_V4_LAUNCHES[name], f"v4 {name} (b)", smi)
+        check_masks_out(first["outputs"], f"{name} masks (b)")
+        if name == "PromptAuxSelfA":
+            low = first["low_score_map"]
+            if (tuple(low.shape) != (BATCH, N_CLASSES, IMG // 16, IMG // 16)
+                    or low.dtype != torch.bfloat16 or not torch.isfinite(low).all()):
+                raise AssertionError(f"{name} bf16 low_score_map {tuple(low.shape)} {low.dtype}")
+    del gpu16, batches, first
+    torch.cuda.empty_cache()
+    return ms, counts
+
+
+def check_v4(smi):
+    """Phase 10: the other five v4 models served.  Returns {name: ms}."""
+    return {name: check_v4_model(smi, name)[0] for name in V4_MODELS}
+
+
+def check_v4_train(smi):
+    """Phase 11: BaseCrossA's training step (the CLI's default model), one
+    loss through the fused upsample-CE, nothing frozen.  Returns (launch
+    counts of one 11b step, its median ms)."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models.zoo import BaseCrossA
+
+    state = seeded_init_(BaseCrossA(class_names=NAMES, device="cpu"), SEED).state_dict()
+    check_train_f32(state, "BaseCrossA", "v4 train")
+    torch.cuda.empty_cache()
+    return check_train_bf16(smi, state, "BaseCrossA", EXPECTED_V4_TRAIN_LAUNCHES, "v4 train")
 
 
 def profile_step(step, label, rows=40):
@@ -1749,24 +1985,33 @@ def main() -> int:
     for s in spills:
         print(f"[build]   {s.strip()}")
 
-    stats = check_kernels(smi)
-    check_unported_rows(smi)
-    stats.update(check_backward_kernels())
+    def phase(label, fn, *args):
+        t_start = time.time()
+        out = fn(*args)
+        print(f"[time] phase {label}: {time.time() - t_start:.1f} s", flush=True)
+        return out
+
+    stats = phase("3", check_kernels, smi)
+    stats.update(phase("3w", check_window_attention, smi))
+    stats.update(phase("3b", check_backward_kernels))
     state = seeded_state()
-    cpu_head, x1, ts_cpu, ts_gpu, batches = check_slice(smi, state)
-    counts, masks16 = check_masks(smi, state, cpu_head, x1, ts_gpu, batches)
-    int8_counts = check_int8(smi, state, x1, ts_cpu, ts_gpu, batches, masks16)
+    cpu_head, x1, ts_cpu, ts_gpu, batches = phase("4", check_slice, smi, state)
+    counts, masks16 = phase("4m", check_masks, smi, state, cpu_head, x1, ts_gpu, batches)
+    int8_counts = phase("5", check_int8, smi, state, x1, ts_cpu, ts_gpu, batches, masks16)
     counts.update({k: v for k, v in int8_counts.items() if k.endswith("_q")})
     del cpu_head, batches, masks16
     torch.cuda.empty_cache()
-    check_train_f32(state)
-    train_counts, step_ms = check_train_bf16(smi, state)
+    phase("6a", check_train_f32, state)
+    train_counts, step_ms = phase("6b", check_train_bf16, smi, state)
     counts.update({k: v for k, v in train_counts.items() if k in BACKWARD_KERNELS})
     del state
-    v1 = check_v1(smi)
+    v1 = phase("7", check_v1, smi)
     counts["flash_attention"] = v1["BaseModelWithText"][0]["flash_attention"]
-    v1_train_counts, v1_step_ms = check_v1_train(smi)
+    v1_train_counts, v1_step_ms = phase("8", check_v1_train, smi)
     counts["flash_attention_bwd"] = v1_train_counts["flash_attention_bwd"]
+    v4 = phase("10", check_v4, smi)
+    _, v4_step_ms = phase("11", check_v4_train, smi)
+    print(f"[time] all phases: {time.time() - t0:.1f} s", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts.get(name, 0), max_abs_err=stats[name]["max_abs_err"],
@@ -1782,16 +2027,22 @@ def main() -> int:
           f"the bf16 batch-{BATCH} BaseModelWithText forward (phase 7) for flash_attention, "
           f"one bf16 batch-{BATCH} BaseModelWithText training step (phase 8b) for "
           f"flash_attention_bwd; "
-          f"upsample_argmax is on no path (the JAX package calls it from tests only). ms / "
+          f"upsample_argmax and window_attention are on no path (the JAX package reaches "
+          f"them from tests only; window_attention is driven through SwinAttention.forward "
+          f"in phase 3w): launches 0. ms / "
           f"plain_ms / bound_ms / library_ms: bf16 at the main-path shapes, summed per forward "
           f"or per training step as the launches (upsample_argmax: one call at the served "
-          f"shape); library_ms: one PyTorch call of the same function (F.interpolate and its "
-          f"backward, F.scaled_dot_product_attention and its backward), null where none "
+          f"shape; window_attention: summed over the 22 swin blocks of stages 1-3 of a "
+          f"batch-{BATCH} {IMG}² forward); library_ms: one PyTorch call of the same function "
+          f"(F.interpolate and its backward, F.scaled_dot_product_attention and its backward, "
+          f"SDPA with the window bias and mask as its additive mask), null where none "
           f"exists; max_abs_err of "
           f"a mask kernel: the largest top-2 "
           f"score gap at a pixel where it differs from its plain version. Training step "
           f"{step_ms:.2f} ms; v1 training step {v1_step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
-          f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms on {smi}")
+          f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms; v4 bf16 b{BATCH} mask "
+          f"forwards { {k: round(ms, 2) for k, ms in v4.items()} } ms; BaseCrossA training "
+          f"step {v4_step_ms:.2f} ms on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,10 +1,17 @@
-"""The flagship ``PromptAuxCrossA`` (serving and training forward) and the v1
-CLIP family (serving; ``BaseModelWithText`` also trains), counterparts of
+"""The v4 family (the flagship ``PromptAuxCrossA``, ``BaseSelfA``,
+``BaseCrossA``, ``PromptSelfA``, ``PromptCrossA``, ``PromptAuxSelfA``:
+serving and training forward) and the v1 CLIP family (serving;
+``BaseModelWithText`` also trains), counterparts of
 ``lc2is_tpu/models/zoo.py`` (``_norm``/``_score_map``/``default_denseclip_cfg`` :49-76,
 ``BaseModelWithText`` :84-143, ``ContrastiveModel`` :146-176, ``DenseClip``
 :179-214, ``PromptContextBase`` :311-349, ``_FinalBase`` :389-443,
-``_PromptFinalBase`` :490-506, ``_AuxMixin`` :541-545, ``PromptAuxCrossA``
-:569-587).
+``ClassWeightTable`` :446-457, ``BaseSelfA`` / ``BaseCrossA`` :460-488,
+``_PromptFinalBase`` :490-506, ``PromptSelfA`` / ``PromptCrossA`` :509-538,
+``_AuxMixin`` :541-545, ``PromptAuxSelfA`` :548-566, ``PromptAuxCrossA``
+:569-587, ``ZOO`` / ``FROZEN_PREFIXES`` :594-626 for the models the port
+has).  The Base models take their class embeddings from a learned
+``classes.weight`` table (K, decoder width); the SelfA models decode the
+pyramid without the classes (``HierarchicalSelfA``).
 
 Inputs are the reference's dict: ``pixel_values`` (B, 3, H, W) and an
 optional ``text_static`` (K, C) from :meth:`embed_text`.  Outputs keep the
@@ -40,7 +47,8 @@ that wants the CPU passes ``device="cpu"``.  Without a card the default
 raises.
 
 Training: ``forward(inputs, generator=...)`` in training mode draws the swin
-drop-path masks from that generator (``nn/swin.py``); ``FROZEN_PREFIXES``
+drop-path masks and, at ``dropout`` > 0, the decoder's dropout masks from
+that generator (``nn/swin.py``, ``nn/layers.py``); ``FROZEN_PREFIXES``
 names the parameters the reference freezes (``zoo.py:617-625``).
 
 The v1 models take ``pixel_values`` with ``input_ids`` and an optional
@@ -65,7 +73,8 @@ import torch
 from torch import nn
 
 from lc2is_tpu_torch.nn.clip import CLIPTextTransformer, CLIPVisionTransformer
-from lc2is_tpu_torch.nn.decoders import DecoderBlock, HierarchicalCrossA, TextToPatch
+from lc2is_tpu_torch.nn.decoders import (DecoderBlock, HierarchicalCrossA, HierarchicalSelfA,
+                                         TextToPatch)
 from lc2is_tpu_torch.nn.denseclip import CLIPTextContextEncoder, ContextDecoder
 from lc2is_tpu_torch.nn.layers import Linear, _param
 from lc2is_tpu_torch.nn.swin import SWIN_SMALL, SwinModel
@@ -75,8 +84,15 @@ from lc2is_tpu_torch.ops.upsample_argmax import l2_normalize, score_upsample_arg
 
 ADE20K_NUM_CLASSES = 151
 
-# parameter prefixes the reference freezes (requires_grad=False), zoo.py:617-625
-FROZEN_PREFIXES = {"prompt_aux_cross_a": ("prompt.text_encoder",)}
+# parameter prefixes the reference freezes (requires_grad=False), zoo.py:617-625,
+# for the models the port has
+FROZEN_PREFIXES = {
+    "dense_clip": ("text_encoder",),
+    "prompt_self_a": ("prompt.text_encoder",),
+    "prompt_cross_a": ("prompt.text_encoder",),
+    "prompt_aux_self_a": ("prompt.text_encoder",),
+    "prompt_aux_cross_a": ("prompt.text_encoder",),
+}
 
 
 def _score_map(v_tokens: torch.Tensor, t: torch.Tensor, grid: int) -> torch.Tensor:
@@ -285,13 +301,17 @@ class DenseClip(_ClipBase):
 
 
 class _FinalBase(nn.Module):
-    """Shared wiring of the v4 models: swin backbone, pyramid decoder, head."""
+    """Shared wiring of the v4 models: swin backbone, pyramid decoder, head.
+    ``dropout`` (``zoo.py:394``, 0 by default) reaches every SR layer of the
+    decoder; in training its masks, like the swin drop-path masks, come from
+    the generator given to ``forward``."""
 
     def __init__(self, class_names: Sequence[str] = tuple(f"class {i}" for i in range(ADE20K_NUM_CLASSES)),
                  dec_dim: int = 512, dec_depth: Sequence[int] = (1, 1, 1), nhead: int = 8,
-                 tie_block_weights: bool = True, dtype: torch.dtype = torch.float32,
-                 swin_cfg: Optional[Dict[str, Any]] = None, predict_masks: bool = False,
-                 return_score_map: bool = False, quant_int8: bool = False, device="cuda"):
+                 dropout: float = 0.0, tie_block_weights: bool = True,
+                 dtype: torch.dtype = torch.float32, swin_cfg: Optional[Dict[str, Any]] = None,
+                 predict_masks: bool = False, return_score_map: bool = False,
+                 quant_int8: bool = False, device="cuda"):
         super().__init__()
         device = _model_device(device)
         self.predict_masks, self.return_score_map = predict_masks, return_score_map
@@ -303,12 +323,17 @@ class _FinalBase(nn.Module):
         self.vision_encoder = SwinModel(dtype=dtype, quant=quant_int8, device=device,
                                         **self.swin_cfg)
         self._decoder_kw = dict(depth=tuple(dec_depth), dim=dec_dim, nhead=nhead,
-                                tie_block_weights=tie_block_weights, quant=quant_int8,
-                                device=device)
+                                dropout=dropout, tie_block_weights=tie_block_weights,
+                                quant=quant_int8, device=device)
 
     def _check_serving(self):
         if self.quant_int8 and self.training:
             raise RuntimeError("quant_int8 is serving only: call .eval() (no int8 training)")
+
+    def _pyramid(self, inputs, generator):
+        """The swin's first four hidden states (stage 4 is never run)."""
+        self._check_serving()
+        return self.vision_encoder(inputs["pixel_values"], generator, num_hidden=4)
 
     def _finish(self, v_tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The head at the stage-1 grid: int32 masks (``predict_masks``), the
@@ -320,6 +345,59 @@ class _FinalBase(nn.Module):
         if self.return_score_map:
             return score_map
         return resize(score_map, scale_factor=4, method="bilinear")
+
+
+class ClassWeightTable(nn.Module):
+    """The reference's bias-free ``nn.Linear(512, K)`` used as a (K, C)
+    class-embedding table (``zoo.py:446-457``), parameter ``classes.weight``."""
+
+    def __init__(self, num_classes: int, dim: int = 512, device=None):
+        super().__init__()
+        self.weight = _param(num_classes, dim, device=device)
+
+    def forward(self, b: int, dtype: torch.dtype) -> torch.Tensor:
+        """(b, K, C) class embeddings in ``dtype``."""
+        return self.weight.to(dtype)[None].expand(b, *self.weight.shape)
+
+
+class _BaseFinal(_FinalBase):
+    """``BaseSelfA`` / ``BaseCrossA`` (``zoo.py:460-488``): class embeddings
+    from a learned table, no prompt tower."""
+
+    _decoder_cls = None  # set by subclasses
+
+    def __init__(self, device="cuda", **kw):
+        super().__init__(device=device, **kw)
+        self.vision_decoder = self._decoder_cls(self.in_dims, **self._decoder_kw)
+        self.classes = ClassWeightTable(len(self.class_names), self._decoder_kw["dim"],
+                                        device=device)
+
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``generator`` draws the drop-path and dropout masks in training mode."""
+        v = self._pyramid(inputs, generator)
+        t = self.classes(v[-1].shape[0], v[-1].dtype)
+        x = self._decode(v, t, generator)
+        return dict(outputs=self._finish(x, t))
+
+
+class BaseSelfA(_BaseFinal):
+    """``final.py:13-49``: a vision-only pyramid decoder."""
+
+    _decoder_cls = HierarchicalSelfA
+
+    def _decode(self, v, t, generator):
+        return self.vision_decoder(v, generator=generator)
+
+
+class BaseCrossA(_BaseFinal):
+    """``final.py:51-87``: every pyramid stream cross-attends to the classes;
+    the CLI's default model (``cli/common.py:30``)."""
+
+    _decoder_cls = HierarchicalCrossA
+
+    def _decode(self, v, t, generator):
+        return self.vision_decoder(v, t, generator=generator)
 
 
 class _PromptFinalBase(_FinalBase):
@@ -335,12 +413,66 @@ class _PromptFinalBase(_FinalBase):
         back as ``inputs["text_static"]``."""
         return self.prompt.embed_text()
 
+    def _prompted(self, inputs, generator):
+        """(pyramid, class embeddings from the prompt tower on stage 3, in
+        the compute dtype, ``zoo.py:514-515``)."""
+        v = self._pyramid(inputs, generator)
+        t = self.prompt(v[2], text_static=inputs.get("text_static")).to(v[-1].dtype)
+        return v, t
+
 
 class _AuxMixin:
     def _aux_map(self, v_stage3, t):
         v_low = self.aux_linear(v_stage3)  # (B, (H/16)², text_dim)
         grid = int(round(v_low.shape[1] ** 0.5))
         return _score_map(v_low, t, grid)
+
+    def _add_aux(self, device):
+        # the reference hardcodes nn.Linear(in_dims[-2], 512); 512 == text_dim
+        self.aux_linear = Linear(self.in_dims[-2], self.cfg["text_dim"], device=device)
+
+
+class PromptSelfA(_PromptFinalBase):
+    """``final.py:89-149``: the prompt tower on stage 3, a vision-only decoder."""
+
+    def __init__(self, device="cuda", **kw):
+        super().__init__(device=device, **kw)
+        self.vision_decoder = HierarchicalSelfA(self.in_dims, **self._decoder_kw)
+
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        v, t = self._prompted(inputs, generator)
+        return dict(outputs=self._finish(self.vision_decoder(v, generator=generator), t))
+
+
+class PromptCrossA(_PromptFinalBase):
+    """``final.py:151-211``: the prompt tower on stage 3, every decoder stream
+    cross-attends to the prompted classes."""
+
+    def __init__(self, device="cuda", **kw):
+        super().__init__(device=device, **kw)
+        self.vision_decoder = HierarchicalCrossA(self.in_dims, **self._decoder_kw)
+
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        v, t = self._prompted(inputs, generator)
+        return dict(outputs=self._finish(self.vision_decoder(v, t, generator=generator), t))
+
+
+class PromptAuxSelfA(_PromptFinalBase, _AuxMixin):
+    """``final.py:213-286``: ``PromptSelfA`` plus the aux score map on stage 3."""
+
+    def __init__(self, device="cuda", **kw):
+        super().__init__(device=device, **kw)
+        self._add_aux(device)
+        self.vision_decoder = HierarchicalSelfA(self.in_dims, **self._decoder_kw)
+
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        v, t = self._prompted(inputs, generator)
+        low = self._aux_map(v[2], t)
+        x = self.vision_decoder(v, generator=generator)
+        return dict(outputs=self._finish(x, t), low_score_map=low)
 
 
 class PromptAuxCrossA(_PromptFinalBase, _AuxMixin):
@@ -349,16 +481,28 @@ class PromptAuxCrossA(_PromptFinalBase, _AuxMixin):
 
     def __init__(self, device="cuda", **kw):
         super().__init__(device=device, **kw)
-        # the reference hardcodes nn.Linear(in_dims[-2], 512); 512 == text_dim
-        self.aux_linear = Linear(self.in_dims[-2], self.cfg["text_dim"], device=device)
+        self._add_aux(device)
         self.vision_decoder = HierarchicalCrossA(self.in_dims, **self._decoder_kw)
 
     def forward(self, inputs: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """``generator`` draws the swin drop-path masks in training mode."""
-        self._check_serving()
-        v = self.vision_encoder(inputs["pixel_values"], generator, num_hidden=4)
-        t = self.prompt(v[2], text_static=inputs.get("text_static")).to(v[-1].dtype)
+        """``generator`` draws the swin drop-path and the decoder dropout
+        masks in training mode."""
+        v, t = self._prompted(inputs, generator)
         low = self._aux_map(v[2], t)
-        x = self.vision_decoder(v, t)
+        x = self.vision_decoder(v, t, generator=generator)
         return dict(outputs=self._finish(x, t), low_score_map=low)
+
+
+# the models the port has, under the JAX package's registry names (zoo.py:594-611)
+ZOO = {
+    "base_with_text": BaseModelWithText,
+    "contrastive": ContrastiveModel,
+    "dense_clip": DenseClip,
+    "base_self_a": BaseSelfA,
+    "base_cross_a": BaseCrossA,
+    "prompt_self_a": PromptSelfA,
+    "prompt_cross_a": PromptCrossA,
+    "prompt_aux_self_a": PromptAuxSelfA,
+    "prompt_aux_cross_a": PromptAuxCrossA,
+}

@@ -1,7 +1,11 @@
 """Decoders, counterparts of ``lc2is_tpu/nn/decoders.py``: the v1 fusion stack
-``DecoderBlock`` (:43-72) and ``TextToPatch`` (:405-417); the flagship's
-pyramid ``CrossABlock`` (:193-223), ``_HierarchicalBase._top_down``
-(:226-278) and ``HierarchicalCrossA`` (:300-316).
+``DecoderBlock`` (:43-72) and ``TextToPatch`` (:405-417); the v4 pyramid
+decoders ``_HierarchicalBase`` (:226-278) with ``HierarchicalSelfA``
+(:281-297, ``SelfABlock`` :159-190 over SR encoder layers) and
+``HierarchicalCrossA`` (:300-316, ``CrossABlock`` :193-223 over SR decoder
+layers).  ``dropout`` (0 by default, the v4 models' ``_FinalBase.dropout``)
+reaches every SR layer, its masks drawn from the ``generator`` given to
+``forward``.
 
 Every ×2 upsample is ``ops/resize.resize_tokens`` (the ``upsample_tokens``
 kernel on CUDA).  The last block of each stream does not upsample: the
@@ -18,7 +22,8 @@ from typing import List, Optional, Sequence
 import torch
 from torch import nn
 
-from lc2is_tpu_torch.nn.layers import Linear, SRTransformerDecoderLayer, TransformerDecoderLayer
+from lc2is_tpu_torch.nn.layers import (Linear, SRTransformerDecoderLayer, SRTransformerEncoderLayer,
+                                       TransformerDecoderLayer)
 from lc2is_tpu_torch.ops.resize import resize_tokens
 
 
@@ -64,35 +69,52 @@ class TextToPatch(nn.Module):
         return self.textual(text), self.visual(img)
 
 
-class CrossABlock(nn.Module):
-    """depth x SR cross-attention decoder layer, then ×``upsample``.
-    ``tie_weights`` reproduces the reference's one shared layer instance."""
+class SelfABlock(nn.Module):
+    """depth x SR self-attention encoder layer, then ×``upsample``
+    (``decoders.py:159-190``).  ``tie_weights`` reproduces the reference's one
+    shared layer instance."""
+
+    _layer_cls = SRTransformerEncoderLayer
 
     def __init__(self, d_model: int, nhead: int, depth: int = 1, sr_ratio: int = 2,
-                 upsample: int = 2, tie_weights: bool = True, quant: bool = False, device=None):
+                 dropout: float = 0.0, upsample: int = 2, tie_weights: bool = True,
+                 quant: bool = False, device=None):
         super().__init__()
         self.depth, self.upsample, self.tie_weights = depth, upsample, tie_weights
         n_distinct = 1 if tie_weights else depth
         self.layers = nn.ModuleList(
-            SRTransformerDecoderLayer(d_model, nhead, sr_ratio=sr_ratio, quant=quant,
-                                      device=device)
+            self._layer_cls(d_model, nhead, sr_ratio=sr_ratio, dropout=dropout, quant=quant,
+                            device=device)
             for _ in range(n_distinct))
 
-    def forward(self, tgt, memory):
-        h = _grid(tgt.shape[1])
-        x = tgt
+    def forward(self, x, *memory, generator: Optional[torch.Generator] = None):
+        """``memory``: the cross-attended text (``CrossABlock``) or nothing;
+        ``generator`` draws the dropout masks in training mode."""
+        h = _grid(x.shape[1])
         for i in range(self.depth):
-            x = self.layers[0 if self.tie_weights else i](x, memory)
+            x = self.layers[0 if self.tie_weights else i](x, *memory, generator=generator)
         if self.upsample == 1:
             return x
         return resize_tokens(x, (h, h), scale_factor=self.upsample)
 
 
-class HierarchicalCrossA(nn.Module):
-    """``model/hierarchical.py:71-131``: every stream cross-attends to text."""
+class CrossABlock(SelfABlock):
+    """depth x SR cross-attention decoder layer, then ×``upsample``
+    (``decoders.py:193-223``)."""
+
+    _layer_cls = SRTransformerDecoderLayer
+
+
+class _HierarchicalBase(nn.Module):
+    """``decoders.py:226-278``: the top-down linears, three streams of
+    ``_block_cls`` blocks at stages 2-4, the streams summed at stage-2
+    resolution and one deferred ×2."""
+
+    _block_cls = None  # set by subclasses
 
     def __init__(self, in_dims: Sequence[int], depth: Sequence[int], dim: int, nhead: int = 8,
-                 tie_block_weights: bool = True, quant: bool = False, device=None):
+                 dropout: float = 0.0, tie_block_weights: bool = True, quant: bool = False,
+                 device=None):
         super().__init__()
         if len(in_dims) != 4:
             raise ValueError(f"four pyramid stages expected, got {in_dims}")
@@ -103,13 +125,14 @@ class HierarchicalCrossA(nn.Module):
         self.linear2_stage_2 = Linear(in_dims[1], dim, **kw)
         self.linear2_stage_3 = Linear(in_dims[2], dim, **kw)
         self.linear2_stage_4 = Linear(in_dims[3], dim, **kw)
-        blk = dict(d_model=dim, nhead=nhead, sr_ratio=2, tie_weights=tie_block_weights,
-                   quant=quant, **kw)
-        self.attention_stage_2 = nn.ModuleList([CrossABlock(**blk, depth=depth[0], upsample=1)])
+        blk = dict(d_model=dim, nhead=nhead, sr_ratio=2, dropout=dropout,
+                   tie_weights=tie_block_weights, quant=quant, **kw)
+        cls = self._block_cls
+        self.attention_stage_2 = nn.ModuleList([cls(**blk, depth=depth[0], upsample=1)])
         self.attention_stage_3 = nn.ModuleList(
-            CrossABlock(**blk, depth=depth[1], upsample=1 if i == 1 else 2) for i in range(2))
+            cls(**blk, depth=depth[1], upsample=1 if i == 1 else 2) for i in range(2))
         self.attention_stage_4 = nn.ModuleList(
-            CrossABlock(**blk, depth=depth[2], upsample=1 if i == 2 else 2) for i in range(3))
+            cls(**blk, depth=depth[2], upsample=1 if i == 2 else 2) for i in range(3))
 
     def _top_down(self, visual: List[torch.Tensor]):
         hs = [_grid(t.shape[1]) for t in visual]
@@ -121,14 +144,33 @@ class HierarchicalCrossA(nn.Module):
         return (self.linear2_stage_1(visual[0]), self.linear2_stage_2(top_down_2),
                 self.linear2_stage_3(top_down_3), self.linear2_stage_4(top_down_4))
 
-    def forward(self, visual: List[torch.Tensor], textual: torch.Tensor):
+    def _decode(self, visual: List[torch.Tensor], memory, generator):
         t1, t2, t3, t4 = self._top_down(visual)
         for mod in self.attention_stage_4:
-            t4 = mod(t4, textual)
+            t4 = mod(t4, *memory, generator=generator)
         for mod in self.attention_stage_3:
-            t3 = mod(t3, textual)
+            t3 = mod(t3, *memory, generator=generator)
         for mod in self.attention_stage_2:
-            t2 = mod(t2, textual)
+            t2 = mod(t2, *memory, generator=generator)
         s = t2 + t3 + t4  # streams summed at stage-2 resolution, one deferred ×2
         h = _grid(s.shape[1])
         return t1 + resize_tokens(s, (h, h), scale_factor=2)
+
+
+class HierarchicalSelfA(_HierarchicalBase):
+    """``model/hierarchical.py:9-69`` (``decoders.py:281-297``): vision only."""
+
+    _block_cls = SelfABlock
+
+    def forward(self, visual: List[torch.Tensor], generator: Optional[torch.Generator] = None):
+        return self._decode(visual, (), generator)
+
+
+class HierarchicalCrossA(_HierarchicalBase):
+    """``model/hierarchical.py:71-131``: every stream cross-attends to text."""
+
+    _block_cls = CrossABlock
+
+    def forward(self, visual: List[torch.Tensor], textual: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        return self._decode(visual, (textual,), generator)

@@ -6,10 +6,11 @@ is a name walk.  Parameters are stored in f32 and cast to the input's dtype
 at use, as the flax modules do (``w.astype(x.dtype)``).  Tokens are
 channels-last (B, P, C).
 
-A post-norm decoder layer with no masks runs through the fused halves, as
-the JAX package does on the TPU (``layers.py:427-457``): each attention half
-is ``ops/attention_block.fused_attn_block`` (K/V projected outside the
-kernel, ``:437-455``).  ``norm_first`` or a key-padding mask takes the
+A post-norm decoder or encoder layer with no masks runs through the fused
+halves, as the JAX package does on the TPU (``layers.py:344-365``,
+``:427-457``): each attention half is ``ops/attention_block.fused_attn_block``
+(K/V projected outside the kernel, ``:437-455``; the SR layers reduce the
+self-attention's K/V source first, ``:510-548``).  ``norm_first`` or a key-padding mask takes the
 unfused ``MultiheadAttention`` halves (``:476-485``), whose core is
 ``ops/attention.scaled_dot_product_attention`` (the flash kernel where its
 gate sends it).  Either way the feed-forward half is
@@ -183,6 +184,66 @@ def _ff_res_norm(layer, x, norm: LayerNorm, *, pre: bool,
                ln_position="pre" if pre else "post", eps=norm.eps)
 
 
+def _fused_attn_half(layer, mha: MultiheadAttention, norm: LayerNorm, x, kv_src):
+    """``norm(x + mha(x, kv_src, kv_src))`` through ``fused_attn_block`` (or
+    its int8 twin), K and V projected outside the kernel (``layers.py:344-356``,
+    ``:437-455``)."""
+    wq, wk, wv, bq, bk, bv = mha.proj_weights(x.dtype)
+    block = fused_attn_block_q if layer.quant else fused_attn_block
+    return block(x, F.linear(kv_src, wk, bk), F.linear(kv_src, wv, bv), wq, bq,
+                 mha.out_proj.weight, mha.out_proj.bias, norm.weight, norm.bias, layer.nhead,
+                 eps=norm.eps)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """torch ``nn.TransformerEncoderLayer`` (batch_first), ``layers.py:304-373``.
+    Post-norm with no masks, out of training or at dropout 0, runs the fused
+    route (``_fused_call`` :344-356, gate :358-365): ``fused_attn_block`` over
+    the K/V of ``_sa_kv_source``, then the fused feed-forward; otherwise the
+    unfused halves with their dropouts.  ``quant`` selects the int8 serving
+    kernels.  ``dropout`` is 0 by default, as every caller passes it."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 dropout: float = 0.0, activation: str = "relu", layer_norm_eps: float = 1e-5,
+                 norm_first: bool = False, quant: bool = False, device=None):
+        super().__init__()
+        self.nhead, self.activation, self.quant = nhead, activation, quant
+        self.norm_first, self.dropout = norm_first, dropout
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout=dropout, device=device)
+        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, device=device)
+        self.norm1 = LayerNorm(d_model, layer_norm_eps, device=device)
+        self.norm2 = LayerNorm(d_model, layer_norm_eps, device=device)
+        self.dropout_ff, self.dropout1, self.dropout2 = (Dropout(dropout) for _ in range(3))
+
+    def _sa_kv_source(self, x):
+        """K/V source of the self-attention (the SR subclass reduces it)."""
+        return x
+
+    def _sa_block(self, x, attn_mask, key_padding_mask, generator):
+        kv = self._sa_kv_source(x)
+        x = self.self_attn(x, kv, kv, key_padding_mask=key_padding_mask, attn_mask=attn_mask,
+                           generator=generator)
+        return self.dropout1(x, generator)
+
+    def _ff_block(self, x, generator):
+        x = self.dropout_ff(_ACTIVATIONS[self.activation](self.linear1(x)), generator)
+        return self.dropout2(self.linear2(x), generator)
+
+    def forward(self, src, src_mask=None, src_key_padding_mask=None,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks in training mode."""
+        if (not self.norm_first and src_mask is None and src_key_padding_mask is None
+                and not (self.training and self.dropout)):
+            x = _fused_attn_half(self, self.self_attn, self.norm1, src, self._sa_kv_source(src))
+            return _ff_res_norm(self, x, self.norm2, pre=False)
+        if self.norm_first:
+            x = src + self._sa_block(self.norm1(src), src_mask, src_key_padding_mask, generator)
+            return _ff_res_norm(self, x, self.norm2, pre=True, generator=generator)
+        x = self.norm1(src + self._sa_block(src, src_mask, src_key_padding_mask, generator))
+        return _ff_res_norm(self, x, self.norm2, pre=False, generator=generator)
+
+
 class TransformerDecoderLayer(nn.Module):
     """torch ``nn.TransformerDecoderLayer`` (batch_first) with the reference's
     asymmetric cross-attention (``d_kv`` sets kdim = vdim), ``layers.py:376-487``.
@@ -214,13 +275,6 @@ class TransformerDecoderLayer(nn.Module):
         """K/V source of the self-attention (the SR subclass reduces it)."""
         return x
 
-    def _attn_half(self, mha: MultiheadAttention, norm: LayerNorm, x, kv_src):
-        wq, wk, wv, bq, bk, bv = mha.proj_weights(x.dtype)
-        block = fused_attn_block_q if self.quant else fused_attn_block
-        return block(x, F.linear(kv_src, wk, bk), F.linear(kv_src, wv, bv), wq, bq,
-                     mha.out_proj.weight, mha.out_proj.bias, norm.weight, norm.bias, self.nhead,
-                     eps=norm.eps)
-
     def _sa_block(self, x, key_padding_mask, generator):
         kv = self._sa_kv_source(x)
         x = self.self_attn(x, kv, kv, key_padding_mask=key_padding_mask, generator=generator)
@@ -240,8 +294,8 @@ class TransformerDecoderLayer(nn.Module):
         """``generator`` draws the dropout masks in training mode."""
         if (not self.norm_first and tgt_key_padding_mask is None
                 and memory_key_padding_mask is None and not (self.training and self.dropout)):
-            x = self._attn_half(self.self_attn, self.norm1, tgt, self._sa_kv_source(tgt))
-            x = self._attn_half(self.multihead_attn, self.norm2, x, memory.to(x.dtype))
+            x = _fused_attn_half(self, self.self_attn, self.norm1, tgt, self._sa_kv_source(tgt))
+            x = _fused_attn_half(self, self.multihead_attn, self.norm2, x, memory.to(x.dtype))
             return _ff_res_norm(self, x, self.norm3, pre=False)
         kpm = memory_key_padding_mask
         if self.norm_first:
@@ -268,6 +322,20 @@ class SRReduce(nn.Module):
         b, p, c = x.shape
         h = int(round(p ** 0.5))
         return self.norm(self.sr(x.reshape(b, h, h, c)).reshape(b, -1, c))
+
+
+class SRTransformerEncoderLayer(TransformerEncoderLayer):
+    """``SRTransformerSelfA`` (``layers.py:510-527``): queries at full
+    resolution, the self-attention's K/V from the conv-reduced tokens."""
+
+    def __init__(self, d_model: int, nhead: int, sr_ratio: int = 1, **kw):
+        super().__init__(d_model, nhead, **kw)
+        self.sr_ratio = sr_ratio
+        if sr_ratio > 1:
+            self.sr_reduce = SRReduce(d_model, sr_ratio, device=kw.get("device"))
+
+    def _sa_kv_source(self, x):
+        return self.sr_reduce(x) if self.sr_ratio > 1 else x
 
 
 class SRTransformerDecoderLayer(TransformerDecoderLayer):

@@ -22,6 +22,14 @@ kernels run with ``residual=False`` and the per-sample drop-path mask and the
 residual add happen outside them (``swin.py:316-335``); the masks come from
 the ``torch.Generator`` passed to ``forward``, never from a global state.
 
+The windowed attention route of the JAX package (``SwinAttention`` called
+on partitioned windows, ``swin.py:130-210``) is here too: ``SwinAttention.
+forward`` over ``ops/window_attention.window_attention`` (the port of TPU
+row 8), with ``window_partition`` / ``window_reverse`` and HF's
+``_shift_attn_mask``.  ``SwinBlock`` does not take it: like the JAX block on
+its fused route, it reads the attention's parameters into
+``swin_window_block``.
+
 Int8 serving (``quant=True``, ``swin.py:245,324-329,385-390``): the MLP half
 goes through ``ops/quant.fused_mlp_q`` whenever drop path is off.  The
 attention half is int8 (``swin_window_block_q``) only where the JAX package
@@ -45,6 +53,7 @@ from lc2is_tpu_torch.nn.layers import LayerNorm, Linear, _param, s2d_matmul
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp
 from lc2is_tpu_torch.ops.quant import fused_mlp_q
 from lc2is_tpu_torch.ops.swin_window import swin_window_block, swin_window_block_q
+from lc2is_tpu_torch.ops.window_attention import region_labels, window_attention
 
 SWIN_SMALL = dict(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24))
 
@@ -75,6 +84,31 @@ def _relative_position_index(window: int, table_window: Optional[int] = None) ->
     return rel.sum(-1)  # (w², w²)
 
 
+def _shift_attn_mask(hp: int, wp: int, window: int, shift: int) -> Optional[torch.Tensor]:
+    """HF ``get_attn_mask`` (``swin.py:56-76``): (nW, w², w²) f32 additive
+    mask, -100 where two tokens lie in different shift regions; None when
+    ``shift`` is 0."""
+    lab = region_labels(1, hp, wp, window, shift)
+    if lab is None:
+        return None
+    return torch.where(lab[:, None, :] != lab[:, :, None], -100.0, 0.0)
+
+
+def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B·nW, w², C) (``swin.py:79-84``)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // window, window, w // window, window, c).transpose(2, 3)
+    return x.reshape(-1, window * window, c)
+
+
+def window_reverse(x: torch.Tensor, window: int, h: int, w: int) -> torch.Tensor:
+    """(B·nW, w², C) -> (B, H, W, C) (``swin.py:87-93``)."""
+    c = x.shape[-1]
+    b = x.shape[0] // ((h // window) * (w // window))
+    x = x.reshape(b, h // window, w // window, window, window, c).transpose(2, 3)
+    return x.reshape(b, h, w, c)
+
+
 class SwinSelfAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, window: int, device=None):
         super().__init__()
@@ -97,18 +131,42 @@ class SwinSelfAttention(nn.Module):
         lins = (self.query, self.key, self.value)
         return torch.cat([m.weight for m in lins]), torch.cat([m.bias for m in lins])
 
+    def forward(self, x, shift_info: Optional[Tuple[int, int, int, int]] = None,
+                eff_window: Optional[int] = None):
+        """x (B·nW, w², C) windows; ``shift_info`` (hp, wp, win, shift) of the
+        padded canvas (shift 0: no region masking).  ``swin.py:130-148``: the
+        projections, the bias of the effective window and
+        ``ops/window_attention``'s kernel."""
+        hp, wp, win, shift = shift_info if shift_info is not None else (0, 0, self.window, 0)
+        regions = None
+        if shift:
+            n_win = (hp // win) * (wp // win)
+            regions = region_labels(x.shape[0] // n_win, hp, wp, win, shift, x.device)
+        return window_attention(self.query(x), self.key(x), self.value(x),
+                                self.bias(eff_window or self.window), regions, self.num_heads)
+
 
 class SwinSelfOutput(nn.Module):
     def __init__(self, dim: int, device=None):
         super().__init__()
         self.dense = Linear(dim, dim, device=device)
 
+    def forward(self, x):
+        return self.dense(x)
+
 
 class SwinAttention(nn.Module):
+    """HF's SwinAttention.  ``SwinBlock`` reads its parameters into the fused
+    ``swin_window_block``; :meth:`forward` is the unfused windowed route
+    (``swin.py:198-199``) over ``ops/window_attention``."""
+
     def __init__(self, dim: int, num_heads: int, window: int, device=None):
         super().__init__()
         self.self = SwinSelfAttention(dim, num_heads, window, device=device)  # HF's name
         self.output = SwinSelfOutput(dim, device=device)
+
+    def forward(self, x, shift_info=None, eff_window=None):
+        return self.output(self.self(x, shift_info, eff_window))
 
 
 class _Dense(nn.Module):

@@ -51,6 +51,7 @@ SIGNATURES = {
     "lc2_swin_window_q": [_I] + [_P] * 11 + [_I] * 8 + [_F, _P],
     "lc2_flash_attention": [_I] + [_P] * 6 + [_I] * 5 + [_F, _P],
     "lc2_flash_attention_bwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _P],
+    "lc2_window_attention": [_I] + [_P] * 6 + [_I] * 4 + [_P],
 }
 # entry points returning a size (floats of scratch a kernel needs)
 SIZE_SIGNATURES = {

@@ -42,20 +42,11 @@ import torch.nn.functional as F
 from lc2is_tpu_torch.ops import _build
 from lc2is_tpu_torch.ops.dispatch import use_kernel
 from lc2is_tpu_torch.ops.quant import forward_only, qdot, quantize_weight
+from lc2is_tpu_torch.ops.window_attention import region_labels
 
 
 def _padded(n: int, win: int) -> int:
     return -(-n // win) * win
-
-
-def _region_labels(hp: int, wp: int, win: int, shift: int, device) -> torch.Tensor:
-    """(nW, win²) HF img_mask region ids of the rolled, partitioned canvas."""
-    def region(n):
-        i = torch.arange(n, device=device)
-        return (i >= n - win).long() + (i >= n - shift).long()
-
-    img = region(hp)[:, None] * 3 + region(wp)[None, :]
-    return img.reshape(hp // win, win, wp // win, win).transpose(1, 2).reshape(-1, win * win)
 
 
 def _window_pipeline(x, hs, qkv_fn, bias, num_heads, win, shift, folded):
@@ -81,7 +72,7 @@ def _window_pipeline(x, hs, qkv_fn, bias, num_heads, win, shift, folded):
         logits = logits / math.sqrt(dh)
     logits = logits + bias.float()[None]
     if shift:
-        lab = _region_labels(hp, wp, win, shift, x.device)
+        lab = region_labels(1, hp, wp, win, shift, x.device)
         mask = torch.where(lab[:, None, :] != lab[:, :, None], -100.0, 0.0)
         logits = (logits.reshape(b, nwh * nww, num_heads, n, n) + mask[None, :, None]
                   ).reshape(-1, num_heads, n, n)

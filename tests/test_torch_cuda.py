@@ -872,3 +872,120 @@ def test_swin_base_shaped_model_serves_on_card(cuda):
     for key in ("outputs", "low_score_map"):
         assert torch.isfinite(got[key]).all()
         torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-3, rtol=0)
+
+
+def _window_inputs(rs, n, p, c, heads, dtype, regions):
+    q, k, v = (_rand(rs, n, p, c, dtype=dtype) for _ in range(3))
+    bias = _rand(rs, heads, p, p, scale=0.5)
+    reg = None
+    if regions:  # a few shift regions a window, each token's own included
+        reg = torch.from_numpy(rs.randint(0, 3, size=(n, p)).astype(np.int32)).cuda()
+    return q, k, v, bias, reg
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("regions", [False, True])
+@pytest.mark.parametrize("n,p,heads,dh", [(37, 49, 3, 32), (5, 16, 2, 16), (3, 144, 2, 64),
+                                          (7, 49, 4, 16), (6, 16, 3, 64), (4, 144, 3, 32),
+                                          (9, 25, 5, 1), (2, 49, 1, 128), (3, 1, 2, 8),
+                                          (2, 33, 2, 40)])
+def test_window_attention_kernel(cuda, dtype, regions, n, p, heads, dh):
+    """window_attention (TPU row 8) against its plain version at windows of
+    4, 5, 7 and 12 (p 16, 25, 49, 144) and ragged p, head widths 1 to 128,
+    with and without shift-region labels."""
+    from lc2is_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+
+    args = _window_inputs(np.random.RandomState(p * dh + n), n, p, heads * dh, heads, dtype,
+                          regions)
+    _check(window_attention, window_attention, window_attention_plain, *args, heads)
+
+
+def test_window_attention_raises_and_backward(cuda):
+    """Outside p 1-144 or head widths 1-128 the kernel raises with a message
+    (the Pallas kernel takes any); a gradient through it runs the plain
+    recompute backward and matches autograd through the plain version."""
+    from lc2is_tpu_torch.ops.window_attention import (region_labels, window_attention,
+                                                      window_attention_plain)
+
+    rs = np.random.RandomState(30)
+    for n, p, c, heads in [(2, 145, 64, 2), (2, 49, 258, 2)]:
+        args = _window_inputs(rs, n, p, c, heads, torch.float32, False)
+        with pytest.raises(ValueError, match="outside what it takes"):
+            window_attention(*args, heads)
+    for dtype in DTYPES:
+        q, k, v, bias, _ = _window_inputs(rs, 32, 16, 64, 2, dtype, False)
+        reg = region_labels(2, 16, 16, 4, 2, device=cuda)
+        gout = _rand(rs, 32, 16, 64, dtype=dtype)
+        grads = []
+        for fn in (window_attention, window_attention_plain):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, bias)]
+            (fn(*leaves, reg, 2).float() * gout.float()).sum().backward()
+            grads.append([t.grad for t in leaves])
+        for g, w in zip(*grads):
+            assert g.dtype == w.dtype and torch.isfinite(g).all()
+            rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+            assert rel <= GRAD_TOL[dtype], rel
+
+
+def test_swin_attention_module_on_card(cuda):
+    """SwinAttention.forward (the windowed route) on the card against its CPU
+    run, f32, shifted: stage-3 windows of one 512² image (C 384, 12 heads)."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.nn.swin import SwinAttention, window_partition
+    from lc2is_tpu_torch.ops.window_attention import window_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu = seeded_init_(SwinAttention(384, 12, 7), seed=31).eval()
+    gpu = SwinAttention(384, 12, 7, device=cuda).eval()
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    x = window_partition(_rand(np.random.RandomState(32), 1, 35, 35, 384, device="cpu"), 7)
+    before = window_attention.launches
+    with torch.no_grad():
+        want, got = cpu(x, (35, 35, 7, 3)), gpu(x.to(cuda), (35, 35, 7, 3))
+    assert window_attention.launches == before + 1
+    torch.testing.assert_close(got.cpu(), want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("name", ["BaseCrossA", "BaseSelfA", "PromptAuxSelfA"])
+def test_small_v4_model_on_card(cuda, name):
+    """A small v4 model (swin widths, one block a stage, 128²) on the card
+    against its plain run on the CPU, f32: score maps within 1e-3, masks
+    equal to the CPU scores' argmax but where its two best scores lie within
+    2e-3 (twice the score bound), on at most 1e-3 of the pixels; bf16 finite."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models import zoo
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(class_names=("wall", "sky", "tree", "floor"), dec_dim=512, nhead=8,
+              swin_cfg=SMALL_SWIN)
+    if name.startswith("Prompt"):
+        kw["cfg"] = dict(text_encoder=dict(context_length=10, vocab_size=49408,
+                                           transformer_width=512, transformer_heads=8,
+                                           transformer_layers=1, embed_dim=512),
+                         context_decoder=dict(transformer_width=64, transformer_heads=4,
+                                              transformer_layers=1),
+                         context_length=5, text_dim=512)
+    cls = getattr(zoo, name)
+    cpu = seeded_init_(cls(device="cpu", **kw), seed=33).eval()
+    x = _rand(np.random.RandomState(34), 2, 3, 128, 128, device="cpu")
+    for head in ({}, {"predict_masks": True}):
+        gpu = cls(device=cuda, **head, **kw).eval()
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        with torch.no_grad():
+            got = gpu({"pixel_values": x.to(cuda)})
+            if not head:
+                want = cpu({"pixel_values": x})
+                for key in want:
+                    torch.testing.assert_close(got[key].cpu(), want[key], atol=1e-3, rtol=0)
+                continue
+            masks = got["outputs"].cpu()
+            top2 = want["outputs"].topk(2, dim=1).values
+            differ = masks != want["outputs"].argmax(1)
+            assert (top2[:, 0] - top2[:, 1])[differ].le(2e-3).all()
+            assert differ.float().mean() <= 1e-3
+    gpu16 = cls(device=cuda, dtype=torch.bfloat16, **kw).eval()
+    gpu16.load_state_dict(cpu.state_dict(), strict=True)
+    with torch.no_grad():
+        out = gpu16({"pixel_values": x.to(cuda)})
+    assert all(torch.isfinite(o).all() for o in out.values())

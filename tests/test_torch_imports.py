@@ -18,9 +18,13 @@ import lc2is_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(lc2is_tpu_torch.__path__, "lc2is_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 17, mods
-new = {"lc2is_tpu_torch.nn.clip", "lc2is_tpu_torch.ops.flash_attention"}  # the v1 slice
+assert len(mods) >= 18, mods
+new = {"lc2is_tpu_torch.nn.clip", "lc2is_tpu_torch.ops.flash_attention",  # the v1 slice
+       "lc2is_tpu_torch.ops.window_attention"}  # row 8, the windowed swin route
 assert new <= set(mods), sorted(new - set(mods))
+from lc2is_tpu_torch.models import zoo
+v4 = {"BaseSelfA", "BaseCrossA", "PromptSelfA", "PromptCrossA", "PromptAuxSelfA"}
+assert v4 <= {c.__name__ for c in zoo.ZOO.values()}, sorted(zoo.ZOO)
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
 ref = sorted(m for m in sys.modules if m.split(".")[0] == "lc2is_tpu")
 assert not ref, ref  # nothing of the JAX package either
