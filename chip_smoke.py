@@ -7,7 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 1. environment: torch / CUDA / nvcc / triton versions, the card's name and
    power limit; TF32 is switched off for the f32 phases;
-2. build: every kernel of lc2is_tpu_torch/csrc with nvcc (sm_90a), timed;
+2. build: every kernel of lc2is_tpu_torch/csrc with nvcc (sm_90a), timed,
+   with the registers and spills of the bf16 flash kernels on a line;
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
@@ -21,7 +22,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    controls that must fail the same gate (the kernel over all keys but the
    last 64-key tile; the key-padding case run without its mask) and a case
    of fully-masked batch entries whose NaN rows must match the plain
-   version's exactly; flash at head widths 16, 40, 48 and 128; the v1 shapes of
+   version's exactly; flash at head widths 16, 40, 48 and 128 (each flash
+   case also prints its TFLOP/s and its time over SDPA's); the v1 shapes of
    fused_mlp and fused_attn_block (timed, not summed into the flagship
    forward);
 3b. backward kernels: each Hopper backward against autograd through its
@@ -33,7 +35,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    training shapes (ViT-B/16 (16, 12, 1025, 64), decoder (16, 8, 1024, 96)),
    masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
    that must fail (the kernel over all keys but the last 64; the masked case
-   run unmasked) and SDPA's backward timed beside it;
+   run unmasked) and SDPA's backward timed beside it (TFLOP/s over the five
+   products and the ratio printed);
 3w. window attention (TPU row 8, on no model's path): window_attention
    against its plain version at swin-small's four stage shapes of a 512²
    batch-16 forward (N 5776 / 1600 / 400 / 144 windows of 49 tokens, C 96 to
@@ -332,6 +335,12 @@ def least_time(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rate_of(work, ms):
+    """The operations of ``work`` (bytes, {type: operations}) per second at
+    ``ms``, as "x TFLOP/s"."""
+    return f"{sum(work[1].values()) / ms / 1e9:.1f} TFLOP/s"
 
 
 def mm_type(dt):
@@ -651,6 +660,8 @@ def run_case(c, dt, stats):
         ctl = compare(c, c["control"][1](), want, dt) if c["control"] else None
     b_ms, by = least_time(*c["work"])
     lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
+    if c["name"] == "flash_attention":  # its rate and its ratio to SDPA
+        lib += f" ({rate_of(c['work'], k_ms)}, {k_ms / lib_ms:.2f}x SDPA)"
     per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
     print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
           f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
@@ -982,10 +993,12 @@ def check_flash_backward(stats):
                              reps=5, warmup=1)
             b, h, lq, d = q.shape
             kept = None if mask is None else int((~mask).sum())
-            b_ms, by = least_time(*flash_bwd_work(b, h, lq, k.shape[2], d, dt, kept))
+            work = flash_bwd_work(b, h, lq, k.shape[2], d, dt, kept)
+            b_ms, by = least_time(*work)
             per = "not summed" if count is None else f"x{count}/step"
             print(f"  {'flash_attention_bwd':23s} {label:46s} max {mx:.3e} rel {rel:.3e} kernel "
-                  f"{k_ms:8.3f} ms plain {p_ms:8.3f} one-call {lib_ms:8.3f} bound {b_ms:7.3f} "
+                  f"{k_ms:8.3f} ms plain {p_ms:8.3f} one-call {lib_ms:8.3f} ({rate_of(work, k_ms)}"
+                  f" over 5 products, {k_ms / lib_ms:.2f}x SDPA's backward) bound {b_ms:7.3f} "
                   f"({by}) {per} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"flash_attention_bwd {label} {dt}: backward kernels "
@@ -1953,6 +1966,27 @@ def check_v1_train(smi):
     return result
 
 
+def flash_registers(log):
+    """The bf16 flash kernels' registers a thread and spill stores, from
+    ptxas's report in the build log: "name<DP> registers/spill bytes"."""
+    lines = log.splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        if "Compiling entry" not in line or "_mma" not in line:
+            continue
+        name = next((n for n in ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
+                     if n in line), None)
+        info = " ".join(lines[i + 1:i + 4])
+        if name is None or "Used " not in info:
+            continue
+        dp = line.split(name + "ILi")[1].split("E")[0]
+        regs = info.split("Used ")[1].split()[0]
+        spill = info.split("bytes spill stores")[0].split(",")[-1].strip()
+        out.append(f"{name}<{dp}> {regs}/{spill}")
+    return ("bf16 flash kernels, registers a thread / spill-store bytes: " + ", ".join(out)
+            if out else "bf16 flash kernels: no ptxas report (library found already built)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1984,6 +2018,7 @@ def main() -> int:
     print(f"[build] {lib.name} in {time.time() - t0:.1f} s; {report}", flush=True)
     for s in spills:
         print(f"[build]   {s.strip()}")
+    print(f"[build] {flash_registers(log)}", flush=True)
 
     def phase(label, fn, *args):
         t_start = time.time()

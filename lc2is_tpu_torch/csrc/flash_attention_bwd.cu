@@ -24,31 +24,45 @@
 //
 // Design: the TPU's sequential grid axis becomes a loop inside the block, and
 // each block writes whole rows of its output: no atomics, deterministic.
-// - dq kernel: one block per (b · h, 64-query tile) loops over 64-key tiles;
-//   each of its 4 warps owns 16 query rows.
-// - dk/dv kernel: one block per (b · h, 64-key tile) loops over 64-query
-//   tiles; each warp owns 16 keys and computes sᵀ = k · qᵀ and (dO · vᵀ)ᵀ
+// - dq kernel: one block per (b · h, query tile) loops over key tiles; each
+//   warp owns 16 query rows.
+// - dk/dv kernel: one block per (b · h, key tile) loops over query tiles;
+//   each warp owns 16 keys and computes sᵀ = k · qᵀ and (dO · vᵀ)ᵀ
 //   = v · dOᵀ for them, so the products onto its dk and dv rows need no
 //   transpose of p or ds.
-// - bf16: every product through WMMA (16x16x16 bf16, f32 accumulators); the
-//   operands come from shared memory, the two score-sized products pass
-//   through shared memory in f32, p and ds are rounded to bf16 there, and
-//   the dq / dk / dv accumulators stay in registers across the loop.
+// - bf16 (flash_bwd_dq_mma, flash_bwd_dkv_mma): 128 own rows and 8 warps a
+//   block; every product is mma.sync m16n8k16 with f32 accumulators in
+//   registers (mma_bf16.cuh).  The warp's own pair (q and dO, or k and v)
+//   sits in registers as A fragments, loaded once by ldmatrix (above DP 64
+//   the dk/dv kernel reads v's from shared memory at each product, which
+//   keeps its 2 · DP accumulator registers unspilled); the other pair
+//   streams in 64-row tiles through a two-stage cp.async ring (with the lse
+//   and delta of the streamed query rows in the dk/dv kernel), tile t + 1
+//   issued before tile t is computed, one barrier a tile.  s and dO · vᵀ
+//   stay in registers, 16 columns at a time; p and ds are computed there
+//   (exp2 with scale · log2 e folded into one FMA), rounded to bf16 straight
+//   into the A fragments of the next products, and the streamed tile enters
+//   those as B through ldmatrix.trans.  Shared memory holds only the tiles.
+//   A tile whose streamed rows are all live runs a body without branches;
+//   in the others an 8-column group with no live key (dq) or query (dk/dv)
+//   takes no product.  A dq warp whose rows lie past Lq, or a dk/dv warp
+//   whose 16 keys are all past Lk or masked, runs no product (its dk and dv
+//   are 0).
 // - f32: the products on the CUDA cores in full f32 (no TF32); a lane owns 4
 //   rows x 8 columns of a score tile and 4 rows x DP/8 columns of each
 //   accumulator, in registers.
 // Head dims: any d from 1 to 128 (DP = d rounded up to 16, zero-filled
-// columns; flash_common.cuh).  Ragged Lq and Lk and the key-padding mask are
-// masked in the loaders and in p.
+// columns; flash_common.cuh, mma_bf16.cuh).  Ragged Lq and Lk and the
+// key-padding mask are masked in the loaders and in p.
 // A fully-masked query row (lse = −∞; the forward gives NaN there) is
 // decided explicitly: its p is 0, so its dq row is 0 and it adds nothing to
 // dk or dv, and the wrapper sets its delta to 0 (its O is NaN), so a NaN row
 // never poisons its (b · h).  The TPU kernels would differentiate their
 // mean-of-v row instead; no caller reaches such a row.
 #include <math.h>
-#include <mma.h>
 
 #include "flash_common.cuh"
+#include "mma_bf16.cuh"
 
 namespace lc2 {
 namespace {
@@ -78,225 +92,336 @@ __device__ __forceinline__ void row_stats(const float* __restrict__ lse,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (WMMA)
+// bf16: tensor cores (mma.sync m16n8k16, fragments in registers)
 // ---------------------------------------------------------------------------
 
+constexpr int kMmaRows = 128;  // rows a block owns: 8 warps x 16
+constexpr int kMmaThreads = 256;
+constexpr int kMmaCols = 64;   // rows of a streamed tile
+constexpr int kMmaStages = 2;  // stages of the cp.async ring
+
+// Shared memory: the block's two own tiles (q and dO, or k and v; 128
+// rows), then the ring's stages of two streamed 64-row tiles and, for the
+// dk/dv kernel, the lse and delta of the streamed query rows.  bf16 tiles at
+// stride DP + 8.
 template <int DP>
-struct TcLayout {
-  static constexpr int kLd = DP + 8;   // bf16 tile rows (WMMA: multiple of 8)
-  static constexpr int kLdS = kB + 4;  // f32 score-sized products
-  static constexpr int kLdP = kB + 8;  // bf16 p / ds
-  static constexpr int kLdO = DP + 4;  // f32 output staging
-  static constexpr size_t kTile = align128(sizeof(bf16) * kB * kLd);
-  static constexpr size_t kOffS = 4 * kTile;  // four bf16 tiles first
-  static constexpr size_t kOffDP = kOffS + align128(sizeof(float) * kB * kLdS);
-  static constexpr size_t kOffP = kOffDP + align128(sizeof(float) * kB * kLdS);
-  static constexpr size_t kOffDS = kOffP + align128(sizeof(bf16) * kB * kLdP);
-  static constexpr size_t kOffO = kOffDS + align128(sizeof(bf16) * kB * kLdP);
-  static constexpr size_t kOffStats = kOffO + align128(sizeof(float) * kB * kLdO);
-  static constexpr size_t kBytes = kOffStats + 2 * sizeof(float) * kB;
+struct MmaLayout {
+  static constexpr int kLd = mma::row_stride<DP>();
+  static constexpr int kOwn = kMmaRows * kLd;   // elements of an own tile
+  static constexpr int kTile = kMmaCols * kLd;  // elements of a streamed tile
+  static constexpr size_t kStage = sizeof(bf16) * 2 * kTile + 2 * sizeof(float) * kMmaCols;
+  static constexpr size_t kOwnBytes = sizeof(bf16) * 2 * kOwn;
+  static constexpr size_t kBytes = kOwnBytes + kMmaStages * kStage;
 };
 
-// acc (16 x DP, one warp's rows) times `scale` into rows r0 .. r0 + 15 of
-// the (n, d) output, through the warp's f32 staging rows.
-template <int DP, typename Acc>
-__device__ __forceinline__ void store_rows_tc(Acc (&acc)[DP / 16], float scale, float* ow,
-                                              bf16* __restrict__ dst, int r0, int n, int d,
-                                              int lane) {
-  using namespace nvcuda;
-  using L = TcLayout<DP>;
-#pragma unroll
-  for (int ct = 0; ct < DP / 16; ++ct) {
-#pragma unroll
-    for (int e = 0; e < acc[ct].num_elements; ++e) acc[ct].x[e] *= scale;
-    wmma::store_matrix_sync(ow + ct * 16, acc[ct], L::kLdO, wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * d; idx += 32) {
-    const int r = idx / d, c = idx - r * d;
-    if (r0 + r < n) dst[(size_t)(r0 + r) * d + c] = __float2bfloat16(ow[r * L::kLdO + c]);
-  }
-}
-
-// C (16 x 64, row-major f32 at ldc) = A (16 rows of a tile, row-major) ·
-// Bᵀ, B a 64-row tile (both at stride L::kLd, DP columns).
+// One stage of the ring: two streamed tiles and (dk/dv kernel) the stats.
 template <int DP>
-__device__ __forceinline__ void abt_tc(const bf16* a, const bf16* b, float* c, int ldc) {
-  using namespace nvcuda;
-  using L = TcLayout<DP>;
-#pragma unroll
-  for (int nt = 0; nt < kB / 16; ++nt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-    for (int dk = 0; dk < DP / 16; ++dk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-      wmma::load_matrix_sync(af, a + dk * 16, L::kLd);
-      wmma::load_matrix_sync(bf, b + nt * 16 * L::kLd + dk * 16, L::kLd);
-      wmma::mma_sync(acc, af, bf, acc);
-    }
-    wmma::store_matrix_sync(c + nt * 16, acc, ldc, wmma::mem_row_major);
+struct Stage {
+  bf16* a;
+  bf16* b;
+  float* lse;
+  float* delta;
+  __device__ __forceinline__ Stage(unsigned char* smem, int s) {
+    using L = MmaLayout<DP>;
+    unsigned char* base = smem + L::kOwnBytes + s * L::kStage;
+    a = reinterpret_cast<bf16*>(base);
+    b = a + L::kTile;
+    lse = reinterpret_cast<float*>(b + L::kTile);
+    delta = lse + kMmaCols;
   }
-}
+};
 
-// acc (16 x DP) += P (16 x 64, bf16 at L::kLdP) · B (a 64-row tile).
-template <int DP, typename Acc>
-__device__ __forceinline__ void pb_tc(Acc (&acc)[DP / 16], const bf16* p, const bf16* b) {
-  using namespace nvcuda;
-  using L = TcLayout<DP>;
+// S (16 x 16) = A · Bᵀ for the 16 streamed rows 16c .. 16c + 15 of tile bs,
+// and T = C · Eᵀ likewise from tile es, with A, C the warp's 16 own rows as
+// A fragments: s[j], t[j] hold columns 8j .. 8j + 7.  kCShared: C's
+// fragments are read from shared memory (this lane's ldmatrix row at cs)
+// instead of registers.  Unless kFull (every row of the tile live: no
+// branch, so ptxas can interleave the loads and products), an 8-row group
+// whose 4 bits in `groups` are clear is skipped and left 0.
+template <int DP, bool kFull, bool kCShared = false>
+__device__ __forceinline__ void two_products_mma(const uint32_t (&a)[DP / 16][4],
+                                                 const uint32_t (&c)[kCShared ? 1 : DP / 16][4],
+                                                 const bf16* cs, const bf16* bs, const bf16* es,
+                                                 int c16, uint32_t groups, int lane,
+                                                 float (&s)[2][4], float (&t)[2][4]) {
+  constexpr int LD = mma::row_stride<DP>();
+  const int lr = lane & 7, lsel1 = (lane >> 3) & 1, lsel2 = lane >> 4;
+  const bool g0 = kFull || (groups & 0xfu), g1 = kFull || ((groups >> 4) & 0xfu);
 #pragma unroll
-  for (int ct = 0; ct < DP / 16; ++ct) {
+  for (int e = 0; e < 4; ++e) s[0][e] = s[1][e] = t[0][e] = t[1][e] = 0.0f;
+  const int row = (16 * c16 + lr + 8 * lsel2) * LD + 8 * lsel1;
 #pragma unroll
-    for (int kk = 0; kk < kB / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-      wmma::load_matrix_sync(pf, p + kk * 16, L::kLdP);
-      wmma::load_matrix_sync(bf, b + kk * 16 * L::kLd + ct * 16, L::kLd);
-      wmma::mma_sync(acc[ct], pf, bf, acc[ct]);
-    }
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                const bf16* __restrict__ g, const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq, int heads, int lq,
-                int lk, int d, float scale) {
-  using namespace nvcuda;
-  using L = TcLayout<DP>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gs = reinterpret_cast<bf16*>(smem_raw + L::kTile);
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw + 2 * L::kTile);
-  bf16* vs = reinterpret_cast<bf16*>(smem_raw + 3 * L::kTile);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, ly = lane >> 3, lx = lane & 7;
-  float* sw = reinterpret_cast<float*>(smem_raw + L::kOffS) + warp * 16 * L::kLdS;
-  float* dpw = reinterpret_cast<float*>(smem_raw + L::kOffDP) + warp * 16 * L::kLdS;
-  bf16* dsw = reinterpret_cast<bf16*>(smem_raw + L::kOffDS) + warp * 16 * L::kLdP;
-  float* ow = reinterpret_cast<float*>(smem_raw + L::kOffO) + warp * 16 * L::kLdO;
-
-  int bh, q0;
-  flash::block_tile((lq + kB - 1) / kB, bh, q0);
-  const size_t rows = (size_t)bh * lq;
-  const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
-  load_tile<bf16, DP, L::kLd>(q + rows * d, q0, lq, d, qs);
-  load_tile<bf16, DP, L::kLd>(g + rows * d, q0, lq, d, gs);
-  float l_r[4], d_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    row_stats(lse, delta, rows, q0 + warp * 16 + 4 * ly + i, lq, l_r[i], d_r[i]);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[DP / 16];
-#pragma unroll
-  for (int ct = 0; ct < DP / 16; ++ct) wmma::fill_fragment(acc[ct], 0.0f);
-  const int n_tiles = (lk + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kB;
-    __syncthreads();  // q / dO written, every warp done with the previous k / v tile
-    load_tile<bf16, DP, L::kLd>(k + (size_t)bh * lk * d, k0, lk, d, ks);
-    load_tile<bf16, DP, L::kLd>(v + (size_t)bh * lk * d, k0, lk, d, vs);
-    __syncthreads();
-    abt_tc<DP>(qs + warp * 16 * L::kLd, ks, sw, L::kLdS);   // s = q · kᵀ
-    abt_tc<DP>(gs + warp * 16 * L::kLd, vs, dpw, L::kLdS);  // dO · vᵀ
-    __syncwarp();
-    bool keep[8];
-    kept_keys(mrow, k0, lk, lx, keep);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ly + i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float p, ds;
-        p_ds(sw[r * L::kLdS + lx + 8 * j], dpw[r * L::kLdS + lx + 8 * j], l_r[i], d_r[i],
-             keep[j] && l_r[i] != -INFINITY, scale, p, ds);
-        dsw[r * L::kLdP + lx + 8 * j] = __float2bfloat16(ds);  // rounded to k's dtype
+  for (int kc = 0; kc < DP / 16; ++kc) {
+    uint32_t b[4], e[4];
+    mma::ldsm_x4(b, bs + row + kc * 16);
+    mma::ldsm_x4(e, es + row + kc * 16);
+    auto products = [&](const uint32_t(&ck)[4]) {
+      if (g0) {
+        mma::mma_bf16(s[0], a[kc], b[0], b[1]);
+        mma::mma_bf16(t[0], ck, e[0], e[1]);
       }
+      if (g1) {
+        mma::mma_bf16(s[1], a[kc], b[2], b[3]);
+        mma::mma_bf16(t[1], ck, e[2], e[3]);
+      }
+    };
+    if constexpr (kCShared) {
+      uint32_t cf[4];
+      mma::ldsm_x4(cf, cs + kc * 16);
+      products(cf);
+    } else {
+      products(c[kc]);
     }
-    __syncwarp();
-    pb_tc<DP>(acc, dsw, ks);  // dq += ds · k
   }
-  store_rows_tc<DP>(acc, scale, ow, dq + rows * d, q0 + warp * 16, lq, d, lane);
+}
+
+// acc (16 x DP) += P · B, P the rounded A fragment of the 16 x 16 tile p
+// (columns = streamed rows 16c .. 16c + 15 of tile bs), B through
+// ldmatrix.trans.
+template <int DP>
+__device__ __forceinline__ void pb_mma(float (&acc)[DP / 8][4], const float (&p)[2][4],
+                                       const bf16* bs, int c16, int lane) {
+  constexpr int LD = mma::row_stride<DP>();
+  uint32_t pa[4];
+  mma::pack_a(pa, p[0], p[1]);
+  const bf16* row = bs + (16 * c16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
+#pragma unroll
+  for (int dn = 0; dn < DP / 16; ++dn) {
+    uint32_t b[4];
+    mma::ldsm_x4_t(b, row + 16 * dn);
+    mma::mma_bf16(acc[2 * dn], pa, b[0], b[1]);
+    mma::mma_bf16(acc[2 * dn + 1], pa, b[2], b[3]);
+  }
+}
+
+// This lane's ldmatrix row of the A fragments of 16 rows at own.
+template <int DP>
+__device__ __forceinline__ const bf16* own_row(const bf16* own, int lane) {
+  return own + ((lane & 7) + 8 * ((lane >> 3) & 1)) * mma::row_stride<DP>() + 8 * (lane >> 4);
+}
+
+// The A fragments of 16 own rows at own.
+template <int DP, int N>
+__device__ __forceinline__ void own_fragments(const bf16* own, int lane, uint32_t (&a)[N][4]) {
+  const bf16* row = own_row<DP>(own, lane);
+#pragma unroll
+  for (int kc = 0; kc < N; ++kc) mma::ldsm_x4(a[kc], row + kc * 16);
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
                  const bf16* __restrict__ g, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                 int heads, int lq, int lk, int d, float scale) {
-  using namespace nvcuda;
-  using L = TcLayout<DP>;
+                 const float* __restrict__ delta, bf16* __restrict__ dq, int heads, int lq,
+                 int lk, int d, float scale) {
+  using L = MmaLayout<DP>;
+  constexpr int KC = DP / 16, NO = DP / 8, LD = L::kLd;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* gs = qs + L::kOwn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
+
+  int bh, q0;
+  flash::block_tile<kMmaRows>((lq + kMmaRows - 1) / kMmaRows, bh, q0);
+  const size_t rows = (size_t)bh * lq;
+  const bf16* kb = k + (size_t)bh * lk * d;
+  const bf16* vb = v + (size_t)bh * lk * d;
+  const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
+  const int n_tiles = (lk + kMmaCols - 1) / kMmaCols;
+
+  auto issue_tile = [&](int t) {  // k_t and v_t into stage t % kMmaStages, one group
+    if (t < n_tiles) {
+      const Stage<DP> st(smem_raw, t % kMmaStages);
+      mma::load_rows<DP, kMmaCols, kMmaThreads>(kb, t * kMmaCols, lk, d, st.a);
+      mma::load_rows<DP, kMmaCols, kMmaThreads>(vb, t * kMmaCols, lk, d, st.b);
+    }
+    mma::cp_async_commit();
+  };
+  // groups in flight: q and dO, then tiles 0 .. kMmaStages - 2
+  mma::load_rows<DP, kMmaRows, kMmaThreads>(q + rows * d, q0, lq, d, qs);
+  mma::load_rows<DP, kMmaRows, kMmaThreads>(g + rows * d, q0, lq, d, gs);
+  mma::cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kMmaStages - 1; ++t) issue_tile(t);
+  mma::cp_async_wait<kMmaStages - 1>();
+  __syncthreads();
+
+  const bool live = q0 + warp * 16 < lq;
+  uint32_t qa[KC][4], ga[KC][4];
+  own_fragments<DP>(qs + warp * 16 * LD, lane, qa);
+  own_fragments<DP>(gs + warp * 16 * LD, lane, ga);
+  // the lane's rows g and g + 8: lse in log2 units (−∞ past Lq or on a
+  // fully-masked row, which then takes p = 0) and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+    lse2[r] = row < lq ? lse[rows + row] * mma::kLog2e : -INFINITY;
+    dl[r] = row < lq ? delta[rows + row] : 0.0f;
+  }
+  const float sl2 = scale * mma::kLog2e;
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mma::cp_async_wait<kMmaStages - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();  // ... every thread's; and every warp is done with tile t - 1
+    issue_tile(t + kMmaStages - 1);  // into tile t - 1's stage
+    const Stage<DP> cur(smem_raw, t % kMmaStages);
+    const mma::KeyBits kept = mma::key_bits(mrow, t * kMmaCols, lk, lane);
+    if (!live || !kept.any()) continue;
+    // kFull: every key of the tile kept, no branch on the 8-key groups
+    auto tile = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+#pragma unroll
+      for (int c16 = 0; c16 < kMmaCols / 16; ++c16) {
+        const uint32_t groups = (kept.any() >> (8 * c16)) & 0xffu;
+        if (!kFull && !groups) continue;
+        float s[2][4], dp[2][4];  // s = q · kᵀ and dO · vᵀ over keys 16c .. 16c + 15
+        two_products_mma<DP, kFull>(qa, ga, nullptr, cur.a, cur.b, c16, groups, lane, s, dp);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const bool keep = kFull || ((kept.b[e & 1] >> (8 * c16 + 4 * j + t4)) & 1u);
+            const bool on = keep && lse2[r] != -INFINITY;
+            const float p = on ? mma::exp2_approx(fmaf(s[j][e], sl2, -lse2[r])) : 0.0f;
+            dp[j][e] = on ? p * (dp[j][e] - dl[r]) : 0.0f;  // ds, rounded to bf16 in pb_mma
+          }
+        pb_mma<DP>(acc, dp, cur.a, c16, lane);  // dq += ds · k
+      }
+    };
+    if (kept.all())
+      tile(std::true_type{});
+    else
+      tile(std::false_type{});
+  }
+  if (!live) return;
+  bf16* st = qs + warp * 16 * LD;  // the warp's own q rows stage its dq rows
+  mma::stage_rows<DP, NO>(acc, scale, scale, st, lane);
+  mma::store_rows<DP>(st, dq + rows * d, q0 + warp * 16, lq, d, lane);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
+                  const bf16* __restrict__ g, const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  int heads, int lq, int lk, int d, float scale) {
+  using L = MmaLayout<DP>;
+  constexpr int KC = DP / 16, NO = DP / 8, LD = L::kLd;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = reinterpret_cast<bf16*>(smem_raw + L::kTile);
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw + 2 * L::kTile);
-  bf16* gs = reinterpret_cast<bf16*>(smem_raw + 3 * L::kTile);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, ly = lane >> 3, lx = lane & 7;
-  float* sw = reinterpret_cast<float*>(smem_raw + L::kOffS) + warp * 16 * L::kLdS;
-  float* dpw = reinterpret_cast<float*>(smem_raw + L::kOffDP) + warp * 16 * L::kLdS;
-  bf16* pw = reinterpret_cast<bf16*>(smem_raw + L::kOffP) + warp * 16 * L::kLdP;
-  bf16* dsw = reinterpret_cast<bf16*>(smem_raw + L::kOffDS) + warp * 16 * L::kLdP;
-  float* ow = reinterpret_cast<float*>(smem_raw + L::kOffO) + warp * 16 * L::kLdO;
-  float* lse_s = reinterpret_cast<float*>(smem_raw + L::kOffStats);
-  float* delta_s = lse_s + kB;
+  bf16* vs = ks + L::kOwn;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t4 = lane & 3;
 
   int bh, k0;
-  flash::block_tile((lk + kB - 1) / kB, bh, k0);
-  const size_t rows = (size_t)bh * lq;
+  flash::block_tile<kMmaRows>((lk + kMmaRows - 1) / kMmaRows, bh, k0);
+  const size_t rows = (size_t)bh * lq, krows = (size_t)bh * lk;
+  const bf16* qb = q + rows * d;
+  const bf16* gb = g + rows * d;
   const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
-  load_tile<bf16, DP, L::kLd>(k + (size_t)bh * lk * d, k0, lk, d, ks);
-  load_tile<bf16, DP, L::kLd>(v + (size_t)bh * lk * d, k0, lk, d, vs);
-  bool keep[4];  // the lane's keys 4 · ly + i of the warp's 16
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + warp * 16 + 4 * ly + i;
-    keep[i] = key < lk && !(mrow != nullptr && mrow[key] != 0);
-  }
+  const int n_tiles = (lq + kMmaCols - 1) / kMmaCols;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[DP / 16], dv_acc[DP / 16];
-#pragma unroll
-  for (int ct = 0; ct < DP / 16; ++ct) {
-    wmma::fill_fragment(dk_acc[ct], 0.0f);
-    wmma::fill_fragment(dv_acc[ct], 0.0f);
-  }
-  const int n_tiles = (lq + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kB;
-    __syncthreads();  // k / v written, every warp done with the previous q / dO tile
-    load_tile<bf16, DP, L::kLd>(q + rows * d, q0, lq, d, qs);
-    load_tile<bf16, DP, L::kLd>(g + rows * d, q0, lq, d, gs);
-    if (threadIdx.x < kB) row_stats(lse, delta, rows, q0 + threadIdx.x, lq,
-                                    lse_s[threadIdx.x], delta_s[threadIdx.x]);
-    __syncthreads();
-    abt_tc<DP>(ks + warp * 16 * L::kLd, qs, sw, L::kLdS);   // sᵀ = k · qᵀ
-    abt_tc<DP>(vs + warp * 16 * L::kLd, gs, dpw, L::kLdS);  // (dO · vᵀ)ᵀ
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ly + i;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = lx + 8 * j;
-        const float l = lse_s[c];
-        float p, ds;
-        p_ds(sw[r * L::kLdS + c], dpw[r * L::kLdS + c], l, delta_s[c],
-             keep[i] && l != -INFINITY, scale, p, ds);
-        pw[r * L::kLdP + c] = __float2bfloat16(p);    // rounded to dO's dtype
-        dsw[r * L::kLdP + c] = __float2bfloat16(ds);  // rounded to q's dtype
-      }
+  // Tile t: q and dO rows, and the lse and delta of those rows (zeros past
+  // Lq, where the query bits below keep p = 0), into stage t % kMmaStages.
+  auto issue_tile = [&](int t) {
+    if (t < n_tiles) {
+      const Stage<DP> st(smem_raw, t % kMmaStages);
+      const int r0 = t * kMmaCols;
+      mma::load_rows<DP, kMmaCols, kMmaThreads>(qb, r0, lq, d, st.a);
+      mma::load_rows<DP, kMmaCols, kMmaThreads>(gb, r0, lq, d, st.b);
+      const int i = threadIdx.x & (kMmaCols - 1);
+      const bool in = r0 + i < lq;
+      if (threadIdx.x < kMmaCols)
+        mma::cp_async4(st.lse + i, in ? lse + rows + r0 + i : lse, in);
+      else if (threadIdx.x < 2 * kMmaCols)
+        mma::cp_async4(st.delta + i, in ? delta + rows + r0 + i : delta, in);
     }
-    __syncwarp();
-    pb_tc<DP>(dv_acc, pw, gs);   // dv += pᵀ · dO
-    pb_tc<DP>(dk_acc, dsw, qs);  // dk += dsᵀ · q
+    mma::cp_async_commit();
+  };
+  // groups in flight: k and v, then tiles 0 .. kMmaStages - 2
+  mma::load_rows<DP, kMmaRows, kMmaThreads>(k + krows * d, k0, lk, d, ks);
+  mma::load_rows<DP, kMmaRows, kMmaThreads>(v + krows * d, k0, lk, d, vs);
+  mma::cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < kMmaStages - 1; ++t) issue_tile(t);
+  mma::cp_async_wait<kMmaStages - 1>();
+  __syncthreads();
+
+  // the lane's keys g and g + 8 of the warp's 16; a warp with no kept key
+  // (past Lk, or masked) runs no product and writes zeros
+  bool keep[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + warp * 16 + (lane >> 2) + 8 * r;
+    keep[r] = key < lk && !(mrow != nullptr && mrow[key] != 0);
   }
-  const size_t krows = (size_t)bh * lk;
-  store_rows_tc<DP>(dk_acc, scale, ow, dk + krows * d, k0 + warp * 16, lk, d, lane);
-  __syncwarp();
-  store_rows_tc<DP>(dv_acc, 1.0f, ow, dv + krows * d, k0 + warp * 16, lk, d, lane);
+  const bool live = __any_sync(0xffffffffu, keep[0] || keep[1]);
+  // k's fragments in registers; v's too where the registers allow (DP <=
+  // 64), else read from shared memory at each product
+  constexpr bool kVShared = DP > 64;
+  uint32_t ka[KC][4], va[kVShared ? 1 : KC][4];
+  own_fragments<DP>(ks + warp * 16 * LD, lane, ka);
+  if constexpr (!kVShared) own_fragments<DP>(vs + warp * 16 * LD, lane, va);
+  const bf16* vrow = own_row<DP>(vs + warp * 16 * LD, lane);
+  const float sl2 = scale * mma::kLog2e;
+  float dk_acc[NO][4], dv_acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    mma::cp_async_wait<kMmaStages - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();  // ... every thread's; and every warp is done with tile t - 1
+    issue_tile(t + kMmaStages - 1);  // into tile t - 1's stage
+    const Stage<DP> cur(smem_raw, t % kMmaStages);
+    const mma::KeyBits inq = mma::key_bits(nullptr, t * kMmaCols, lq, lane);  // query < Lq
+    if (!live) continue;
+    // kFull: every query of the tile inside Lq, no branch on the 8-query groups
+    auto tile = [&](auto full) {
+      constexpr bool kFull = decltype(full)::value;
+#pragma unroll
+      for (int c16 = 0; c16 < kMmaCols / 16; ++c16) {
+        const uint32_t groups = (inq.any() >> (8 * c16)) & 0xffu;
+        if (!kFull && !groups) continue;
+        float s[2][4], dp[2][4];  // sᵀ = k · qᵀ, (dO · vᵀ)ᵀ; queries 16c .. 16c + 15
+        two_products_mma<DP, kFull, kVShared>(ka, va, vrow, cur.a, cur.b, c16, groups, lane, s,
+                                              dp);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 16 * c16 + 8 * j + 2 * t4 + (e & 1);
+            const float l = cur.lse[col];
+            const bool in = kFull || ((inq.b[e & 1] >> (8 * c16 + 4 * j + t4)) & 1u);
+            const bool on = keep[e >> 1] && l != -INFINITY && in;
+            const float p =
+                on ? mma::exp2_approx(fmaf(s[j][e], sl2, -l * mma::kLog2e)) : 0.0f;
+            dp[j][e] = on ? p * (dp[j][e] - cur.delta[col]) : 0.0f;  // dsᵀ
+            s[j][e] = p;                                              // pᵀ
+          }
+        pb_mma<DP>(dv_acc, s, cur.b, c16, lane);   // dv += pᵀ · dO
+        pb_mma<DP>(dk_acc, dp, cur.a, c16, lane);  // dk += dsᵀ · q
+      }
+    };
+    if (inq.all())
+      tile(std::true_type{});
+    else
+      tile(std::false_type{});
+  }
+  // the warp's own k and v rows stage its dk and dv rows
+  bf16* kst = ks + warp * 16 * LD;
+  bf16* vst = vs + warp * 16 * LD;
+  mma::stage_rows<DP, NO>(dk_acc, scale, scale, kst, lane);
+  mma::stage_rows<DP, NO>(dv_acc, 1.0f, 1.0f, vst, lane);
+  mma::store_rows<DP>(kst, dk + krows * d, k0 + warp * 16, lk, d, lane);
+  mma::store_rows<DP>(vst, dv + krows * d, k0 + warp * 16, lk, d, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -545,14 +670,37 @@ cudaError_t launch_pair(KQ kq, KKV kkv, size_t smem, const void* q, const void* 
 }
 
 template <int DP>
+cudaError_t launch_mma_pair(const void* q, const void* k, const void* v, const void* mask,
+                            const void* g, const float* lse, const float* delta, void* dq,
+                            void* dk, void* dv, int bh, int heads, int lq, int lk, int d,
+                            float scale, cudaStream_t stream) {
+  constexpr size_t smem = MmaLayout<DP>::kBytes;
+  cudaError_t err = allow_smem(flash_bwd_dq_mma<DP>, smem);
+  if (err == cudaSuccess) err = allow_smem(flash_bwd_dkv_mma<DP>, smem);
+  if (err != cudaSuccess) return err;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* gt = static_cast<const bf16*>(g);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  flash_bwd_dq_mma<DP><<<((lq + kMmaRows - 1) / kMmaRows) * bh, kMmaThreads, smem, stream>>>(
+      qt, kt, vt, m, gt, lse, delta, static_cast<bf16*>(dq), heads, lq, lk, d, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_mma<DP><<<((lk + kMmaRows - 1) / kMmaRows) * bh, kMmaThreads, smem, stream>>>(
+      qt, kt, vt, m, gt, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads, lq,
+      lk, d, scale);
+  return cudaGetLastError();
+}
+
+template <int DP>
 cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, const void* mask,
                      const void* g, const float* lse, const float* delta, void* dq, void* dk,
                      void* dv, int bh, int heads, int lq, int lk, int d, float scale,
                      cudaStream_t stream) {
   if (dtype == kBF16)
-    return launch_pair<bf16>(flash_bwd_dq_tc<DP>, flash_bwd_dkv_tc<DP>, TcLayout<DP>::kBytes,
-                                 q, k, v, mask, g, lse, delta, dq, dk, dv, bh, heads, lq, lk, d,
-                                 scale, stream);
+    return launch_mma_pair<DP>(q, k, v, mask, g, lse, delta, dq, dk, dv, bh, heads, lq, lk, d,
+                               scale, stream);
   if (dtype == kF32)
     return launch_pair<float>(flash_bwd_dq_fma<DP>, flash_bwd_dkv_fma<DP>,
                                   FmaLayout<DP>::kBytes, q, k, v, mask, g, lse, delta, dq, dk, dv,

@@ -1,8 +1,9 @@
 // Tiles and loaders shared by the flash-attention forward
 // (flash_attention.cu) and backward (flash_attention_bwd.cu) kernels.
 //
-// A block works on 64-row tiles of (rows, d) matrices with 4 warps of 32
-// lanes.  The head dimension d is any value from 1 to 128: the kernels are
+// An f32 block works on 64-row tiles of (rows, d) matrices with 4 warps of
+// 32 lanes (the bf16 kernels' tiles and loaders are in mma_bf16.cuh).  The
+// head dimension d is any value from 1 to 128: the kernels are
 // instantiated per DP, d rounded up to a multiple of 16, and the loaders
 // fill columns d .. DP - 1 (and rows past the sequence) with zeros, so a
 // product over DP columns equals the product over d.
@@ -66,13 +67,15 @@ __device__ __forceinline__ void kept_keys(const uint8_t* __restrict__ mrow, int 
   }
 }
 
-// The block's (b · h, 64-row tile) from a one-dimensional grid of
+// The block's (b · h, ROWS-row tile) from a one-dimensional grid of
 // n_tiles · B·H blocks (gridDim.x takes up to 2^31 - 1, gridDim.y 65535).
+template <int ROWS = kRows>
 __device__ __forceinline__ void block_tile(int n_tiles, int& bh, int& r0) {
   bh = blockIdx.x / n_tiles;
-  r0 = (blockIdx.x - bh * n_tiles) * kRows;
+  r0 = (blockIdx.x - bh * n_tiles) * ROWS;
 }
 
+// (The bf16 kernels' 64- and 128-row tiles give as many blocks or fewer.)
 inline bool grid_fits(int bh, int n) {
   return (long long)bh * ((n + kRows - 1) / kRows) <= 2147483647LL;
 }

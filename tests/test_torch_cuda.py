@@ -64,6 +64,25 @@ def flash_tol(want):
     return dict(atol=FLASH_BF16_REL * want.float().abs().max().item(), rtol=0)
 
 
+def _key_mask(rs, lk, masked, device):
+    """Key-padding mask (B = 3, True = ignore) of the flash tests, entry 0
+    fully masked: None; True: a random kept prefix per entry; "middle":
+    keys 20-40 of every 64-key tile and a random quarter of the rest, so
+    that tiles have dead 8-key groups and partly kept ones in their middle
+    (key 0 kept in entries 1 and 2)."""
+    if not masked:
+        return None
+    if masked == "middle":
+        keys = np.arange(lk)
+        mask = np.broadcast_to(((keys % 64) >= 20) & ((keys % 64) < 40), (3, lk))
+        mask = torch.from_numpy(mask | (rs.rand(3, lk) < 0.25))
+        mask[1:, 0] = False
+    else:
+        mask = torch.from_numpy(np.arange(lk)[None] >= rs.randint(1, lk + 1, size=3)[:, None])
+    mask[0] = True
+    return mask.to(device)
+
+
 @pytest.fixture
 def cuda():
     """The card; the test skips where there is none (decided here, at run time)."""
@@ -596,20 +615,24 @@ def test_model_defaults_to_the_card(cuda):
     (1025, 1025, 96, True), (65, 1, 96, False), (1, 129, 96, True),
     (77, 130, 16, True), (130, 77, 40, False), (200, 1025, 48, True), (1025, 65, 128, True),
     (33, 70, 1, False), (70, 33, 33, True), (64, 64, 80, False), (90, 120, 112, True),
+    # the bf16 kernel's 64-row query and 64-key tiles: lengths at tile - 1,
+    # tile, tile + 1 and 2·tile + 1 (and the backward's 128-row tiles), D 8
+    # and 24, keys masked in the middle of a tile
+    (63, 64, 64, False), (64, 65, 96, True), (65, 63, 64, True), (129, 129, 96, False),
+    (127, 257, 64, True), (128, 128, 96, False), (257, 127, 64, False), (64, 129, 8, True),
+    (129, 64, 24, False), (150, 200, 64, "middle"), (200, 130, 96, "middle"),
+    (65, 257, 24, "middle"),
 ])
 def test_flash_attention_kernel(cuda, dtype, lq, lk, d, masked):
     """Ragged query and key tiles, head widths from 1 to 128 (every width the
     kernel instantiates, and widths that are no multiple of 16 or of a 16-byte
     load), key-padding masks with a fully-masked batch entry (NaN rows, lse
-    −∞, in both versions); bf16 within FLASH_BF16_REL of the largest output."""
+    −∞, in both versions), keys masked in the middle of a tile; bf16 within
+    FLASH_BF16_REL of the largest output."""
     rs = np.random.RandomState(lq + lk + d)
     q = _rand(rs, 3, 2, lq, d, dtype=dtype)
     k, v = (_rand(rs, 3, 2, lk, d, dtype=dtype) for _ in range(2))
-    mask = None
-    if masked:
-        mask = torch.from_numpy(np.arange(lk)[None] >= rs.randint(1, lk + 1, size=3)[:, None])
-        mask[0] = True
-        mask = mask.to(cuda)
+    mask = _key_mask(rs, lk, masked, cuda)
     before = flash_attention.launches
     got, lse = flash_attention(q, k, v, mask, with_stats=True)
     torch.cuda.synchronize()
@@ -652,6 +675,13 @@ def test_flash_attention_raises(cuda):
     (1024, 1024, 96, False), (77, 1025, 96, True), (1025, 3, 64, False), (1, 129, 16, True),
     (130, 77, 40, True), (200, 300, 48, False), (129, 65, 128, True), (33, 70, 1, True),
     (70, 33, 33, False), (64, 64, 80, True), (90, 120, 112, False),
+    # the bf16 kernels' tiles: 128 own rows, 64 streamed rows; lengths at
+    # tile - 1, tile, tile + 1 and 2·tile + 1, D 8 and 24, keys masked in
+    # the middle of a tile
+    (63, 64, 64, True), (64, 65, 96, False), (65, 63, 64, False), (129, 129, 96, True),
+    (127, 257, 64, False), (128, 128, 96, True), (257, 127, 64, True), (64, 129, 8, False),
+    (129, 64, 24, True), (150, 200, 64, "middle"), (200, 130, 96, "middle"),
+    (257, 65, 24, "middle"),
 ])
 def test_flash_attention_bwd_kernel(cuda, dtype, lq, lk, d, masked):
     """The backward kernels (dq; dk and dv) against the plain backward on the
@@ -666,11 +696,7 @@ def test_flash_attention_bwd_kernel(cuda, dtype, lq, lk, d, masked):
     q = _rand(rs, 3, 2, lq, d, dtype=dtype)
     k, v = (_rand(rs, 3, 2, lk, d, dtype=dtype) for _ in range(2))
     g = _rand(rs, 3, 2, lq, d, dtype=dtype)
-    mask = None
-    if masked:
-        mask = torch.from_numpy(np.arange(lk)[None] >= rs.randint(1, lk + 1, size=3)[:, None])
-        mask[0] = True
-        mask = mask.to(cuda)
+    mask = _key_mask(rs, lk, masked, cuda)
     out, lse = flash_attention(q, k, v, mask, with_stats=True)
     before = flash_attention_bwd.launches
     got = flash_attention_bwd(q, k, v, mask, out, lse, g)
@@ -687,6 +713,20 @@ def test_flash_attention_bwd_kernel(cuda, dtype, lq, lk, d, masked):
     auto = torch.autograd.grad(flash_attention(*leaves, mask), leaves, g)
     for a, b in zip(auto, got):
         torch.testing.assert_close(a, b, rtol=0, atol=0)  # deterministic: no atomics
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bwd_is_deterministic(cuda, dtype):
+    """Two calls of the backward on the same inputs give bit-identical dq,
+    dk and dv: each block writes whole rows of its output, no atomics."""
+    rs = np.random.RandomState(25)
+    q, k, v, g = (_rand(rs, 3, 2, 300, 64, dtype=dtype) for _ in range(4))
+    mask = _key_mask(rs, 300, "middle", cuda)
+    out, lse = flash_attention(q, k, v, mask, with_stats=True)
+    first = flash_attention_bwd(q, k, v, mask, out, lse, g)
+    second = flash_attention_bwd(q, k, v, mask, out, lse, g)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
 
 
 def test_flash_attention_many_heads(cuda):
