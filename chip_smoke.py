@@ -8,7 +8,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. environment: torch / CUDA / nvcc / triton versions, the card's name and
    power limit; TF32 is switched off for the f32 phases;
 2. build: every kernel of lc2is_tpu_torch/csrc with nvcc (sm_90a), timed,
-   with the registers and spills of the bf16 flash kernels on a line;
+   with the registers and spills of the bf16 tensor-core kernels (flash,
+   the decoder attention backward's, the swin window block's) on a line;
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
@@ -25,12 +26,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    version's exactly; flash at head widths 16, 40, 48 and 128 (each flash
    case also prints its TFLOP/s and its time over SDPA's); the v1 shapes of
    fused_mlp and fused_attn_block (timed, not summed into the flagship
-   forward);
+   forward); each swin_window_block case prints its TFLOP/s;
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
    against the stated bound, and the kernel's time beside the plain
-   backward's (CUDA events, median of 5 after warm-up); the flash backward
+   backward's (CUDA events, median of 5 after warm-up; fused_attn_block_bwd
+   also its TFLOP/s over three times its forward's products); the flash backward
    (dq and dk/dv kernels) against flash_attention_backward_plain at the v1
    training shapes (ViT-B/16 (16, 12, 1025, 64), decoder (16, 8, 1024, 96)),
    masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
@@ -662,6 +664,8 @@ def run_case(c, dt, stats):
     lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
     if c["name"] == "flash_attention":  # its rate and its ratio to SDPA
         lib += f" ({rate_of(c['work'], k_ms)}, {k_ms / lib_ms:.2f}x SDPA)"
+    elif c["name"] == "swin_window_block":
+        lib += f" ({rate_of(c['work'], k_ms)})"
     per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
     print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
           f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
@@ -1050,6 +1054,8 @@ def check_backward_kernels():
             b_ms, by = least_time(*work)
             ok = rel <= bound and finite
             lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
+            if name == "fused_attn_block_bwd":
+                lib += f" ({rate_of(work, k_ms)})"
             print(f"  {name:23s} {label:46s} max {mx:.3e} rel {rel:.3e} kernel {k_ms:8.3f} ms "
                   f"plain {p_ms:8.3f}{lib} bound {b_ms:7.3f} ({by}) x{count}/step "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -1966,25 +1972,32 @@ def check_v1_train(smi):
     return result
 
 
-def flash_registers(log):
-    """The bf16 flash kernels' registers a thread and spill stores, from
-    ptxas's report in the build log: "name<DP> registers/spill bytes"."""
+# the tensor-core (bf16) kernels: flash (rows 15, 16), the decoder attention
+# backward (row 3: its attention core and its GEMM) and the swin window block
+# (rows 6, 9)
+MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
+               "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "swin_mma_kernel")
+
+
+def mma_registers(log):
+    """The tensor-core kernels' registers a thread and spill stores, from
+    ptxas's report in the build log: "name<template args> registers/spill
+    bytes"."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
-        if "Compiling entry" not in line or "_mma" not in line:
+        if "Compiling entry" not in line:
             continue
-        name = next((n for n in ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma")
-                     if n in line), None)
+        name = next((n for n in MMA_KERNELS if n + "I" in line), None)
         info = " ".join(lines[i + 1:i + 4])
         if name is None or "Used " not in info:
             continue
-        dp = line.split(name + "ILi")[1].split("E")[0]
+        targs = ",".join(t[2:] for t in line.split(name + "I")[1].split("EE")[0].split("E"))
         regs = info.split("Used ")[1].split()[0]
         spill = info.split("bytes spill stores")[0].split(",")[-1].strip()
-        out.append(f"{name}<{dp}> {regs}/{spill}")
-    return ("bf16 flash kernels, registers a thread / spill-store bytes: " + ", ".join(out)
-            if out else "bf16 flash kernels: no ptxas report (library found already built)")
+        out.append(f"{name}<{targs}> {regs}/{spill}")
+    return ("bf16 tensor-core kernels, registers a thread / spill-store bytes: " + ", ".join(out)
+            if out else "bf16 tensor-core kernels: no ptxas report (library found already built)")
 
 
 def main() -> int:
@@ -2018,7 +2031,7 @@ def main() -> int:
     print(f"[build] {lib.name} in {time.time() - t0:.1f} s; {report}", flush=True)
     for s in spills:
         print(f"[build]   {s.strip()}")
-    print(f"[build] {flash_registers(log)}", flush=True)
+    print(f"[build] {mma_registers(log)}", flush=True)
 
     def phase(label, fn, *args):
         t_start = time.time()

@@ -55,8 +55,8 @@
 // instead return the mean of v over the block-padded keys.
 #include <math.h>
 
+#include "attn_tiles.cuh"
 #include "flash_common.cuh"
-#include "mma_bf16.cuh"
 
 namespace lc2 {
 namespace {
@@ -64,6 +64,7 @@ namespace {
 using flash::align128;
 using flash::kept_keys;
 using flash::load_tile;
+using mma::fwd_tile;
 constexpr int kBQ = flash::kRows;  // f32: query rows per block, 4 warps x 16
 constexpr int kBK = flash::kRows;  // keys per tile
 constexpr int kThreads = flash::kThreads;
@@ -130,89 +131,6 @@ struct MmaLayout {
   static constexpr int kTile = kMmaKeys * kLd;  // elements of a k or v tile
   static constexpr size_t kBytes = sizeof(bf16) * (kMmaRows * kLd + 2 * kMmaStages * kTile);
 };
-
-// One tile of a warp's online softmax: S = Q · Kᵀ from the k tile, the
-// running max and sum of its rows, O rescaled and O += P · V from the v
-// tile.  kFull: every key of the tile is kept, so the body has no branch
-// and ptxas can interleave its loads and products;
-// otherwise 8-key groups with no kept key (past Lk, or masked) take no S
-// product and 16-key chunks with none no P · V.
-template <int DP, bool kFull>
-__device__ __forceinline__ void fwd_tile(const uint32_t (&qa)[DP / 16][4], const bf16* ks,
-                                         const bf16* vs, const mma::KeyBits& kept, float sl2,
-                                         int lane, float (&o)[DP / 8][4], float (&m)[2],
-                                         float (&l)[2]) {
-  constexpr int KC = DP / 16, NO = DP / 8, LD = mma::row_stride<DP>();
-  const int t4 = lane & 3, lr = lane & 7, lsel1 = (lane >> 3) & 1, lsel2 = lane >> 4;
-  // 8-key group j of the tile has a kept key
-  auto group = [&](int j) { return kFull || ((kept.any() >> (4 * j)) & 0xfu); };
-  float s[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-  // S = Q · Kᵀ: k rows through ldmatrix are the B fragments
-#pragma unroll
-  for (int np = 0; np < 4; ++np) {
-    const bool g0 = group(2 * np), g1 = group(2 * np + 1);
-    if (!(g0 || g1)) continue;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      uint32_t b[4];
-      mma::ldsm_x4(b, ks + (16 * np + lr + 8 * lsel2) * LD + kc * 16 + 8 * lsel1);
-      if (g0) mma::mma_bf16(s[2 * np], qa[kc], b[0], b[1]);
-      if (g1) mma::mma_bf16(s[2 * np + 1], qa[kc], b[2], b[3]);
-    }
-  }
-  // online softmax on the registers: a row lives in 4 lanes
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (!kFull && !((kept.b[e] >> (4 * j + t4)) & 1u)) s[j][e] = s[j][2 + e] = -INFINITY;
-      mx[0] = fmaxf(mx[0], s[j][e]);
-      mx[1] = fmaxf(mx[1], s[j][2 + e]);
-    }
-  float base[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r] * sl2);
-    // while a row has no kept key m stays −∞: p = 0 and alpha = 0, not
-    // exp2(−∞ − (−∞)) = NaN
-    base[r] = m_new == -INFINITY ? 0.0f : m_new;
-    const float alpha = mma::exp2_approx(m[r] - base[r]);
-    m[r] = m_new;
-    l[r] *= alpha;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      o[j][2 * r] *= alpha;
-      o[j][2 * r + 1] *= alpha;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      // one FMA with scale · log2 e folded in, then exp2; −∞ gives p = 0
-      s[j][e] = mma::exp2_approx(fmaf(s[j][e], sl2, -base[e >> 1]));
-      l[e >> 1] += s[j][e];  // l sums the unrounded p
-    }
-  // O += P · V: p rounded to bf16 in the A fragment, v through ldmatrix.trans
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (!(group(2 * kk) || group(2 * kk + 1))) continue;
-    uint32_t pa[4];
-    mma::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-    for (int dn = 0; dn < DP / 16; ++dn) {
-      uint32_t b[4];
-      mma::ldsm_x4_t(b, vs + (16 * kk + lr + 8 * lsel1) * LD + 16 * dn + 8 * lsel2);
-      mma::mma_bf16(o[2 * dn], pa, b[0], b[1]);
-      mma::mma_bf16(o[2 * dn + 1], pa, b[2], b[3]);
-    }
-  }
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kMmaThreads, mma_min_blocks<DP>())

@@ -61,8 +61,8 @@
 // mean-of-v row instead; no caller reaches such a row.
 #include <math.h>
 
+#include "attn_tiles.cuh"
 #include "flash_common.cuh"
-#include "mma_bf16.cuh"
 
 namespace lc2 {
 namespace {
@@ -70,6 +70,10 @@ namespace {
 using flash::align128;
 using flash::kept_keys;
 using flash::load_tile;
+using mma::own_fragments;
+using mma::own_row;
+using mma::pb_mma;
+using mma::two_products_mma;
 constexpr int kB = flash::kRows;  // rows of every tile
 constexpr int kThreads = flash::kThreads;
 
@@ -130,83 +134,6 @@ struct Stage {
     delta = lse + kMmaCols;
   }
 };
-
-// S (16 x 16) = A · Bᵀ for the 16 streamed rows 16c .. 16c + 15 of tile bs,
-// and T = C · Eᵀ likewise from tile es, with A, C the warp's 16 own rows as
-// A fragments: s[j], t[j] hold columns 8j .. 8j + 7.  kCShared: C's
-// fragments are read from shared memory (this lane's ldmatrix row at cs)
-// instead of registers.  Unless kFull (every row of the tile live: no
-// branch, so ptxas can interleave the loads and products), an 8-row group
-// whose 4 bits in `groups` are clear is skipped and left 0.
-template <int DP, bool kFull, bool kCShared = false>
-__device__ __forceinline__ void two_products_mma(const uint32_t (&a)[DP / 16][4],
-                                                 const uint32_t (&c)[kCShared ? 1 : DP / 16][4],
-                                                 const bf16* cs, const bf16* bs, const bf16* es,
-                                                 int c16, uint32_t groups, int lane,
-                                                 float (&s)[2][4], float (&t)[2][4]) {
-  constexpr int LD = mma::row_stride<DP>();
-  const int lr = lane & 7, lsel1 = (lane >> 3) & 1, lsel2 = lane >> 4;
-  const bool g0 = kFull || (groups & 0xfu), g1 = kFull || ((groups >> 4) & 0xfu);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) s[0][e] = s[1][e] = t[0][e] = t[1][e] = 0.0f;
-  const int row = (16 * c16 + lr + 8 * lsel2) * LD + 8 * lsel1;
-#pragma unroll
-  for (int kc = 0; kc < DP / 16; ++kc) {
-    uint32_t b[4], e[4];
-    mma::ldsm_x4(b, bs + row + kc * 16);
-    mma::ldsm_x4(e, es + row + kc * 16);
-    auto products = [&](const uint32_t(&ck)[4]) {
-      if (g0) {
-        mma::mma_bf16(s[0], a[kc], b[0], b[1]);
-        mma::mma_bf16(t[0], ck, e[0], e[1]);
-      }
-      if (g1) {
-        mma::mma_bf16(s[1], a[kc], b[2], b[3]);
-        mma::mma_bf16(t[1], ck, e[2], e[3]);
-      }
-    };
-    if constexpr (kCShared) {
-      uint32_t cf[4];
-      mma::ldsm_x4(cf, cs + kc * 16);
-      products(cf);
-    } else {
-      products(c[kc]);
-    }
-  }
-}
-
-// acc (16 x DP) += P · B, P the rounded A fragment of the 16 x 16 tile p
-// (columns = streamed rows 16c .. 16c + 15 of tile bs), B through
-// ldmatrix.trans.
-template <int DP>
-__device__ __forceinline__ void pb_mma(float (&acc)[DP / 8][4], const float (&p)[2][4],
-                                       const bf16* bs, int c16, int lane) {
-  constexpr int LD = mma::row_stride<DP>();
-  uint32_t pa[4];
-  mma::pack_a(pa, p[0], p[1]);
-  const bf16* row = bs + (16 * c16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * LD + 8 * (lane >> 4);
-#pragma unroll
-  for (int dn = 0; dn < DP / 16; ++dn) {
-    uint32_t b[4];
-    mma::ldsm_x4_t(b, row + 16 * dn);
-    mma::mma_bf16(acc[2 * dn], pa, b[0], b[1]);
-    mma::mma_bf16(acc[2 * dn + 1], pa, b[2], b[3]);
-  }
-}
-
-// This lane's ldmatrix row of the A fragments of 16 rows at own.
-template <int DP>
-__device__ __forceinline__ const bf16* own_row(const bf16* own, int lane) {
-  return own + ((lane & 7) + 8 * ((lane >> 3) & 1)) * mma::row_stride<DP>() + 8 * (lane >> 4);
-}
-
-// The A fragments of 16 own rows at own.
-template <int DP, int N>
-__device__ __forceinline__ void own_fragments(const bf16* own, int lane, uint32_t (&a)[N][4]) {
-  const bf16* row = own_row<DP>(own, lane);
-#pragma unroll
-  for (int kc = 0; kc < N; ++kc) mma::ldsm_x4(a[kc], row + kc * 16);
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kMmaThreads, 1)

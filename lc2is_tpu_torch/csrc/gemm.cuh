@@ -7,8 +7,9 @@
 // backward's own C entry point: none goes to a library.  All of them read
 // and accumulate f32; an operand that the forward rounds to bf16 is rounded
 // by its producer, and a product can round its output (round_bf16) where the
-// forward does.  This first version runs on the CUDA cores; the tensor cores
-// are a later step (PERF.md §7).
+// forward does.  They run on the CUDA cores, for the f32 bodies and for
+// the swin backward; the decoder backward's bf16 body takes its products
+// from gemm_bf16.cuh (tensor cores).
 #pragma once
 
 #include "common.cuh"

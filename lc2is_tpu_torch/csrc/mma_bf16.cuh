@@ -133,6 +133,39 @@ __device__ __forceinline__ void load_rows(const __nv_bfloat16* __restrict__ src,
   }
 }
 
+// Rows r0 .. r0 + ROWS - 1 of a strided (n, DP) bf16 matrix whose row i
+// starts at src + i · ld (a head's columns of a (n, C) matrix: ld = C, src
+// offset by the head's first column; DP and ld multiples of 8, 16-byte
+// aligned rows) into a tile at row stride DP + 8, zeros past row n, by NT
+// threads, all cp.async (the caller commits and waits).
+template <int DP, int ROWS, int NT>
+__device__ __forceinline__ void load_rows_ld(const __nv_bfloat16* __restrict__ src, int r0, int n,
+                                             long long ld, __nv_bfloat16* dst) {
+  constexpr int LD = row_stride<DP>(), kChunks = DP / 8;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += NT) {
+    const int r = idx / kChunks, c = (idx - r * kChunks) * 8;
+    const bool full = r0 + r < n;
+    cp_async16(dst + r * LD + c, full ? src + (r0 + r) * ld + c : src, full);
+  }
+}
+
+// Rows of a warp's 16-row bf16 staging tile to rows r0 .. r0 + 15 (those
+// below n) of a strided (n, DP) matrix as load_rows_ld reads it, in 16-byte
+// stores.
+template <int DP>
+__device__ __forceinline__ void store_rows_ld(const __nv_bfloat16* st, __nv_bfloat16* __restrict__ dst,
+                                              int r0, int n, long long ld, int lane) {
+  constexpr int LD = row_stride<DP>(), kChunks = DP / 8;
+  __syncwarp();
+  for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+    const int r = idx / kChunks, c = (idx - r * kChunks) * 8;
+    if (r0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (r0 + r) * ld + c) =
+          *reinterpret_cast<const uint4*>(st + r * LD + c);
+  }
+}
+
 // Which of 64 consecutive keys k0 .. k0 + 63 count (inside n and, with a
 // mask row, not masked: nonzero = ignore), as two warp-uniform words: bit i
 // of b[e] is key k0 + 2i + e.  So the keys of 8-column group j are bits

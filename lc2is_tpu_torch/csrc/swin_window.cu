@@ -10,35 +10,65 @@
 // only by VMEM and compile gates (lc2is_tpu/nn/swin.py:277-306):
 // lc2is_tpu/ops/swin_canvas.py::_canvas_kernel (:224, entry swin_canvas_block
 // :974; stages 1-3) and lc2is_tpu/ops/window_attention.py::_block_kernel
-// (:386, entry fused_window_block :645; stage 4).  One kernel serves all four
+// (:386, entry fused_window_block :645; stage 4).  Each body below serves all four
 // stages, with no C gate.
 //
 // What bounds it on the card: arithmetic.  Per token it does 3C² (QKV) + C²
 // (out-proj) + 2·49·C (attention) multiply-adds against 2·C·bytes of canvas
-// traffic; this first version runs them on the CUDA cores in f32.
+// traffic.
 //
-// Design: one block per window of HF's padded, rolled canvas.  The block
-// computes window, shift and pad membership of its 49 tokens from canvas
-// coordinates (explicit roll indexing: rolled (R, Cc) is canvas
-// ((R + shift) % Hp, (Cc + shift) % Wp)), so it reads the raw canvas and
-// writes each real token back exactly once; no pad, roll or partition pass
-// runs outside.  Per window:
+// Token geometry, shared by both bodies: the block computes window, shift and
+// pad membership of its tokens from canvas coordinates (explicit roll
+// indexing: rolled (R, Cc) is canvas ((R + shift) % Hp, (Cc + shift) % Wp)),
+// so it reads the raw canvas and writes each real token back exactly once;
+// no pad, roll or partition pass runs outside.  HF pads AFTER
+// layernorm_before: a token at row >= H or col >= W of the padded canvas is
+// post-LN zero, so its k = bk and v = bv, and it takes part in attention
+// (swin_canvas.py:19-25).  The region mask is HF's 9-region img_mask on
+// rolled coordinates with its additive -100.  Unlike the TPU kernel
+// (window_attention.py:51-55) the softmax subtracts the row max: no row of a
+// real token is fully masked, so this changes nothing but the rounding.  The
+// TPU's head-pair MXU packing is not carried over.
+//
+// f32 and int8 blocks (swin_window_kernel): one block per window, on the CUDA
+// cores.  Per window:
 //   1. LayerNorm statistics per token in f32 (two-pass);
 //   2. per head: q/k/v (49 x dh each) by a tiled product whose A tiles are
-//      LayerNorm'd on the fly from the canvas (rounded to T, as the reference
-//      rounds the LN output), so no C-wide LN copy has to fit in shared
-//      memory.  HF pads AFTER layernorm_before: a token at row >= H or col >= W
-//      of the padded canvas is post-LN zero, so its k = bk and v = bv, and it
-//      takes part in attention (swin_canvas.py:19-25);
+//      LayerNorm'd on the fly from the canvas, so no C-wide LN copy has to
+//      fit in shared memory;
 //   3. per head, softmax(q·kᵀ + relative-position bias + region mask) · v;
-//      the region mask is HF's 9-region img_mask on rolled coordinates with
-//      its additive -100.  Unlike the TPU kernel (window_attention.py:51-55)
-//      the softmax subtracts the row max: no row of a real token is fully
-//      masked, so this changes nothing but the rounding;
-//   4. the head outputs (49 x C, rounded to T) stay in shared memory and the
+//   4. the head outputs (49 x C) stay in shared memory and the
 //      out-projection, + bo and the residual run per 128-column chunk.
-// The TPU's head-pair MXU packing is not carried over.
 // Shared memory: 49·C floats for the head outputs + tiles (≈ 200 KB at C = 768).
+//
+// bf16 float block (swin_mma_kernel): tensor cores, mma.sync m16n8k16 with
+// f32 accumulators (mma_bf16.cuh).  A block takes 4, 2 or 1 windows, as
+// many as fit the SM's shared memory with one or two blocks an SM
+// (launch_mma: at the swin-small stages 2, 2, 2 and 1), their tokens packed
+// at N = win² rows a window, so each bf16 k-slice of Wqkv and Wo serves up
+// to 4·N token rows:
+//   1. LayerNorm once per token (two-pass f32 statistics, rounded to bf16 as
+//      the reference rounds the LN output; HF pad tokens zero) into a bf16
+//      tile that serves every head's QKV product;
+//   2. per head, q|k|v = LN · Wqkv rowsᵀ + bias on the tensor cores (the
+//      weight rows stream through a 2-stage cp.async ring of 64-wide
+//      k-slices (32 where C is no multiple of 64), one stream over every head
+//      and then Wo, so the next head's first slice loads during this head's
+//      attention), rounded to bf16;
+//   3. per head and window, a warp per 16 query rows: S = q · kᵀ over the
+//      window's 64-row key tile in registers (keys past the window's N
+//      dropped), + the relative-position bias and the -100 region mask, the
+//      row max and sum over the row's 4 lanes by 2 shuffles each; the
+//      unnormalised e = exp(s − max) is rounded to bf16 straight into the A
+//      fragment of P · V and the result scaled by 1 / Σ e afterwards, the
+//      rounding order of the TPU canvas kernel (swin_canvas.py:394-398);
+//      the head outputs go to a bf16 tile in shared memory;
+//   4. the out-projection on the tensor cores in 64-column chunks from that
+//      tile, + bo and the residual in the epilogue, written for real tokens
+//      only (HF pad tokens are cropped).
+// Shared memory: 2 · 49 · windows · (C + 8) bf16 for the LN and head-output
+// tiles, the q, k, v tiles of one head and the ring: with one 7 x 7 window
+// C <= 992 at dh 16 and 32, 864 at dh 64 (8 x 8: 800, 736, 608).
 //
 // lc2_swin_window_q is the int8 serving variant of the same kernel, the
 // quant=True branch of window_attention.py::_block_kernel (:414-418,
@@ -48,8 +78,13 @@
 // quant_code / dequant; per-output-channel weight codes with f32 scales).
 // Both products stay on the CUDA cores as integer-valued f32 sums, exact
 // while |acc| < 2^24 (C·127² <= 1.24e7 at C <= 768).
+#include <math.h>
 #include <math_constants.h>
 
+#include <algorithm>
+#include <type_traits>
+
+#include "attn_tiles.cuh"
 #include "common.cuh"
 
 namespace lc2 {
@@ -348,16 +383,470 @@ cudaError_t launch(const SwinArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 float block (T = TW = bf16): tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int kOutCols = 64;  // out-projection column chunk
+
+// A block takes WPB windows, its tokens packed at N = win² rows a window
+// (token t of window w is row w·N + t), Mp = N·WPB rounded up to 16 rows.
+// Its 8 warps split the products' 16-row m-tiles (4·WPB at most): with one
+// window, two warps share an m-tile, each taking half its columns; with
+// four, a warp takes two m-tiles.
+template <int DH, int WPB>
+struct MmaPlan {
+  static constexpr int kSplit = WPB == 1 ? 2 : 1;         // column shares of an m-tile
+  static constexpr int kTPW = 4 * WPB * kSplit / 8;        // m-tiles a warp takes
+  static constexpr int kQkvNT = 3 * DH / 8 / kSplit;       // its 8-column tiles of q|k|v
+  static constexpr int kOutNT = kOutCols / 8 / kSplit;     // ... of an out-projection chunk
+  static constexpr int kLdh = DH + 8;
+  static constexpr int kRingRows = 3 * DH > kOutCols ? 3 * DH : kOutCols;
+  // two blocks an SM (128 registers a thread) where that spills nothing:
+  // several windows a block, 12 or fewer 8-column q|k|v tiles a warp
+  static constexpr int kMinBlocks = WPB >= 2 && kTPW * kQkvNT <= 12 ? 2 : 1;
+};
+
+struct MmaSizes {
+  int n, mreal, mp, rq, lda;
+  __host__ __device__ MmaSizes(int win, int wpb, int C) {
+    n = win * win;
+    mreal = n * wpb;
+    mp = (mreal + 15) / 16 * 16;
+    // rows of the q, k, v tiles: the last window's 64-row key tile
+    rq = max(mp, n * (wpb - 1) + 64);
+    lda = C + 8;
+  }
+};
+
+// Shared memory: the LayerNorm tile and the head outputs (N·WPB rows of C
+// bf16 each), the q, k and v tiles of one head (rq rows of DH), the 2-stage
+// weight ring, the tokens' canvas pixel and region label.  A product's last
+// m-tile reads up to 15 rows past either tile (past the head outputs, into
+// what follows them; rows that are dropped), which the size covers.
+template <int DH, int WPB>
+size_t mma_smem_bytes(int win, int C, int kt) {
+  using Plan = MmaPlan<DH, WPB>;
+  const MmaSizes z(win, WPB, C);
+  const size_t body = sizeof(bf16) * (2 * (size_t)z.mreal * z.lda +
+                                      3 * (size_t)z.rq * Plan::kLdh +
+                                      2 * (size_t)Plan::kRingRows * (kt + 8)) +
+                      sizeof(int) * 2 * z.mp;
+  return std::max(body, sizeof(bf16) * (size_t)(z.mreal + z.mp) * z.lda);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+template <int DH, int WPB>
+__global__ void __launch_bounds__(kThreads, MmaPlan<DH, WPB>::kMinBlocks)
+swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+                const bf16* __restrict__ lnb, const bf16* __restrict__ wqkv,
+                const bf16* __restrict__ bqkv, const bf16* __restrict__ wo,
+                const bf16* __restrict__ bo, const float* __restrict__ bias,
+                bf16* __restrict__ out, int H, int W, int C, int heads, int win, int shift,
+                int nwh, int nww, int nwin, int residual, float eps, int KT) {
+  using Plan = MmaPlan<DH, WPB>;
+  constexpr int LDH = Plan::kLdh, TPW = Plan::kTPW;
+  const int LDR = KT + 8, STAGE = Plan::kRingRows * LDR;
+  const MmaSizes z(win, WPB, C);
+  const int N = z.n, Mreal = z.mreal, Mp = z.mp, LDA = z.lda;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [Mreal][LDA] LN(x), rounded
+  bf16* Ho = As + Mreal * LDA;                    // [Mreal][LDA] head outputs
+  bf16* Qs = Ho + Mreal * LDA;                    // [rq][LDH] one head's q, k, v
+  bf16* Ks = Qs + z.rq * LDH;
+  bf16* Vs = Ks + z.rq * LDH;
+  bf16* ring = Vs + z.rq * LDH;                   // [2][kRingRows][LDR]
+  int* tok = reinterpret_cast<int*>(ring + 2 * STAGE);  // [Mp] pixel, -1: HF pad / none
+  int* lab = tok + Mp;                                          // [Mp] shift region
+
+  const int tid = threadIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int lr = lane & 7, l3 = (lane >> 3) & 1, l4 = lane >> 4;
+  const int Hp = nwh * win, Wp = nww * win;
+
+  // ---- token geometry: roll, HF pad, 9-region labels (as the f32 block) ----
+  for (int r = tid; r < Mp; r += kThreads) {
+    int pix = -1, t_lab = 0;
+    const int w = r / N, t = r - w * N, gw = blockIdx.x * WPB + w;
+    if (r < Mreal && gw < nwin) {
+      const int b = gw / (nwh * nww), wr = gw - b * nwh * nww, wi = wr / nww, wj = wr - wi * nww;
+      const int R = wi * win + t / win, Cc = wj * win + t % win;  // rolled coords
+      const int y = (R + shift) % Hp, xq = (Cc + shift) % Wp;     // canvas coords
+      if (y < H && xq < W) pix = (b * H + y) * W + xq;
+      if (shift > 0)
+        t_lab = ((R >= Hp - win) + (R >= Hp - shift)) * 3 + (Cc >= Wp - win) + (Cc >= Wp - shift);
+    }
+    tok[r] = pix;
+    lab[r] = t_lab;
+  }
+  // k and v rows past Mp (the last window's key tile overhangs): zeros
+  for (int i = tid; i < (z.rq - Mp) * LDH; i += kThreads) {
+    Ks[Mp * LDH + i] = __float2bfloat16(0.0f);
+    Vs[Mp * LDH + i] = __float2bfloat16(0.0f);
+  }
+
+  // ---- the weight ring: one stream of KT-wide k-slices, the heads' q|k|v
+  // rows (3·DH each) and then the out-projection's 64-row chunks of Wo ----
+  const int ks_per = C / KT, n_qkv = heads * ks_per, kchunks = KT / 8;
+  const int n_slices = n_qkv + (C + kOutCols - 1) / kOutCols * ks_per;
+  auto issue = [&](int u) {
+    if (u < n_slices) {
+      bf16* st = ring + (u % 2) * STAGE;
+      const int k0 = (u % ks_per) * KT;
+      if (u < n_qkv) {
+        const int hd = u / ks_per;
+        for (int idx = tid; idx < 3 * DH * kchunks; idx += kThreads) {
+          const int n = idx / kchunks, c = (idx - n * kchunks) * 8, part = n / DH;
+          mma::cp_async16(st + n * LDR + c,
+                          wqkv + (size_t)(part * C + hd * DH + n - part * DH) * C + k0 + c, true);
+        }
+      } else {
+        const int n0 = (u - n_qkv) / ks_per * kOutCols;
+        for (int idx = tid; idx < kOutCols * kchunks; idx += kThreads) {
+          const int n = idx / kchunks, c = (idx - n * kchunks) * 8;
+          const bool full = n0 + n < C;
+          mma::cp_async16(st + n * LDR + c, full ? wo + (size_t)(n0 + n) * C + k0 + c : wo, full);
+        }
+      }
+    }
+    mma::cp_async_commit();
+  };
+  int u = 0;  // the next slice to consume
+  issue(0);
+  // Wait for slice u, issue u + 1 into the other stage (every warp is done
+  // with u - 1 past the barrier) and return slice u's stage.
+  auto next_slice = [&]() {
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    issue(u + 1);
+    return ring + (u++ % 2) * STAGE;
+  };
+  __syncthreads();  // tok, lab
+
+  // ---- LayerNorm once per token: two-pass f32 statistics, the output
+  // rounded to bf16; HF pad tokens zero.  A lane holds its 8-column chunks
+  // c = 8 · lane + 256 · i of a row (C <= 1024), read once ----
+  for (int r = warp; r < Mreal; r += 8) {
+    constexpr int kV = 4;
+    const int pix = tok[r];
+    uint4 xv[kV];
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = 8 * lane + 256 * i;
+      xv[i] = make_uint4(0, 0, 0, 0);
+      if (pix >= 0 && c < C) xv[i] = *reinterpret_cast<const uint4*>(x + (size_t)pix * C + c);
+    }
+    float f[kV][8], s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      unpack8(xv[i], f[i]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += f[i][e];
+    }
+    const float mu = warp_sum(s) / C;
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i)
+      if (8 * lane + 256 * i < C)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) q += (f[i][e] - mu) * (f[i][e] - mu);
+    const float rs = rsqrtf(warp_sum(q) / C + eps);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = 8 * lane + 256 * i;
+      if (c >= C) continue;
+      uint4 o = make_uint4(0, 0, 0, 0);
+      if (pix >= 0) {
+        float w8[8], b8[8];
+        unpack8(*reinterpret_cast<const uint4*>(lnw + c), w8);
+        unpack8(*reinterpret_cast<const uint4*>(lnb + c), b8);
+        uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          op[e] = mma::pack_bf16((f[i][2 * e] - mu) * rs * w8[2 * e] + b8[2 * e],
+                                 (f[i][2 * e + 1] - mu) * rs * w8[2 * e + 1] + b8[2 * e + 1]);
+      }
+      *reinterpret_cast<uint4*>(As + r * LDA + c) = o;
+    }
+  }
+
+  // the warp's m-tiles and its column share of each product
+  int mts[TPW];
+#pragma unroll
+  for (int i = 0; i < TPW; ++i) mts[i] = WPB == 1 ? warp >> 1 : warp + 8 * i;
+  const int share = WPB == 1 ? warp & 1 : 0;
+
+  // acc (the warp's m-tiles x NT 8-column tiles from ring row n0) += A · slice,
+  // A's rows from `a` (row stride LDA) at columns k0 .. k0 + KT - 1
+  auto slice_mma = [&](auto& acc, const bf16* a, int k0, const bf16* st, int n0) {
+    constexpr int NT = sizeof(acc[0]) / sizeof(acc[0][0]);
+#pragma unroll
+    for (int kk = 0; kk < KT; kk += 16) {
+      uint32_t bfr[(NT + 1) / 2][4];
+#pragma unroll
+      for (int np = 0; np < (NT + 1) / 2; ++np)
+        mma::ldsm_x4(bfr[np], st + (n0 + 16 * np + lr + 8 * l4) * LDR + kk + 8 * l3);
+#pragma unroll
+      for (int i = 0; i < TPW; ++i) {
+        if (16 * mts[i] >= Mp) continue;  // warp-uniform
+        uint32_t af[4];
+        mma::ldsm_x4(af, a + (16 * mts[i] + lr + 8 * l3) * LDA + k0 + kk + 8 * l4);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          mma::mma_bf16(acc[i][j], af, bfr[j >> 1][2 * (j & 1)], bfr[j >> 1][2 * (j & 1) + 1]);
+      }
+    }
+  };
+
+  const int qt = (N + 15) / 16;  // 16-row query tiles of a window
+  for (int hd = 0; hd < heads; ++hd) {
+    // ---- q|k|v of head hd for every token: LN(x) · Wqkv rowsᵀ + bias ----
+    constexpr int QNT = Plan::kQkvNT;
+    float acc[TPW][QNT][4];
+#pragma unroll
+    for (int i = 0; i < TPW; ++i)
+#pragma unroll
+      for (int j = 0; j < QNT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+    for (int t = 0; t < ks_per; ++t) slice_mma(acc, As, t * KT, next_slice(), share * QNT * 8);
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      if (16 * mts[i] >= Mp) continue;
+#pragma unroll
+      for (int j = 0; j < QNT; ++j) {
+        const int n = share * QNT * 8 + 8 * j + c2, part = n / DH, d = n - part * DH;
+        if (n >= 3 * DH) continue;
+        const int wrow = part * C + hd * DH + d;
+        const float b0 = __bfloat162float(bqkv[wrow]), b1 = __bfloat162float(bqkv[wrow + 1]);
+        bf16* dst = (part == 0 ? Qs : part == 1 ? Ks : Vs) + d;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          // rows past the windows' tokens read what follows the LN tile:
+          // zeros instead (the last window's key tile reads their k and v)
+          const int m = 16 * mts[i] + g + 8 * r;
+          *reinterpret_cast<uint32_t*>(dst + m * LDH) =
+              m < Mreal ? mma::pack_bf16(acc[i][j][2 * r] + b0, acc[i][j][2 * r + 1] + b1) : 0u;
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---- windowed attention of head hd, a warp per 16 query rows of a
+    // window: S = q · kᵀ over the window's 64-row key tile (keys past N
+    // dropped), + bias + region mask, softmax in registers, P · V ----
+    const float* bh = bias + (size_t)hd * N * N;
+    for (int task = warp; task < WPB * qt; task += 8) {
+      const int w = task / qt, i0 = 16 * (task - w * qt), R = w * N;
+      if (blockIdx.x * WPB + w >= nwin) continue;
+      // the bias of the lane's (row, key) pairs, loaded ahead of S
+      float bb[2][8][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = i0 + g + 8 * r;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = 8 * j + c2 + e;
+            bb[r][j][e] = t < N && key < N ? __ldg(bh + t * N + key) : 0.0f;
+          }
+      }
+      uint32_t qa[DH / 16][4];
+      mma::own_fragments<DH>(Qs + (R + i0) * LDH, lane, qa);
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+#pragma unroll
+        for (int kc = 0; kc < DH / 16; ++kc) {
+          uint32_t b[4];
+          mma::ldsm_x4(b, Ks + (R + 16 * np + lr + 8 * l4) * LDH + kc * 16 + 8 * l3);
+          mma::mma_bf16(s[2 * np], qa[kc], b[0], b[1]);
+          mma::mma_bf16(s[2 * np + 1], qa[kc], b[2], b[3]);
+        }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = i0 + g + 8 * r;
+        const bool real = t < N;  // rows past N are computed and dropped
+        const int lt = real ? lab[R + t] : 0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int key = 8 * j + c2 + e;
+            float v = -INFINITY;
+            if (key < N) {
+              v = s[j][2 * r + e] + bb[r][j][e];
+              if (lab[R + key] != lt) v -= 100.0f;
+            }
+            s[j][2 * r + e] = v;
+            mx[r] = fmaxf(mx[r], v);
+          }
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      // e = exp(v − max), unnormalised; the row sum of the unrounded e
+      float l[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = mma::exp2_approx((s[j][e] - mx[e >> 1]) * mma::kLog2e);
+          l[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      // O = round(e) · V, then · 1 / sum (swin_canvas.py:394-398's order)
+      float o[DH / 8][4];
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[4];
+        mma::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < DH / 16; ++dn) {
+          uint32_t b[4];
+          mma::ldsm_x4_t(b, Vs + (R + 16 * kk + lr + 8 * l3) * LDH + 16 * dn + 8 * l4);
+          mma::mma_bf16(o[2 * dn], pa, b[0], b[1]);
+          mma::mma_bf16(o[2 * dn + 1], pa, b[2], b[3]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int t = i0 + g + 8 * r;
+        if (t >= N) continue;
+        const float inv = 1.0f / l[r];
+        bf16* dst = Ho + (R + t) * LDA + hd * DH + c2;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              mma::pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+      }
+    }
+    // (the next head's first slice barrier orders these reads of q, k, v
+    // before its epilogue rewrites them)
+  }
+
+  // ---- out-projection + bo + residual, 64 columns at a time, real tokens
+  // only (HF pad tokens are cropped) ----
+  constexpr int ONT = Plan::kOutNT;
+  for (int n0 = 0; n0 < C; n0 += kOutCols) {
+    float acc[TPW][ONT][4];
+#pragma unroll
+    for (int i = 0; i < TPW; ++i)
+#pragma unroll
+      for (int j = 0; j < ONT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
+    for (int t = 0; t < ks_per; ++t) slice_mma(acc, Ho, t * KT, next_slice(), share * ONT * 8);
+#pragma unroll
+    for (int i = 0; i < TPW; ++i) {
+      if (16 * mts[i] >= Mp) continue;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int m = 16 * mts[i] + g + 8 * r;
+        const int pix = m < Mreal ? tok[m] : -1;
+        if (pix < 0) continue;
+#pragma unroll
+        for (int j = 0; j < ONT; ++j) {
+          const int n = n0 + share * ONT * 8 + 8 * j + c2;
+          if (n >= C) continue;
+          const size_t o = (size_t)pix * C + n;
+          float y0 = acc[i][j][2 * r] + __bfloat162float(bo[n]);
+          float y1 = acc[i][j][2 * r + 1] + __bfloat162float(bo[n + 1]);
+          if (residual) {
+            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + o));
+            y0 += xv.x;
+            y1 += xv.y;
+          }
+          *reinterpret_cast<uint32_t*>(out + o) = mma::pack_bf16(y0, y1);
+        }
+      }
+    }
+  }
+  mma::cp_async_wait<0>();
+}
+
+template <int DH, int WPB>
+cudaError_t launch_mma_wpb(const SwinArgs& a, int nwh, int nww, int kt, size_t smem,
+                           cudaStream_t stream) {
+  auto kernel = swin_mma_kernel<DH, WPB>;
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int nwin = a.B * nwh * nww;
+  kernel<<<(nwin + WPB - 1) / WPB, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.lnw),
+      static_cast<const bf16*>(a.lnb), static_cast<const bf16*>(a.wqkv),
+      static_cast<const bf16*>(a.bqkv), static_cast<const bf16*>(a.wo),
+      static_cast<const bf16*>(a.bo), a.bias, static_cast<bf16*>(a.out), a.H, a.W, a.C,
+      a.heads, a.win, a.shift, nwh, nww, nwin, a.residual, a.eps, kt);
+  return cudaGetLastError();
+}
+
+// The plan: the most windows a block (4, 2 or 1; 2 at most at DH 64, whose
+// q|k|v accumulators would not fit four) for which two blocks fit an SM
+// (shared memory, and kMinBlocks' registers), else the most for which one
+// does; 64-wide weight slices where C allows.  On the H100 at the swin-small
+// stages: two blocks of 2 windows at C 96, one of 2 at C 192 and 384, one of
+// 1 at C 768; a third or fourth ring stage, or 32-wide slices to fit two
+// blocks, timed no faster.
+template <int DH>
+cudaError_t launch_mma(const SwinArgs& a, cudaStream_t stream) {
+  if (a.C > 1024) return cudaErrorInvalidValue;  // the LayerNorm's registers
+  const int nwh = (a.H + a.win - 1) / a.win, nww = (a.W + a.win - 1) / a.win;
+  const int kt = a.C % 64 == 0 ? 64 : 32;
+  constexpr size_t kOne = 232448, kTwo = 115712;  // bytes a block, 1 or 2 an SM
+  for (const size_t cap : {kTwo, kOne}) {
+    auto fits = [&](size_t sm, int min_blocks) {
+      return sm <= cap && (cap == kOne || min_blocks == 2);
+    };
+    if (DH < 64) {
+      constexpr int W4 = DH < 64 ? 4 : 2;
+      const size_t sm = mma_smem_bytes<DH, W4>(a.win, a.C, kt);
+      if (fits(sm, MmaPlan<DH, W4>::kMinBlocks))
+        return launch_mma_wpb<DH, W4>(a, nwh, nww, kt, sm, stream);
+    }
+    const size_t s2 = mma_smem_bytes<DH, 2>(a.win, a.C, kt);
+    if (fits(s2, MmaPlan<DH, 2>::kMinBlocks)) return launch_mma_wpb<DH, 2>(a, nwh, nww, kt, s2, stream);
+    const size_t s1 = mma_smem_bytes<DH, 1>(a.win, a.C, kt);
+    if (fits(s1, MmaPlan<DH, 1>::kMinBlocks)) return launch_mma_wpb<DH, 1>(a, nwh, nww, kt, s1, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The f32 and int8 blocks run swin_window_kernel; the bf16 float block the
+// tensor-core kernel.
+template <typename T, typename TW, int DH>
+cudaError_t launch_body(const SwinArgs& a, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value && std::is_same<TW, bf16>::value)
+    return launch_mma<DH>(a, stream);
+  else
+    return launch<T, TW, DH>(a, stream);
+}
+
 template <typename T, typename TW>
 cudaError_t dispatch_dh(const SwinArgs& a, cudaStream_t stream) {
   if (a.heads < 1 || a.C % a.heads != 0) return cudaErrorInvalidValue;
   switch (a.C / a.heads) {
     case 16:
-      return launch<T, TW, 16>(a, stream);
+      return launch_body<T, TW, 16>(a, stream);
     case 32:
-      return launch<T, TW, 32>(a, stream);
+      return launch_body<T, TW, 32>(a, stream);
     case 64:
-      return launch<T, TW, 64>(a, stream);
+      return launch_body<T, TW, 64>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -57,6 +57,7 @@ SIGNATURES = {
 SIZE_SIGNATURES = {
     "lc2_swin_window_bwd_workspace": [_I] * 5,
     "lc2_attn_block_bwd_workspace": [_I] * 5,
+    "lc2_attn_block_bwd_workspace_bf16": [_I] * 5,
     "lc2_fused_ce_partials": [_I] * 3,
 }
 

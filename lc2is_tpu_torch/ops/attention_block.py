@@ -14,7 +14,10 @@ whose backward is :func:`fused_attn_block_bwd` (``csrc/attention_block_bwd.cu``,
 the port of ``attention_block.py::_bwd_kernel`` :264).  The 1/√dh fold into
 wq/bq happens outside the Function as differentiable torch ops, and so do the
 K/V projections, so autograd carries dK and dV back through them.  On a CPU
-tensor autograd runs through the plain version.
+tensor autograd runs through the plain version.  In bf16 the backward's
+products run on the tensor cores with bf16 intermediates where the TPU
+kernel rounds (its workspace: ``lc2_attn_block_bwd_workspace_bf16``); in f32
+on the CUDA cores (``lc2_attn_block_bwd_workspace``).
 
 Int8 serving (the JAX entry's ``quant=True``, ``attention_block.py:38-96,190-205``):
 :func:`fused_attn_block_q` quantises the folded q weights (1/√dh folded in
@@ -119,7 +122,9 @@ def fused_attn_block_bwd(x, k, v, g, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads, 
     dk, dv = torch.empty((b, l, c), **f32), torch.empty((b, l, c), **f32)
     grads = [torch.zeros(s, **f32) for s in ((c, c), (c,), (c, c), (c,), (c,), (c,))]
     dx = torch.empty_like(xc)
-    ws = torch.empty(_build.size("lc2_attn_block_bwd_workspace", b, p, l, c, num_heads), **f32)
+    ws_size = ("lc2_attn_block_bwd_workspace_bf16" if dt == torch.bfloat16
+               else "lc2_attn_block_bwd_workspace")
+    ws = torch.empty(_build.size(ws_size, b, p, l, c, num_heads), **f32)
     _build.launch(
         "lc2_attn_block_bwd", xc.device, _build.dtype_code(xc), xc.data_ptr(), kc.data_ptr(),
         vc.data_ptr(), gc.data_ptr(), wq.data_ptr(), bq.data_ptr(), woc.data_ptr(),

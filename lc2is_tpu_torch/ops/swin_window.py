@@ -6,8 +6,9 @@ Counterpart of both ``lc2is_tpu/ops/swin_canvas.py::swin_canvas_block``
 (:974, swin stages 1-3) and ``lc2is_tpu/ops/window_attention.py::
 fused_window_block`` (:645, stage 4), which compute this same function.  On
 a CUDA tensor :func:`swin_window_block` launches ``csrc/swin_window.cu``
-(one block per window, indices from canvas coordinates, any stage); on a CPU
-tensor it runs :func:`swin_window_block_plain`, HF's pipeline written out:
+(indices from canvas coordinates, any stage: in f32 one block per window on
+the CUDA cores, in bf16 up to four windows a block on the tensor cores); on
+a CPU tensor it runs :func:`swin_window_block_plain`, HF's pipeline written out:
 LN, zero pad to window multiples (pad AFTER the LN), roll by -shift,
 partition, attention with the relative-position bias and the 9-region
 -100 mask, reverse, roll back, crop, out-projection, residual

@@ -171,6 +171,22 @@ def test_swin_window_block_kernel(cuda, dtype, h, w, c, heads, win, shift):
            shift)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12), (768, 24)])
+def test_swin_window_block_kernel_window_tail(cuda, dtype, c, heads, shift):
+    """27 windows (3 images of 15², padded to 21²): no multiple of the 4 or
+    2 windows a bf16 block takes at the swin-small widths, so the last block
+    runs part-empty; the residual off at shift 3."""
+    rs = np.random.RandomState(4)
+    args = (_rand(rs, 3, 15, 15, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
+            _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, heads, 49, 49, scale=0.1))
+    _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, 7,
+           shift, residual=shift == 0)
+
+
 def _near_tie(dtype, blended):
     if dtype != torch.bfloat16:
         return 1e-5
@@ -396,6 +412,17 @@ def test_swin_window_block_bwd_kernel(cuda, dtype, h, w, c, heads, win, shift, r
     (70, 1030, 512, 8),
     (16, 17, 64, 4),
     (45, 64, 128, 4),
+    # the bf16 body's tile edges: 64-row query and key tiles, 128-row GEMM
+    # tiles over B·P, at C 512 (dh 64), 128 (dh 16) and 256 (dh 32)
+    (63, 63, 512, 8),
+    (64, 65, 512, 8),
+    (65, 1030, 512, 8),
+    (129, 65, 512, 8),
+    (1, 63, 512, 8),
+    (65, 63, 128, 8),
+    (129, 1030, 128, 8),
+    (64, 65, 256, 8),
+    (129, 1030, 256, 8),
 ])
 def test_fused_attn_block_bwd_kernel(cuda, dtype, p, l, c, heads):
     rs = np.random.RandomState(6)
@@ -406,6 +433,39 @@ def test_fused_attn_block_bwd_kernel(cuda, dtype, p, l, c, heads):
     g = _rand(rs, 2, p, c, dtype=dtype)
     _check_grads(fused_attn_block_bwd, lambda *a: fused_attn_block(*a, heads),
                  lambda *a: fused_attn_block_plain(*a, heads), args, g)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("p,c,heads", [(1, 512, 8), (65, 512, 8), (129, 128, 8), (64, 256, 8)])
+def test_fused_attn_block_bwd_kernel_one_key(cuda, dtype, p, c, heads):
+    """L = 1: the softmax over one key is constant, so the gradients that
+    reach only through it (dk, dwq, dbq) are exactly 0 in the plain version
+    and f32 noise in the kernel (its p and delta are summed in other
+    orders), each held below GRAD_TOL of a partner's norm of the same scale
+    (dv, dwo, dbo); every other gradient as in
+    test_fused_attn_block_bwd_kernel."""
+    rs = np.random.RandomState(8)
+    args = [_rand(rs, 2, p, c, dtype=dtype), _rand(rs, 2, 1, c, dtype=dtype),
+            _rand(rs, 2, 1, c, dtype=dtype), _rand(rs, c, c, scale=c ** -0.5),
+            _rand(rs, c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, c, scale=0.1, offset=1.0), _rand(rs, c, scale=0.1)]
+    g = _rand(rs, 2, p, c, dtype=dtype)
+    ka = [a.detach().clone().requires_grad_() for a in args]
+    pa = [a.detach().clone().requires_grad_() for a in args]
+    before = fused_attn_block_bwd.launches
+    got = torch.autograd.grad(fused_attn_block(*ka, heads), ka, g)
+    torch.cuda.synchronize()
+    assert fused_attn_block_bwd.launches == before + 1
+    want = torch.autograd.grad(fused_attn_block_plain(*pa, heads), pa, g)
+    zero_partner = {1: 2, 3: 5, 4: 6}  # dk: dv, dwq: dwo, dbq: dbo
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and torch.isfinite(a).all(), i
+        if i in zero_partner:
+            assert float(b.float().abs().max()) == 0.0, i
+            assert a.float().norm() <= GRAD_TOL[dtype] * got[zero_partner[i]].float().norm(), i
+        else:
+            rel = ((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30)).item()
+            assert rel <= GRAD_TOL[dtype], (i, rel)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
