@@ -9,7 +9,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    power limit; TF32 is switched off for the f32 phases;
 2. build: every kernel of lc2is_tpu_torch/csrc with nvcc (sm_90a), timed,
    with the registers and spills of the bf16 tensor-core kernels (flash,
-   the decoder attention backward's, the swin window block's) on a line;
+   the decoder attention backward's, the swin window block's, window
+   attention's, the swin backward's attention core) on a line;
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
@@ -32,7 +33,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
    against the stated bound, and the kernel's time beside the plain
    backward's (CUDA events, median of 5 after warm-up; fused_attn_block_bwd
-   also its TFLOP/s over three times its forward's products); the flash backward
+   and swin_window_block_bwd also their TFLOP/s over three times their
+   forward's products); the flash backward
    (dq and dk/dv kernels) against flash_attention_backward_plain at the v1
    training shapes (ViT-B/16 (16, 12, 1025, 64), decoder (16, 8, 1024, 96)),
    masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
@@ -46,7 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    shifted case run without its labels as a control that must fail; times
    beside the plain version's and one SDPA call with the bias and mask as an
    additive attn_mask, summed over the 22 blocks of stages 1-3 (stage 4 as
-   one call); its recompute backward against autograd through the plain
+   one call), each case with its GB/s beside the memory rate and its time
+   over SDPA's; its recompute backward against autograd through the plain
    version at stage 3's shape; SwinAttention.forward on the card against
    its CPU run (stage-3 windows of one 512² image, shifted);
 4. slice: PromptAuxCrossA at full width (swin-small, decoder 512, 12-layer
@@ -666,6 +669,9 @@ def run_case(c, dt, stats):
         lib += f" ({rate_of(c['work'], k_ms)}, {k_ms / lib_ms:.2f}x SDPA)"
     elif c["name"] == "swin_window_block":
         lib += f" ({rate_of(c['work'], k_ms)})"
+    elif c["name"] == "window_attention":  # bytes-bound: its memory rate and SDPA ratio
+        lib += (f" ({c['work'][0] / k_ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}, "
+                f"{k_ms / lib_ms:.2f}x SDPA)")
     per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
     print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
           f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
@@ -1054,7 +1060,7 @@ def check_backward_kernels():
             b_ms, by = least_time(*work)
             ok = rel <= bound and finite
             lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
-            if name == "fused_attn_block_bwd":
+            if name in ("fused_attn_block_bwd", "swin_window_block_bwd"):
                 lib += f" ({rate_of(work, k_ms)})"
             print(f"  {name:23s} {label:46s} max {mx:.3e} rel {rel:.3e} kernel {k_ms:8.3f} ms "
                   f"plain {p_ms:8.3f}{lib} bound {b_ms:7.3f} ({by}) x{count}/step "
@@ -1973,10 +1979,12 @@ def check_v1_train(smi):
 
 
 # the tensor-core (bf16) kernels: flash (rows 15, 16), the decoder attention
-# backward (row 3: its attention core and its GEMM) and the swin window block
-# (rows 6, 9)
+# backward (row 3: its attention core and its GEMM, which the swin backward
+# shares), the swin window block (rows 6, 9), window attention (row 8) and
+# the swin backward's attention core (rows 7, 10)
 MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
-               "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "swin_mma_kernel")
+               "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "swin_mma_kernel",
+               "window_attention_mma", "swin_attn_bwd_mma")
 
 
 def mma_registers(log):

@@ -142,21 +142,26 @@ def swin_window_block_bwd(x, g, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_he
     wqkv_s, bqkv_s, wo, bo, bias), given g = d loss / d out; ``wqkv_s`` and
     ``bqkv_s`` carry the 1/√dh fold (:func:`fold_q_scale`).  x and g are CUDA
     tensors of the compute dtype; dx comes back in it, the rest in f32.  The
-    forward is recomputed inside (``csrc/swin_window_bwd.cu``)."""
+    forward is recomputed inside (``csrc/swin_window_bwd.cu``: in f32 on the
+    CUDA cores, in bf16 on the tensor cores with bf16 intermediates where
+    ``swin_canvas.py::_canvas_bwd_kernel`` rounds)."""
     b, h, w, c = x.shape
     _check(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shift)
     _build.check_operands(x.device, g=(g, tuple(x.shape)))
     dt = x.dtype
     xc, gc = x.contiguous(), g.to(dt).contiguous()
-    # f32 operands holding exactly the values the forward kernel used
-    lnw, lnb, wq, bq, woc = (t.to(dt).float().contiguous() for t in (ln_w, ln_b, wqkv_s, bqkv_s,
-                                                                      wo))
+    # the values the forward kernel used: the two weight matrices in the
+    # dtype (the bf16 body's tensor-core operands), the vectors in f32
+    wq, woc = (t.to(dt).contiguous() for t in (wqkv_s, wo))
+    lnw, lnb, bq = (t.to(dt).float().contiguous() for t in (ln_w, ln_b, bqkv_s))
     biasc = bias.float().contiguous()
     f32 = dict(dtype=torch.float32, device=x.device)
     grads = [torch.zeros(s, **f32) for s in ((c,), (c,), (3 * c, c), (3 * c,), (c, c), (c,),
                                              tuple(bias.shape))]
     dx = torch.empty_like(xc)
-    ws = torch.empty(_build.size("lc2_swin_window_bwd_workspace", b, h, w, c, win), **f32)
+    workspace = ("lc2_swin_window_bwd_workspace_bf16" if dt == torch.bfloat16
+                 else "lc2_swin_window_bwd_workspace")
+    ws = torch.empty(_build.size(workspace, b, h, w, c, win), **f32)
     _build.launch(
         "lc2_swin_window_bwd", xc.device, _build.dtype_code(xc), xc.data_ptr(), gc.data_ptr(),
         lnw.data_ptr(), lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(), woc.data_ptr(),

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
-"""Time the port's decoder attention backward (``fused_attn_block_bwd``, TPU
-row 3) and swin window block (``swin_window_block``, TPU rows 6 and 9) at the
-main-path shapes on one NVIDIA GPU, with rows 2 (``fused_attn_block``) and 7
-(``swin_window_block_bwd``) and the f32 bodies as controls: CUDA-event
-medians of a call, and the device time of its kernels (torch.profiler; the
-event time also holds the wrapper's host work when the kernels are
-shorter than it).
+"""Time the port's block kernels at the main-path shapes on one NVIDIA GPU:
+window attention (``window_attention``, TPU row 8), the swin window block's
+backward (``swin_window_block_bwd``, TPU rows 7 and 10), the decoder
+attention backward (``fused_attn_block_bwd``, row 3) and the swin window
+block (``swin_window_block``, rows 6 and 9), with row 2
+(``fused_attn_block``) and the f32 bodies as controls: CUDA-event medians of
+a call, and the device time of its kernels (torch.profiler; the event time
+also holds the wrapper's host work when the kernels are shorter than it).
+Row 8 is timed beside one SDPA call with the bias and region mask as its
+additive mask (``scaled_dot_product_attention``, a yardstick only).
 
     python3 scripts/torch_block_ab.py [ROOT] [--tag NAME]
 
 ROOT is a checkout of this repository (default: the one holding this
-script); only the sources of those kernels are built (``attention_block*.cu``,
-``swin_window*.cu``, ``runtime.cu`` and the headers, into
-``build/block_ab/`` of that checkout), so two versions compare on one card
-by running the script on each in turns, e.g. parent, change, change,
-parent.  Each bf16 case is also held against its plain version: row 3's
-worst ‖Δ‖/‖plain‖ over its nine gradients (autograd through the plain
-version), row 6's largest |Δ|.  Fails without a CUDA device.
+script); only the sources of those kernels are built
+(``attention_block*.cu``, ``swin_window*.cu``, ``window_attention.cu``,
+``runtime.cu`` and the headers, into ``build/block_ab/`` of that checkout),
+so two versions compare on one card by running the script on each in
+turns, e.g. parent, change, change, parent.  Each bf16 case is also held
+against its plain version: rows 3 and 7 by their worst ‖Δ‖/‖plain‖ over
+their gradients (autograd through the plain version), rows 6 and 8 by their
+largest |Δ|.  The workspace bytes of rows 3 and 7 are printed at their
+largest main-path shape.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -37,8 +42,14 @@ import torch
 ATTN_SHAPES = [(256, 64, 1), (256, 151, 1), (1024, 256, 2), (1024, 151, 2), (4096, 1024, 3),
                (4096, 151, 3)]
 # row 6: the swin-small stages of a batch-16 512² forward (grid, C, heads,
-# blocks a shift); stage 4 (row 9) runs on no path and is one call
+# blocks a shift); stage 4 (row 9) runs on no path and is one call.  Row 7
+# runs at the same stages at batch 8 (a training step's launches a shift:
+# 1, 1, 9); stage 4 is row 10, one call
 SWIN_STAGES = [(128, 96, 3, 1), (64, 192, 6, 1), (32, 384, 12, 9), (16, 768, 24, 1)]
+# row 8: window attention at the same stages of a batch-16 512² forward:
+# (HF-padded grid, C, heads, blocks a shift), windows of 7 x 7; the 22
+# blocks of stages 1-3 are summed, stage 4 apart
+WINDOW_STAGES = [(133, 96, 3, 1), (70, 192, 6, 1), (35, 384, 12, 9), (21, 768, 24, 1)]
 
 
 def time_ms(fn, reps=10, warmup=2):
@@ -81,18 +92,20 @@ def load_port(root: Path):
     src.mkdir(parents=True)
     for p in (list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / "runtime.cu"]
               + list(_build.CSRC.glob("attention_block*.cu"))
-              + list(_build.CSRC.glob("swin_window*.cu"))):
+              + list(_build.CSRC.glob("swin_window*.cu"))
+              + [_build.CSRC / "window_attention.cu"]):
         shutil.copy(p, src / p.name)
     _build.CSRC = src
     _build.BUILD_DIR = src.parent / "lib"
-    keep = ("lc2_attn_block", "lc2_swin_window")
+    keep = ("lc2_attn_block", "lc2_swin_window", "lc2_window_attention")
     _build.SIGNATURES = {k: v for k, v in _build.SIGNATURES.items() if k.startswith(keep)}
     _build.SIZE_SIGNATURES = {k: v for k, v in _build.SIZE_SIGNATURES.items()
                               if k.startswith(keep)}
     _build.library()
     from lc2is_tpu_torch.ops import attention_block as ab
     from lc2is_tpu_torch.ops import swin_window as sw
-    return _build, ab, sw
+    from lc2is_tpu_torch.ops import window_attention as wa
+    return _build, ab, sw, wa
 
 
 def rand(rs, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
@@ -124,7 +137,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = Path(args.root).resolve()
     tag = args.tag or root.name
-    build, ab, sw = load_port(root)
+    build, ab, sw, wa = load_port(root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[{tag}] {root} on {smi}", flush=True)
@@ -132,6 +145,9 @@ def main() -> int:
         if name.startswith("lc2_attn_block_bwd_workspace"):
             print(f"[{tag}] {name} (8, 4096, 512) L1024 h8: "
                   f"{4 * build.size(name, 8, 4096, 1024, 512, 8)} bytes", flush=True)
+        if name.startswith("lc2_swin_window_bwd_workspace"):
+            print(f"[{tag}] {name} (8, 128, 128, 96) window 7: "
+                  f"{4 * build.size(name, 8, 128, 128, 96, 7)} bytes", flush=True)
     rs = np.random.RandomState(0)
     total = {}
 
@@ -178,7 +194,8 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     # row 6 (stages 1-3) and row 9 (stage 4), bf16 b16 every shape, f32 at
-    # stage 3; row 7 (the swin backward, a control) at b8
+    # stage 3; rows 7 and 10 (the swin backward) at b8, bf16 every shape,
+    # f32 at stage 3 shifted
     for dt in (torch.bfloat16, torch.float32):
         for s, (grid, c, heads, n) in enumerate(SWIN_STAGES):
             if dt == torch.float32 and s != 2:
@@ -196,20 +213,68 @@ def main() -> int:
                         note = f" max|Δ| {d.max().item():.2e}"
                 report("6" if s < 3 else "9", f"stage{s + 1} (16,{grid},{grid},{c}) shift{shift}",
                        dt, ms, n, ops, lambda: sw.swin_window_block(*a, heads, 7, shift), note)
-            if dt == torch.bfloat16 and s < 3:
-                a8 = [a[0][:8].contiguous()] + a[1:]
-                g8 = rand(rs, 8, grid, grid, c, dtype=dt)
-                wq_s, bq_s = sw.fold_q_scale(a[3], a[4], heads)
-                def swin_bwd(a8=a8, g8=g8, wq_s=wq_s, bq_s=bq_s, heads=heads):
+            a8 = [a[0][:8].contiguous()] + a[1:]
+            g8 = rand(rs, 8, grid, grid, c, dtype=dt)
+            wq_s, bq_s = sw.fold_q_scale(a[3], a[4], heads)
+            for shift in (0, 3) if dt == torch.bfloat16 else (3,):
+                def swin_bwd(a8=a8, g8=g8, wq_s=wq_s, bq_s=bq_s, heads=heads, shift=shift):
                     return sw.swin_window_block_bwd(a8[0], g8, a8[1], a8[2], wq_s, bq_s,
-                                                    *a8[5:], heads, 7, 3, residual=False)
+                                                    *a8[5:], heads, 7, shift, residual=False)
 
                 with torch.no_grad():
                     ms = time_ms(swin_bwd, reps=5)
-                report("7", f"stage{s + 1} (8,{grid},{grid},{c}) shift3", dt, ms, n, 1.5 * ops,
-                       swin_bwd)
-                del a8, g8
-            del a
+                note = ""
+                if dt == torch.bfloat16:
+                    kw = dict(num_heads=heads, win=7, shift=shift, residual=False)
+                    ka = [t.detach().clone().requires_grad_() for t in a8]
+                    pa = [t.detach().clone().requires_grad_() for t in a8]
+                    got = torch.autograd.grad(sw.swin_window_block(*ka, **kw), ka, g8)
+                    want = torch.autograd.grad(sw.swin_window_block_plain(*pa, **kw), pa, g8)
+                    rel = max(((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)
+                               ).item() for x, y in zip(got, want))
+                    note = f" rel {rel:.2e}"
+                    del ka, pa, got, want
+                report("7" if s < 3 else "10", f"stage{s + 1} (8,{grid},{grid},{c}) shift{shift}",
+                       dt, ms, n, 1.5 * ops, swin_bwd, note)
+            del a, a8, g8
+            torch.cuda.empty_cache()
+
+    # row 8: window attention at the 22 blocks' shapes of stages 1-3 and
+    # stage 4 (one call), bf16, shift 0 and 3, beside one SDPA call; f32 at
+    # stage 3 (a control)
+    import torch.nn.functional as F
+    for dt in (torch.bfloat16, torch.float32):
+        for s, (hp, c, heads, n) in enumerate(WINDOW_STAGES):
+            if dt == torch.float32 and s != 2:
+                continue
+            nw, dh = 16 * (hp // 7) ** 2, c // heads
+            q, k, v = (rand(rs, nw, 49, c, dtype=dt) for _ in range(3))
+            bias = rand(rs, heads, 49, 49, scale=0.5)
+            split = tuple(t.view(nw, 49, heads, dh).transpose(1, 2) for t in (q, k, v))
+            ops = 4 * nw * heads * 49 * 49 * dh
+            for shift in (0, 3):
+                reg = wa.region_labels(16, hp, hp, 7, shift, device="cuda")
+                fn = lambda q=q, k=k, v=v, bias=bias, reg=reg, heads=heads: wa.window_attention(
+                    q, k, v, bias, reg, heads)
+                with torch.no_grad():
+                    ms = time_ms(fn, reps=20)
+                    d = (fn().float() - wa.window_attention_plain(q, k, v, bias, reg, heads
+                                                                  ).float()).abs()
+                label = f"stage{s + 1} ({nw},49,{c}) h{heads} shift{shift}"
+                row = "8" if s < 3 else "8 stage4"
+                report(row, label, dt, ms, n, ops, fn, f" max|Δ| {d.max().item():.2e}")
+                if dt == torch.bfloat16:
+                    mask = bias[None]
+                    if reg is not None:
+                        mask = mask + torch.where(reg[:, None, :, None] != reg[:, None, None, :],
+                                                  wa.NEG, 0.0)
+                    mask = mask.to(dt)
+                    sdpa = lambda a=split, m=mask: F.scaled_dot_product_attention(*a, attn_mask=m)
+                    with torch.no_grad():
+                        ms = time_ms(sdpa, reps=20)
+                    report(row + " SDPA", label, dt, ms, n, ops, sdpa)
+                    del mask
+            del q, k, v, split
             torch.cuda.empty_cache()
     for (row, dt), (ms, dev) in sorted(total.items()):
         print(f"[{tag}] total row {row} {dt}: {ms:.3f} ms, device {dev:.3f} ms "

@@ -127,6 +127,56 @@ def test_fused_mlp_kernel(cuda, dtype, n_tok, c, act, pos, residual):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("h,w,c,heads,shift,residual", [
+    (128, 128, 96, 3, 0, True),    # swin-small stage 1 at 512², HF-padded to 133²
+    (128, 128, 96, 3, 3, False),
+    (64, 64, 192, 6, 0, True),     # stage 2
+    (64, 64, 192, 6, 3, False),
+    (32, 32, 384, 12, 0, True),    # stage 3
+    (32, 32, 384, 12, 3, False),
+    (16, 16, 768, 24, 0, True),    # stage 4 (TPU row 10)
+    (16, 16, 768, 24, 3, False),
+])
+def test_swin_window_block_bwd_kernel_stage_shapes(cuda, dtype, h, w, c, heads, shift, residual):
+    """The swin backward (TPU rows 7 and 10) at every swin-small stage shape
+    of a 512² image, window 7."""
+    rs = np.random.RandomState(h + shift)
+    args = [_rand(rs, 1, h, w, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
+            _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, heads, 49, 49, scale=0.1)]
+    g = _rand(rs, 1, h, w, c, dtype=dtype)
+    kw = dict(num_heads=heads, win=7, shift=shift, residual=residual)
+    _check_grads(swin_window_block_bwd, lambda *a: swin_window_block(*a, **kw),
+                 lambda *a: swin_window_block_plain(*a, **kw), args, g)
+
+
+@pytest.mark.parametrize("b,h,w,c,heads,win,shift,residual", [
+    (2, 18, 23, 96, 3, 7, 3, True),    # H, W no multiples of the window, odd head count
+    (2, 20, 20, 160, 5, 7, 3, False),  # 5 heads of 32
+    (3, 14, 14, 96, 3, 7, 0, False),   # whole windows, no HF pad
+    (2, 16, 16, 128, 2, 8, 3, True),   # window 8: 64 tokens, a full key tile; dh 64
+    (2, 17, 19, 64, 4, 8, 0, False),   # window 8, HF-padded, dh 16
+    (1, 9, 9, 192, 6, 8, 5, True),     # window 8, shift 5
+])
+def test_swin_window_block_bwd_kernel_tile_edges(cuda, b, h, w, c, heads, win, shift, residual):
+    """The bf16 tensor-core body of the swin backward at its tile edges:
+    windows of 49 and 64 tokens in a 64-row tile, HF padding, odd head
+    counts, every head width, shifted and not, with and without the
+    residual."""
+    rs = np.random.RandomState(b * h * w + c + shift)
+    dtype = torch.bfloat16
+    args = [_rand(rs, b, h, w, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
+            _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, heads, win * win, win * win, scale=0.1)]
+    g = _rand(rs, b, h, w, c, dtype=dtype)
+    kw = dict(num_heads=heads, win=win, shift=shift, residual=residual)
+    _check_grads(swin_window_block_bwd, lambda *a: swin_window_block(*a, **kw),
+                 lambda *a: swin_window_block_plain(*a, **kw), args, g)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("p,l,c,heads", [
     (40, 7, 512, 8),
     (33, 151, 512, 8),
@@ -998,6 +1048,22 @@ def test_window_attention_kernel(cuda, dtype, regions, n, p, heads, dh):
     args = _window_inputs(np.random.RandomState(p * dh + n), n, p, heads * dh, heads, dtype,
                           regions)
     _check(window_attention, window_attention, window_attention_plain, *args, heads)
+
+
+@pytest.mark.parametrize("regions", [False, True])
+@pytest.mark.parametrize("p", [1, 16, 49, 64, 65, 144])
+@pytest.mark.parametrize("dh", [1, 6, 16, 24, 32, 128])
+def test_window_attention_kernel_tile_edges(cuda, regions, p, dh):
+    """The bf16 tensor-core body of window_attention at its tile edges: p
+    inside one 16-row tile, at and past the 64-key bound, at the 144-key
+    one; head widths zero-filled up to a multiple of 16 (1, 6, 24) and whole
+    (16, 32, 128), through element (dh 1), 4-byte (dh 6) and 16-byte copies;
+    555 windows of 2 heads, an odd number for the 2 windows a block takes."""
+    from lc2is_tpu_torch.ops.window_attention import window_attention, window_attention_plain
+
+    args = _window_inputs(np.random.RandomState(p * dh + regions), 555, p, 2 * dh, 2,
+                          torch.bfloat16, regions)
+    _check(window_attention, window_attention, window_attention_plain, *args, 2)
 
 
 def test_window_attention_raises_and_backward(cuda):
