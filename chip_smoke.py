@@ -9,8 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    power limit; TF32 is switched off for the f32 phases;
 2. build: every kernel of lc2is_tpu_torch/csrc with nvcc (sm_90a), timed,
    with the registers and spills of the bf16 tensor-core kernels (flash,
-   the decoder attention backward's, the swin window block's, window
-   attention's, the swin backward's attention core) on a line;
+   the decoder attention forward's and backward's (its GEMM, which the
+   feed-forward and the swin backward share, and its LayerNorm pass), the
+   swin window block's, window attention's, the swin backward's attention
+   core) on a line;
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
@@ -27,7 +29,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    version's exactly; flash at head widths 16, 40, 48 and 128 (each flash
    case also prints its TFLOP/s and its time over SDPA's); the v1 shapes of
    fused_mlp and fused_attn_block (timed, not summed into the flagship
-   forward); each swin_window_block case prints its TFLOP/s;
+   forward); each swin_window_block, fused_mlp and fused_attn_block case
+   prints its TFLOP/s;
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
@@ -667,7 +670,7 @@ def run_case(c, dt, stats):
     lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
     if c["name"] == "flash_attention":  # its rate and its ratio to SDPA
         lib += f" ({rate_of(c['work'], k_ms)}, {k_ms / lib_ms:.2f}x SDPA)"
-    elif c["name"] == "swin_window_block":
+    elif c["name"] in ("swin_window_block", "fused_mlp", "fused_attn_block"):
         lib += f" ({rate_of(c['work'], k_ms)})"
     elif c["name"] == "window_attention":  # bytes-bound: its memory rate and SDPA ratio
         lib += (f" ({c['work'][0] / k_ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}, "
@@ -1978,19 +1981,21 @@ def check_v1_train(smi):
     return result
 
 
-# the tensor-core (bf16) kernels: flash (rows 15, 16), the decoder attention
-# backward (row 3: its attention core and its GEMM, which the swin backward
-# shares), the swin window block (rows 6, 9), window attention (row 8) and
-# the swin backward's attention core (rows 7, 10)
+# the kernels of the bf16 tensor-core bodies: flash (rows 15, 16), the
+# decoder attention forward and backward (rows 2, 3: the attention cores,
+# the GEMM, which the feed-forward (row 1) and the swin backward share, and
+# the LayerNorm pass of rows 1 and 2), the swin window block (rows 6, 9),
+# window attention (row 8) and the swin backward's attention core (rows 7,
+# 10)
 MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
-               "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "swin_mma_kernel",
-               "window_attention_mma", "swin_attn_bwd_mma")
+               "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "layer_norm_rows",
+               "swin_mma_kernel", "window_attention_mma", "swin_attn_bwd_mma")
 
 
 def mma_registers(log):
-    """The tensor-core kernels' registers a thread and spill stores, from
-    ptxas's report in the build log: "name<template args> registers/spill
-    bytes"."""
+    """The tensor-core bodies' kernels' registers a thread and spill stores,
+    from ptxas's report in the build log: "name<template args>
+    registers/spill bytes", once for a kernel that several sources compile."""
     lines = log.splitlines()
     out = []
     for i, line in enumerate(lines):
@@ -2000,12 +2005,16 @@ def mma_registers(log):
         info = " ".join(lines[i + 1:i + 4])
         if name is None or "Used " not in info:
             continue
-        targs = ",".join(t[2:] for t in line.split(name + "I")[1].split("EE")[0].split("E"))
+        targs = ",".join(t[2:] if t.startswith("L") else t
+                         for t in line.split(name + "I")[1].split("EE")[0].split("E")
+                         ).replace("13__nv_bfloat16", "bf16")
         regs = info.split("Used ")[1].split()[0]
         spill = info.split("bytes spill stores")[0].split(",")[-1].strip()
-        out.append(f"{name}<{targs}> {regs}/{spill}")
-    return ("bf16 tensor-core kernels, registers a thread / spill-store bytes: " + ", ".join(out)
-            if out else "bf16 tensor-core kernels: no ptxas report (library found already built)")
+        if f"{name}<{targs}> {regs}/{spill}" not in out:
+            out.append(f"{name}<{targs}> {regs}/{spill}")
+    return ("bf16 tensor-core bodies' kernels, registers a thread / spill-store bytes: "
+            + ", ".join(out) if out else
+            "bf16 tensor-core bodies' kernels: no ptxas report (library found already built)")
 
 
 def main() -> int:

@@ -7,30 +7,41 @@
 // lc2is_tpu/ops/attention_block.py::_kernel (:37, entry fused_attn_block :220).
 //
 // What bounds it on the card: arithmetic.  The q and out projections are
-// 2·C² multiply-adds per token and the attention 2·L·C; the block reads its
-// x tile once and streams K/V through shared memory, so device-memory traffic
-// is x + out + (P/32)·K/V re-reads (L2-resident at these sizes).  This first
-// version runs every product on the CUDA cores in f32.
+// 2·C² multiply-adds per token and the attention 2·L·C.
 //
-// Design: one block owns a tile of BQ = 32 query rows with all C channels,
-// because the out-projection and the LayerNorm need every head of a row.
-//   1. x tile -> shared memory; q = x·Wqᵀ + bq (rounded to T, as the TPU
-//      kernel rounds q) -> shared memory;
+// bf16 body (attn_block_bf16): every product on the tensor cores, four
+// launches.  Steps 1-3 are csrc/attn_block_fwd.cuh, the code the backward
+// (csrc/attention_block_bwd.cu) recomputes the forward with: q = round(x ·
+// Wqᵀ + bq) on the mma.sync GEMM of gemm_bf16.cuh; the FlashAttention-2-style
+// core attn_fwd_mma (64 query rows a block, 64-key tiles through a cp.async
+// ring, p rounded per tile, O scaled by 1/l and rounded), writing the head
+// outputs over q's rows in the workspace; s = att · Woᵀ + bo + x in f32 on the
+// GEMM; then 4. LayerNorm of s with f32 statistics, rounded
+// (layer_norm.cuh).  The workspace (the wrapper allocates it,
+// lc2_attn_block_fwd_workspace_bf16) holds q / att in bf16 and s in f32.
+//
+// f32 body (the control) on the CUDA cores: one block owns a
+// tile of BQ = 32 query rows with all C channels, because the out-projection
+// and the LayerNorm need every head of a row.
+//   1. x tile -> shared memory; q = x·Wqᵀ + bq -> shared memory;
 //   2. warp h takes head h and lane r query row r: q_h row in registers, then
 //      a loop over K/V tiles of BK = 16 keys in shared memory with an online
 //      (max-subtracted) softmax, so L is unbounded (1024 at 512², more at
 //      larger inputs);
-//   3. the normalised head output (rounded to T) overwrites the q tile;
+//   3. the normalised head output overwrites the q tile;
 //   4. out-projection, residual and LayerNorm with f32 statistics, one row per
 //      warp-shuffle reduction.
 // Heads <= 8 (one warp each), dh in {16, 32, 64}, C % 32 == 0, C <= 512.
 //
-// lc2_attn_block_q is the int8 serving variant of the same kernel, the
+// lc2_attn_block_q is the int8 serving variant of the f32 body's kernel, the
 // quant=True branch of the TPU kernel (attention_block.py:38-96, forward
-// only): int8 q- and out-projections, the attention itself as above.
+// only), in f32 or bf16: int8 q- and out-projections, the attention itself as
+// above, rounded to the dtype where the TPU kernel rounds.
 #include <math_constants.h>
 
+#include "attn_block_fwd.cuh"
 #include "common.cuh"
+#include "layer_norm.cuh"
 
 namespace lc2 {
 namespace {
@@ -314,32 +325,50 @@ cudaError_t dispatch_dh(int C, const AttnArgs& a, cudaStream_t stream) {
   }
 }
 
-// kQ false: the float block (weights in dtype); true: the int8 one
+// kQ false: the f32 block; true: the int8 one (f32 or bf16)
 template <bool kQ>
 cudaError_t dispatch(int dtype, int C, const AttnArgs& a, void* stream) {
   if (a.L < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return kQ ? dispatch_dh<float, int8_t>(C, a, s) : dispatch_dh<float, float>(C, a, s);
-  if (dtype == kBF16)
-    return kQ ? dispatch_dh<__nv_bfloat16, int8_t>(C, a, s)
-              : dispatch_dh<__nv_bfloat16, __nv_bfloat16>(C, a, s);
-  return cudaErrorInvalidValue;
+  if (dtype == kBF16 && kQ) return dispatch_dh<__nv_bfloat16, int8_t>(C, a, s);
+  return cudaErrorInvalidValue;  // the float bf16 block: attn_block_bf16
+}
+
+// The bf16 body: steps 1-3 (attn_block_fwd.cuh), then the LayerNorm of s.
+cudaError_t attn_block_bf16(const AttnArgs& a, int C, void* ws, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  auto t = [](const void* p) { return static_cast<const bf*>(p); };
+  bf* q = static_cast<bf*>(ws);
+  float* s = reinterpret_cast<float*>(q + (long long)a.B * a.P * C);
+  LC2_TRY(attn_block_fwd_bf16(t(a.x), t(a.k), t(a.v), t(a.wq), static_cast<const float*>(a.bq),
+                              t(a.wo), static_cast<const float*>(a.bo), q, q, nullptr, s, a.B,
+                              a.P, a.L, C, a.heads, st));
+  return ln::layer_norm(s, t(a.lnw), t(a.lnb), static_cast<bf*>(a.out), (long long)a.B * a.P, C,
+                        a.eps, st);
 }
 
 }  // namespace
 }  // namespace lc2
 
-// x (B, P, C); k, v (B, L, C); wq, wo (C, C) torch layout; bq, bo, lnw, lnb (C,).
+// x (B, P, C); k, v (B, L, C); wq, wo (C, C) torch layout; lnw, lnb (C,), all
+// of the dtype; bq, bo (C,) f32 (holding bf16 values in bf16: the TPU kernel
+// adds the bias of its dtype in f32).  ws: null in f32, in bf16
+// lc2_attn_block_fwd_workspace_bf16 floats, with 16-byte aligned operands.
 // C in {64, 128, 256, 512}; heads <= 8 with C / heads in {16, 32, 64}; L >= 1.
 extern "C" int lc2_attn_block(int dtype, const void* x, const void* k, const void* v,
                               const void* wq, const void* bq, const void* wo,
                               const void* bo, const void* lnw, const void* lnb, void* out,
-                              int B, int P, int L, int C, int heads, float eps,
+                              void* ws, int B, int P, int L, int C, int heads, float eps,
                               void* stream) {
   const lc2::AttnArgs a{x, k, v, wq, nullptr, bq, wo, nullptr, bo, lnw, lnb, out, B, P, L,
                         heads, eps};
-  return lc2::dispatch<false>(dtype, C, a, stream);
+  if (dtype != lc2::kBF16) return lc2::dispatch<false>(dtype, C, a, stream);
+  if (B < 1 || P < 1 || L < 1 || heads < 1 || heads > 8 || C % heads ||
+      (C != 64 && C != 128 && C != 256 && C != 512) || ws == nullptr)
+    return cudaErrorInvalidValue;
+  return lc2::attn_block_bf16(a, C, ws, static_cast<cudaStream_t>(stream));
 }
 
 // The int8 variant: wq, wo (C, C) int8 codes with f32 per-output-channel
@@ -351,4 +380,11 @@ extern "C" int lc2_attn_block_q(int dtype, const void* x, const void* k, const v
                                 int L, int C, int heads, float eps, void* stream) {
   const lc2::AttnArgs a{x, k, v, wq, wqs, bq, wo, wos, bo, lnw, lnb, out, B, P, L, heads, eps};
   return lc2::dispatch<true>(dtype, C, a, stream);
+}
+
+// Workspace floats of the bf16 body: q, whose rows the head outputs
+// overwrite, in bf16 and s in f32, B·P·C of each.
+extern "C" long long lc2_attn_block_fwd_workspace_bf16(int B, int P, int L, int C, int heads) {
+  const long long n = (long long)B * P * C;
+  return (n + 1) / 2 + n;
 }

@@ -53,6 +53,7 @@
 // matrices (row stride C, head offset h·dh, no transpose pass); scores stay
 // in registers, exp2 with log2 e folded in, p and ds rounded to bf16 into the
 // A fragments of the next products; one barrier a tile.  The recompute
+// (steps 1-3) is the forward kernel's own code, csrc/attn_block_fwd.cuh: it
 // rounds p per key tile and scales O by 1/l at the end (the flash kernels'
 // order; JAX normalises before rounding: the two differ by bf16 rounding).
 // Intermediates stay bf16 in the workspace except s/ds, the lse and delta.
@@ -61,9 +62,8 @@
 
 #include <type_traits>
 
-#include "attn_tiles.cuh"
+#include "attn_block_fwd.cuh"
 #include "gemm.cuh"
-#include "gemm_bf16.cuh"
 
 namespace lc2 {
 namespace {
@@ -442,105 +442,8 @@ cudaError_t attn_bwd_f32(const float* x, const float* k, const float* v, const f
 // bf16 body: tensor cores (mma.sync), bf16 intermediates where JAX rounds
 // ===========================================================================
 
-using bf16 = __nv_bfloat16;
-constexpr int kAttnRows = 64;  // query or key rows a block owns: 4 warps x 16
-constexpr int kAttnThreads = 128;
-constexpr int kAttnCols = 64;  // rows of a streamed tile
-constexpr int kAttnStages = 2;
-
-// Shared memory of the three attention kernels: NOWN own tiles of 64 rows,
-// then the ring's stages of two streamed 64-row tiles (bf16 at stride DH + 8)
-// and, with kStats, the lse and delta of the streamed rows; then 4 · DH
-// floats (the dq kernel's column sums).
-template <int DH, int NOWN, bool kStats>
-struct AttnLayout {
-  static constexpr int kLd = mma::row_stride<DH>();
-  static constexpr int kTile = kAttnRows * kLd;
-  static constexpr size_t kStage =
-      sizeof(bf16) * 2 * kTile + (kStats ? 2 * sizeof(float) * kAttnCols : 0);
-  static constexpr size_t kOwnBytes = sizeof(bf16) * NOWN * kTile;
-  static constexpr size_t kRed = kOwnBytes + kAttnStages * kStage;
-  static constexpr size_t kBytes = kRed + sizeof(float) * 4 * DH;
-  __device__ static bf16* a(unsigned char* smem, int s) {
-    return reinterpret_cast<bf16*>(smem + kOwnBytes + s * kStage);
-  }
-  __device__ static float* stats(unsigned char* smem, int s) {
-    return reinterpret_cast<float*>(a(smem, s) + 2 * kTile);
-  }
-};
-
-// Rows [r0, r0 + 64) of head h of a (B, n, C) bf16 matrix, image b.
-template <int DH>
-__device__ __forceinline__ void load_head_rows(const bf16* base, int b, int n, int C, int h,
-                                               int r0, bf16* dst) {
-  mma::load_rows_ld<DH, kAttnRows, kAttnThreads>(base + (size_t)b * n * C + h * DH, r0, n, C,
-                                                 dst);
-}
-
-// The recompute: O = softmax(q · kᵀ) · v rounded to bf16 into att, and the
-// row log-sum-exp; grid (P tiles, heads, B).  p is rounded per tile into
-// P · V's A fragment and O scaled by 1 / l at the end (mma::fwd_tile).
-template <int DH>
-__global__ void __launch_bounds__(kAttnThreads, 3)
-attn_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-             bf16* __restrict__ att, float* __restrict__ lse, int P, int L, int C) {
-  using Lay = AttnLayout<DH, 1, false>;
-  constexpr int KC = DH / 16, NO = DH / 8, LD = Lay::kLd;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y, p0 = blockIdx.x * kAttnRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_tiles = (L + kAttnCols - 1) / kAttnCols;
-  auto issue = [&](int t) {  // k_t and v_t into stage t % 2, one group
-    if (t < n_tiles) {
-      bf16* ks = Lay::a(smem_raw, t % kAttnStages);
-      load_head_rows<DH>(k, b, L, C, h, t * kAttnCols, ks);
-      load_head_rows<DH>(v, b, L, C, h, t * kAttnCols, ks + Lay::kTile);
-    }
-    mma::cp_async_commit();
-  };
-  load_head_rows<DH>(q, b, P, C, h, p0, qs);
-  mma::cp_async_commit();
-  issue(0);
-  mma::cp_async_wait<1>();
-  __syncthreads();
-
-  const bool live = p0 + warp * 16 < P;
-  bf16* qw = qs + warp * 16 * LD;  // the warp's q rows, later its output staging
-  uint32_t qa[KC][4];
-  mma::own_fragments<DH>(qw, lane, qa);
-  float o[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  for (int t = 0; t < n_tiles; ++t) {
-    mma::cp_async_wait<0>();
-    __syncthreads();
-    issue(t + 1);
-    const bf16* ks = Lay::a(smem_raw, t % kAttnStages);
-    const mma::KeyBits kept = mma::key_bits(nullptr, t * kAttnCols, L, lane);
-    if (!live) continue;
-    if (kept.all())  // 1/√dh is folded into q: the scale is 1
-      mma::fwd_tile<DH, true>(qa, ks, ks + Lay::kTile, kept, mma::kLog2e, lane, o, m, l);
-    else
-      mma::fwd_tile<DH, false>(qa, ks, ks + Lay::kTile, kept, mma::kLog2e, lane, o, m, l);
-  }
-  if (!live) return;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  mma::stage_rows<DH, NO>(o, 1.0f / l[0], 1.0f / l[1], qw, lane);
-  mma::store_rows_ld<DH>(qw, att + (size_t)b * P * C + h * DH, p0 + warp * 16, P, C, lane);
-  if ((lane & 3) == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = p0 + warp * 16 + (lane >> 2) + 8 * r;
-      if (row < P) lse[((size_t)b * heads + h) * P + row] = m[r] * mma::kLn2 + logf(l[r]);
-    }
-  }
-}
+// (the forward it recomputes, its GEMM and its attention core, attn_fwd_mma,
+// are csrc/attn_block_fwd.cuh, which the forward kernel runs too)
 
 // dq = Σ_keys round(p · (dO · vᵀ − delta)) · k, with p = exp(q · kᵀ − lse);
 // grid (P tiles, heads, B).  Writes dq rounded to bf16 (dqb: what dWq and dx
@@ -861,17 +764,10 @@ weights_bf16(const float* __restrict__ wq, const float* __restrict__ wo, bf16* _
 }
 
 template <int DH>
-cudaError_t attn_kernels_bf16(int phase, const bf16* q, const bf16* k, const bf16* v, bf16* att,
-                              float* lse, const bf16* dO, const float* D, bf16* dqb, float* dbq,
-                              float* dk, float* dv, int B, int P, int L, int C, int heads,
-                              cudaStream_t s) {
-  if (phase == 0) {
-    constexpr size_t smem = AttnLayout<DH, 1, false>::kBytes;
-    LC2_TRY(allow_smem(attn_fwd_mma<DH>, smem));
-    attn_fwd_mma<DH><<<dim3((P + kAttnRows - 1) / kAttnRows, heads, B), kAttnThreads, smem, s>>>(
-        q, k, v, att, lse, P, L, C);
-    return cudaGetLastError();
-  }
+cudaError_t attn_bwd_kernels_bf16(const bf16* q, const bf16* k, const bf16* v, const float* lse,
+                                  const bf16* dO, const float* D, bf16* dqb, float* dbq, float* dk,
+                                  float* dv, int B, int P, int L, int C, int heads,
+                                  cudaStream_t s) {
   constexpr size_t smem_dq = AttnLayout<DH, 2, false>::kBytes;
   LC2_TRY(allow_smem(attn_dq_mma<DH>, smem_dq));
   attn_dq_mma<DH><<<dim3((P + kAttnRows - 1) / kAttnRows, heads, B), kAttnThreads, smem_dq, s>>>(
@@ -884,14 +780,14 @@ cudaError_t attn_kernels_bf16(int phase, const bf16* q, const bf16* k, const bf1
   return cudaGetLastError();
 }
 
-cudaError_t attn_kernels_bf16_dh(int phase, const bf16* q, const bf16* k, const bf16* v,
-                                 bf16* att, float* lse, const bf16* dO, const float* D,
-                                 bf16* dqb, float* dbq, float* dk, float* dv, int B, int P, int L,
-                                 int C, int heads, cudaStream_t s) {
+cudaError_t attn_bwd_kernels_bf16_dh(const bf16* q, const bf16* k, const bf16* v,
+                                     const float* lse, const bf16* dO, const float* D, bf16* dqb,
+                                     float* dbq, float* dk, float* dv, int B, int P, int L, int C,
+                                     int heads, cudaStream_t s) {
   switch (C / heads) {
-    case 16: return attn_kernels_bf16<16>(phase, q, k, v, att, lse, dO, D, dqb, dbq, dk, dv, B, P, L, C, heads, s);
-    case 32: return attn_kernels_bf16<32>(phase, q, k, v, att, lse, dO, D, dqb, dbq, dk, dv, B, P, L, C, heads, s);
-    case 64: return attn_kernels_bf16<64>(phase, q, k, v, att, lse, dO, D, dqb, dbq, dk, dv, B, P, L, C, heads, s);
+    case 16: return attn_bwd_kernels_bf16<16>(q, k, v, lse, dO, D, dqb, dbq, dk, dv, B, P, L, C, heads, s);
+    case 32: return attn_bwd_kernels_bf16<32>(q, k, v, lse, dO, D, dqb, dbq, dk, dv, B, P, L, C, heads, s);
+    case 64: return attn_bwd_kernels_bf16<64>(q, k, v, lse, dO, D, dqb, dbq, dk, dv, B, P, L, C, heads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -944,14 +840,9 @@ cudaError_t attn_bwd_bf16(const bf16* x, const bf16* k, const bf16* v, const bf1
   const long long cc = (long long)C * C;
   weights_bf16<<<elementwise_blocks(cc), 256, 0, s>>>(wq, wo, w.wqb, w.wob, cc);
   LC2_TRY(cudaGetLastError());
-  // q = x · Wqᵀ + bq, rounded
-  LC2_TRY((gemm16::gemm<false, false>(bp, C, C, x, C, w.wqb, C,
-                                      Epilogue{bq, nullptr, nullptr, nullptr, w.q, C, false}, s)));
-  LC2_TRY(attn_kernels_bf16_dh(0, w.q, k, v, w.att, w.lse, nullptr, nullptr, nullptr, nullptr,
-                               nullptr, nullptr, B, P, L, C, heads, s));
-  // s = att · Woᵀ + bo + x, f32
-  LC2_TRY((gemm16::gemm<false, false>(bp, C, C, w.att, C, w.wob, C,
-                                      Epilogue{bo, nullptr, x, w.sd, nullptr, C, false}, s)));
+  // the forward: q, att, lse and s (f32)
+  LC2_TRY(attn_block_fwd_bf16(x, k, v, w.wqb, bq, w.wob, bo, w.q, w.att, w.lse, w.sd, B, P, L, C,
+                              heads, s));
   LC2_TRY(post_ln_bf16(w.sd, g, lnw, w.dsb, dlnw, dlnb, dbo, BP, C, eps, s));
   // dWo += round(ds)ᵀ · att; dO = round(round(ds) · Wo)
   LC2_TRY((gemm16::gemm<true, true>(C, C, bp, w.dsb, C, w.att, C,
@@ -966,8 +857,8 @@ cudaError_t attn_bwd_bf16(const bf16* x, const bf16* k, const bf16* v, const bf1
     LC2_TRY(cudaGetLastError());
   }
   bf16* dqb = w.dsb;  // round(ds) is read for the last time above
-  LC2_TRY(attn_kernels_bf16_dh(1, w.q, k, v, nullptr, w.lse, w.datt, w.D, dqb, dbq, dk, dv, B, P,
-                               L, C, heads, s));
+  LC2_TRY(attn_bwd_kernels_bf16_dh(w.q, k, v, w.lse, w.datt, w.D, dqb, dbq, dk, dv, B, P, L, C,
+                                   heads, s));
   // dWq += round(dq)ᵀ · x; dx = round(dq) · Wq + ds, rounded
   LC2_TRY((gemm16::gemm<true, true>(C, C, bp, dqb, C, x, C,
                                     Epilogue{nullptr, nullptr, nullptr, dwq, nullptr, C, true}, s)));

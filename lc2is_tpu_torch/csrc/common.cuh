@@ -14,6 +14,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// return the error of a launch (or of a helper that launches) if it failed
+#define LC2_TRY(expr)                 \
+  do {                                \
+    const cudaError_t e_ = (expr);    \
+    if (e_ != cudaSuccess) return e_; \
+  } while (0)
+
 namespace lc2 {
 
 enum DType { kF32 = 0, kBF16 = 1 };

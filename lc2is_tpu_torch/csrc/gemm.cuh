@@ -14,13 +14,6 @@
 
 #include "common.cuh"
 
-// return the error of a launch (or of a helper that launches) if it failed
-#define LC2_TRY(expr)                 \
-  do {                                \
-    const cudaError_t e_ = (expr);    \
-    if (e_ != cudaSuccess) return e_; \
-  } while (0)
-
 namespace lc2 {
 namespace {
 

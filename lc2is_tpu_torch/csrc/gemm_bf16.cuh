@@ -1,6 +1,8 @@
-// A bf16 tensor-core matrix product for the port's backward kernels
-// (csrc/attention_block_bwd.cu): C = A · B with bf16 operands and f32
-// accumulators, mma.sync m16n8k16 (mma_bf16.cuh), written by hand for sm_90a.
+// A bf16 tensor-core matrix product for the port's kernels (the decoder
+// attention block's forward and backward, csrc/attn_block_fwd.cuh and
+// csrc/attention_block_bwd.cu; the swin backward; the feed-forward,
+// csrc/fused_mlp.cu): C = A · B with bf16 operands and f32 accumulators,
+// mma.sync m16n8k16 (mma_bf16.cuh), written by hand for sm_90a.
 // csrc/gemm.cuh keeps the f32 CUDA-core product of the f32 bodies.
 //
 // Operands are row-major bf16 matrices in device memory, each in one of two
@@ -22,13 +24,15 @@
 // or N-contiguous B), whose rows sit at strides of an odd number of 16-byte
 // units, so the 8 rows of one ldmatrix fall in 8 distinct bank groups.
 // Epilogue, from the accumulators straight to device memory: + bias[n],
-// + an f32 and/or a bf16 addend (m, n), stored as f32 or bf16 (rounded to
-// nearest even); or, for a weight gradient whose K (the tokens) is long and
+// + an f32 and/or a bf16 addend (m, n), with kAct the pre-activation
+// stored rounded to bf16 and then an activation (activation.cuh) applied,
+// stored as f32 or bf16 (rounded to nearest even); or, for a weight gradient whose K (the tokens) is long and
 // whose output is small, K is split over blockIdx.z and each block adds its
 // partial into the f32 output with atomics (so the sum's order, and its
 // last bits, vary from run to run).
 #pragma once
 
+#include "activation.cuh"
 #include "common.cuh"
 #include "mma_bf16.cuh"
 
@@ -48,6 +52,10 @@ struct Epilogue {
   bf16* out_bf16;          // bf16 result
   long long ldc;
   bool atomic;
+  // read only by gemm<..., kAct = true>: the act::Act applied last, and
+  // where the value before it goes, rounded to bf16 (or null)
+  int act = -1;
+  bf16* out_pre = nullptr;
 };
 
 // Elements of one stage's A or B slice in shared memory.
@@ -85,7 +93,7 @@ __device__ __forceinline__ void load_slice(const bf16* __restrict__ src, long lo
   }
 }
 
-template <bool kAT, bool kBT>
+template <bool kAT, bool kBT, bool kAct>
 __global__ void __launch_bounds__(kThreads, 2)
 gemm_bf16_kernel(int M, int N, int K, const bf16* __restrict__ a, long long lda,
                  const bf16* __restrict__ b, long long ldb, Epilogue ep, int kchunk) {
@@ -184,6 +192,11 @@ gemm_bf16_kernel(int M, int N, int K, const bf16* __restrict__ a, long long lda,
           v0 += ad.x;
           v1 += ad.y;
         }
+        if constexpr (kAct) {
+          if (ep.out_pre) *reinterpret_cast<uint32_t*>(ep.out_pre + o) = mma::pack_bf16(v0, v1);
+          v0 = lc2::act::activate(v0, ep.act);
+          v1 = lc2::act::activate(v1, ep.act);
+        }
         if (ep.out_f32)
           *reinterpret_cast<float2*>(ep.out_f32 + o) = make_float2(v0, v1);
         else
@@ -200,8 +213,10 @@ constexpr size_t smem_bytes() {
 // C = A · B (+ the epilogue's terms) over M x N, K.  With ep.atomic, the
 // product is added into ep.out_f32 (zeroed by the caller), K split over
 // blocks so that about two blocks per SM run even when the output has a
-// handful of tiles.
-template <bool kAT, bool kBT>
+// handful of tiles.  kAct: the epilogue applies ep.act (and writes
+// ep.out_pre); a separate instantiation, so the other products compile
+// without it.
+template <bool kAT, bool kBT, bool kAct = false>
 cudaError_t gemm(int M, int N, int K, const bf16* a, long long lda, const bf16* b,
                  long long ldb, const Epilogue& ep, cudaStream_t s) {
   // the contiguous dimension of each operand: a multiple of 8
@@ -213,7 +228,7 @@ cudaError_t gemm(int M, int N, int K, const bf16* a, long long lda, const bf16* 
   const int kchunk = ((K + splits - 1) / splits + kBK - 1) / kBK * kBK;
   splits = (K + kchunk - 1) / kchunk;
   constexpr size_t smem = smem_bytes<kAT, kBT>();
-  auto kernel = gemm_bf16_kernel<kAT, kBT>;
+  auto kernel = gemm_bf16_kernel<kAT, kBT, kAct>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);

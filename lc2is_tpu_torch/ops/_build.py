@@ -36,8 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argtypes of every entry point (see the extern "C" signatures in csrc/)
 SIGNATURES = {
-    "lc2_fused_mlp": [_I] + [_P] * 9 + [_I] * 6 + [_F, _P],
-    "lc2_attn_block": [_I] + [_P] * 10 + [_I] * 5 + [_F, _P],
+    "lc2_fused_mlp": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
+    "lc2_attn_block": [_I] + [_P] * 11 + [_I] * 5 + [_F, _P],
     "lc2_attn_block_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_F, _P],
     "lc2_upsample": [_I, _P, _P] + [_I] * 5 + [_P],
     "lc2_upsample_adjoint": [_I, _P, _P] + [_I] * 5 + [_P],
@@ -59,6 +59,8 @@ SIZE_SIGNATURES = {
     "lc2_swin_window_bwd_workspace_bf16": [_I] * 5,
     "lc2_attn_block_bwd_workspace": [_I] * 5,
     "lc2_attn_block_bwd_workspace_bf16": [_I] * 5,
+    "lc2_attn_block_fwd_workspace_bf16": [_I] * 5,
+    "lc2_fused_mlp_workspace_bf16": [_I] * 4,
     "lc2_fused_ce_partials": [_I] * 3,
 }
 
@@ -158,6 +160,13 @@ def size(name: str, *args) -> int:
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def contiguous16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary, as the bf16
+    bodies' 16-byte ``cp.async`` loads need: a copy only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def dtype_code(t: torch.Tensor) -> int:

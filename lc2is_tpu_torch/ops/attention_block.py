@@ -5,9 +5,12 @@ Counterpart of ``lc2is_tpu/ops/attention_block.py`` (entry
 ``fused_attn_block`` :220).  K/V arrive already projected to (B, L, C), as
 in JAX (their projections are plain matmuls outside the kernel).  On a CUDA
 tensor :func:`fused_attn_block` launches ``csrc/attention_block.cu`` with
-1/√dh folded into wq/bq (``attention_block.py:155-160``); on a CPU tensor it
-runs :func:`fused_attn_block_plain`, the module composition of
-``attention_block.py:93-113``.
+1/√dh folded into wq/bq (``attention_block.py:155-160``): in bf16 its
+tensor-core body (the GEMM of ``csrc/gemm_bf16.cuh`` and the attention core
+of ``csrc/attn_block_fwd.cuh``, which the backward's recompute shares, then
+a LayerNorm pass; scratch ``lc2_attn_block_fwd_workspace_bf16``), in f32 its
+CUDA-core body.  On a CPU tensor it runs :func:`fused_attn_block_plain`, the
+module composition of ``attention_block.py:93-113``.
 
 Training: on a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
 whose backward is :func:`fused_attn_block_bwd` (``csrc/attention_block_bwd.cu``,
@@ -23,7 +26,7 @@ Int8 serving (the JAX entry's ``quant=True``, ``attention_block.py:38-96,190-205
 :func:`fused_attn_block_q` quantises the folded q weights (1/√dh folded in
 f32, rounded back to wq's dtype, then ``quantize_weight``) and wo per output
 channel, and x and the head outputs per token (``ops/quant.py``); the
-attention itself is the float block's.  On a CUDA tensor it launches the
+attention itself is the f32 block's.  On a CUDA tensor it launches the
 int8 variant of ``csrc/attention_block.cu``; on a CPU tensor it runs
 :func:`fused_attn_block_q_plain`.  Forward only: it raises if autograd needs
 a gradient through it, as the JAX entry has no VJP on this branch.
@@ -92,14 +95,20 @@ def fold_q_scale(wq, bq, num_heads):
 
 def _launch_fwd(x, k, v, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads, eps):
     b, p, c = x.shape
+    l = k.shape[1]
     dt = x.dtype
-    xc, kc, vc = (t.to(dt).contiguous() for t in (x, k, v))
-    rest = [t.to(dt).contiguous() for t in (wq_s, bq_s, wo, bo, ln_w, ln_b)]
+    xc, kc, vc, wq, woc, lnw, lnb = (_build.contiguous16(t.to(dt))
+                                     for t in (x, k, v, wq_s, wo, ln_w, ln_b))
+    # f32 holding the biases of the dtype: the TPU kernel adds them in f32
+    bq, boc = (t.to(dt).float().contiguous() for t in (bq_s, bo))
+    ws = (torch.empty(_build.size("lc2_attn_block_fwd_workspace_bf16", b, p, l, c, num_heads),
+                      dtype=torch.float32, device=x.device) if dt == torch.bfloat16 else None)
     out = torch.empty_like(xc)
     _build.launch(
-        "lc2_attn_block", xc.device, _build.dtype_code(xc), xc.data_ptr(), kc.data_ptr(),
-        vc.data_ptr(), *(t.data_ptr() for t in rest), out.data_ptr(), b, p, k.shape[1], c,
-        num_heads, float(eps), _build.stream_of(xc))
+        "lc2_attn_block", xc.device, _build.dtype_code(xc),
+        *(t.data_ptr() for t in (xc, kc, vc, wq, bq, woc, boc, lnw, lnb, out)),
+        None if ws is None else ws.data_ptr(), b, p, l, c, num_heads, float(eps),
+        _build.stream_of(xc))
     fused_attn_block.launches += 1
     return out
 

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
 """Time the port's block kernels at the main-path shapes on one NVIDIA GPU:
-window attention (``window_attention``, TPU row 8), the swin window block's
-backward (``swin_window_block_bwd``, TPU rows 7 and 10), the decoder
-attention backward (``fused_attn_block_bwd``, row 3) and the swin window
-block (``swin_window_block``, rows 6 and 9), with row 2
-(``fused_attn_block``) and the f32 bodies as controls: CUDA-event medians of
-a call, and the device time of its kernels (torch.profiler; the event time
-also holds the wrapper's host work when the kernels are shorter than it).
-Row 8 is timed beside one SDPA call with the bias and region mask as its
-additive mask (``scaled_dot_product_attention``, a yardstick only).
+the feed-forward (``fused_mlp``, TPU row 1) and the decoder attention
+forward (``fused_attn_block``, row 2) at the shapes of a batch-16 512²
+serving forward and of a batch-8 training step's forward, window attention
+(``window_attention``, row 8), the swin window block's backward
+(``swin_window_block_bwd``, rows 7 and 10), the decoder attention backward
+(``fused_attn_block_bwd``, row 3) and the swin window block
+(``swin_window_block``, rows 6 and 9), with the f32 bodies as controls:
+CUDA-event medians of a call, and the device time of its kernels
+(torch.profiler; the event time also holds the wrapper's host work when the
+kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
+bias and region mask as its additive mask (``scaled_dot_product_attention``,
+a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,3,6,7,8]
 
 ROOT is a checkout of this repository (default: the one holding this
-script); only the sources of those kernels are built
-(``attention_block*.cu``, ``swin_window*.cu``, ``window_attention.cu``,
+script); only the sources of those kernels are built (``fused_mlp*.cu``,
+``attention_block*.cu``, ``swin_window*.cu``, ``window_attention.cu``,
 ``runtime.cu`` and the headers, into ``build/block_ab/`` of that checkout),
 so two versions compare on one card by running the script on each in
-turns, e.g. parent, change, change, parent.  Each bf16 case is also held
-against its plain version: rows 3 and 7 by their worst ‖Δ‖/‖plain‖ over
-their gradients (autograd through the plain version), rows 6 and 8 by their
-largest |Δ|.  The workspace bytes of rows 3 and 7 are printed at their
-largest main-path shape.  Fails without a CUDA device.
+turns, e.g. parent, change, change, parent.  ``--rows`` picks the rows
+timed (all by default; rows 9 and 10 come with 6 and 7).  Each bf16 case is
+also held against its plain version: rows 3 and 7 by their worst
+‖Δ‖/‖plain‖ over their gradients (autograd through the plain version), rows
+1, 2, 6 and 8 by their largest |Δ|.  The workspace bytes of rows 1, 2, 3 and
+7 are printed at their largest main-path shape.  Fails without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -36,11 +41,23 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# row 3: the decoder's (P, L) pairs of a batch-8 512² training step (SR
+# rows 2 and 3: the decoder's (P, L) pairs of a 512² forward (SR
 # self-attention and cross-attention over 151 classes), 512 wide, 8 heads,
-# and their launches a step
+# and their launches a forward (row 2 at batch 16 and 8) or a step (row 3,
+# batch 8); DenseClip's prompt decoder (151 queries over 151 and 1025 keys)
+# is one call a shape, not summed
 ATTN_SHAPES = [(256, 64, 1), (256, 151, 1), (1024, 256, 2), (1024, 151, 2), (4096, 1024, 3),
                (4096, 151, 3)]
+DENSECLIP_ATTN_SHAPES = [(151, 151), (151, 1025)]
+# row 1: (tokens of one image, C, F, activation, LN position, launches a
+# forward; None: not summed), at batch 16 (serving) and 8 (a step's forward,
+# which also writes the pre-activation): the swin stages 1-3, the decoder
+# layers, then stage 4 (on no path) and the v1 decoders' shapes
+MLP_SHAPES = [(128 * 128, 96, 384, "gelu", "pre", 2), (64 * 64, 192, 768, "gelu", "pre", 2),
+              (32 * 32, 384, 1536, "gelu", "pre", 18), (256, 512, 2048, "relu", "post", 1),
+              (1024, 512, 2048, "relu", "post", 2), (4096, 512, 2048, "relu", "post", 3),
+              (16 * 16, 768, 3072, "gelu", "pre", None), (1024, 768, 2048, "relu", "pre", None),
+              (1025, 768, 2048, "relu", "pre", None), (151, 512, 2048, "relu", "post", None)]
 # row 6: the swin-small stages of a batch-16 512² forward (grid, C, heads,
 # blocks a shift); stage 4 (row 9) runs on no path and is one call.  Row 7
 # runs at the same stages at batch 8 (a training step's launches a shift:
@@ -68,18 +85,29 @@ def time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=5):
-    """The device time of fn()'s kernels, from torch.profiler: the sum over
-    every kernel it launches, a mean over ``reps`` calls."""
+def device_ms(fn, reps=5, tries=3):
+    """The device time of fn()'s kernels, from torch.profiler, a mean over
+    ``reps`` calls: (the sum over every kernel it launches, {kernel name:
+    its share}); (None, {}) when the profiler recorded no kernel in
+    ``tries`` attempts (it occasionally returns an empty trace)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.time_range.end - e.time_range.start for e in kernels) / reps / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if kernels:
+            by_name = {}
+            for e in kernels:
+                name = (e.name.replace("(anonymous namespace)::", "").split("(")[0]
+                        .replace("void ", ""))
+                by_name[name] = by_name.get(name, 0.0) + (e.time_range.end - e.time_range.start)
+            return (sum(by_name.values()) / reps / 1e3,
+                    {k: v / reps / 1e3 for k, v in by_name.items()})
+    return None, {}
 
 
 def load_port(root: Path):
@@ -91,21 +119,23 @@ def load_port(root: Path):
     shutil.rmtree(src, ignore_errors=True)
     src.mkdir(parents=True)
     for p in (list(_build.CSRC.glob("*.cuh")) + [_build.CSRC / "runtime.cu"]
+              + list(_build.CSRC.glob("fused_mlp*.cu"))
               + list(_build.CSRC.glob("attention_block*.cu"))
               + list(_build.CSRC.glob("swin_window*.cu"))
               + [_build.CSRC / "window_attention.cu"]):
         shutil.copy(p, src / p.name)
     _build.CSRC = src
     _build.BUILD_DIR = src.parent / "lib"
-    keep = ("lc2_attn_block", "lc2_swin_window", "lc2_window_attention")
+    keep = ("lc2_fused_mlp", "lc2_attn_block", "lc2_swin_window", "lc2_window_attention")
     _build.SIGNATURES = {k: v for k, v in _build.SIGNATURES.items() if k.startswith(keep)}
     _build.SIZE_SIGNATURES = {k: v for k, v in _build.SIZE_SIGNATURES.items()
                               if k.startswith(keep)}
     _build.library()
     from lc2is_tpu_torch.ops import attention_block as ab
+    from lc2is_tpu_torch.ops import fused_mlp as mlp
     from lc2is_tpu_torch.ops import swin_window as sw
     from lc2is_tpu_torch.ops import window_attention as wa
-    return _build, ab, sw, wa
+    return _build, ab, mlp, sw, wa
 
 
 def rand(rs, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
@@ -119,6 +149,12 @@ def attn_args(rs, b, p, l, dt, c=512):
             rand(rs, c, scale=0.1), rand(rs, c, scale=0.1, offset=1.0), rand(rs, c, scale=0.1)]
 
 
+def mlp_args(rs, t, c, f, dt):
+    return [rand(rs, t, c, dtype=dt), rand(rs, c, scale=0.1, offset=1.0), rand(rs, c, scale=0.1),
+            rand(rs, f, c, scale=c ** -0.5), rand(rs, f, scale=0.1), rand(rs, c, f, scale=f ** -0.5),
+            rand(rs, c, scale=0.1)]
+
+
 def swin_args(rs, b, grid, c, heads, dt):
     return [rand(rs, b, grid, grid, c, dtype=dt), rand(rs, c, scale=0.1, offset=1.0),
             rand(rs, c, scale=0.1), rand(rs, 3 * c, c, scale=c ** -0.5), rand(rs, 3 * c, scale=0.1),
@@ -130,18 +166,26 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
+    ap.add_argument("--rows", default="1,2,3,6,7,8")
     args = ap.parse_args()
+    rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
         print("torch_block_ab: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     root = Path(args.root).resolve()
     tag = args.tag or root.name
-    build, ab, sw, wa = load_port(root)
+    build, ab, mlp, sw, wa = load_port(root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[{tag}] {root} on {smi}", flush=True)
     for name in sorted(build.SIZE_SIGNATURES):
+        if name == "lc2_attn_block_fwd_workspace_bf16":
+            print(f"[{tag}] {name} (16, 4096, 512) L1024 h8: "
+                  f"{4 * build.size(name, 16, 4096, 1024, 512, 8)} bytes", flush=True)
+        if name == "lc2_fused_mlp_workspace_bf16":
+            print(f"[{tag}] {name} (65536, 512) F 2048 post: "
+                  f"{4 * build.size(name, 65536, 512, 2048, 0)} bytes", flush=True)
         if name.startswith("lc2_attn_block_bwd_workspace"):
             print(f"[{tag}] {name} (8, 4096, 512) L1024 h8: "
                   f"{4 * build.size(name, 8, 4096, 1024, 512, 8)} bytes", flush=True)
@@ -151,17 +195,74 @@ def main() -> int:
     rs = np.random.RandomState(0)
     total = {}
 
-    def report(row, label, dt, ms, count, ops, fn, note=""):
+    def report(row, label, dt, ms, count, ops, fn, note="", split=False):
+        """Print a case (``split``: and its device time by kernel) and add
+        it, times its launches, to its row's totals."""
         key = (row, str(dt).split(".")[-1])
         with torch.no_grad():
-            dev = device_ms(fn)
+            dev, by_name = device_ms(fn)
         ev, dv = total.get(key, (0.0, 0.0))
-        total[key] = (ev + count * ms, dv + count * dev)
-        print(f"[{tag}] row {row:2s} {key[1]:8s} {label:34s} {ms:8.3f} ms, device {dev:7.3f} "
-              f"x{count} ({ops / dev / 1e9:6.1f} TFLOP/s on the device){note}", flush=True)
+        # a case whose device time was not measured leaves the device total
+        # None ("not measured"), not short
+        total[key] = (ev + count * ms, None if dev is None or dv is None else dv + count * dev)
+        dev_txt = ("device not measured" if dev is None else
+                   f"device {dev:7.3f} x{count} ({ops / dev / 1e9:6.1f} TFLOP/s on the device)")
+        print(f"[{tag}] row {row:2s} {key[1]:8s} {label:34s} {ms:8.3f} ms, {dev_txt}{note}",
+              flush=True)
+        if split and by_name:
+            print(f"[{tag}]     by kernel, ms a call: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])),
+                flush=True)
 
-    # row 3 and row 2 (its forward, a control), bf16 at every shape, f32 at two
-    for dt in (torch.bfloat16, torch.float32):
+    def max_diff(got, want):
+        return f" max|Δ| {(got.float() - want.float()).abs().max().item():.2e}"
+
+    # row 1 at batch 16 (serving) and 8 (a step's forward, writing the
+    # pre-activation as the training launch does), bf16 at every shape; f32
+    # at two shapes of each batch (controls)
+    for dt in (torch.bfloat16, torch.float32) if "1" in rows else ():
+        for b, train in ((16, False), (8, True)):
+            for i, (t, c, f, act, pos, n) in enumerate(MLP_SHAPES):
+                if dt == torch.float32 and i not in (2, 4):
+                    continue
+                if train and n is None:
+                    continue
+                a = mlp_args(rs, b * t, c, f, dt)
+
+                def run(a=a, act=act, pos=pos, train=train):
+                    return mlp._launch(*a, act, pos, True, 1e-5, save_upre=train)[0]
+
+                with torch.no_grad():
+                    ms = time_ms(run, reps=20)
+                    note = max_diff(run(), mlp.fused_mlp_plain(*a, activation=act, ln_position=pos))
+                row = ("1" if n is not None else "1 not summed") + (" step" if train else "")
+                report(row, f"({b * t},{c}) F{f} {act} {pos}", dt, ms, n or 1, 4 * b * t * c * f,
+                       run, note, split=dt == torch.bfloat16 and not train)
+                del a
+                torch.cuda.empty_cache()
+
+    # row 2 at batch 16, bf16 at every serving shape and DenseClip's two; f32
+    # at two (its batch-8 shapes are timed with row 3 below)
+    for dt in (torch.bfloat16, torch.float32) if "2" in rows else ():
+        shapes = [(p, l, n) for p, l, n in ATTN_SHAPES] + [(p, l, None)
+                                                           for p, l in DENSECLIP_ATTN_SHAPES]
+        for i, (p, l, n) in enumerate(shapes):
+            if dt == torch.float32 and i not in (0, 1):
+                continue
+            b = 16
+            a = attn_args(rs, b, p, l, dt)
+            fwd = lambda a=a: ab.fused_attn_block(*a, 8)
+            with torch.no_grad():
+                ms = time_ms(fwd, reps=20)
+                note = max_diff(fwd(), ab.fused_attn_block_plain(*a, 8))
+            report("2" if n is not None else "2 DenseClip", f"({b},{p},512) L{l} h8", dt, ms,
+                   n or 1, 4 * b * p * 512 * 512 + 4 * b * p * l * 512, fwd, note,
+                   split=dt == torch.bfloat16)
+            del a
+            torch.cuda.empty_cache()
+
+    # row 3 and row 2 at batch 8 (a step's forward), bf16 at every shape, f32 at two
+    for dt in (torch.bfloat16, torch.float32) if rows & {"2", "3"} else ():
         for p, l, n in ATTN_SHAPES if dt == torch.bfloat16 else ATTN_SHAPES[:2]:
             b = 8
             a = attn_args(rs, b, p, l, dt)
@@ -172,6 +273,13 @@ def main() -> int:
             def bwd(a=a, g=g, wq_s=wq_s, bq_s=bq_s):
                 return ab.fused_attn_block_bwd(a[0], a[1], a[2], g, wq_s, bq_s, *a[5:], 8)
 
+            if "2" in rows:
+                with torch.no_grad():
+                    ms = time_ms(lambda: ab.fused_attn_block(*a, 8), reps=20)
+                report("2 step", f"({b},{p},512) L{l} h8", dt, ms, n, fwd_ops,
+                       lambda: ab.fused_attn_block(*a, 8))
+            if "3" not in rows:
+                continue
             with torch.no_grad():
                 ms = time_ms(bwd)
             note = ""
@@ -185,25 +293,20 @@ def main() -> int:
                 note = f" rel {rel:.2e}"
                 del ka, pa, got, want
             report("3", f"({b},{p},512) L{l} h8", dt, ms, n, 3 * fwd_ops, bwd, note)
-            if dt == torch.bfloat16:
-                with torch.no_grad():
-                    ms = time_ms(lambda: ab.fused_attn_block(*a, 8), reps=20)
-                report("2", f"({b},{p},512) L{l} h8", dt, ms, n, fwd_ops,
-                       lambda: ab.fused_attn_block(*a, 8))
             del a, g
             torch.cuda.empty_cache()
 
     # row 6 (stages 1-3) and row 9 (stage 4), bf16 b16 every shape, f32 at
     # stage 3; rows 7 and 10 (the swin backward) at b8, bf16 every shape,
     # f32 at stage 3 shifted
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float32) if rows & {"6", "7"} else ():
         for s, (grid, c, heads, n) in enumerate(SWIN_STAGES):
             if dt == torch.float32 and s != 2:
                 continue
             a = swin_args(rs, 16, grid, c, heads, dt)
             tok = 16 * (-(-grid // 7) * 7) ** 2
             ops = 8 * tok * c * c + 4 * tok * 49 * c
-            for shift in (0, 3):
+            for shift in (0, 3) if "6" in rows else ():
                 with torch.no_grad():
                     ms = time_ms(lambda: sw.swin_window_block(*a, heads, 7, shift), reps=20)
                     note = ""
@@ -216,7 +319,7 @@ def main() -> int:
             a8 = [a[0][:8].contiguous()] + a[1:]
             g8 = rand(rs, 8, grid, grid, c, dtype=dt)
             wq_s, bq_s = sw.fold_q_scale(a[3], a[4], heads)
-            for shift in (0, 3) if dt == torch.bfloat16 else (3,):
+            for shift in ((0, 3) if dt == torch.bfloat16 else (3,)) if "7" in rows else ():
                 def swin_bwd(a8=a8, g8=g8, wq_s=wq_s, bq_s=bq_s, heads=heads, shift=shift):
                     return sw.swin_window_block_bwd(a8[0], g8, a8[1], a8[2], wq_s, bq_s,
                                                     *a8[5:], heads, 7, shift, residual=False)
@@ -243,7 +346,7 @@ def main() -> int:
     # stage 4 (one call), bf16, shift 0 and 3, beside one SDPA call; f32 at
     # stage 3 (a control)
     import torch.nn.functional as F
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float32) if "8" in rows else ():
         for s, (hp, c, heads, n) in enumerate(WINDOW_STAGES):
             if dt == torch.float32 and s != 2:
                 continue
@@ -277,7 +380,8 @@ def main() -> int:
             del q, k, v, split
             torch.cuda.empty_cache()
     for (row, dt), (ms, dev) in sorted(total.items()):
-        print(f"[{tag}] total row {row} {dt}: {ms:.3f} ms, device {dev:.3f} ms "
+        dev_txt = "not measured" if dev is None else f"{dev:.3f} ms"
+        print(f"[{tag}] total row {row} {dt}: {ms:.3f} ms, device {dev_txt} "
               f"(launch-weighted)", flush=True)
     return 0
 

@@ -1,5 +1,6 @@
 """The arithmetic of the bf16 tensor-core bodies of the decoder attention
-backward (``lc2is_tpu_torch/csrc/attention_block_bwd.cu``, TPU row 3) and of
+backward (``lc2is_tpu_torch/csrc/attention_block_bwd.cu``, TPU row 3, whose
+forward recompute, ``csrc/attn_block_fwd.cuh``, is row 2's forward) and of
 the swin window block (``csrc/swin_window.cu``, TPU row 6), emulated tile by
 tile on the CPU and held against lc2is_tpu's Pallas kernels in interpret mode
 (the custom VJP of ``ops.attention_block.fused_attn_block`` and
@@ -92,25 +93,26 @@ def _grad_close(got, want, rel, name):
 # ---------------------------------------------------------------------------
 
 
-def tiled_attn_block_bwd(x, k, v, g, wq, bq, wo, bo, lnw, heads, dtype, eps=1e-5):
-    """The bf16 body's arithmetic (identity rounding for f32).  x, g (B, P,
-    C), k, v (B, L, C): f32 holding dtype values; weights f32 (wq, bq
-    unscaled).  Returns (dx, dk, dv, dwq_s, dbq_s, dwo, dbo, dlnw, dlnb), the
-    q gradients with respect to the folded wq_s, bq_s."""
+def _split(t, heads):  # (B, n, C) -> (B, H, n, dh)
+    return t.reshape(t.shape[0], t.shape[1], heads, t.shape[2] // heads).transpose(1, 2)
+
+
+def _merge(t):  # (B, H, n, dh) -> (B, n, C)
+    return t.transpose(1, 2).reshape(t.shape[0], t.shape[2], -1)
+
+
+def tiled_attn_block_fwd(x, k, v, wq, bq, wo, bo, heads, dtype):
+    """The forward of the bf16 body that row 2 runs and row 3 recomputes
+    (``csrc/attn_block_fwd.cuh``), identity rounding for f32: (q, att, lse,
+    s), s the f32 pre-LN sum.  x (B, P, C), k, v (B, L, C): f32 holding dtype
+    values; weights f32 (wq, bq unscaled)."""
     b, p, c = x.shape
     dh = c // heads
     wq_s, bq_s = (_round(t, dtype) for t in fold_q_scale(wq, bq, heads))
-    wo, bo, lnw = (_round(t, dtype) for t in (wo, bo, lnw))
+    wo, bo = (_round(t, dtype) for t in (wo, bo))
     q = _round(_mm(x, wq_s.t()) + bq_s, dtype)
-
-    def split(t):  # (B, n, C) -> (B, H, n, dh)
-        return t.reshape(t.shape[0], t.shape[1], heads, dh).transpose(1, 2)
-
-    def merge(t):
-        return t.transpose(1, 2).reshape(b, -1, c)
-
-    qh, kh, vh = split(q), split(k), split(v)
-    # recompute: online softmax over 64-key tiles
+    qh, kh, vh = (_split(t, heads) for t in (q, k, v))
+    # online softmax over 64-key tiles
     m = torch.full((b, heads, p), -math.inf)
     l = torch.zeros(b, heads, p)
     o = torch.zeros(b, heads, p, dh)
@@ -122,10 +124,22 @@ def tiled_attn_block_bwd(x, k, v, g, wq, bq, wo, bo, lnw, heads, dtype, eps=1e-5
         l = l * alpha + pt.sum(-1)
         o = o * alpha[..., None] + _round(pt, dtype) @ vh[:, :, k0:k0 + TILE]
         m = m_new
-    att = _round(merge(o * (1.0 / l)[..., None]), dtype)
+    att = _round(_merge(o * (1.0 / l)[..., None]), dtype)
     lse = m * LN2 + torch.log(l)
-    # s and the post-LN backward in f32
-    sf = _mm(att, wo.t()) + bo + x
+    return q, att, lse, _mm(att, wo.t()) + bo + x
+
+
+def tiled_attn_block_bwd(x, k, v, g, wq, bq, wo, bo, lnw, heads, dtype, eps=1e-5):
+    """The bf16 body's arithmetic (identity rounding for f32).  x, g (B, P,
+    C), k, v (B, L, C): f32 holding dtype values; weights f32 (wq, bq
+    unscaled).  Returns (dx, dk, dv, dwq_s, dbq_s, dwo, dbo, dlnw, dlnb), the
+    q gradients with respect to the folded wq_s, bq_s."""
+    b, p, c = x.shape
+    # the recompute, then s and the post-LN backward in f32
+    q, att, lse, sf = tiled_attn_block_fwd(x, k, v, wq, bq, wo, bo, heads, dtype)
+    wq_s = _round(fold_q_scale(wq, bq, heads)[0], dtype)
+    wo, lnw = _round(wo, dtype), _round(lnw, dtype)
+    qh, kh, vh = (_split(t, heads) for t in (q, k, v))
     mu = sf.mean(-1, keepdim=True)
     rs = torch.rsqrt(((sf - mu) ** 2).mean(-1, keepdim=True) + eps)
     sh = (sf - mu) * rs
@@ -135,8 +149,8 @@ def tiled_attn_block_bwd(x, k, v, g, wq, bq, wo, bo, lnw, heads, dtype, eps=1e-5
     dsb = _round(ds, dtype)
     dwo = _mm(dsb.reshape(-1, c).t(), att.reshape(-1, c))
     datt = _round(_mm(dsb, wo), dtype)
-    dah = split(datt)
-    delta = (dah * split(att)).sum(-1)
+    dah = _split(datt, heads)
+    delta = (dah * _split(att, heads)).sum(-1)
     # score gradients from the lse over all keys, rounded before each product
     pf = torch.exp2((qh @ kh.transpose(-1, -2)) * LOG2E - (lse * LOG2E)[..., None])
     dl = _round(pf * (dah @ vh.transpose(-1, -2) - delta[..., None]), dtype)
@@ -146,7 +160,7 @@ def tiled_attn_block_bwd(x, k, v, g, wq, bq, wo, bo, lnw, heads, dtype, eps=1e-5
              for q0 in range(0, p, TILE))
     dv = sum(pr[:, :, q0:q0 + TILE].transpose(-1, -2) @ dah[:, :, q0:q0 + TILE]
              for q0 in range(0, p, TILE))
-    dq, dk, dv = merge(dq), merge(dk), merge(dv)
+    dq, dk, dv = _merge(dq), _merge(dk), _merge(dv)
     dbq = dq.sum((0, 1))
     dqb = _round(dq, dtype)
     dwq = _mm(dqb.reshape(-1, c).t(), x.reshape(-1, c))

@@ -193,6 +193,82 @@ def test_fused_attn_block_kernel(cuda, dtype, p, l, c, heads):
     _check(fused_attn_block, fused_attn_block, fused_attn_block_plain, *args, heads)
 
 
+def _attn_args(rs, b, p, l, c, dtype=torch.bfloat16):
+    return (_rand(rs, b, p, c, dtype=dtype), _rand(rs, b, l, c, dtype=dtype),
+            _rand(rs, b, l, c, dtype=dtype), _rand(rs, c, c, scale=c ** -0.5),
+            _rand(rs, c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, c, scale=0.1, offset=1.0), _rand(rs, c, scale=0.1))
+
+
+@pytest.mark.parametrize("l", [1, 63, 64, 65, 151, 1025])
+@pytest.mark.parametrize("p,c,heads", [(65, 64, 4), (63, 128, 4), (130, 256, 4), (1, 512, 8),
+                                       (100, 512, 8)])
+def test_fused_attn_block_bf16_tile_edges(cuda, l, p, c, heads):
+    """The bf16 tensor-core body (64-query blocks, 64-key tiles, 128 x 128
+    GEMM tiles) at query counts off the 64-row tile, key counts at and
+    around the 64-key tile and DenseClip's 1025, every C of the wrapper's set
+    and dh 16, 32 and 64."""
+    rs = np.random.RandomState(p + l + c)
+    _check(fused_attn_block, fused_attn_block, fused_attn_block_plain,
+           *_attn_args(rs, 2, p, l, c), heads)
+
+
+def test_fused_attn_block_bf16_control_fails(cuda):
+    """The control that must fail: the kernel over all keys but the last
+    64-key tile (L = 151: keys 0-127) is outside the bf16 bound of the plain
+    version over all keys."""
+    rs = np.random.RandomState(3)
+    args = _attn_args(rs, 2, 130, 151, 512)
+    want = fused_attn_block_plain(*args, 8).float()
+    short = (args[0], args[1][:, :128].contiguous(), args[2][:, :128].contiguous()) + args[3:]
+    got = fused_attn_block(*short, 8).float()
+    assert torch.isfinite(got).all()
+    with pytest.raises(AssertionError):
+        torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("c", [96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("act,pos,residual", [("gelu", "pre", True), ("relu", "post", True),
+                                              ("gelu", "post", False)])
+def test_fused_mlp_bf16_every_width(cuda, c, act, pos, residual):
+    """The bf16 body (two 128 x 128-tile GEMMs around LayerNorm passes) at
+    every C of KERNEL_WIDTHS, token counts off the 64- and 128-row tiles."""
+    rs = np.random.RandomState(c)
+    n_tok, f = {96: 1, 128: 63, 192: 65, 256: 200, 384: 129, 512: 257, 768: 100}[c], 4 * c
+    args = (_rand(rs, n_tok, c, dtype=torch.bfloat16), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.1), _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
+            _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
+    _check(fused_mlp, fused_mlp, fused_mlp_plain, *args, activation=act, ln_position=pos,
+           residual=residual)
+
+
+@pytest.mark.parametrize("n_tok,c,f,act,pos", [(77, 96, 384, "gelu", "pre"),
+                                               (130, 512, 2048, "relu", "post"),
+                                               (65, 768, 2048, "relu", "pre"),
+                                               (200, 384, 1536, "gelu", "pre")])
+def test_fused_mlp_bf16_training_upre(cuda, n_tok, c, f, act, pos):
+    """The training launch's saved pre-activation equals the plain one,
+    h · w1ᵀ + b1 from the bf16 operands in f32, rounded to bf16 (within the
+    bf16 bound: the sums run in another order), and its output the plain
+    version's; F = 2048 at C 768 is the v1 decoders' shape."""
+    from lc2is_tpu_torch.ops import fused_mlp as mlp
+    rs = np.random.RandomState(n_tok)
+    dt = torch.bfloat16
+    x = _rand(rs, n_tok, c, dtype=dt)
+    args = (_rand(rs, c, scale=0.1, offset=1.0), _rand(rs, c, scale=0.1),
+            _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
+            _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
+    before = fused_mlp.launches
+    out, upre = mlp._launch(x, *args, act, pos, True, 1e-5, save_upre=True)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1 and upre.dtype == dt and upre.shape == (n_tok, f)
+    h = mlp._ln(x, args[0], args[1], 1e-5) if pos == "pre" else x
+    want = (h.float() @ args[2].to(dt).float().t() + args[3].to(dt).float()).to(dt)
+    torch.testing.assert_close(upre.float(), want.float(), **TOL[dt])
+    plain = fused_mlp_plain(x, *args, activation=act, ln_position=pos)
+    torch.testing.assert_close(out.float(), plain.float(), **TOL[dt])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("hw,c,r", [((5, 7), 24, 2), ((5, 7), 24, 4), ((1, 3), 8, 2),
                                     ((9, 9), 512, 2)])
