@@ -347,7 +347,7 @@ def least_time(nbytes, ops):
 
 def rate_of(work, ms):
     """The operations of ``work`` (bytes, {type: operations}) per second at
-    ``ms``, as "x TFLOP/s"."""
+    ``ms``, as "x TFLOP/s" (int8 operations counted alike)."""
     return f"{sum(work[1].values()) / ms / 1e9:.1f} TFLOP/s"
 
 
@@ -670,7 +670,8 @@ def run_case(c, dt, stats):
     lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
     if c["name"] == "flash_attention":  # its rate and its ratio to SDPA
         lib += f" ({rate_of(c['work'], k_ms)}, {k_ms / lib_ms:.2f}x SDPA)"
-    elif c["name"] in ("swin_window_block", "fused_mlp", "fused_attn_block"):
+    elif c["name"] in ("swin_window_block", "fused_mlp", "fused_attn_block", "fused_mlp_q",
+                       "fused_attn_block_q"):
         lib += f" ({rate_of(c['work'], k_ms)})"
     elif c["name"] == "window_attention":  # bytes-bound: its memory rate and SDPA ratio
         lib += (f" ({c['work'][0] / k_ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}, "
@@ -1254,7 +1255,7 @@ def check_slice(smi, state):
 
 def check_masks(smi, state, cpu_head, x1, ts_gpu, batches):
     """Phase 4m: the served head.  Returns (launch counts of one bf16
-    forward, the first timed batch's bf16 masks)."""
+    forward, the first timed batch's bf16 masks, the forward's median ms)."""
     from lc2is_tpu_torch.ops.upsample_argmax import score_map_plain, score_upsample_argmax_plain
 
     with torch.no_grad():
@@ -1276,11 +1277,11 @@ def check_masks(smi, state, cpu_head, x1, ts_gpu, batches):
             raise AssertionError("f32 masks on the card disagree with the CPU plain masks")
         del gpu32
         gpu16 = model_from(state, dtype=torch.bfloat16, predict_masks=True).eval()
-        first, _, counts = serve_batches(gpu16, batches, {"text_static": ts_gpu},
-                                         launch_counters(), EXPECTED_MASK_LAUNCHES, "masks (b)",
-                                         smi)
+        first, ms, counts = serve_batches(gpu16, batches, {"text_static": ts_gpu},
+                                          launch_counters(), EXPECTED_MASK_LAUNCHES, "masks (b)",
+                                          smi)
         check_masks_out(first["outputs"], "masks (b)")
-    return counts, first["outputs"]
+    return counts, first["outputs"], ms
 
 
 @contextlib.contextmanager
@@ -1367,8 +1368,9 @@ def check_int8_calls(calls):
     return sum(s["n"] for s in by_op.values())
 
 
-def check_int8(smi, state, x1, ts_cpu, ts_gpu, batches, masks16):
-    """Phase 5: the int8 row.  Returns the launch counts of one bf16 forward."""
+def check_int8(smi, state, x1, ts_cpu, ts_gpu, batches, masks16, masks_ms):
+    """Phase 5: the int8 row.  Returns the launch counts of one bf16 forward;
+    prints its time over ``masks_ms``, the bf16 masks forward's of 4m."""
     from lc2is_tpu_torch.ops.upsample_argmax import l2_normalize, score_map_plain
 
     with torch.no_grad():
@@ -1409,9 +1411,12 @@ def check_int8(smi, state, x1, ts_cpu, ts_gpu, batches, masks16):
         del gpu_f
         gpu16 = model_from(state, dtype=torch.bfloat16, predict_masks=True,
                            quant_int8=True).eval()
-        first, _, counts = serve_batches(gpu16, batches, {"text_static": ts_gpu},
-                                         launch_counters(), EXPECTED_INT8_LAUNCHES, "int8 (b)", smi)
+        first, ms, counts = serve_batches(gpu16, batches, {"text_static": ts_gpu},
+                                          launch_counters(), EXPECTED_INT8_LAUNCHES, "int8 (b)",
+                                          smi)
         check_masks_out(first["outputs"], "int8 (b)")
+        print(f"[int8] (b) the int8 masks forward over the bf16 masks forward of 4m (host clock, "
+              f"medians): {ms:.2f} / {masks_ms:.2f} ms = {ms / masks_ms:.3f}x", flush=True)
         agree = (first["outputs"] == masks16).float().mean().item()
         print(f"[int8] (b) bf16 b{BATCH} masks agree with the bf16 masks of 4m on {agree:.5f} of "
               f"the pixels (random weights: printed, not gated); {n_calls} int8 op calls "
@@ -1985,11 +1990,12 @@ def check_v1_train(smi):
 # decoder attention forward and backward (rows 2, 3: the attention cores,
 # the GEMM, which the feed-forward (row 1) and the swin backward share, and
 # the LayerNorm pass of rows 1 and 2), the swin window block (rows 6, 9),
-# window attention (row 8) and the swin backward's attention core (rows 7,
-# 10)
+# window attention (row 8), the swin backward's attention core (rows 7,
+# 10), and the int8 row's s8 GEMM and row pass (rows 2q, 17)
 MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
                "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "layer_norm_rows",
-               "swin_mma_kernel", "window_attention_mma", "swin_attn_bwd_mma")
+               "swin_mma_kernel", "window_attention_mma", "swin_attn_bwd_mma", "gemm_s8_kernel",
+               "quant_rows_kernel")
 
 
 def mma_registers(log):
@@ -2061,8 +2067,10 @@ def main() -> int:
     stats.update(phase("3b", check_backward_kernels))
     state = seeded_state()
     cpu_head, x1, ts_cpu, ts_gpu, batches = phase("4", check_slice, smi, state)
-    counts, masks16 = phase("4m", check_masks, smi, state, cpu_head, x1, ts_gpu, batches)
-    int8_counts = phase("5", check_int8, smi, state, x1, ts_cpu, ts_gpu, batches, masks16)
+    counts, masks16, masks_ms = phase("4m", check_masks, smi, state, cpu_head, x1, ts_gpu,
+                                      batches)
+    int8_counts = phase("5", check_int8, smi, state, x1, ts_cpu, ts_gpu, batches, masks16,
+                        masks_ms)
     counts.update({k: v for k, v in int8_counts.items() if k.endswith("_q")})
     del cpu_head, batches, masks16
     torch.cuda.empty_cache()

@@ -33,14 +33,30 @@
 //      warp-shuffle reduction.
 // Heads <= 8 (one warp each), dh in {16, 32, 64}, C % 32 == 0, C <= 512.
 //
-// lc2_attn_block_q is the int8 serving variant of the f32 body's kernel, the
-// quant=True branch of the TPU kernel (attention_block.py:38-96, forward
-// only), in f32 or bf16: int8 q- and out-projections, the attention itself as
-// above, rounded to the dtype where the TPU kernel rounds.
+// lc2_attn_block_q is the int8 serving variant, the quant=True branch of the
+// TPU kernel (attention_block.py:38-96, forward only): int8 q- and
+// out-projections, the attention itself the float branch's, rounded to the
+// dtype where the TPU kernel rounds.
+// - bf16 (attn_block_q_bf16), seven launches on the tensor cores: 0. the
+//   weight pass of gemm_s8.cuh, Wq (folded) and Wo, handed over in f32, into
+//   per-output-channel codes and scales (ops/quant.py::quantize_weight, bit
+//   for bit), so the call runs no torch op for them; 1. the row pass of
+//   gemm_s8.cuh, x -> codes and row scales; 2. the mma.sync s8 GEMM
+//   (gemm_s8.cuh), q = round(dequant(x codes · Wqᵀ codes) + bq); 3. the
+//   attention core attn_fwd_mma of attn_block_fwd.cuh, unchanged, the head
+//   outputs over q (its flash order rounds the unnormalised p where the TPU
+//   kernel normalises first, as in the bf16 body above); 4. the row pass on
+//   the head outputs; 5. the GEMM again, s = dequant(att codes · Woᵀ codes)
+//   + bo + x in f32; 6. the LayerNorm pass (layer_norm.cuh).  Workspace
+//   (lc2_attn_block_q_workspace_bf16, the wrapper allocates it): s in f32,
+//   whose first half q / att occupies until step 5 overwrites it, the codes,
+//   the row scales, and the weights' codes and scales.
+// - f32 (the control): the f32 body's kernel above with TW = int8_t.
 #include <math_constants.h>
 
 #include "attn_block_fwd.cuh"
 #include "common.cuh"
+#include "gemm_s8.cuh"
 #include "layer_norm.cuh"
 
 namespace lc2 {
@@ -325,15 +341,13 @@ cudaError_t dispatch_dh(int C, const AttnArgs& a, cudaStream_t stream) {
   }
 }
 
-// kQ false: the f32 block; true: the int8 one (f32 or bf16)
+// kQ false: the f32 block; true: the f32 int8 one (the bf16 bodies:
+// attn_block_bf16, attn_block_q_bf16)
 template <bool kQ>
 cudaError_t dispatch(int dtype, int C, const AttnArgs& a, void* stream) {
-  if (a.L < 1) return cudaErrorInvalidValue;
+  if (a.L < 1 || dtype != kF32) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return kQ ? dispatch_dh<float, int8_t>(C, a, s) : dispatch_dh<float, float>(C, a, s);
-  if (dtype == kBF16 && kQ) return dispatch_dh<__nv_bfloat16, int8_t>(C, a, s);
-  return cudaErrorInvalidValue;  // the float bf16 block: attn_block_bf16
+  return kQ ? dispatch_dh<float, int8_t>(C, a, s) : dispatch_dh<float, float>(C, a, s);
 }
 
 // The bf16 body: steps 1-3 (attn_block_fwd.cuh), then the LayerNorm of s.
@@ -347,6 +361,65 @@ cudaError_t attn_block_bf16(const AttnArgs& a, int C, void* ws, cudaStream_t st)
                               a.P, a.L, C, a.heads, st));
   return ln::layer_norm(s, t(a.lnw), t(a.lnb), static_cast<bf*>(a.out), (long long)a.B * a.P, C,
                         a.eps, st);
+}
+
+// The int8 bf16 body's workspace, byte offsets: s (f32, q and the head
+// outputs in its first half until then), the codes, the row scales, Wq's and
+// Wo's codes and scales.
+struct QWorkspace {
+  long long s, codes, scales, wqq, woq, wqs, wos, bytes;
+  QWorkspace(long long rows, long long C) {
+    s = 0;
+    codes = s8::align16(4 * rows * C);
+    scales = codes + s8::align16(rows * C);
+    wqq = scales + s8::align16(4 * rows);
+    woq = wqq + s8::align16(C * C);
+    wqs = woq + s8::align16(C * C);
+    wos = wqs + s8::align16(4 * C);
+    bytes = wos + s8::align16(4 * C);
+  }
+};
+
+// The int8 bf16 body: steps 1-6 above.  bq, bo f32 holding bf16 values.
+cudaError_t attn_block_q_bf16(const AttnArgs& a, int C, void* ws, cudaStream_t st) {
+  using bf = __nv_bfloat16;
+  auto t = [](const void* p) { return static_cast<const bf*>(p); };
+  const long long rows = (long long)a.B * a.P;
+  const QWorkspace lay(rows, C);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  float* s = reinterpret_cast<float*>(base + lay.s);
+  bf* q = reinterpret_cast<bf*>(base + lay.s);
+  int8_t* codes = reinterpret_cast<int8_t*>(base + lay.codes);
+  float* sc = reinterpret_cast<float*>(base + lay.scales);
+  int8_t* wq = reinterpret_cast<int8_t*>(base + lay.wqq);
+  int8_t* wo = reinterpret_cast<int8_t*>(base + lay.woq);
+  float* wqs = reinterpret_cast<float*>(base + lay.wqs);
+  float* wos = reinterpret_cast<float*>(base + lay.wos);
+  LC2_TRY(s8::quant_weights(s8::WeightRows{static_cast<const float*>(a.wq), wq, wqs, C, C},
+                            s8::WeightRows{static_cast<const float*>(a.wo), wo, wos, C, C}, st));
+  const float* no_ln = nullptr;  // the row passes take no LayerNorm
+  LC2_TRY(s8::quant_rows(t(a.x), no_ln, no_ln, codes, sc, nullptr, rows, C, 0.0f, st));
+  LC2_TRY(s8::gemm<s8::kStore>(
+      rows, C, C, codes, C, wq, C,
+      s8::Epilogue{sc, wqs, static_cast<const float*>(a.bq), nullptr, nullptr, q, nullptr,
+                   nullptr, C, -1, false},
+      st));
+  switch (C / a.heads) {
+    case 16: LC2_TRY(attn_fwd_launch<16>(q, t(a.k), t(a.v), q, nullptr, a.B, a.P, a.L, C,
+                                         a.heads, st)); break;
+    case 32: LC2_TRY(attn_fwd_launch<32>(q, t(a.k), t(a.v), q, nullptr, a.B, a.P, a.L, C,
+                                         a.heads, st)); break;
+    case 64: LC2_TRY(attn_fwd_launch<64>(q, t(a.k), t(a.v), q, nullptr, a.B, a.P, a.L, C,
+                                         a.heads, st)); break;
+    default: return cudaErrorInvalidValue;
+  }
+  LC2_TRY(s8::quant_rows(q, no_ln, no_ln, codes, sc, nullptr, rows, C, 0.0f, st));
+  LC2_TRY(s8::gemm<s8::kStore>(
+      rows, C, C, codes, C, wo, C,
+      s8::Epilogue{sc, wos, static_cast<const float*>(a.bo), t(a.x), s, nullptr, nullptr,
+                   nullptr, C, -1, false},
+      st));
+  return ln::layer_norm(s, t(a.lnw), t(a.lnb), static_cast<bf*>(a.out), rows, C, a.eps, st);
 }
 
 }  // namespace
@@ -371,15 +444,31 @@ extern "C" int lc2_attn_block(int dtype, const void* x, const void* k, const voi
   return lc2::attn_block_bf16(a, C, ws, static_cast<cudaStream_t>(stream));
 }
 
-// The int8 variant: wq, wo (C, C) int8 codes with f32 per-output-channel
-// scales wqs, wos (C,); everything else as lc2_attn_block.
+// The int8 variant.  f32: wq, wo (C, C) int8 codes with f32
+// per-output-channel scales wqs, wos (C,); ws null.  bf16: wq (1/√dh folded,
+// rounded to its dtype) and wo the float weights in f32, 16-byte aligned
+// (the body quantises them), wqs, wos null; ws lc2_attn_block_q_workspace_bf16
+// floats, 16-byte aligned.  bq, bo (C,) f32 (holding bf16 values in bf16);
+// everything else as lc2_attn_block.
 extern "C" int lc2_attn_block_q(int dtype, const void* x, const void* k, const void* v,
                                 const void* wq, const void* wqs, const void* bq,
                                 const void* wo, const void* wos, const void* bo,
-                                const void* lnw, const void* lnb, void* out, int B, int P,
-                                int L, int C, int heads, float eps, void* stream) {
+                                const void* lnw, const void* lnb, void* out, void* ws, int B,
+                                int P, int L, int C, int heads, float eps, void* stream) {
   const lc2::AttnArgs a{x, k, v, wq, wqs, bq, wo, wos, bo, lnw, lnb, out, B, P, L, heads, eps};
-  return lc2::dispatch<true>(dtype, C, a, stream);
+  if (dtype != lc2::kBF16) return lc2::dispatch<true>(dtype, C, a, stream);
+  if (B < 1 || P < 1 || L < 1 || heads < 1 || heads > 8 || C % heads ||
+      (C != 64 && C != 128 && C != 256 && C != 512) || ws == nullptr)
+    return cudaErrorInvalidValue;
+  return lc2::attn_block_q_bf16(a, C, ws, static_cast<cudaStream_t>(stream));
+}
+
+// Workspace floats of the int8 bf16 body: s (B·P, C) f32, whose first half
+// holds q and then the head outputs in bf16 before s overwrites them; the
+// codes (B·P, C) int8 and the row scales (B·P,) f32; Wq's and Wo's codes
+// (C, C) int8 and scales (C,) f32; each region 16-byte aligned.
+extern "C" long long lc2_attn_block_q_workspace_bf16(int B, int P, int L, int C, int heads) {
+  return (lc2::QWorkspace((long long)B * P, C).bytes + 3) / 4;
 }
 
 // Workspace floats of the bf16 body: q, whose rows the head outputs

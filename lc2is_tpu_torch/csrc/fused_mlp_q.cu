@@ -1,4 +1,4 @@
-// fused_mlp_q: the int8 twin of fused_mlp, one pass over the tokens,
+// fused_mlp_q: the int8 twin of fused_mlp,
 //
 //   pre  (swin block):    out = [x +] W2q ⊙ act(W1q ⊙ LN(x) + b1) + b2
 //   post (decoder layer): out = LN([x +] W2q ⊙ act(W1q ⊙ x + b1) + b2)
@@ -6,16 +6,41 @@
 // where A ⊙ Wq is lc2is_tpu/ops/quant.py::qdot: A quantised per row to int8,
 // an s8 x s8 product summed exactly in s32, dequantised (acc · s_row) · s_col
 // in f32.  LN output and activation stay in f32 until quantised; LN
-// statistics, biases and the epilogue are f32.  Replaces the TPU kernel
-// lc2is_tpu/ops/quant.py::_mlp_q_kernel (:70, entry fused_mlp_q :94).
+// statistics, LN weights, biases and the epilogue are f32.  Replaces the TPU
+// kernel lc2is_tpu/ops/quant.py::_mlp_q_kernel (:70, entry fused_mlp_q :94).
 //
 // What bounds it on the card: operations.  Per token 2·C·4C int8
 // multiply-adds against 2·C·bytes of token traffic (the weights are int8 and
 // L2-resident), far above the line at C >= 96 even at the int8 rate.
 //
-// Design.  The second product quantises each token's activated hidden row
-// with the row's max over all of F, so a block cannot stream F chunk by
-// chunk as fused_mlp does: it keeps the whole f32 hidden of its BM = 16 rows
+// The trouble is the second product's row scale: it needs the max of the
+// f32 activated hidden row over all of F before any code of that row exists.
+//
+// bf16 body (fused_mlp_q_bf16): the products on the tensor cores, on the
+// mma.sync s8 GEMM of gemm_s8.cuh, the hidden recomputed rather than stored
+// (route B: a T·F byte round trip of codes, against T·F·10 bytes for an f32
+// hidden written, read, quantised and read again; 2·T·C·F more int8
+// operations, cheaper while the GEMM runs above about C · 0.84 TOPS):
+//   0. the weight pass (gemm_s8.cuh): W1 and W2, handed over in f32, into
+//      per-output-channel codes and scales (ops/quant.py::quantize_weight,
+//      bit for bit), one launch, so the call runs no torch op for them;
+//   1. the row pass (gemm_s8.cuh): LN of x in f32 with f32 weights (pre) or
+//      x (post), its row scale and int8 codes; zeroes the hidden row max;
+//   2. GEMM x codes · W1qᵀ, epilogue kActMax: act(dequant + b1) in f32, the
+//      hidden row max |u| by atomicMax (order-free, deterministic);
+//   3. the same GEMM again, epilogue kActCode: the hidden codes, (T, F) int8;
+//   4. GEMM hidden codes · W2qᵀ, epilogue kStore: dequant + b2 (the row
+//      scale quant_scale of the row max), the residual added as the
+//      reference adds it; pre: the rounded output; post: f32 s;
+//   5. post: the LayerNorm pass (layer_norm.cuh) with f32 weights.
+// Both weights stay in torch layout (N, K), K-contiguous as the GEMM reads
+// them.  The workspace (lc2_fused_mlp_q_workspace_bf16, allocated by the
+// wrapper) holds the x codes (under s in post), the hidden codes, the
+// weights' codes, the x row scales, the hidden row maxima and the weights'
+// scales.
+//
+// f32 body (the control), one pass over the tokens: the second product's
+// row scale forces a block to keep the whole f32 hidden of its BM = 16 rows
 // in shared memory (16 x 3072 x 4 = 197 KB at C = 768, one block an SM).
 //   1. a warp per row: LN (pre) in f32, the row's scale, its int8 codes;
 //   2. W1 product on the tensor cores (WMMA s8 16x16x16, s32 accumulators),
@@ -30,6 +55,8 @@
 #include <mma.h>
 
 #include "common.cuh"
+#include "gemm_s8.cuh"
+#include "layer_norm.cuh"
 
 namespace lc2 {
 namespace {
@@ -247,33 +274,71 @@ cudaError_t launch(const void* x, const float* lnw, const float* lnb, const void
   return cudaGetLastError();
 }
 
-template <int NJ>
-cudaError_t launch_c(int dtype, const void* x, const float* lnw, const float* lnb,
-                     const void* w1p, const float* w1s, const float* b1, const void* w2p,
-                     const float* w2s, const float* b2, void* out, int n_tok, int F, int act,
-                     int pre, int residual, float eps, cudaStream_t stream) {
-  if (dtype == kF32)
-    return launch<float, NJ>(x, lnw, lnb, w1p, w1s, b1, w2p, w2s, b2, out, n_tok, F, act, pre,
-                             residual, eps, stream);
-  if (dtype == kBF16)
-    return launch<__nv_bfloat16, NJ>(x, lnw, lnb, w1p, w1s, b1, w2p, w2s, b2, out, n_tok, F,
-                                     act, pre, residual, eps, stream);
-  return cudaErrorInvalidValue;
+// The bf16 body's workspace, byte offsets of its regions: the x codes (under
+// s, f32, in post), the hidden codes, W1's and W2's codes, the x row scales,
+// the hidden row maxima, W1's and W2's scales.
+struct QWorkspace {
+  long long xq, hq, w1q, w2q, sx, hmax, w1s, w2s, bytes;
+  QWorkspace(long long n_tok, long long C, long long F, int pre) {
+    xq = 0;
+    hq = s8::align16(n_tok * C * (pre ? 1 : 4));
+    w1q = hq + s8::align16(n_tok * F);
+    w2q = w1q + s8::align16(F * C);
+    sx = w2q + s8::align16(C * F);
+    hmax = sx + s8::align16(4 * n_tok);
+    w1s = hmax + s8::align16(4 * n_tok);
+    w2s = w1s + s8::align16(4 * F);
+    bytes = w2s + s8::align16(4 * C);
+  }
+};
+
+cudaError_t fused_mlp_q_bf16(const __nv_bfloat16* x, const float* lnw, const float* lnb,
+                             const float* w1f, const float* b1, const float* w2f,
+                             const float* b2, __nv_bfloat16* out, void* ws, int n_tok, int C,
+                             int F, int act, int pre, int residual, float eps, cudaStream_t st) {
+  const QWorkspace lay(n_tok, C, F, pre);
+  unsigned char* base = static_cast<unsigned char*>(ws);
+  int8_t* xq = reinterpret_cast<int8_t*>(base + lay.xq);
+  int8_t* hq = reinterpret_cast<int8_t*>(base + lay.hq);
+  int8_t* w1 = reinterpret_cast<int8_t*>(base + lay.w1q);
+  int8_t* w2 = reinterpret_cast<int8_t*>(base + lay.w2q);
+  float* sx = reinterpret_cast<float*>(base + lay.sx);
+  float* hmax = reinterpret_cast<float*>(base + lay.hmax);
+  float* w1s = reinterpret_cast<float*>(base + lay.w1s);
+  float* w2s = reinterpret_cast<float*>(base + lay.w2s);
+  LC2_TRY(s8::quant_weights(s8::WeightRows{w1f, w1, w1s, F, C}, s8::WeightRows{w2f, w2, w2s, C, F},
+                            st));
+  LC2_TRY(s8::quant_rows(x, pre ? lnw : nullptr, pre ? lnb : nullptr, xq, sx, hmax, n_tok, C, eps,
+                         st));
+  s8::Epilogue up{sx, w1s, b1, nullptr, nullptr, nullptr, hmax, nullptr, F, act, false};
+  LC2_TRY(s8::gemm<s8::kActMax>(n_tok, F, C, xq, C, w1, C, up, st));
+  up.out_s8 = hq;
+  LC2_TRY(s8::gemm<s8::kActCode>(n_tok, F, C, xq, C, w1, C, up, st));
+  float* s = reinterpret_cast<float*>(base + lay.xq);  // the x codes are dead by now
+  s8::Epilogue down{hmax, w2s, b2, residual ? x : nullptr, pre ? nullptr : s, pre ? out : nullptr,
+                    nullptr, nullptr, C, -1, true};
+  LC2_TRY(s8::gemm<s8::kStore>(n_tok, C, F, hq, F, w2, F, down, st));
+  if (pre) return cudaSuccess;
+  return ln::layer_norm(s, lnw, lnb, out, n_tok, C, eps, st);
 }
 
 }  // namespace
 }  // namespace lc2
 
-// x, out (n_tok, C) in dtype; lnw, lnb, b2, w2s (C,), w1s, b1 (F,) f32;
-// w1p [C/16][F][16], w2p [F/16][C][16] int8 panels of the quantised W1 (F, C)
-// and W2 (C, F).  C in {96, 128, 192, 256, 384, 512, 768}; F % 64 == 0,
-// F <= 3072.  act: 0 relu, 1 erf-gelu, 2 polynomial gelu.
+// x, out (n_tok, C) in dtype; lnw, lnb, b2 (C,), b1 (F,) f32.  f32: w1, w2
+// the quantised W1 (F, C) and W2 (C, F), int8, as [C/16][F][16] and
+// [F/16][C][16] panels, with their scales w1s (F,), w2s (C,); ws null.
+// bf16: w1, w2 the float W1 and W2 in f32, torch layout, 16-byte aligned
+// (the body quantises them), w1s, w2s null; ws lc2_fused_mlp_q_workspace_bf16
+// floats, 16-byte aligned.  C in {96, 128, 192, 256, 384, 512, 768}; f32 F
+// % 64 == 0 and F <= 3072, bf16 F % 16 == 0.  act: 0 relu, 1 erf-gelu, 2
+// polynomial gelu.
 extern "C" int lc2_fused_mlp_q(int dtype, const void* x, const void* lnw, const void* lnb,
-                               const void* w1p, const void* w1s, const void* b1,
-                               const void* w2p, const void* w2s, const void* b2, void* out,
-                               int n_tok, int C, int F, int act, int pre, int residual,
+                               const void* w1, const void* w1s, const void* b1,
+                               const void* w2, const void* w2s, const void* b2, void* out,
+                               void* ws, int n_tok, int C, int F, int act, int pre, int residual,
                                float eps, void* stream) {
-  if (F % lc2::kFC != 0 || F > lc2::kMaxF || n_tok < 1) return cudaErrorInvalidValue;
+  if (n_tok < 1 || act < 0 || act > 2) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f_lnw = static_cast<const float*>(lnw);
   const float* f_lnb = static_cast<const float*>(lnb);
@@ -281,10 +346,20 @@ extern "C" int lc2_fused_mlp_q(int dtype, const void* x, const void* lnw, const 
   const float* f_b1 = static_cast<const float*>(b1);
   const float* f_w2s = static_cast<const float*>(w2s);
   const float* f_b2 = static_cast<const float*>(b2);
-#define LC2_MLPQ_CASE(NJ)                                                                   \
-  case NJ * 32:                                                                             \
-    return lc2::launch_c<NJ>(dtype, x, f_lnw, f_lnb, w1p, f_w1s, f_b1, w2p, f_w2s, f_b2, out, \
-                             n_tok, F, act, pre, residual, eps, s);
+  if (dtype == lc2::kBF16) {
+    if (F < 16 || F % 16 || C < 96 || C > 768 || C % 32 || ws == nullptr)
+      return cudaErrorInvalidValue;
+    using bf = __nv_bfloat16;
+    return lc2::fused_mlp_q_bf16(static_cast<const bf*>(x), f_lnw, f_lnb,
+                                 static_cast<const float*>(w1), f_b1,
+                                 static_cast<const float*>(w2), f_b2, static_cast<bf*>(out), ws,
+                                 n_tok, C, F, act, pre, residual, eps, s);
+  }
+  if (dtype != lc2::kF32 || F % lc2::kFC != 0 || F > lc2::kMaxF) return cudaErrorInvalidValue;
+#define LC2_MLPQ_CASE(NJ)                                                                 \
+  case NJ * 32:                                                                           \
+    return lc2::launch<float, NJ>(x, f_lnw, f_lnb, w1, f_w1s, f_b1, w2, f_w2s, f_b2, out, \
+                                  n_tok, F, act, pre, residual, eps, s);
   switch (C) {
     LC2_MLPQ_CASE(3)
     LC2_MLPQ_CASE(4)
@@ -297,4 +372,12 @@ extern "C" int lc2_fused_mlp_q(int dtype, const void* x, const void* lnw, const 
       return cudaErrorInvalidValue;
   }
 #undef LC2_MLPQ_CASE
+}
+
+// Workspace floats of the bf16 body: the x codes (n_tok, C) int8, which s
+// (n_tok, C) f32 overwrites in post; the hidden codes (n_tok, F) int8; W1's
+// and W2's codes (F·C int8 each); the x row scales and the hidden row maxima
+// (n_tok,) f32; W1's (F,) and W2's (C,) scales; each region 16-byte aligned.
+extern "C" long long lc2_fused_mlp_q_workspace_bf16(int n_tok, int C, int F, int pre) {
+  return (lc2::QWorkspace(n_tok, C, F, pre).bytes + 3) / 4;
 }

@@ -4,7 +4,9 @@
 // (csrc/fused_mlp.cu).  Statistics in f32, two passes over the row held in
 // registers, as post_ln_bwd_bf16 (csrc/attention_block_bwd.cu) recomputes
 // them: mean, then the mean of squared deviations, rstd = rsqrt(var + eps);
-// out = round((v − mean) · rstd · w + b) with w, b bf16 values widened.
+// out = round((v − mean) · rstd · w + b) with w, b widened to f32: bf16
+// weights (rows 1 and 2) or f32 ones (the int8 feed-forward's post-norm,
+// csrc/fused_mlp_q.cu, whose LN weights stay f32 in both dtypes).
 // Bytes-bound: each row is read once and written once.
 #pragma once
 
@@ -13,20 +15,20 @@
 namespace lc2 {
 namespace ln {
 
-// Rows of `in` (f32 or bf16; lane l holds columns l + 32i) into bf16 `out`;
-// 8 rows a 256-thread block, blocks striding over the rows.
-template <int CPL, typename TI>
+// Rows of `in` (f32 or bf16; lane l holds columns l + 32i) into bf16 `out`,
+// weights TW (bf16 or f32); 8 rows a 256-thread block, blocks striding over
+// the rows.
+template <int CPL, typename TI, typename TW>
 __global__ void __launch_bounds__(256)
-layer_norm_rows(const TI* __restrict__ in, const __nv_bfloat16* __restrict__ w,
-                const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ out,
-                long long rows, float eps) {
+layer_norm_rows(const TI* __restrict__ in, const TW* __restrict__ w, const TW* __restrict__ b,
+                __nv_bfloat16* __restrict__ out, long long rows, float eps) {
   constexpr int C = 32 * CPL;
   const int lane = threadIdx.x & 31;
   float wv[CPL], bv[CPL];
 #pragma unroll
   for (int i = 0; i < CPL; ++i) {
-    wv[i] = __bfloat162float(w[lane + 32 * i]);
-    bv[i] = __bfloat162float(b[lane + 32 * i]);
+    wv[i] = to_f(w[lane + 32 * i]);
+    bv[i] = to_f(b[lane + 32 * i]);
   }
   for (long long m = blockIdx.x * 8LL + (threadIdx.x >> 5); m < rows; m += gridDim.x * 8LL) {
     const TI* r = in + m * C;
@@ -48,20 +50,19 @@ layer_norm_rows(const TI* __restrict__ in, const __nv_bfloat16* __restrict__ w,
   }
 }
 
-template <int CPL, typename TI>
-inline cudaError_t launch_rows(const TI* in, const __nv_bfloat16* w, const __nv_bfloat16* b,
-                               __nv_bfloat16* out, long long rows, float eps, cudaStream_t s) {
+template <int CPL, typename TI, typename TW>
+inline cudaError_t launch_rows(const TI* in, const TW* w, const TW* b, __nv_bfloat16* out,
+                               long long rows, float eps, cudaStream_t s) {
   const long long want = (rows + 7) / 8;
   const int blocks = (int)(want < 132LL * 16 ? (want > 0 ? want : 1) : 132LL * 16);
-  layer_norm_rows<CPL, TI><<<blocks, 256, 0, s>>>(in, w, b, out, rows, eps);
+  layer_norm_rows<CPL, TI, TW><<<blocks, 256, 0, s>>>(in, w, b, out, rows, eps);
   return cudaGetLastError();
 }
 
 // out = round(LN(in)) over rows of C, C a multiple of 32 from 64 to 768.
-template <typename TI>
-inline cudaError_t layer_norm(const TI* in, const __nv_bfloat16* w, const __nv_bfloat16* b,
-                              __nv_bfloat16* out, long long rows, int C, float eps,
-                              cudaStream_t s) {
+template <typename TI, typename TW>
+inline cudaError_t layer_norm(const TI* in, const TW* w, const TW* b, __nv_bfloat16* out,
+                              long long rows, int C, float eps, cudaStream_t s) {
   switch (C) {
     case 64: return launch_rows<2>(in, w, b, out, rows, eps, s);
     case 96: return launch_rows<3>(in, w, b, out, rows, eps, s);

@@ -46,8 +46,8 @@ SIGNATURES = {
     "lc2_fused_ce": [_I] + [_P] * 5 + [_I] * 7 + [_P],
     "lc2_score_upsample_argmax": [_I] + [_P] * 3 + [_I] * 6 + [_F, _P],
     "lc2_upsample_argmax": [_I, _P, _P] + [_I] * 5 + [_P],
-    "lc2_fused_mlp_q": [_I] + [_P] * 10 + [_I] * 6 + [_F, _P],
-    "lc2_attn_block_q": [_I] + [_P] * 12 + [_I] * 5 + [_F, _P],
+    "lc2_fused_mlp_q": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P],
+    "lc2_attn_block_q": [_I] + [_P] * 13 + [_I] * 5 + [_F, _P],
     "lc2_swin_window_q": [_I] + [_P] * 11 + [_I] * 8 + [_F, _P],
     "lc2_flash_attention": [_I] + [_P] * 6 + [_I] * 5 + [_F, _P],
     "lc2_flash_attention_bwd": [_I] + [_P] * 10 + [_I] * 5 + [_F, _P],
@@ -61,6 +61,8 @@ SIZE_SIGNATURES = {
     "lc2_attn_block_bwd_workspace_bf16": [_I] * 5,
     "lc2_attn_block_fwd_workspace_bf16": [_I] * 5,
     "lc2_fused_mlp_workspace_bf16": [_I] * 4,
+    "lc2_fused_mlp_q_workspace_bf16": [_I] * 4,
+    "lc2_attn_block_q_workspace_bf16": [_I] * 5,
     "lc2_fused_ce_partials": [_I] * 3,
 }
 
@@ -167,6 +169,11 @@ def contiguous16(t: torch.Tensor) -> torch.Tensor:
     bodies' 16-byte ``cp.async`` loads need: a copy only where it is not."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """``t``'s data pointer, or None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -26,8 +26,13 @@ Int8 serving (the JAX entry's ``quant=True``, ``attention_block.py:38-96,190-205
 :func:`fused_attn_block_q` quantises the folded q weights (1/√dh folded in
 f32, rounded back to wq's dtype, then ``quantize_weight``) and wo per output
 channel, and x and the head outputs per token (``ops/quant.py``); the
-attention itself is the f32 block's.  On a CUDA tensor it launches the
-int8 variant of ``csrc/attention_block.cu``; on a CPU tensor it runs
+attention itself is the float branch's.  On a CUDA tensor it launches the
+int8 variant of ``csrc/attention_block.cu``: in bf16 seven launches on the
+tensor cores (the folded weights handed over in f32 and quantised on the
+card, row passes and the ``mma.sync`` s8 GEMM of ``csrc/gemm_s8.cuh`` around
+the attention core of ``csrc/attn_block_fwd.cuh``, then the LN pass; scratch
+``lc2_attn_block_q_workspace_bf16``), in f32 the CUDA-core block, its
+weights quantised here.  On a CPU tensor it runs
 :func:`fused_attn_block_q_plain`.  Forward only: it raises if autograd needs
 a gradient through it, as the JAX entry has no VJP on this branch.
 """
@@ -181,12 +186,18 @@ def fused_attn_block(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
 fused_attn_block.launches = 0
 
 
-def _q_weights(wq, bq, wo, num_heads):
-    """(wq codes, scales, folded bq, wo codes, scales): 1/√dh folded into wq
-    and bq in f32 and rounded back to their dtypes (``attention_block.py:155-160``),
-    then both weights quantised per output channel (:190-195)."""
+def _fold_q(wq, bq, num_heads):
+    """(wq, bq) with 1/√dh folded in f32 and rounded back to their dtypes
+    (``attention_block.py:155-160``), as the quant branch quantises them."""
     wq_s, bq_s = fold_q_scale(wq, bq, num_heads)
-    return (*quantize_weight(wq_s.to(wq.dtype)), bq_s.to(bq.dtype), *quantize_weight(wo))
+    return wq_s.to(wq.dtype), bq_s.to(bq.dtype)
+
+
+def _q_weights(wq, bq, wo, num_heads):
+    """(wq codes, scales, folded bq, wo codes, scales): :func:`_fold_q`, then
+    both weights quantised per output channel (``attention_block.py:190-195``)."""
+    wq_s, bq_s = _fold_q(wq, bq, num_heads)
+    return (*quantize_weight(wq_s), bq_s, *quantize_weight(wo))
 
 
 def fused_attn_block_q_plain(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5):
@@ -214,15 +225,25 @@ def fused_attn_block_q(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads, eps=1e-5)
     _check(x, k, v, wq, bq, wo, bo, ln_w, ln_b, num_heads)
     b, p, c = x.shape
     dt = x.dtype
-    wqq, wqs, bq_s, woq, wos = _q_weights(wq, bq, wo, num_heads)
-    xc, kc, vc = (t.to(dt).contiguous() for t in (x, k, v))
-    bqc, boc, lnw, lnb = (t.to(dt).contiguous() for t in (bq_s, bo, ln_w, ln_b))
-    wqs, wos = wqs.contiguous(), wos.contiguous()
+    if dt == torch.bfloat16:  # the tensor-core body quantises the f32 weights itself
+        wq_s, bq_s = _fold_q(wq, bq, num_heads)
+        wqa, woa = (_build.contiguous16(w.float()) for w in (wq_s, wo))
+        wqs = wos = None
+        ws = torch.empty(_build.size("lc2_attn_block_q_workspace_bf16", b, p, k.shape[1], c,
+                                     num_heads), dtype=torch.float32, device=x.device)
+    else:
+        wqa, wqs, bq_s, woa, wos = _q_weights(wq, bq, wo, num_heads)
+        ws = None
+    xc, kc, vc = (_build.contiguous16(t.to(dt)) for t in (x, k, v))
+    # f32 holding the biases of the dtype: the TPU kernel adds them in f32
+    bqc, boc = (_build.contiguous16(t.to(dt).float()) for t in (bq_s, bo))
+    lnw, lnb = (t.to(dt).contiguous() for t in (ln_w, ln_b))
     out = torch.empty_like(xc)
+    ptr = _build.ptr
     _build.launch(
         "lc2_attn_block_q", xc.device, _build.dtype_code(xc), xc.data_ptr(), kc.data_ptr(),
-        vc.data_ptr(), wqq.data_ptr(), wqs.data_ptr(), bqc.data_ptr(), woq.data_ptr(),
-        wos.data_ptr(), boc.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), out.data_ptr(), b, p,
+        vc.data_ptr(), wqa.data_ptr(), ptr(wqs), bqc.data_ptr(), woa.data_ptr(), ptr(wos),
+        boc.data_ptr(), lnw.data_ptr(), lnb.data_ptr(), out.data_ptr(), ptr(ws), b, p,
         k.shape[1], c, num_heads, float(eps), _build.stream_of(xc))
     fused_attn_block_q.launches += 1
     return out

@@ -21,8 +21,13 @@ kernel ``_mlp_q_kernel`` :70, entry ``fused_mlp_q`` :94): pre- or post-LN,
 gelu or relu, residual, with the activation policy of ``fused_mlp`` (the
 polynomial gelu in bf16, erf in f32).  Unlike the float MLP it keeps the
 LayerNorm output and the activation in f32 until they are quantised.  On a
-CUDA tensor it launches ``csrc/fused_mlp_q.cu``; on a CPU tensor it runs
-:func:`fused_mlp_q_plain`.
+CUDA tensor it launches ``csrc/fused_mlp_q.cu``: in bf16 its tensor-core
+body (the weights handed over in f32 and quantised on the card, a row pass,
+then the ``mma.sync`` s8 GEMM of ``csrc/gemm_s8.cuh`` three times, the hidden
+activation recomputed for its row max; scratch
+``lc2_fused_mlp_q_workspace_bf16``), in f32 its one-pass WMMA body, which
+takes the weights quantised here as panels (:func:`k_panels`) and F <= 3072.
+On a CPU tensor it runs :func:`fused_mlp_q_plain`.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from lc2is_tpu_torch.ops import _build
 from lc2is_tpu_torch.ops.dispatch import use_kernel
 from lc2is_tpu_torch.ops.fused_mlp import _ACT_CODES, KERNEL_WIDTHS, _act, _act_name
 
-MAX_HIDDEN = 3072  # csrc/fused_mlp_q.cu keeps 16 rows of the f32 hidden in shared memory
+# csrc/fused_mlp_q.cu's f32 body keeps 16 rows of the f32 hidden in shared memory
+MAX_HIDDEN_F32 = 3072
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -101,7 +107,8 @@ def fused_mlp_q_plain(x, ln_w, ln_b, w1, b1, w2, b2, activation="gelu", ln_posit
 
 def k_panels(q: torch.Tensor) -> torch.Tensor:
     """int8 (N, K) -> [K/16][N][16]: each 16-wide slice of the contraction
-    contiguous, so every 16 x 16 WMMA tile the kernel loads is 256-byte aligned."""
+    contiguous, so every 16 x 16 WMMA tile the f32 body loads is 256-byte
+    aligned."""
     n, k = q.shape
     return q.reshape(n, k // 16, 16).transpose(0, 1).contiguous()
 
@@ -119,21 +126,32 @@ def fused_mlp_q(x, ln_w, ln_b, w1, b1, w2, b2, activation="gelu", ln_position="p
                                  residual, eps)
     c = x.shape[-1]
     f = w1.shape[0]
-    if c not in KERNEL_WIDTHS or f % 64 or f > MAX_HIDDEN:
-        raise ValueError(f"fused_mlp_q kernel takes C in {KERNEL_WIDTHS}, F % 64 == 0 and "
-                         f"F <= {MAX_HIDDEN}, got C={c} F={f}")
+    bf16 = x.dtype == torch.bfloat16
+    if c not in KERNEL_WIDTHS or (f % 16 if bf16 else f % 64 or f > MAX_HIDDEN_F32):
+        raise ValueError(f"fused_mlp_q kernel takes C in {KERNEL_WIDTHS} and F % 16 == 0 "
+                         f"(bf16) or F % 64 == 0 and F <= {MAX_HIDDEN_F32} (f32), "
+                         f"got C={c} F={f} {x.dtype}")
     _build.check_operands(x.device, ln_w=(ln_w, (c,)), ln_b=(ln_b, (c,)), w1=(w1, (f, c)),
                           b1=(b1, (f,)), w2=(w2, (c, f)), b2=(b2, (c,)))
-    w1q, w1s = quantize_weight(w1)
-    w2q, w2s = quantize_weight(w2)
-    xt = x.reshape(-1, c).contiguous()
-    vecs = [t.float().contiguous() for t in (ln_w, ln_b, w1s, b1, w2s, b2)]
-    w1p, w2p = k_panels(w1q), k_panels(w2q)
+    xt = _build.contiguous16(x.reshape(-1, c))
+    vecs = [_build.contiguous16(t.float()) for t in (ln_w, ln_b, b1, b2)]
+    if bf16:  # the tensor-core body quantises the f32 weights itself, torch layout
+        w1a, w2a = (_build.contiguous16(w.float()) for w in (w1, w2))
+        s1 = s2 = None
+        ws = torch.empty(_build.size("lc2_fused_mlp_q_workspace_bf16", xt.shape[0], c, f,
+                                     int(ln_position == "pre")),
+                         dtype=torch.float32, device=x.device)
+    else:
+        w1q, s1 = quantize_weight(w1)
+        w2q, s2 = quantize_weight(w2)
+        w1a, w2a = k_panels(w1q), k_panels(w2q)
+        ws = None
     out = torch.empty_like(xt)
+    ptr = _build.ptr
     _build.launch(
         "lc2_fused_mlp_q", xt.device, _build.dtype_code(xt), xt.data_ptr(), vecs[0].data_ptr(),
-        vecs[1].data_ptr(), w1p.data_ptr(), vecs[2].data_ptr(), vecs[3].data_ptr(),
-        w2p.data_ptr(), vecs[4].data_ptr(), vecs[5].data_ptr(), out.data_ptr(), xt.shape[0], c, f,
+        vecs[1].data_ptr(), w1a.data_ptr(), ptr(s1), vecs[2].data_ptr(), w2a.data_ptr(), ptr(s2),
+        vecs[3].data_ptr(), out.data_ptr(), ptr(ws), xt.shape[0], c, f,
         _ACT_CODES[_act_name(activation, x.dtype)], int(ln_position == "pre"), int(residual),
         float(eps), _build.stream_of(xt))
     fused_mlp_q.launches += 1

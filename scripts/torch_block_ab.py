@@ -2,7 +2,10 @@
 """Time the port's block kernels at the main-path shapes on one NVIDIA GPU:
 the feed-forward (``fused_mlp``, TPU row 1) and the decoder attention
 forward (``fused_attn_block``, row 2) at the shapes of a batch-16 512²
-serving forward and of a batch-8 training step's forward, window attention
+serving forward and of a batch-8 training step's forward, their int8 twins
+(``fused_mlp_q``, row 17; ``fused_attn_block_q``, row 2q) at the shapes of a
+batch-16 int8 serving forward, beside ``torch._int_mm`` at the decoder's two
+int8 product shapes (a yardstick only, on no path), window attention
 (``window_attention``, row 8), the swin window block's backward
 (``swin_window_block_bwd``, rows 7 and 10), the decoder attention backward
 (``fused_attn_block_bwd``, row 3) and the swin window block
@@ -13,7 +16,7 @@ kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
 bias and region mask as its additive mask (``scaled_dot_product_attention``,
 a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,3,6,7,8]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,2q,3,6,7,8,17]
 
 ROOT is a checkout of this repository (default: the one holding this
 script); only the sources of those kernels are built (``fused_mlp*.cu``,
@@ -24,9 +27,9 @@ turns, e.g. parent, change, change, parent.  ``--rows`` picks the rows
 timed (all by default; rows 9 and 10 come with 6 and 7).  Each bf16 case is
 also held against its plain version: rows 3 and 7 by their worst
 ‖Δ‖/‖plain‖ over their gradients (autograd through the plain version), rows
-1, 2, 6 and 8 by their largest |Δ|.  The workspace bytes of rows 1, 2, 3 and
-7 are printed at their largest main-path shape.  Fails without a CUDA
-device.
+1, 2, 6 and 8 by their largest |Δ|, rows 2q and 17 by their largest |Δ| over
+max |plain|.  The workspace bytes of rows 1, 2, 2q, 3, 7 and 17 are printed
+at their largest main-path shape.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -133,9 +136,10 @@ def load_port(root: Path):
     _build.library()
     from lc2is_tpu_torch.ops import attention_block as ab
     from lc2is_tpu_torch.ops import fused_mlp as mlp
+    from lc2is_tpu_torch.ops import quant
     from lc2is_tpu_torch.ops import swin_window as sw
     from lc2is_tpu_torch.ops import window_attention as wa
-    return _build, ab, mlp, sw, wa
+    return _build, ab, mlp, quant, sw, wa
 
 
 def rand(rs, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
@@ -166,7 +170,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--rows", default="1,2,3,6,7,8")
+    ap.add_argument("--rows", default="1,2,2q,3,6,7,8,17")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
@@ -175,7 +179,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = Path(args.root).resolve()
     tag = args.tag or root.name
-    build, ab, mlp, sw, wa = load_port(root)
+    build, ab, mlp, quant, sw, wa = load_port(root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[{tag}] {root} on {smi}", flush=True)
@@ -186,6 +190,13 @@ def main() -> int:
         if name == "lc2_fused_mlp_workspace_bf16":
             print(f"[{tag}] {name} (65536, 512) F 2048 post: "
                   f"{4 * build.size(name, 65536, 512, 2048, 0)} bytes", flush=True)
+        if name == "lc2_attn_block_q_workspace_bf16":
+            print(f"[{tag}] {name} (16, 4096, 512) L1024 h8: "
+                  f"{4 * build.size(name, 16, 4096, 1024, 512, 8)} bytes", flush=True)
+        if name == "lc2_fused_mlp_q_workspace_bf16":
+            print(f"[{tag}] {name} (65536, 512) F 2048 post: "
+                  f"{4 * build.size(name, 65536, 512, 2048, 0)} bytes; (262144, 96) F 384 pre: "
+                  f"{4 * build.size(name, 262144, 96, 384, 1)} bytes", flush=True)
         if name.startswith("lc2_attn_block_bwd_workspace"):
             print(f"[{tag}] {name} (8, 4096, 512) L1024 h8: "
                   f"{4 * build.size(name, 8, 4096, 1024, 512, 8)} bytes", flush=True)
@@ -259,6 +270,53 @@ def main() -> int:
                    n or 1, 4 * b * p * 512 * 512 + 4 * b * p * l * 512, fwd, note,
                    split=dt == torch.bfloat16)
             del a
+            torch.cuda.empty_cache()
+
+    def rel_diff(got, want):
+        d = (got.float() - want.float()).abs().max().item()
+        return f" max|Δ| {d:.2e} = {d / want.float().abs().max().item():.2e} x max|plain|"
+
+    # row 17 (int8 feed-forward) at batch 16, bf16 at every serving shape
+    # (stage 4: one call, not summed), f32 at two (controls); row 2q (int8
+    # decoder attention) at batch 16, bf16 at every serving shape, f32 at two
+    for dt in (torch.bfloat16, torch.float32) if "17" in rows else ():
+        for i, (t, c, f, act, pos, n) in enumerate(MLP_SHAPES[:7]):
+            if dt == torch.float32 and i not in (2, 4):
+                continue
+            a = mlp_args(rs, 16 * t, c, f, dt)
+            fwd = lambda a=a, act=act, pos=pos: quant.fused_mlp_q(*a, activation=act,
+                                                                   ln_position=pos)
+            with torch.no_grad():
+                ms = time_ms(fwd, reps=20)
+                note = rel_diff(fwd(), quant.fused_mlp_q_plain(*a, activation=act,
+                                                               ln_position=pos))
+            report("17" if n is not None else "17 not summed", f"({16 * t},{c}) F{f} {act} {pos}",
+                   dt, ms, n or 1, 4 * 16 * t * c * f, fwd, note, split=dt == torch.bfloat16)
+            del a
+            torch.cuda.empty_cache()
+    for dt in (torch.bfloat16, torch.float32) if "2q" in rows else ():
+        for i, (p, l, n) in enumerate(ATTN_SHAPES):
+            if dt == torch.float32 and i not in (0, 1):
+                continue
+            a = attn_args(rs, 16, p, l, dt)
+            fwd = lambda a=a: ab.fused_attn_block_q(*a, 8)
+            with torch.no_grad():
+                ms = time_ms(fwd, reps=20)
+                note = rel_diff(fwd(), ab.fused_attn_block_q_plain(*a, 8))
+            report("2q", f"(16,{p},512) L{l} h8", dt, ms, n,
+                   4 * 16 * p * 512 * 512 + 4 * 16 * p * l * 512, fwd, note,
+                   split=dt == torch.bfloat16)
+            del a
+            torch.cuda.empty_cache()
+    if "17" in rows:  # torch._int_mm at the decoder's two int8 products: a yardstick
+        for m, k, nn in ((65536, 512, 2048), (65536, 2048, 512)):
+            a8 = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda")
+            w8 = torch.randint(-127, 128, (nn, k), dtype=torch.int8, device="cuda")
+            # W (N, K) read through its transposed view, as the s8 GEMM reads it
+            fn = lambda a8=a8, w8=w8: torch._int_mm(a8, w8.t())
+            ms = time_ms(fn, reps=20)
+            report("int_mm", f"({m},{k})·({nn},{k})ᵀ", torch.int8, ms, 1, 2 * m * k * nn, fn)
+            del a8, w8
             torch.cuda.empty_cache()
 
     # row 3 and row 2 at batch 8 (a step's forward), bf16 at every shape, f32 at two

@@ -400,6 +400,70 @@ def test_fused_attn_block_q_kernel(cuda, dtype, p, l, c, heads):
     _check_int8(fused_attn_block_q, fused_attn_block_q, fused_attn_block_q_plain, *args, heads)
 
 
+def _mlp_q_args(rs, n_tok, c, f, dtype):
+    return (_rand(rs, n_tok, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.1), _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
+            _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
+
+
+@pytest.mark.parametrize("n_tok", [1, 127, 129, 16385])
+@pytest.mark.parametrize("c,f,act,pos,residual", [
+    (96, 384, "gelu", "pre", True),     # swin stage 1: K = 96 is one and a half 64-byte slices
+    (96, 208, "gelu", "pre", False),    # F tail: 80 columns past a 128-column tile
+    (512, 2048, "relu", "post", True),  # the decoder layers
+    (512, 2064, "relu", "post", False),  # F tail: 16 columns, K of the second product ragged
+])
+def test_fused_mlp_q_bf16_tile_edges(cuda, n_tok, c, f, act, pos, residual):
+    """The bf16 tensor-core body of fused_mlp_q (row pass, the s8 GEMM's
+    max, codes and output passes, the LN pass) at token counts off the
+    128-row tile and hidden widths off the 128-column tile, against its
+    plain version by the bf16 int8 rule."""
+    rs = np.random.RandomState(n_tok + c + f)
+    _check_int8(fused_mlp_q, fused_mlp_q, fused_mlp_q_plain,
+                *_mlp_q_args(rs, n_tok, c, f, torch.bfloat16), activation=act, ln_position=pos,
+                residual=residual)
+
+
+@pytest.mark.parametrize("c,f", [(768, 4096), (384, 3088)])
+def test_fused_mlp_q_bf16_hidden_past_the_f32_cap(cuda, c, f):
+    """The bf16 body keeps no hidden row on chip, so F is not capped at 3072
+    as the f32 body's is (swin-base's F 4096; a ragged F past the cap); the
+    f32 body still raises there."""
+    rs = np.random.RandomState(c + f)
+    _check_int8(fused_mlp_q, fused_mlp_q, fused_mlp_q_plain,
+                *_mlp_q_args(rs, 300, c, f, torch.bfloat16), activation="gelu", ln_position="pre")
+    with torch.no_grad(), pytest.raises(ValueError):
+        fused_mlp_q(*_mlp_q_args(rs, 30, c, f, torch.float32))
+
+
+def test_fused_mlp_q_bf16_is_deterministic(cuda):
+    """The hidden row max is an atomicMax on the bits of non-negative
+    floats: the output repeats bit for bit."""
+    rs = np.random.RandomState(21)
+    args = _mlp_q_args(rs, 4099, 512, 2048, torch.bfloat16)
+    with torch.no_grad():
+        first = fused_mlp_q(*args, activation="relu", ln_position="post")
+        for _ in range(3):
+            assert torch.equal(fused_mlp_q(*args, activation="relu", ln_position="post"), first)
+
+
+@pytest.mark.parametrize("l", [1, 151, 1024])
+@pytest.mark.parametrize("p,c,heads", [(1, 512, 8), (127, 512, 8), (129, 64, 4), (65, 128, 2),
+                                       (200, 256, 4)])
+def test_fused_attn_block_q_bf16_tile_edges(cuda, l, p, c, heads):
+    """The bf16 tensor-core body of fused_attn_block_q (row passes and the s8
+    GEMM around the attention core, the LN pass) at query counts off the
+    128-row GEMM and 64-row attention tiles, one key, the class count and a
+    whole number of key tiles, dh 16, 32 and 64, against its plain version by
+    the bf16 int8 rule."""
+    rs = np.random.RandomState(p + l + c)
+    args = (_rand(rs, 2, p, c, dtype=torch.bfloat16), _rand(rs, 2, l, c, dtype=torch.bfloat16),
+            _rand(rs, 2, l, c, dtype=torch.bfloat16), _rand(rs, c, c, scale=c ** -0.5),
+            _rand(rs, c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, c, scale=0.1, offset=1.0), _rand(rs, c, scale=0.1))
+    _check_int8(fused_attn_block_q, fused_attn_block_q, fused_attn_block_q_plain, *args, heads)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h,w,c,heads,win,shift", [
     (18, 18, 32, 2, 7, 3),

@@ -28,6 +28,11 @@ against the plain version and the Pallas kernel, the card gate of phase 3
 where the kernels round while the Pallas kernel normalises p before
 rounding it).  A control that must fail: the attention over all keys but
 the last 64-key tile.
+
+Every ``extern "C"`` declaration of ``csrc/`` is held against the argtypes
+``ops/_build.py`` binds; the int8 row's entry points also by name (the
+workspace after the output), and its wrappers' card path, with the launch
+recorded on CPU tensors, against those argtypes.
 """
 
 import re
@@ -210,3 +215,74 @@ def test_entry_point_signatures_match_the_sources():
             assert found[name] == list(argtypes), name
     for name in ("lc2_attn_block_fwd_workspace_bf16", "lc2_fused_mlp_workspace_bf16"):
         assert name in _build.SIZE_SIGNATURES, name
+
+
+@pytest.mark.parametrize("name,params", [
+    ("lc2_fused_mlp_q", "ws"), ("lc2_attn_block_q", "ws"),
+    ("lc2_fused_mlp_q_workspace_bf16", "n_tok, C, F, pre"),
+    ("lc2_attn_block_q_workspace_bf16", "B, P, L, C, heads")])
+def test_int8_entry_points_match_the_sources(name, params):
+    """The int8 row's entry points, which its bf16 bodies changed (a
+    workspace pointer after the output) or added (the workspace sizes), are
+    bound with the argtypes of their extern "C" declarations, and take the
+    named parameters."""
+    found = _entry_points()
+    table = _build.SIGNATURES if name in _build.SIGNATURES else _build.SIZE_SIGNATURES
+    assert found[name] == list(table[name]), name
+    decl = re.search(rf'extern "C" [^(]* {name}\(([^)]*)\)',
+                     "".join(p.read_text() for p in CSRC.glob("*.cu"))).group(1)
+    names = [a.split()[-1].lstrip("*") for a in decl.split(",")]
+    for p in params.split(", "):
+        assert p in names, (name, p)
+    if "ws" in params:  # the workspace follows the output, as in lc2_attn_block
+        assert names.index("ws") == names.index("out") + 1, name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("op", ["fused_mlp_q", "fused_attn_block_q"])
+def test_int8_wrappers_pass_their_signatures(monkeypatch, dtype, op):
+    """The card path of each int8 wrapper, its launch replaced by a recorder
+    on CPU tensors: the arguments it hands ctypes match the entry point's
+    argtypes in count and kind, the bf16 body gets a workspace of the size
+    entry's floats and its weights unquantised (it quantises them on the
+    card), the f32 body no workspace and, in the feed-forward, its weights as
+    panels."""
+    from lc2is_tpu_torch.ops import attention_block, quant
+
+    tdt = getattr(torch, dtype)
+    calls, sizes, panels = [], [], []
+    monkeypatch.setattr(_build, "launch", lambda name, dev, *a: calls.append((name, a)))
+    monkeypatch.setattr(_build, "size", lambda name, *a: sizes.append(name) or 64)
+    monkeypatch.setattr(_build, "stream_of", lambda t: 0)
+    k_panels = quant.k_panels
+    monkeypatch.setattr(quant, "k_panels", lambda q: panels.append(q.shape) or k_panels(q))
+    mod = quant if op == "fused_mlp_q" else attention_block
+    monkeypatch.setattr(mod, "use_kernel", lambda t: True)
+    rs = np.random.RandomState(0)
+    c = 128
+    if op == "fused_mlp_q":
+        x = torch.from_numpy(rs.randn(5, c).astype(np.float32)).to(tdt)
+        w = [torch.from_numpy(rs.randn(*s).astype(np.float32))
+             for s in ((c,), (c,), (4 * c, c), (4 * c,), (c, 4 * c), (c,))]
+        with torch.no_grad():
+            quant.fused_mlp_q(x, *w)
+    else:
+        x, k, v = (torch.from_numpy(rs.randn(2, n, c).astype(np.float32)).to(tdt)
+                   for n in (7, 9, 9))
+        w = [torch.from_numpy(rs.randn(*s).astype(np.float32))
+             for s in ((c, c), (c,), (c, c), (c,), (c,), (c,))]
+        with torch.no_grad():
+            attention_block.fused_attn_block_q(x, k, v, *w, 4)
+    (name, args), = calls
+    kinds = {_build.ctypes.c_void_p: (int, type(None)), _build.ctypes.c_int: (int,),
+             _build.ctypes.c_float: (float,)}
+    argtypes = _build.SIGNATURES[name]
+    assert len(args) == len(argtypes), name
+    for a, t in zip(args, argtypes):
+        assert isinstance(a, kinds[t]), (name, a, t)
+    ws = args[13 if op == "fused_attn_block_q" else 11]
+    if dtype == "bfloat16":
+        assert ws is not None and sizes == [f"{name}_workspace_bf16"] and not panels
+    else:
+        assert ws is None and not sizes
+        assert len(panels) == (2 if op == "fused_mlp_q" else 0)
