@@ -12,7 +12,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the decoder attention forward's and backward's (its GEMM, which the
    feed-forward and the swin backward share, and its LayerNorm pass), the
    swin window block's, window attention's, the swin backward's attention
-   core) on a line;
+   core, the mask head's and the fused CE's) on a line;
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
@@ -30,14 +30,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    case also prints its TFLOP/s and its time over SDPA's); the v1 shapes of
    fused_mlp and fused_attn_block (timed, not summed into the flagship
    forward); each swin_window_block, fused_mlp and fused_attn_block case
-   prints its TFLOP/s;
+   prints its TFLOP/s, the mask head its score product's TFLOP/s and its
+   argmax's (pixel, class) pairs a second over the whole kernel time;
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
    against the stated bound, and the kernel's time beside the plain
    backward's (CUDA events, median of 5 after warm-up; fused_attn_block_bwd
    and swin_window_block_bwd also their TFLOP/s over three times their
-   forward's products); the flash backward
+   forward's products; the fused CE its exponentials a second (two per
+   hi-res pixel and class) and its f32 operations a second); the flash backward
    (dq and dk/dv kernels) against flash_attention_backward_plain at the v1
    training shapes (ViT-B/16 (16, 12, 1025, 64), decoder (16, 8, 1024, 96)),
    masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
@@ -137,6 +139,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -438,14 +441,14 @@ def kernel_cases(rs, dt):
     cases = []
 
     def case(name, label, count, kern, plain, work, check="close", library=None, scores=None,
-             tie_dt=None, control=None):
+             tie_dt=None, control=None, pairs=None):
         """``count``: launches per forward of the path the kernel's JSON row
         reports (0: one call, on no path; None: checked and timed, not
         summed); ``control``: (what, a wrong call) that must fail the same
-        check."""
+        check; ``pairs``: a mask kernel's (output pixel, class) pairs."""
         cases.append(dict(name=name, label=label, count=count, kern=kern, plain=plain, work=work,
                           check=check, library=library, scores=scores, tie_dt=tie_dt,
-                          control=control))
+                          control=control, pairs=pairs))
 
     def w(o, i):
         return rand(rs, o, i, scale=i ** -0.5)
@@ -520,7 +523,8 @@ def kernel_cases(rs, dt):
          (b * g * g * 512 * e + b * N_CLASSES * 512 * e + 4 * b * 16 * g * g,
           op_counts((mm_type(dt), 2 * b * g * g * N_CLASSES * 512),
                     ("f32", argmax_blend_ops(b, N_CLASSES, g, g, 4)))),
-         check="mask", scores=lambda: score_map_plain(v, tn, g), tie_dt=dt)
+         check="mask", scores=lambda: score_map_plain(v, tn, g), tie_dt=dt,
+         pairs=b * 16 * g * g * N_CLASSES)
     smap = rand(rs, b, N_CLASSES, g, g, dtype=dt)
     case("upsample_argmax", f"map ({b},{N_CLASSES},{g},{g}) x4", 0,
          lambda: upsample_argmax(smap, 4), lambda: upsample_argmax_plain(smap, 4),
@@ -673,6 +677,10 @@ def run_case(c, dt, stats):
     elif c["name"] in ("swin_window_block", "fused_mlp", "fused_attn_block", "fused_mlp_q",
                        "fused_attn_block_q"):
         lib += f" ({rate_of(c['work'], k_ms)})"
+    elif c["name"] == "score_upsample_argmax":  # the product's rate, the argmax's pairs a second
+        mm = sum(n for k_, n in c["work"][1].items() if k_ != "f32")
+        lib += (f" (product {mm / k_ms / 1e9:.1f} TFLOP/s, argmax "
+                f"{c['pairs'] / k_ms / 1e6:.1f} G pairs/s over the kernel's time)")
     elif c["name"] == "window_attention":  # bytes-bound: its memory rate and SDPA ratio
         lib += (f" ({c['work'][0] / k_ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}, "
                 f"{k_ms / lib_ms:.2f}x SDPA)")
@@ -914,7 +922,8 @@ def backward_cases(rs, dt):
             (lambda a, y_=y, r_=r: upsampled_cross_entropy(a, y_, r_),
              lambda a, y_=y, r_=r: upsampled_cross_entropy_plain(a, y_, r_), [x], None),
             # logits in and their gradient out, int64 labels; per hi-res pixel
-            # and class a blend, an exp and a sum (about 8 operations)
+            # and class a blend, an exp and a sum (about 8 operations, 2 of
+            # them exponentials: the softmax's, and the gradient's recomputed)
             (2 * x.numel() * dt.itemsize + 8 * y.numel(), {"f32": 8 * N_CLASSES * y.numel()}),
             None))
     return cases
@@ -1066,6 +1075,10 @@ def check_backward_kernels():
             lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
             if name in ("fused_attn_block_bwd", "swin_window_block_bwd"):
                 lib += f" ({rate_of(work, k_ms)})"
+            if name == "upsampled_cross_entropy":  # its exponentials and f32 operations a second
+                f32_ops = work[1]["f32"]
+                lib += (f" ({f32_ops / 4 / k_ms / 1e9:.2f} T exp/s, "
+                        f"{f32_ops / k_ms / 1e9:.1f} T f32 op/s)")
             print(f"  {name:23s} {label:46s} max {mx:.3e} rel {rel:.3e} kernel {k_ms:8.3f} ms "
                   f"plain {p_ms:8.3f}{lib} bound {b_ms:7.3f} ({by}) x{count}/step "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -1995,7 +2008,7 @@ def check_v1_train(smi):
 MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
                "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "layer_norm_rows",
                "swin_mma_kernel", "window_attention_mma", "swin_attn_bwd_mma", "gemm_s8_kernel",
-               "quant_rows_kernel")
+               "quant_rows_kernel", "head_kernel", "fused_ce_kernel")
 
 
 def mma_registers(log):
@@ -2011,9 +2024,9 @@ def mma_registers(log):
         info = " ".join(lines[i + 1:i + 4])
         if name is None or "Used " not in info:
             continue
-        targs = ",".join(t[2:] if t.startswith("L") else t
-                         for t in line.split(name + "I")[1].split("EE")[0].split("E")
-                         ).replace("13__nv_bfloat16", "bf16")
+        raw = line.split(name + "I")[1].split("EE")[0]
+        targs = ",".join({"13__nv_bfloat16": "bf16", "f": "f32"}.get(t, t.lstrip("Lib"))
+                         for t in re.findall(r"13__nv_bfloat16|L[ib]-?\d+|^f", raw))
         regs = info.split("Used ")[1].split()[0]
         spill = info.split("bytes spill stores")[0].split(",")[-1].strip()
         if f"{name}<{targs}> {regs}/{spill}" not in out:

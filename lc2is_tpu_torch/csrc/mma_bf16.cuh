@@ -1,5 +1,6 @@
 // Warp-level bf16 tensor-core helpers of the flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu), in inline PTX for sm_90a:
+// (flash_attention.cu, flash_attention_bwd.cu) and the others on mma.sync
+// (gemm_bf16.cuh, upsample_argmax.cu), in inline PTX for sm_90a:
 // mma.sync m16n8k16 with f32 accumulators, ldmatrix (plain and .trans),
 // cp.async with zero-fill, and the bf16 row tiles they read.
 //
@@ -39,6 +40,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// r[j] = this lane's two elements of 8x8 matrix j (j < 2), whose row
+// (lane % 8) lane 8j + lane % 8 addresses (lanes 16-31 give addresses too,
+// which ldmatrix does not read).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(smem_addr(row)));
 }
 

@@ -43,9 +43,9 @@ SIGNATURES = {
     "lc2_upsample_adjoint": [_I, _P, _P] + [_I] * 5 + [_P],
     "lc2_swin_window": [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
     "lc2_swin_window_bwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _P],
-    "lc2_fused_ce": [_I] + [_P] * 5 + [_I] * 7 + [_P],
-    "lc2_score_upsample_argmax": [_I] + [_P] * 3 + [_I] * 6 + [_F, _P],
-    "lc2_upsample_argmax": [_I, _P, _P] + [_I] * 5 + [_P],
+    "lc2_fused_ce": [_I, _P, _P, _I] + [_P] * 3 + [_I] * 7 + [_P],
+    "lc2_score_upsample_argmax": [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
+    "lc2_upsample_argmax": [_I, _P, _P, _P] + [_I] * 5 + [_P],
     "lc2_fused_mlp_q": [_I] + [_P] * 11 + [_I] * 6 + [_F, _P],
     "lc2_attn_block_q": [_I] + [_P] * 13 + [_I] * 5 + [_F, _P],
     "lc2_swin_window_q": [_I] + [_P] * 11 + [_I] * 8 + [_F, _P],
@@ -63,7 +63,8 @@ SIZE_SIGNATURES = {
     "lc2_fused_mlp_workspace_bf16": [_I] * 4,
     "lc2_fused_mlp_q_workspace_bf16": [_I] * 4,
     "lc2_attn_block_q_workspace_bf16": [_I] * 5,
-    "lc2_fused_ce_partials": [_I] * 3,
+    "lc2_fused_ce_partials": [_I] * 6,
+    "lc2_upsample_argmax_workspace": [_I] * 5,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

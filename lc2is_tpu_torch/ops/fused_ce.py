@@ -7,11 +7,13 @@ the mean over non-ignored pixels of the f32 log-softmax NLL of the ×r
 upsample, the label clipped to [0, K), with the gradient going straight onto
 the low-res map.  On a CUDA tensor :func:`upsampled_cross_entropy` launches
 ``csrc/fused_ce.cu`` once (the port of both ``_fwd_kernel`` :89 and
-``_bwd_kernel`` :117): one pass emits Σ nll, Σ valid and the unscaled
-low-res gradient, so neither direction materialises the (B, K, rH, rW) map,
-and the backward only scales by g / max(Σ valid, 1).  On a CPU tensor it
-runs :func:`upsampled_cross_entropy_plain`, which materialises the upsample.
-r = 1 is plain CE on either device (``fused_ce.py:313-316``).
+``_bwd_kernel`` :117): one pass over tiles of the map in its (B, K, h, w)
+layout and the labels in their integer type emits Σ nll, Σ valid and the
+unscaled low-res gradient in the map's layout, so neither direction
+materialises the (B, K, rH, rW) map, and the backward only scales and casts
+it.  On a CPU tensor it runs :func:`upsampled_cross_entropy_plain`, which
+materialises the upsample.  r = 1 is plain CE on either device
+(``fused_ce.py:313-316``).
 """
 
 from __future__ import annotations
@@ -34,21 +36,25 @@ def upsampled_cross_entropy_plain(score_map, labels, r: int, ignore_index=None):
 
 def fused_ce_fwd(score_map, labels, r: int, ignore_index=None):
     """One launch of the kernel: (Σ nll, Σ valid) as a (2,) f32 tensor and
-    the unscaled low-res gradient (B, h, w, K) f32 (channels-last).  CUDA
-    tensors only."""
+    the unscaled low-res gradient (B, K, h, w) f32.  CUDA tensors only; the
+    labels are read as they are when int32 or int64 (other integer types are
+    cast to int32)."""
     b, k, h, w = score_map.shape
-    if k > 256:
-        raise ValueError(f"fused_ce kernel takes K <= 256 classes, got {k}")
+    if not 1 <= k <= 256 or r < 2:
+        raise ValueError(f"fused_ce kernel takes 1 <= K <= 256 classes and r >= 2, got {k}, {r}")
     _build.check_operands(score_map.device, labels=(labels, (b, r * h, r * w)))
-    s = score_map.permute(0, 2, 3, 1).contiguous()  # classes on the lanes
-    lab = labels.to(torch.int32).contiguous()
-    f32 = dict(dtype=torch.float32, device=score_map.device)
-    grad = torch.empty((b, h, w, k), **f32)
-    part = torch.empty(_build.size("lc2_fused_ce_partials", b, h, w), **f32)
+    s = score_map.contiguous()
+    lab = labels.contiguous()
+    if lab.dtype not in (torch.int32, torch.int64):
+        lab = lab.to(torch.int32)
+    code = _build.dtype_code(s)
+    f32 = dict(dtype=torch.float32, device=s.device)
+    grad = torch.empty((b, k, h, w), **f32)
+    part = torch.empty(_build.size("lc2_fused_ce_partials", code, b, h, w, k, r), **f32)
     sums = torch.empty(2, **f32)
-    _build.launch("lc2_fused_ce", s.device, _build.dtype_code(s), s.data_ptr(), lab.data_ptr(),
-                  grad.data_ptr(), part.data_ptr(), sums.data_ptr(), b, h, w, k, r,
-                  int(ignore_index is not None), int(ignore_index or 0), _build.stream_of(s))
+    _build.launch("lc2_fused_ce", s.device, code, s.data_ptr(), lab.data_ptr(),
+                  lab.element_size(), grad.data_ptr(), part.data_ptr(), sums.data_ptr(), b, h, w,
+                  k, r, int(ignore_index is not None), int(ignore_index or 0), _build.stream_of(s))
     upsampled_cross_entropy.launches += 1
     return sums, grad
 
@@ -65,7 +71,7 @@ class _UpsampledCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         grad, denom = ctx.saved_tensors
-        d = (grad * (g.float() / denom)).permute(0, 3, 1, 2).to(ctx.dtype)
+        d = (grad * (g.float() / denom)).to(ctx.dtype)
         return d, None, None, None
 
 

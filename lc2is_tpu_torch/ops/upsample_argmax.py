@@ -12,10 +12,12 @@ points:
   half alone, from a (B, K, h, w) score map.
 
 Both return int32 (B, r·h, r·w).  On a CUDA tensor each launches
-``csrc/upsample_argmax.cu``; on a CPU tensor each runs its plain version.
-The arithmetic is the TPU kernels': the H blend first, then the W blend, in
-f32 with the phase weights of ``lc2is_tpu/ops/upsample.py:30-39``; edge rows
-and columns clamp; ties go to the lowest class.  Forward only, like argmax.
+``csrc/upsample_argmax.cu`` (bf16 tokens: the score product on the tensor
+cores; f32 tokens: the f32 CUDA-core body); on a CPU tensor each runs its
+plain version.  The arithmetic is the TPU kernels': the H blend first, then
+the W blend, in f32 with the phase weights of
+``lc2is_tpu/ops/upsample.py:30-39``; edge rows and columns clamp; ties go to
+the lowest class.  Forward only, like argmax.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 from lc2is_tpu_torch.ops import _build
 from lc2is_tpu_torch.ops.dispatch import use_kernel
 
-MAX_CLASSES = 256  # csrc/upsample_argmax.cu keeps a tile's K x 180 scores in shared memory
+MAX_CLASSES = 256  # csrc/upsample_argmax.cu keeps a tile's scores in shared memory
 
 
 def l2_normalize(x: torch.Tensor, dim: int, eps: float = 1e-12) -> torch.Tensor:
@@ -96,6 +98,13 @@ def upsample_argmax_plain(score_map, r=4):
     return _masks_plain(score_map, r)
 
 
+def _workspace(b, h, w, k, r, device):
+    """The f32 best values the kernel keeps between its class passes (more
+    than 160 classes), or None."""
+    n = _build.size("lc2_upsample_argmax_workspace", b, h, w, k, r)
+    return torch.empty(n, dtype=torch.float32, device=device) if n else None
+
+
 def _check_r(r):
     if int(r) != r or r < 1:
         raise ValueError(f"integer factor >= 1 expected, got {r}")
@@ -119,11 +128,12 @@ def score_upsample_argmax(v_tokens: torch.Tensor, t_norm: torch.Tensor, grid: in
         raise ValueError(f"score_upsample_argmax kernel takes 1 <= K <= {MAX_CLASSES} classes "
                          f"in the tokens' dtype, got K={k} {t_norm.dtype} / {v_tokens.dtype}")
     _build.check_operands(v_tokens.device, t_norm=(t_norm, (b, k, c)))
-    vc, tc = v_tokens.contiguous(), t_norm.contiguous()
+    vc, tc = _build.contiguous16(v_tokens), _build.contiguous16(t_norm)
     out = torch.empty((b, r * grid, r * grid), dtype=torch.int32, device=vc.device)
+    ws = _workspace(b, grid, grid, k, r, vc.device)
     _build.launch("lc2_score_upsample_argmax", vc.device, _build.dtype_code(vc), vc.data_ptr(),
-                  tc.data_ptr(), out.data_ptr(), b, grid, grid, c, k, r, float(eps),
-                  _build.stream_of(vc))
+                  tc.data_ptr(), out.data_ptr(), _build.ptr(ws), b, grid, grid, c, k, r,
+                  float(eps), _build.stream_of(vc))
     score_upsample_argmax.launches += 1
     return out
 
@@ -142,8 +152,9 @@ def upsample_argmax(score_map: torch.Tensor, r: int = 4) -> torch.Tensor:
         raise ValueError(f"upsample_argmax kernel takes 1 <= K <= {MAX_CLASSES}, got {k}")
     mc = score_map.contiguous()
     out = torch.empty((b, r * h, r * w), dtype=torch.int32, device=mc.device)
+    ws = _workspace(b, h, w, k, r, mc.device)
     _build.launch("lc2_upsample_argmax", mc.device, _build.dtype_code(mc), mc.data_ptr(),
-                  out.data_ptr(), b, k, h, w, r, _build.stream_of(mc))
+                  out.data_ptr(), _build.ptr(ws), b, k, h, w, r, _build.stream_of(mc))
     upsample_argmax.launches += 1
     return out
 

@@ -2,7 +2,11 @@
 """Time the port's block kernels at the main-path shapes on one NVIDIA GPU:
 the feed-forward (``fused_mlp``, TPU row 1) and the decoder attention
 forward (``fused_attn_block``, row 2) at the shapes of a batch-16 512²
-serving forward and of a batch-8 training step's forward, their int8 twins
+serving forward and of a batch-8 training step's forward, the served mask
+head (``score_upsample_argmax``, row 12) at a batch-16 forward's shape, the
+fused upsample cross-entropy (``upsampled_cross_entropy``, rows 13-14) at a
+batch-8 flagship step's two shapes (the call timed with the wrapper's
+copies, and with autograd's backward), their int8 twins
 (``fused_mlp_q``, row 17; ``fused_attn_block_q``, row 2q) at the shapes of a
 batch-16 int8 serving forward, beside ``torch._int_mm`` at the decoder's two
 int8 product shapes (a yardstick only, on no path), window attention
@@ -16,19 +20,21 @@ kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
 bias and region mask as its additive mask (``scaled_dot_product_attention``,
 a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,2q,3,6,7,8,17]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,2q,3,6,7,8,12,13,17]
 
 ROOT is a checkout of this repository (default: the one holding this
 script); only the sources of those kernels are built (``fused_mlp*.cu``,
 ``attention_block*.cu``, ``swin_window*.cu``, ``window_attention.cu``,
-``runtime.cu`` and the headers, into ``build/block_ab/`` of that checkout),
+``upsample_argmax.cu``, ``fused_ce.cu``, ``runtime.cu`` and the headers,
+into ``build/block_ab/`` of that checkout),
 so two versions compare on one card by running the script on each in
 turns, e.g. parent, change, change, parent.  ``--rows`` picks the rows
 timed (all by default; rows 9 and 10 come with 6 and 7).  Each bf16 case is
 also held against its plain version: rows 3 and 7 by their worst
 ‖Δ‖/‖plain‖ over their gradients (autograd through the plain version), rows
 1, 2, 6 and 8 by their largest |Δ|, rows 2q and 17 by their largest |Δ| over
-max |plain|.  The workspace bytes of rows 1, 2, 2q, 3, 7 and 17 are printed
+max |plain|, row 12 by the pixels whose mask differs, row 13 by its loss's
+relative error and its gradient's ‖Δ‖/‖plain‖.  The workspace bytes of rows 1, 2, 2q, 3, 7 and 17 are printed
 at their largest main-path shape.  Fails without a CUDA device.
 """
 
@@ -125,21 +131,25 @@ def load_port(root: Path):
               + list(_build.CSRC.glob("fused_mlp*.cu"))
               + list(_build.CSRC.glob("attention_block*.cu"))
               + list(_build.CSRC.glob("swin_window*.cu"))
-              + [_build.CSRC / "window_attention.cu"]):
+              + [_build.CSRC / "window_attention.cu", _build.CSRC / "upsample_argmax.cu",
+                 _build.CSRC / "fused_ce.cu"]):
         shutil.copy(p, src / p.name)
     _build.CSRC = src
     _build.BUILD_DIR = src.parent / "lib"
-    keep = ("lc2_fused_mlp", "lc2_attn_block", "lc2_swin_window", "lc2_window_attention")
+    keep = ("lc2_fused_mlp", "lc2_attn_block", "lc2_swin_window", "lc2_window_attention",
+            "lc2_score_upsample_argmax", "lc2_upsample_argmax", "lc2_fused_ce")
     _build.SIGNATURES = {k: v for k, v in _build.SIGNATURES.items() if k.startswith(keep)}
     _build.SIZE_SIGNATURES = {k: v for k, v in _build.SIZE_SIGNATURES.items()
                               if k.startswith(keep)}
     _build.library()
     from lc2is_tpu_torch.ops import attention_block as ab
+    from lc2is_tpu_torch.ops import fused_ce as ce
     from lc2is_tpu_torch.ops import fused_mlp as mlp
     from lc2is_tpu_torch.ops import quant
     from lc2is_tpu_torch.ops import swin_window as sw
+    from lc2is_tpu_torch.ops import upsample_argmax as ua
     from lc2is_tpu_torch.ops import window_attention as wa
-    return _build, ab, mlp, quant, sw, wa
+    return _build, ab, mlp, quant, sw, wa, ua, ce
 
 
 def rand(rs, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
@@ -170,7 +180,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--rows", default="1,2,2q,3,6,7,8,17")
+    ap.add_argument("--rows", default="1,2,2q,3,6,7,8,12,13,17")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
@@ -179,7 +189,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = Path(args.root).resolve()
     tag = args.tag or root.name
-    build, ab, mlp, quant, sw, wa = load_port(root)
+    build, ab, mlp, quant, sw, wa, ua, ce = load_port(root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[{tag}] {root} on {smi}", flush=True)
@@ -436,6 +446,53 @@ def main() -> int:
                     report(row + " SDPA", label, dt, ms, n, ops, sdpa)
                     del mask
             del q, k, v, split
+            torch.cuda.empty_cache()
+    # row 12: the served mask head at a batch-16 512² forward's shape (decoder
+    # tokens (16, 128², 512), 151 classes, x4), bf16 and the f32 body (control)
+    for dt in (torch.bfloat16, torch.float32) if "12" in rows else ():
+        g = 128
+        v = rand(rs, 16, g * g, 512, dtype=dt)
+        tn = ua.l2_normalize(rand(rs, 16, 151, 512, dtype=dt), 2)
+        fn = lambda v=v, tn=tn: ua.score_upsample_argmax(v, tn, g, 4)
+        with torch.no_grad():
+            ms = time_ms(fn, reps=20)
+            n = int((fn() != ua.score_upsample_argmax_plain(v, tn, g, 4)).sum())
+        report("12", f"(16,{g}²,512) K151 x4", dt, ms, 1, 2 * 16 * g * g * 151 * 512, fn,
+               f" {n} of {16 * 16 * g * g} mask pixels differ from the plain version",
+               split=True)
+        del v, tn
+        torch.cuda.empty_cache()
+
+    # row 13 (one kernel for rows 13 and 14): the fused CE at a batch-8
+    # flagship step's two launches, (8, 151, 128²) x4 and (8, 151, 32²) x16
+    # over (8, 512²) int64 labels: the call as the step makes it
+    # (fused_ce_fwd, the wrapper's copies included), and forward + backward
+    # through autograd (the backward's scale, permute and cast included)
+    for dt in (torch.bfloat16, torch.float32) if "13" in rows else ():
+        for h, r in ((128, 4), (32, 16)):
+            x = rand(rs, 8, 151, h, h, dtype=dt)
+            y = torch.from_numpy(rs.randint(0, 151, size=(8, 512, 512))).cuda()
+            fwd = lambda x=x, y=y, r=r: ce.fused_ce_fwd(x, y, r)
+            xk = x.clone().requires_grad_()
+
+            def both(xk=xk, y=y, r=r):
+                with torch.enable_grad():
+                    return torch.autograd.grad(ce.upsampled_cross_entropy(xk, y, r), [xk])
+
+            with torch.no_grad():
+                ms = time_ms(fwd, reps=20)
+            ms_both = time_ms(both, reps=20)
+            xp = x.clone().requires_grad_()
+            lp = ce.upsampled_cross_entropy_plain(xp, y, r)
+            (gp,) = torch.autograd.grad(lp, [xp])
+            lk = ce.upsampled_cross_entropy(xk, y, r)
+            (gk,) = torch.autograd.grad(lk, [xk])
+            note = (f" loss rel {abs(lk.item() - lp.item()) / abs(lp.item()):.2e} grad rel "
+                    f"{((gk.float() - gp.float()).norm() / gp.float().norm()).item():.2e}")
+            ops = 8 * 151 * 512 * 512 * 8  # per hi-res pixel and class, ~8 (blend, exp, sum)
+            report("13", f"(8,151,{h},{h}) r{r} call", dt, ms, 1, ops, fwd, note, split=True)
+            report("13 fwd+bwd", f"(8,151,{h},{h}) r{r}", dt, ms_both, 1, ops, both, split=True)
+            del x, y, xk, xp, gp, gk
             torch.cuda.empty_cache()
     for (row, dt), (ms, dev) in sorted(total.items()):
         dev_txt = "not measured" if dev is None else f"{dev:.3f} ms"

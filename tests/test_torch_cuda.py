@@ -347,7 +347,8 @@ def test_score_upsample_argmax_kernel(cuda, dtype, b, grid, k, c, r):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape,r", [((2, 151, 12, 20), 4), ((1, 5, 7, 9), 3), ((1, 256, 8, 8), 4)])
+@pytest.mark.parametrize("shape,r", [((2, 151, 12, 20), 4), ((1, 5, 7, 9), 3), ((1, 256, 8, 8), 4),
+                                     ((1, 170, 17, 33), 2)])
 def test_upsample_argmax_kernel(cuda, dtype, shape, r):
     x = _rand(np.random.RandomState(12), *shape, dtype=dtype)
     before = upsample_argmax.launches
@@ -356,6 +357,45 @@ def test_upsample_argmax_kernel(cuda, dtype, shape, r):
     # both sides blend the same values in f32
     _check_masks(upsample_argmax, got, upsample_argmax_plain(x, r), upsample_blend_plain(x, r),
                  torch.float32)
+
+
+@pytest.mark.parametrize("b,grid,k,c,r", [
+    (1, 17, 151, 512, 4),  # one past the 16 x 16 tile
+    (2, 33, 256, 512, 4),  # K over two class passes, two tiles past a multiple
+    (1, 16, 161, 96, 4),   # one class into the second pass
+    (1, 7, 20, 64, 16),    # r 16: 16 output pixels a unit
+    (1, 12, 9, 520, 2),    # C not a multiple of the 32-channel slice
+])
+def test_score_upsample_argmax_bf16_tile_edges(cuda, b, grid, k, c, r):
+    """The bf16 body (the score product on the tensor cores, 16 x 16 tiles,
+    160 classes a pass) at tile, class-pass and channel-slice edges."""
+    rs = np.random.RandomState(31)
+    v = _rand(rs, b, grid * grid, c, dtype=torch.bfloat16)
+    tn = l2_normalize(_rand(rs, b, k, c, dtype=torch.bfloat16), 2)
+    got = score_upsample_argmax(v, tn, grid, r)
+    _check_masks(score_upsample_argmax, got, score_upsample_argmax_plain(v, tn, grid, r),
+                 upsample_blend_plain(score_map_plain(v, tn, grid), r), torch.bfloat16)
+
+
+@pytest.mark.parametrize("c", [512, 768])
+def test_score_upsample_argmax_f32_control_beside_bf16(cuda, c):
+    """The f32 body (the control: the CUDA-core product) and the bf16 body
+    on the same tokens: each equal to its plain version but near-ties, and
+    the two equal to each other but near-ties of the bf16 bound.  C 768 is
+    past the bf16 body's shared memory and runs the tile body in bf16."""
+    rs = np.random.RandomState(32)
+    grid, k = 20, 151
+    v = _rand(rs, 2, grid * grid, c)
+    tn = l2_normalize(_rand(rs, 2, k, c), 2)
+    masks = {}
+    for dt in DTYPES:
+        vd, td = v.to(dt), tn.to(dt)
+        masks[dt] = score_upsample_argmax(vd, td, grid, 4)
+        _check_masks(score_upsample_argmax, masks[dt], score_upsample_argmax_plain(vd, td, grid, 4),
+                     upsample_blend_plain(score_map_plain(vd, td, grid), 4), dt)
+    _check_masks(score_upsample_argmax, masks[torch.bfloat16], masks[torch.float32],
+                 upsample_blend_plain(score_map_plain(v.to(torch.bfloat16), tn.to(torch.bfloat16),
+                                                      grid), 4), torch.bfloat16)
 
 
 def _check_int8(fn, kernel_fn, plain_fn, *args, **kw):
@@ -696,6 +736,71 @@ def test_upsampled_cross_entropy_kernel(cuda, dtype, b, k, h, w, r, ign):
     assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item()) + 1e-6
     rel = ((gk.float() - gp.float()).norm() / gp.float().norm().clamp_min(1e-30)).item()
     assert gk.dtype == dtype and rel <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,k,h,w,r,ign", [
+    (1, 151, 9, 17, 4, 255),   # one past the 8 x 16 tile (bf16; f32 8 x 8)
+    (1, 151, 32, 32, 16, None),  # r 16 at h 32: 3 x 8 tiles, the last row of tiles ragged
+    (1, 40, 4, 9, 16, 0),      # one past the 3 x 8 tile
+    (2, 256, 6, 20, 4, None),  # K 256
+    (1, 7, 5, 3, 3, 1),        # odd r and w (bf16 copies element by element)
+    (1, 9, 4, 6, 6, None),     # r 6: three units in an edge column pair (the gather's loop)
+])
+def test_upsampled_cross_entropy_kernel_tile_edges(cuda, dtype, b, k, h, w, r, ign):
+    """The tiled kernel at tile edges, against autograd through its plain
+    version (loss 1e-5 relative, gradient GRAD_TOL), int64 labels."""
+    rs = np.random.RandomState(33)
+    x = _rand(rs, b, k, h, w, dtype=dtype)
+    y = torch.from_numpy(rs.randint(-1, k + 2, size=(b, r * h, r * w))).to(cuda)
+    if ign is not None:
+        y[torch.from_numpy(rs.rand(b, r * h, r * w) < 0.2).to(cuda)] = ign
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    lk = upsampled_cross_entropy(xk, y, r, ignore_index=ign)
+    (gk,) = torch.autograd.grad(lk, [xk])
+    lp = upsampled_cross_entropy_plain(xp, y, r, ignore_index=ign)
+    (gp,) = torch.autograd.grad(lp, [xp])
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item()) + 1e-6
+    rel = ((gk.float() - gp.float()).norm() / gp.float().norm().clamp_min(1e-30)).item()
+    assert gk.dtype == dtype and rel <= GRAD_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_upsampled_cross_entropy_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same sums and gradient bit
+    for bit: every low-res cell's gradient is gathered by one thread in a
+    fixed order, and the loss partials are reduced in a fixed order."""
+    from lc2is_tpu_torch.ops.fused_ce import fused_ce_fwd
+
+    rs = np.random.RandomState(34)
+    x = _rand(rs, 2, 151, 19, 23, dtype=dtype)
+    y = torch.from_numpy(rs.randint(0, 151, size=(2, 76, 92))).to(cuda)
+    first, second = fused_ce_fwd(x, y, 4, 0), fused_ce_fwd(x, y, 4, 0)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert first[1].shape == (2, 151, 19, 23)
+
+
+@pytest.mark.parametrize("lab_dtype", [torch.int64, torch.int32])
+def test_upsampled_cross_entropy_reads_labels_as_given(cuda, monkeypatch, lab_dtype):
+    """int64 and int32 labels go to the kernel as they are (no cast, no
+    copy: the pointer handed over is the labels' own, with their element
+    size), and the map in its (B, K, h, w) layout; the loss equals the same
+    labels cast to the other type."""
+    from lc2is_tpu_torch.ops import _build, fused_ce
+
+    rs = np.random.RandomState(35)
+    x = _rand(rs, 1, 19, 9, 17, dtype=torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, 19, size=(1, 36, 68))).to(cuda, lab_dtype)
+    seen = []
+    launch = _build.launch
+    monkeypatch.setattr(_build, "launch", lambda name, dev, *a: seen.append(a) or launch(
+        name, dev, *a))
+    loss = fused_ce.upsampled_cross_entropy(x, y, 4)
+    (args,) = seen
+    assert args[1] == x.data_ptr() and args[2] == y.data_ptr()
+    assert args[3] == y.element_size()
+    other = y.to(torch.int32 if lab_dtype == torch.int64 else torch.int64)
+    assert torch.equal(loss, fused_ce.upsampled_cross_entropy(x, other, 4))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
