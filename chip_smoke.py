@@ -17,7 +17,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
    near-ties, on at most 1e-4 of the pixels; int8: relative to the largest
-   reference value), the kernel's
+   reference value; the upsample: bf16 equal on >= 99.99 % of the elements
+   and within one bf16 step elsewhere, f32 within 1e-6 of max |plain|, its
+   GB/s and share of the memory rate printed), the kernel's
    time beside the plain version's and, where one PyTorch call computes the
    same function, that call's (CUDA events, median of 20 after warm-up), and
    the least time the card could take (bytes at 3.35 TB/s against operations
@@ -35,7 +37,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
-   against the stated bound, and the kernel's time beside the plain
+   against the stated bound (the upsample adjoint, reached through autograd,
+   against its own plain version by phase 3's upsample rule, with autograd
+   through the plain forward, which rounds in the old order, as a bf16
+   control that must fail; its GB/s printed), and the kernel's time beside the plain
    backward's (CUDA events, median of 5 after warm-up; fused_attn_block_bwd
    and swin_window_block_bwd also their TFLOP/s over three times their
    forward's products; the fused CE its exponentials a second (two per
@@ -222,6 +227,14 @@ TRAIN_BATCH = 8
 TRAIN_LR = 1e-5
 # backward kernel against autograd through its plain version: ‖Δ‖ / ‖ref‖
 GRAD_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the upsample kernels (rows 4 and 5) against their plain versions, which
+# round where the reference rounds and sum in the kernels' order: bf16 equal
+# on at least UPSAMPLE_BF16_EQUAL of the elements and within one bf16 step on
+# the rest; f32 within UPSAMPLE_F32_REL of max |plain|.  The adjoint rounded
+# in the old order (each column's H-adjoint first, as autograd through the
+# plain forward rounds) is the control that must fail in bf16.
+UPSAMPLE_BF16_EQUAL = 0.9999
+UPSAMPLE_F32_REL = 1e-6
 # the f32 step on the card against the CPU: losses (relative), gradients
 # (norm-relative, per parameter), parameters after AdamW (absolute, where
 # |g| >= max(1e-3 · max |g|, 1e-6): below, Adam's first update
@@ -510,7 +523,7 @@ def kernel_cases(rs, dt):
         case("upsample_tokens", f"({b},{grid}²,{c}) x2", n,
              lambda x_=x, g_=grid: upsample_tokens(x_, (g_, g_), 2),
              lambda x_=x, g_=grid: upsample_tokens_plain(x_, (g_, g_), 2),
-             upsample_work(b, grid, grid, c, 2, dt),
+             upsample_work(b, grid, grid, c, 2, dt), check="bits",
              library=lambda x_=x, g_=grid, c_=c: F.interpolate(
                  x_.view(b, g_, g_, c_).permute(0, 3, 1, 2), scale_factor=2, mode="bilinear"))
     # the served head at the stage-1 grid: decoder tokens (B, 128², 512), 151 classes
@@ -612,6 +625,38 @@ def near_tie_bound(dt, scores):
     return 2 * 2.0 ** (math.floor(math.log2(scores.abs().max().item())) - 7)
 
 
+def bf16_steps(a, b):
+    """bf16 steps between the elements of a and b (0: the same value)."""
+    def key(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v >= 0, v, -(v & 0x7FFF))
+    return (key(a) - key(b)).abs()
+
+
+def upsample_bits(got, want):
+    """(ok, max |Δ|, message) of an upsample kernel's output against its
+    plain version's by the UPSAMPLE_* rule."""
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        steps = bf16_steps(got, want)
+        equal = int((steps == 0).sum()) / steps.numel()
+        most = int(steps.max())
+        ok = most <= 1 and equal >= UPSAMPLE_BF16_EQUAL
+        msg = (f"{equal:.6f} of the elements equal (>= {UPSAMPLE_BF16_EQUAL}), at most "
+               f"{most} bf16 steps apart (<= 1)")
+    else:
+        lim = UPSAMPLE_F32_REL * want.float().abs().max().item()
+        ok = d.max().item() <= lim
+        msg = f"max |Δ| {d.max().item():.3e} (<= {UPSAMPLE_F32_REL}·max|plain| = {lim:.3e})"
+    return ok and bool(torch.isfinite(got).all()), d.max().item(), msg
+
+
+def memory_rate(nbytes, ms):
+    """" (x GB/s, y % of 3.35 TB/s)" of a bytes-bound call."""
+    return (f" ({nbytes / ms / 1e6:.1f} GB/s, {100 * nbytes * 1e3 / ms / HBM_BYTES_PER_S:.1f} % "
+            f"of {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+
 def compare(c, got, want, dt):
     """(ok, error, message) of a kernel's output against its plain version's."""
     if c["check"] == "flash":  # NaN rows equal exactly, the rest to a share of the max
@@ -636,6 +681,8 @@ def compare(c, got, want, dt):
         return ok, worst, (f"{n} of {differ.numel()} pixels differ (at most "
                            f"{MASK_DIFFER_SHARE} of them), largest top-2 gap there {worst:.3e} "
                            f"(near-tie bound {tie:.3e})")
+    if c["check"] == "bits":
+        return upsample_bits(got, want)
     d = (got.float() - want.float()).abs()
     ref = want.float().abs()
     if c["check"] == "int8":
@@ -681,6 +728,8 @@ def run_case(c, dt, stats):
         mm = sum(n for k_, n in c["work"][1].items() if k_ != "f32")
         lib += (f" (product {mm / k_ms / 1e9:.1f} TFLOP/s, argmax "
                 f"{c['pairs'] / k_ms / 1e6:.1f} G pairs/s over the kernel's time)")
+    elif c["name"] == "upsample_tokens":  # bytes-bound: its memory rate
+        lib += memory_rate(c["work"][0], k_ms)
     elif c["name"] == "window_attention":  # bytes-bound: its memory rate and SDPA ratio
         lib += (f" ({c['work'][0] / k_ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}, "
                 f"{k_ms / lib_ms:.2f}x SDPA)")
@@ -836,10 +885,12 @@ def check_window_attention(smi):
 def backward_cases(rs, dt):
     """(kernel name, shape label, launches per training step, kernel call,
     (kernel-path fn, plain fn, args, g) for the gradient check, work (bytes,
-    ops), the one PyTorch call of the same function or None) at every shape
-    of the 512² / batch-8 training step.  The plain time is autograd's
-    backward through the plain version; for the fused CE, whose one kernel
-    computes the loss and the gradient, it is the plain forward + backward.
+    ops), the one PyTorch call of the same function or None, the plain
+    adjoint or None) at every shape of the 512² / batch-8 training step.  The
+    plain time is autograd's backward through the plain version; for the
+    fused CE, whose one kernel computes the loss and the gradient, it is the
+    plain forward + backward; for the upsample adjoint, which has a plain
+    version of its own, that version's.
     A backward's work: its inputs and gradients once, and three times its
     forward's products (the recompute, and two products per forward product)."""
     from lc2is_tpu_torch.ops.attention_block import (fold_q_scale as fold_q, fused_attn_block,
@@ -849,6 +900,7 @@ def backward_cases(rs, dt):
     from lc2is_tpu_torch.ops.swin_window import (fold_q_scale, swin_window_block,
                                                  swin_window_block_bwd, swin_window_block_plain)
     from lc2is_tpu_torch.ops.upsample import (upsample_tokens, upsample_tokens_adjoint,
+                                              upsample_tokens_adjoint_plain,
                                               upsample_tokens_plain)
 
     b = TRAIN_BATCH
@@ -885,7 +937,7 @@ def backward_cases(rs, dt):
                     (lambda *a, k=kw: swin_window_block(*a, **k),
                      lambda *a, k=kw: swin_window_block_plain(*a, **k), args, gr),
                     (3 * nbytes // 2 + 4 * 4 * c * c, {k_: 3 * v_ for k_, v_ in ops.items()}),
-                    None))
+                    None, None))
     for p, l_sr, n in [(256, 64, 1), (1024, 256, 2), (4096, 1024, 3)]:
         x = rand(rs, b, p, 512, dtype=dt)
         gr = rand(rs, b, p, 512, dtype=dt)
@@ -900,7 +952,8 @@ def backward_cases(rs, dt):
                                                                 *a[5:], 8),
                 (lambda *a: fused_attn_block(*a, 8), lambda *a: fused_attn_block_plain(*a, 8),
                  args, gr),
-                (2 * nbytes + 4 * 512 * 512 * 4, {k_: 3 * v_ for k_, v_ in ops.items()}), None))
+                (2 * nbytes + 4 * 512 * 512 * 4, {k_: 3 * v_ for k_, v_ in ops.items()}), None,
+                None))
     for grid, c, n in [(16, 768, 1), (32, 384, 1), (16, 512, 1), (32, 512, 2), (64, 512, 1)]:
         x = rand(rs, b, grid * grid, c, dtype=dt)
         gr = rand(rs, b, 4 * grid * grid, c, dtype=dt)
@@ -912,7 +965,8 @@ def backward_cases(rs, dt):
             upsample_work(b, grid, grid, c, 2, dt),
             lambda g_=gr, h=grid, c_=c: torch.ops.aten.upsample_bilinear2d_backward(
                 g_.view(b, 2 * h, 2 * h, c_).permute(0, 3, 1, 2), [2 * h, 2 * h], [b, c_, h, h],
-                False, None, None)))
+                False, None, None),
+            lambda g_=gr, h=grid: upsample_tokens_adjoint_plain(g_, (h, h), 2)))
     for h, r in [(g, 4), (g // 4, 16)]:
         x = rand(rs, b, N_CLASSES, h, h, dtype=dt)
         y = seeded_labels(SEED + r, b, IMG, IMG)
@@ -925,7 +979,7 @@ def backward_cases(rs, dt):
             # and class a blend, an exp and a sum (about 8 operations, 2 of
             # them exponentials: the softmax's, and the gradient's recomputed)
             (2 * x.numel() * dt.itemsize + 8 * y.numel(), {"f32": 8 * N_CLASSES * y.numel()}),
-            None))
+            None, None))
     return cases
 
 
@@ -1053,13 +1107,19 @@ def check_backward_kernels():
         print(f"\n[backward] {dt}: bound ‖kernel - plain‖ / ‖plain‖ <= {bound} over every "
               f"gradient", flush=True)
         rs = np.random.RandomState(SEED + 3)
-        for name, label, count, kern, (kfn, pfn, args, g), work, library in backward_cases(rs, dt):
+        for (name, label, count, kern, (kfn, pfn, args, g), work, library,
+             adjoint_plain) in backward_cases(rs, dt):
             ka = [a.detach().clone().requires_grad_() for a in args]
             pa = [a.detach().clone().requires_grad_() for a in args]
             got = torch.autograd.grad(kfn(*ka), ka, g)
             torch.cuda.synchronize()
             out_p = pfn(*pa)
             want = torch.autograd.grad(out_p, pa, g, retain_graph=True)
+            if adjoint_plain is not None:
+                # the upsample adjoint: held to its own plain version by the
+                # bit rule; autograd through the plain forward (the old
+                # rounding order) is the control
+                control, want = want, (adjoint_plain(),)
             rel = max(((a.float() - b_.float()).norm() / b_.float().norm().clamp_min(1e-30)).item()
                       for a, b_ in zip(got, want))
             mx = max((a.float() - b_.float()).abs().max().item() for a, b_ in zip(got, want))
@@ -1069,10 +1129,15 @@ def check_backward_kernels():
                            reps=5, warmup=1)
             if name == "upsampled_cross_entropy":  # one kernel for loss and gradient
                 p_ms = time_ms(lambda: torch.autograd.grad(pfn(*pa), pa), reps=5, warmup=1)
+            if adjoint_plain is not None:
+                p_ms = time_ms(adjoint_plain, reps=5, warmup=1)
             lib_ms = time_ms(library, reps=5, warmup=1) if library else None
             b_ms, by = least_time(*work)
             ok = rel <= bound and finite
             lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
+            if adjoint_plain is not None:
+                ok, _, msg = upsample_bits(got[0], want[0])
+                lib += f"{memory_rate(work[0], k_ms)}; {msg}"
             if name in ("fused_attn_block_bwd", "swin_window_block_bwd"):
                 lib += f" ({rate_of(work, k_ms)})"
             if name == "upsampled_cross_entropy":  # its exponentials and f32 operations a second
@@ -1085,6 +1150,13 @@ def check_backward_kernels():
             if not ok:
                 raise AssertionError(f"{name} {label} {dt}: backward kernel disagrees with "
                                      f"autograd through its plain version (rel {rel:.3e})")
+            if adjoint_plain is not None and dt == torch.bfloat16:
+                c_ok, _, c_msg = upsample_bits(control[0], want[0])
+                print(f"    control, the adjoint rounded in the old order (autograd through "
+                      f"the plain forward): {c_msg}: "
+                      f"{'passes' if c_ok else 'fails, as it must'}", flush=True)
+                if c_ok:
+                    raise AssertionError(f"{name} {label}: the bit rule passes its control")
             st = stats.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                              library_ms=None, by={}))
             st["max_abs_err"] = max(st["max_abs_err"], mx)
@@ -1096,6 +1168,7 @@ def check_backward_kernels():
                 if lib_ms is not None:
                     st["library_ms"] = (st["library_ms"] or 0.0) + count * lib_ms
             del got, want, out_p, ka, pa
+            control = None
         torch.cuda.empty_cache()
     check_flash_backward(stats)
     return stats

@@ -10,10 +10,14 @@ CPU tensor it runs :func:`upsample_tokens_plain`.
 Both blend along W first, round the widened rows to the element type, then
 blend along H, as the TPU kernel does.
 
-Training: on a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
-whose backward is :func:`upsample_tokens_adjoint` (``csrc/upsample.cu``, the
-port of ``upsample.py::_adj_kernel`` :186); on a CPU tensor autograd runs
-through the plain version.
+The backward is the op's adjoint, rounded where the reference's backward
+rounds (``_adj_kernel`` :186-229 at r = 2, XLA's VJP of ``_xla_reference``
+otherwise): each output-gradient row's W-adjoint summed in f32 and rounded
+to the element type, then the H-adjoint of those rows in f32, rounded once
+(:func:`upsample_tokens_adjoint_plain`).  :func:`upsample_tokens` runs inside
+a ``torch.autograd.Function`` on either device: on a CUDA tensor its forward
+and backward launch ``csrc/upsample.cu``, on a CPU tensor they are the two
+plain versions.
 """
 
 from __future__ import annotations
@@ -50,14 +54,57 @@ def upsample_tokens_plain(x: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
     return out.to(x.dtype).reshape(b, h * r * w * r, c)
 
 
+def _adjoint_taps(n: int, r: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pos, wgt), each (n, 2r): for input i of an axis, the outputs
+    o = r·i − r//2 + k (k ascending, clamped into range) whose blends can
+    read i, and the weight of i in each (0 where o is out of range).  A
+    clamped edge tap is folded onto the edge input, as the transposed resize
+    matrix holds it: the weights of o's two taps are summed where both are i."""
+    x0, x1, fx = _taps(n, r, device)
+    m = torch.zeros(n * r, n, dtype=torch.float32, device=device)
+    o = torch.arange(n * r, device=device)
+    m.index_put_((o, x0), 1.0 - fx, accumulate=True)
+    m.index_put_((o, x1), fx, accumulate=True)
+    i = torch.arange(n, device=device)[:, None]
+    pos = r * i - r // 2 + torch.arange(2 * r, device=device)[None]
+    valid = (pos >= 0) & (pos < n * r)
+    pos = pos.clamp(0, n * r - 1)
+    return pos, torch.where(valid, m[pos, i], 0.0)
+
+
+def _adjoint_sum(t: torch.Tensor, dim: int, n: int, r: int) -> torch.Tensor:
+    """The adjoint of one axis's blend: Σ_k wgt[i, k] · t[pos[i, k]] along
+    ``dim`` (r·n -> n), in f32, left to right in k."""
+    pos, wgt = _adjoint_taps(n, r, t.device)
+    shape = [1] * t.dim()
+    shape[dim] = n
+    acc = None
+    for k in range(2 * r):
+        term = wgt[:, k].view(shape) * t.index_select(dim, pos[:, k]).float()
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def upsample_tokens_adjoint_plain(g: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`upsample_tokens_adjoint` (any device):
+    the W-adjoint of each output-gradient row, rounded to the element type,
+    then the H-adjoint of those rows, rounded once."""
+    b, p_out, c = g.shape
+    h, w = grid_hw
+    narrow = _adjoint_sum(g.reshape(b, h * r, w * r, c), 2, w, r).to(g.dtype)
+    return _adjoint_sum(narrow, 1, h, r).to(g.dtype).reshape(b, h * w, c)
+
+
 def upsample_tokens_adjoint(g: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
     """The backward of :func:`upsample_tokens`: (B, rH·rW, C) output gradient
-    -> (B, H·W, C) input gradient, ``grid_hw`` the INPUT grid.  CUDA tensors
-    only (``csrc/upsample.cu``)."""
+    -> (B, H·W, C) input gradient, ``grid_hw`` the INPUT grid.  A CUDA tensor
+    launches ``csrc/upsample.cu``; a CPU tensor takes the plain version."""
     b, p_out, c = g.shape
     h, w = grid_hw
     if p_out != h * r * w * r:
         raise ValueError(f"{p_out} output tokens do not match grid {grid_hw} x {r}")
+    if not use_kernel(g):
+        return upsample_tokens_adjoint_plain(g, grid_hw, r)
     gc = g.contiguous()
     dx = torch.empty((b, h * w, c), dtype=g.dtype, device=g.device)
     _build.launch("lc2_upsample_adjoint", gc.device, _build.dtype_code(gc), gc.data_ptr(),
@@ -81,12 +128,15 @@ def _launch_fwd(x: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
 
 
 class _UpsampleTokens(torch.autograd.Function):
-    """The kernel forward with :func:`upsample_tokens_adjoint` as its backward."""
+    """The forward (the kernel on a CUDA tensor, else the plain version) with
+    :func:`upsample_tokens_adjoint` as its backward."""
 
     @staticmethod
     def forward(ctx, x, grid_hw, r):
         ctx.cfg = (tuple(grid_hw), r)
-        return _launch_fwd(x, grid_hw, r)
+        if use_kernel(x):
+            return _launch_fwd(x, grid_hw, r)
+        return upsample_tokens_plain(x, grid_hw, r)
 
     @staticmethod
     def backward(ctx, g):
@@ -102,8 +152,6 @@ def upsample_tokens(x: torch.Tensor, grid_hw, r: int) -> torch.Tensor:
     h, w = grid_hw
     if h * w != p:
         raise ValueError(f"grid {grid_hw} does not match {p} tokens")
-    if not use_kernel(x):
-        return upsample_tokens_plain(x, (h, w), r)
     return _UpsampleTokens.apply(x, (h, w), r)
 
 

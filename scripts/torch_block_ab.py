@@ -13,19 +13,24 @@ int8 product shapes (a yardstick only, on no path), window attention
 (``window_attention``, row 8), the swin window block's backward
 (``swin_window_block_bwd``, rows 7 and 10), the decoder attention backward
 (``fused_attn_block_bwd``, row 3) and the swin window block
-(``swin_window_block``, rows 6 and 9), with the f32 bodies as controls:
+(``swin_window_block``, rows 6 and 9), the decoder's x2 upsample
+(``upsample_tokens``, row 4) at its six launches of a batch-16 serving
+forward and a batch-8 step's forward, and its adjoint
+(``upsample_tokens_adjoint``, row 5) at a batch-8 step's six, beside
+``F.interpolate`` and ``aten::upsample_bilinear2d_backward`` (yardsticks
+only), with the f32 bodies as controls:
 CUDA-event medians of a call, and the device time of its kernels
 (torch.profiler; the event time also holds the wrapper's host work when the
 kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
 bias and region mask as its additive mask (``scaled_dot_product_attention``,
 a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,2q,3,6,7,8,12,13,17]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,2q,3,4,5,6,7,8,12,13,17]
 
 ROOT is a checkout of this repository (default: the one holding this
 script); only the sources of those kernels are built (``fused_mlp*.cu``,
 ``attention_block*.cu``, ``swin_window*.cu``, ``window_attention.cu``,
-``upsample_argmax.cu``, ``fused_ce.cu``, ``runtime.cu`` and the headers,
+``upsample_argmax.cu``, ``fused_ce.cu``, ``upsample.cu``, ``runtime.cu`` and the headers,
 into ``build/block_ab/`` of that checkout),
 so two versions compare on one card by running the script on each in
 turns, e.g. parent, change, change, parent.  ``--rows`` picks the rows
@@ -34,7 +39,11 @@ also held against its plain version: rows 3 and 7 by their worst
 ‖Δ‖/‖plain‖ over their gradients (autograd through the plain version), rows
 1, 2, 6 and 8 by their largest |Δ|, rows 2q and 17 by their largest |Δ| over
 max |plain|, row 12 by the pixels whose mask differs, row 13 by its loss's
-relative error and its gradient's ‖Δ‖/‖plain‖.  The workspace bytes of rows 1, 2, 2q, 3, 7 and 17 are printed
+relative error and its gradient's ‖Δ‖/‖plain‖, rows 4 and 5 by the share
+of bf16 elements equal to their plain version's and the most bf16 steps
+apart (row 5 against ``upsample_tokens_adjoint_plain``, or, in a checkout
+without it, autograd through the plain forward), with their GB/s on the
+device.  The workspace bytes of rows 1, 2, 2q, 3, 7 and 17 are printed
 at their largest main-path shape.  Fails without a CUDA device.
 """
 
@@ -76,6 +85,10 @@ SWIN_STAGES = [(128, 96, 3, 1), (64, 192, 6, 1), (32, 384, 12, 9), (16, 768, 24,
 # (HF-padded grid, C, heads, blocks a shift), windows of 7 x 7; the 22
 # blocks of stages 1-3 are summed, stage 4 apart
 WINDOW_STAGES = [(133, 96, 3, 1), (70, 192, 6, 1), (35, 384, 12, 9), (21, 768, 24, 1)]
+# rows 4 and 5: the decoder's x2 upsamples of a 512² forward (grid², C,
+# launches a forward or a step)
+UPSAMPLE_SHAPES = [(16, 768, 1), (32, 384, 1), (16, 512, 1), (32, 512, 2), (64, 512, 1)]
+HBM_BYTES_PER_S = 3.35e12
 
 
 def time_ms(fn, reps=10, warmup=2):
@@ -132,12 +145,12 @@ def load_port(root: Path):
               + list(_build.CSRC.glob("attention_block*.cu"))
               + list(_build.CSRC.glob("swin_window*.cu"))
               + [_build.CSRC / "window_attention.cu", _build.CSRC / "upsample_argmax.cu",
-                 _build.CSRC / "fused_ce.cu"]):
+                 _build.CSRC / "fused_ce.cu", _build.CSRC / "upsample.cu"]):
         shutil.copy(p, src / p.name)
     _build.CSRC = src
     _build.BUILD_DIR = src.parent / "lib"
     keep = ("lc2_fused_mlp", "lc2_attn_block", "lc2_swin_window", "lc2_window_attention",
-            "lc2_score_upsample_argmax", "lc2_upsample_argmax", "lc2_fused_ce")
+            "lc2_score_upsample_argmax", "lc2_upsample", "lc2_fused_ce")
     _build.SIGNATURES = {k: v for k, v in _build.SIGNATURES.items() if k.startswith(keep)}
     _build.SIZE_SIGNATURES = {k: v for k, v in _build.SIZE_SIGNATURES.items()
                               if k.startswith(keep)}
@@ -147,9 +160,10 @@ def load_port(root: Path):
     from lc2is_tpu_torch.ops import fused_mlp as mlp
     from lc2is_tpu_torch.ops import quant
     from lc2is_tpu_torch.ops import swin_window as sw
+    from lc2is_tpu_torch.ops import upsample as up
     from lc2is_tpu_torch.ops import upsample_argmax as ua
     from lc2is_tpu_torch.ops import window_attention as wa
-    return _build, ab, mlp, quant, sw, wa, ua, ce
+    return _build, ab, mlp, quant, sw, wa, ua, ce, up
 
 
 def rand(rs, *shape, scale=1.0, offset=0.0, dtype=torch.float32):
@@ -180,7 +194,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--rows", default="1,2,2q,3,6,7,8,12,13,17")
+    ap.add_argument("--rows", default="1,2,2q,3,4,5,6,7,8,12,13,17")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
@@ -189,7 +203,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     root = Path(args.root).resolve()
     tag = args.tag or root.name
-    build, ab, mlp, quant, sw, wa, ua, ce = load_port(root)
+    build, ab, mlp, quant, sw, wa, ua, ce, up = load_port(root)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"[{tag}] {root} on {smi}", flush=True)
@@ -216,9 +230,10 @@ def main() -> int:
     rs = np.random.RandomState(0)
     total = {}
 
-    def report(row, label, dt, ms, count, ops, fn, note="", split=False):
+    def report(row, label, dt, ms, count, ops, fn, note="", split=False, nbytes=None):
         """Print a case (``split``: and its device time by kernel) and add
-        it, times its launches, to its row's totals."""
+        it, times its launches, to its row's totals; ``nbytes``: a
+        bytes-bound case, its rate on the device in GB/s."""
         key = (row, str(dt).split(".")[-1])
         with torch.no_grad():
             dev, by_name = device_ms(fn)
@@ -227,7 +242,10 @@ def main() -> int:
         # None ("not measured"), not short
         total[key] = (ev + count * ms, None if dev is None or dv is None else dv + count * dev)
         dev_txt = ("device not measured" if dev is None else
-                   f"device {dev:7.3f} x{count} ({ops / dev / 1e9:6.1f} TFLOP/s on the device)")
+                   f"device {dev:7.3f} x{count} ({ops / dev / 1e9:6.1f} TFLOP/s on the device)"
+                   if nbytes is None else
+                   f"device {dev:7.3f} x{count} ({nbytes / dev / 1e6:7.1f} GB/s on the device, "
+                   f"{100 * nbytes * 1e3 / dev / HBM_BYTES_PER_S:5.1f} % of 3.35 TB/s)")
         print(f"[{tag}] row {row:2s} {key[1]:8s} {label:34s} {ms:8.3f} ms, {dev_txt}{note}",
               flush=True)
         if split and by_name:
@@ -493,6 +511,65 @@ def main() -> int:
             report("13", f"(8,151,{h},{h}) r{r} call", dt, ms, 1, ops, fwd, note, split=True)
             report("13 fwd+bwd", f"(8,151,{h},{h}) r{r}", dt, ms_both, 1, ops, both, split=True)
             del x, y, xk, xp, gp, gk
+            torch.cuda.empty_cache()
+    # rows 4 and 5: the x2 upsample at the six launches of a batch-16
+    # serving forward and of a batch-8 step's forward (bf16; f32 at 64²,
+    # a control), beside F.interpolate on the channels-last view; its adjoint
+    # at a batch-8 step's six, beside aten's upsample_bilinear2d_backward
+    def bits(got, want):
+        """The share of bf16 elements equal and the most bf16 steps apart."""
+        def key(t):
+            v = t.contiguous().view(torch.int16).int()
+            return torch.where(v >= 0, v, -(v & 0x7FFF))
+        steps = (key(got) - key(want)).abs()
+        return (f" {int((steps == 0).sum()) / steps.numel():.6f} equal, at most "
+                f"{int(steps.max())} bf16 steps apart")
+
+    adjoint_plain = getattr(up, "upsample_tokens_adjoint_plain", None)
+    for dt in (torch.bfloat16, torch.float32) if rows & {"4", "5"} else ():
+        for b in (16, 8):
+            for grid, c, n in UPSAMPLE_SHAPES:
+                if dt == torch.float32 and (b, grid) != (8, 64):
+                    continue
+                x = rand(rs, b, grid * grid, c, dtype=dt)
+                nbytes = 5 * x.numel() * x.element_size()
+                label = f"({b},{grid}²,{c}) x2"
+                fwd = lambda x=x, grid=grid: up.upsample_tokens(x, (grid, grid), 2)
+                if "4" in rows:
+                    with torch.no_grad():
+                        ms = time_ms(fwd, reps=20)
+                        note = (bits(fwd(), up.upsample_tokens_plain(x, (grid, grid), 2))
+                                if dt == torch.bfloat16 else "")
+                    row = "4" if b == 16 else "4 step"
+                    report(row, label, dt, ms, n, 0, fwd, note, nbytes=nbytes)
+                    interp = lambda x=x, grid=grid, c=c, b=b: F.interpolate(
+                        x.view(b, grid, grid, c).permute(0, 3, 1, 2), scale_factor=2,
+                        mode="bilinear")
+                    with torch.no_grad():
+                        ms = time_ms(interp, reps=20)
+                    report(row + " interpolate", label, dt, ms, n, 0, interp, nbytes=nbytes)
+                if "5" not in rows or b != 8:
+                    continue
+                g = rand(rs, b, 4 * grid * grid, c, dtype=dt)
+                adj = lambda g=g, grid=grid: up.upsample_tokens_adjoint(g, (grid, grid), 2)
+                ms = time_ms(adj, reps=20)
+                note = ""
+                if dt == torch.bfloat16:
+                    if adjoint_plain is not None:
+                        want = adjoint_plain(g, (grid, grid), 2)
+                    else:
+                        xp = x.clone().requires_grad_()
+                        (want,) = torch.autograd.grad(
+                            up.upsample_tokens_plain(xp, (grid, grid), 2), xp, g)
+                    note = bits(adj(), want) + (
+                        "" if adjoint_plain is not None else " (autograd through the plain forward)")
+                    del want
+                report("5", label, dt, ms, n, 0, adj, note, nbytes=nbytes)
+                aten = lambda g=g, grid=grid, c=c, b=b: torch.ops.aten.upsample_bilinear2d_backward(
+                    g.view(b, 2 * grid, 2 * grid, c).permute(0, 3, 1, 2), [2 * grid, 2 * grid],
+                    [b, c, grid, grid], False, None, None)
+                ms = time_ms(aten, reps=20)
+                report("5 aten", label, dt, ms, n, 0, aten, nbytes=nbytes)
             torch.cuda.empty_cache()
     for (row, dt), (ms, dev) in sorted(total.items()):
         dev_txt = "not measured" if dev is None else f"{dev:.3f} ms"

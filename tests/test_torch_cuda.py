@@ -22,6 +22,10 @@ side rounds its scores to bf16, two bf16 steps at the largest score (a score
 differs by at most one step, and the blend is convex).
 Int8 kernels: |Δ| <= 1e-3 · max |ref| (f32), 2e-2 · max |ref| (bf16): a code
 that rounds the other way moves an output by one step of its scale.
+The upsample kernels and their adjoint, against the plain forward and the
+plain adjoint (which round where the reference rounds and sum in the
+kernels' order): bf16 equal on >= 99.99 % of the elements and within one
+bf16 step on the rest, f32 within 1e-6 of max |plain|.
 """
 
 import numpy as np
@@ -44,7 +48,7 @@ from lc2is_tpu_torch.ops.upsample_argmax import (l2_normalize, score_map_plain,
                                                  score_upsample_argmax_plain, upsample_argmax,
                                                  upsample_argmax_plain, upsample_blend_plain)
 from lc2is_tpu_torch.ops.upsample import (upsample_tokens, upsample_tokens_adjoint,
-                                          upsample_tokens_plain)
+                                          upsample_tokens_adjoint_plain, upsample_tokens_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +56,11 @@ TOL = {torch.float32: dict(atol=2e-4, rtol=2e-4), torch.bfloat16: dict(atol=5e-2
 INT8_REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 DTYPES = [torch.float32, torch.bfloat16]
+# the upsample kernels (rows 4 and 5) repeat their plain versions' operations
+# in the same order: bf16 equal but for at most 1e-4 of the elements, those
+# within one bf16 step; f32 within 1e-6 of max |plain|
+UPSAMPLE_BF16_EQUAL = 0.9999
+UPSAMPLE_F32_REL = 1e-6
 # attention outputs are averages of v, far below 1 over many keys (about 0.05
 # over 1025 unit-normal keys), so TOL's bf16 atol would pass a kernel that
 # dropped a key tile: bf16 flash is held to a share of the largest output
@@ -269,12 +278,77 @@ def test_fused_mlp_bf16_training_upre(cuda, n_tok, c, f, act, pos):
     torch.testing.assert_close(out.float(), plain.float(), **TOL[dt])
 
 
+def _bf16_steps(a, b):
+    """bf16 steps between the elements of a and b (0: the same value)."""
+    def key(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v >= 0, v, -(v & 0x7FFF))
+    return (key(a) - key(b)).abs()
+
+
+def _check_bits(got, want):
+    """The upsample kernels against their plain versions: bf16 equal on at
+    least UPSAMPLE_BF16_EQUAL of the elements and within one bf16 step on the
+    rest; f32 within UPSAMPLE_F32_REL of max |plain|."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    if got.dtype == torch.bfloat16:
+        steps = _bf16_steps(got, want)
+        assert int(steps.max()) <= 1
+        assert int((steps == 0).sum()) >= UPSAMPLE_BF16_EQUAL * steps.numel()
+    else:
+        lim = UPSAMPLE_F32_REL * want.abs().max().item()
+        assert (got - want).abs().max().item() <= lim
+
+
+def _check_upsample(x, hw, r):
+    """The forward kernel (one launch) against upsample_tokens_plain."""
+    before = upsample_tokens.launches
+    with torch.no_grad():
+        got = upsample_tokens(x, hw, r)
+    torch.cuda.synchronize()
+    assert upsample_tokens.launches == before + 1
+    _check_bits(got, upsample_tokens_plain(x, hw, r))
+
+
+# (grid, C, r): odd grids and one-row / one-column grids; bands of 1-16
+# rows with a ragged last band (17, 33 and 40 rows); lanes of 16 bytes
+# (C 8, 24, 512), 8 (C 12, bf16), 4 (C 3, f32; C 6, bf16) and 2 (C 3, bf16)
+UPSAMPLE_CASES = [((5, 7), 24, 2), ((5, 7), 24, 4), ((1, 3), 8, 2), ((9, 9), 512, 2),
+                  ((17, 9), 24, 2), ((33, 5), 12, 2), ((40, 2), 512, 2), ((16, 16), 3, 2),
+                  ((7, 1), 6, 2), ((64, 3), 8, 2), ((6, 11), 3, 4), ((3, 3), 512, 3)]
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hw,c,r", [((5, 7), 24, 2), ((5, 7), 24, 4), ((1, 3), 8, 2),
-                                    ((9, 9), 512, 2)])
+@pytest.mark.parametrize("hw,c,r", UPSAMPLE_CASES)
 def test_upsample_tokens_kernel(cuda, dtype, hw, c, r):
     x = _rand(np.random.RandomState(2), 2, hw[0] * hw[1], c, dtype=dtype)
-    _check(upsample_tokens, upsample_tokens, upsample_tokens_plain, x, hw, r)
+    _check_upsample(x, hw, r)
+
+
+# the decoder's six x2 upsamples of a 512² forward (grid², C), at batch 2
+UPSAMPLE_MAIN_PATH = [(16, 768), (32, 384), (16, 512), (32, 512), (64, 512)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grid,c", UPSAMPLE_MAIN_PATH)
+def test_upsample_tokens_kernel_main_path_shapes(cuda, dtype, grid, c):
+    rs = np.random.RandomState(grid + c)
+    _check_upsample(_rand(rs, 2, grid * grid, c, dtype=dtype), (grid, grid), 2)
+    g = _rand(rs, 2, 4 * grid * grid, c, dtype=dtype)
+    _check_adjoint(g, (grid, grid), 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_upsample_tokens_kernel_unaligned_views(cuda, dtype):
+    """Views starting one element into their storage: 2-byte lanes (bf16) or
+    4-byte lanes (f32) at C 512, forward and adjoint."""
+    rs = np.random.RandomState(3)
+    x = _rand(rs, 2 * 9 * 9 * 512 + 1, dtype=dtype)[1:].view(2, 81, 512)
+    g = _rand(rs, 2 * 4 * 81 * 512 + 1, dtype=dtype)[1:].view(2, 324, 512)
+    assert x.data_ptr() % 4 != 0 or dtype == torch.float32
+    _check_upsample(x, (9, 9), 2)
+    _check_adjoint(g, (9, 9), 2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -698,15 +772,51 @@ def test_fused_attn_block_bwd_kernel_one_key(cuda, dtype, p, c, heads):
             assert rel <= GRAD_TOL[dtype], (i, rel)
 
 
+def _check_adjoint(g, hw, r):
+    """The adjoint kernel (one launch) against upsample_tokens_adjoint_plain."""
+    before = upsample_tokens_adjoint.launches
+    got = upsample_tokens_adjoint(g, hw, r)
+    torch.cuda.synchronize()
+    assert upsample_tokens_adjoint.launches == before + 1
+    _check_bits(got, upsample_tokens_adjoint_plain(g, hw, r))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("hw,c,r", [((5, 7), 24, 2), ((5, 7), 24, 4), ((1, 3), 8, 2),
-                                    ((9, 9), 512, 2)])
+@pytest.mark.parametrize("hw,c,r", UPSAMPLE_CASES)
 def test_upsample_tokens_adjoint_kernel(cuda, dtype, hw, c, r):
+    """The adjoint kernel as autograd reaches it (the backward of the
+    kernel forward) and as called, against the plain adjoint."""
     rs = np.random.RandomState(7)
-    x = _rand(rs, 2, hw[0] * hw[1], c, dtype=dtype)
+    x = _rand(rs, 2, hw[0] * hw[1], c, dtype=dtype).requires_grad_()
     g = _rand(rs, 2, hw[0] * hw[1] * r * r, c, dtype=dtype)
-    _check_grads(upsample_tokens_adjoint, lambda a: upsample_tokens(a, hw, r),
-                 lambda a: upsample_tokens_plain(a, hw, r), [x], g)
+    before = upsample_tokens_adjoint.launches
+    (got,) = torch.autograd.grad(upsample_tokens(x, hw, r), x, g)
+    torch.cuda.synchronize()
+    assert upsample_tokens_adjoint.launches == before + 1
+    _check_bits(got, upsample_tokens_adjoint_plain(g, hw, r))
+    _check_adjoint(g, hw, r)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_upsample_tokens_adjoint_is_deterministic(cuda, dtype):
+    """No atomics: two runs of the adjoint give the same bits."""
+    g = _rand(np.random.RandomState(9), 2, 4 * 32 * 32, 512, dtype=dtype)
+    a, b = upsample_tokens_adjoint(g, (32, 32), 2), upsample_tokens_adjoint(g, (32, 32), 2)
+    assert torch.equal(a.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       b.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+
+
+def test_upsample_tokens_adjoint_h_first_control_fails(cuda):
+    """The old rounding order (autograd through the plain forward rounds each
+    column's H-adjoint first) fails the bf16 check the kernel passes."""
+    rs = np.random.RandomState(10)
+    x = _rand(rs, 2, 32 * 32, 512, dtype=torch.bfloat16).requires_grad_()
+    g = _rand(rs, 2, 4 * 32 * 32, 512, dtype=torch.bfloat16)
+    (old,) = torch.autograd.grad(upsample_tokens_plain(x, (32, 32), 2), x, g)
+    with pytest.raises(AssertionError):
+        _check_bits(upsample_tokens_adjoint_plain(g, (32, 32), 2), old)
+    _check_bits(upsample_tokens_adjoint(g, (32, 32), 2),
+                upsample_tokens_adjoint_plain(g, (32, 32), 2))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

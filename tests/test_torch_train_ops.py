@@ -9,7 +9,7 @@ Stated tolerances, each from the JAX test that pins the same gradient:
 - attention block: rtol 2e-4, atol 2e-4 · max(1, max |ref|) (the weight
   gradients are sums over all queries; tests/test_attention_block.py:52 uses
   2e-3 at L = 4096, and these shapes pass at the tighter swin bound);
-- upsample: rtol = atol = 1e-5 (tests/test_upsample_kernel.py:127);
+- upsample: rtol = atol = 1e-5 (tests/test_upsample_kernel.py:127); bf16 bit for bit;
 - fused_mlp: rtol 2e-4, atol 2e-4 · max(1, max |ref|) (the MLP of
   tests/test_fused_mlp.py at the swin bound);
 - fused CE: loss rtol = atol = 1e-5, gradient rtol 1e-4, atol 1e-6
@@ -124,15 +124,28 @@ def test_fused_attn_block_grad(p, l, c, heads):
     _close_scaled(got, want, ["x", "k", "v", "wq", "bq", "wo", "bo", "ln_w", "ln_b"])
 
 
-@pytest.mark.parametrize("hw", [(8, 8), (16, 4)])
-def test_upsample_tokens_grad(hw):
-    """r = 2: the JAX VJP runs the Pallas ``_adj_kernel``."""
+@pytest.mark.parametrize("hw,dtype", [
+    pytest.param((8, 8), "float32", id="hw0"), pytest.param((16, 4), "float32", id="hw1"),
+    pytest.param((8, 8), "bfloat16", id="bf16-hw0"),
+    pytest.param((5, 7), "bfloat16", id="bf16-5x7")])
+def test_upsample_tokens_grad(hw, dtype):
+    """r = 2: the JAX VJP runs the Pallas ``_adj_kernel``.  bf16: equal bit
+    for bit (the port's backward rounds where ``_adj_kernel`` rounds: each
+    row's W-adjoint, then the H-adjoint)."""
     rs = np.random.RandomState(hw[1])
     x = rs.randn(2, hw[0] * hw[1], 24).astype(np.float32)
     g = rs.randn(2, 4 * hw[0] * hw[1], 24).astype(np.float32)
-    (want,) = _grads_jax(lambda a: jax_upsample_tokens(a, hw, 2, interpret=True), [x], g)
-    (got,) = _grads_port(lambda a: upsample_tokens(a, hw, 2), [x], g)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    if dtype == "float32":
+        (want,) = _grads_jax(lambda a: jax_upsample_tokens(a, hw, 2, interpret=True), [x], g)
+        (got,) = _grads_port(lambda a: upsample_tokens(a, hw, 2), [x], g)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        return
+    xj, gj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(g, jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a: jax_upsample_tokens(a, hw, 2, interpret=True), xj)
+    want = np.asarray(vjp(gj)[0].astype(jnp.float32))
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    (got,) = torch.autograd.grad(upsample_tokens(xt, hw, 2), xt, torch.from_numpy(g).bfloat16())
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 @pytest.mark.parametrize("activation,ln_position", [("gelu", "pre"), ("relu", "post"),
