@@ -21,7 +21,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and within one bf16 step elsewhere, f32 within 1e-6 of max |plain|, its
    GB/s and share of the memory rate printed), the kernel's
    time beside the plain version's and, where one PyTorch call computes the
-   same function, that call's (CUDA events, median of 20 after warm-up), and
+   same function, that call's (CUDA events, median of 20 after warm-up;
+   inputs drawn on the card from seeds of the numpy stream), and
    the least time the card could take (bytes at 3.35 TB/s against operations
    at the type's peak).  Flash attention (the v1 path) at the CLIP ViT-B/16
    and v1 decoder shapes, held to a share of its largest output, with
@@ -126,6 +127,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase 6a's gates; (b) bf16 batch 8, dropout 0, drop path 0.1: two
    warm-up steps, the launch counts of one step, six timed steps, a
    torch.profiler table of one more.
+12. the FTN family on swin-base (DenseCLIPFTN, PromptFTNv1, BaseFTN,
+   PromptFTNv2; decoder 512, 151 classes or class-name prompts), weights
+   from the numpy seed: (a) f32 batch 1, the card's score map (BaseFTN: its
+   logits) against the same model's plain run on the CPU under phase 4a's
+   gates (scaled by max |ref| where that exceeds 1); for DenseCLIPFTN also
+   the whole backbone with every stage run (C 1024 at stage 4), each hidden
+   state within 1e-3 of max |ref|; (b) bf16 batch 16: three batches answered
+   and timed, the launch counts of one forward asserted, the window blocks
+   of the stages the JAX package sends through fused_window_block (TPU row
+   9: swin-base stage 3, 18) counted per stage, held against f32 on the card
+   under phase 4b's gates; the whole backbone's counts (24 window blocks and
+   feed-forwards) and time; a torch.profiler table of one PromptFTNv2
+   forward.  Phase 3 holds every kernel at every shape of these forwards
+   (swin-base's window blocks at stages 1-4, stages 3-4 as
+   fused_window_block, its feed-forwards up to C 1024 F 4096, the FTN
+   decoders' attention halves up to 4096 queries over 4096 keys, the f32
+   prompt decoders over 256 keys of d_kv 1024 and over 16384 keys, the
+   upsample at C 1024), and sums its times, plain times and bounds per
+   forward of each FTN model, in the dtype that forward runs each shape in;
+   the launches so summed must equal phase 12's counts.
 
 Then a JSON line of the kernels (launches over one run of the path that
 uses each: the served-mask forward, the int8 forward, the training step, the
@@ -289,6 +310,10 @@ SOURCES = {
     "swin_window_block": ("lc2is_tpu_torch/csrc/swin_window.cu",
                           "lc2is_tpu/ops/swin_canvas.py:224; "
                           "lc2is_tpu/ops/window_attention.py:386"),
+    # the same kernel where the JAX package takes its windowed entry
+    # (fused_window_block :645, C > 384): swin-base stage 3 on the FTN path
+    "fused_window_block": ("lc2is_tpu_torch/csrc/swin_window.cu",
+                           "lc2is_tpu/ops/window_attention.py:386"),
     "swin_window_block_bwd": ("lc2is_tpu_torch/csrc/swin_window_bwd.cu",
                               "lc2is_tpu/ops/swin_canvas.py:530; "
                               "lc2is_tpu/ops/window_attention.py:701"),
@@ -328,8 +353,15 @@ def sh(cmd):
 
 
 def rand(rs, *shape, scale=1.0, offset=0.0, dtype=torch.float32, device="cuda"):
-    return torch.from_numpy((offset + scale * rs.standard_normal(shape)).astype(np.float32)
-                            ).to(device=device, dtype=dtype)
+    """Normal samples from the numpy stream ``rs``: on the CPU numpy's own
+    draws; on the card a torch generator's, seeded from ``rs`` (phase 3 alone
+    makes about 10⁹ input elements, which numpy would draw one by one on the
+    host)."""
+    if torch.device(device).type == "cpu":
+        return torch.from_numpy((offset + scale * rs.standard_normal(shape)).astype(np.float32)
+                                ).to(dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(int(rs.randint(2 ** 31 - 1)))
+    return (offset + scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
 
 
 def seeded_labels(seed, *shape, device="cuda"):
@@ -396,10 +428,14 @@ def attn_work(b, p, l, c, dt, quant=False):
 
 
 def swin_work(b, h, w, c, heads, dt, quant=False, win=7):
+    """The projections of the b·h·w real tokens only: an HF pad token's LN
+    output is zero, so its q, k and v are the biases, and its output is
+    cropped.  The attention products of the real queries over every key of
+    their (HF-padded) window."""
     e = dt.itemsize
-    tok = b * (-(-h // win) * win) * (-(-w // win) * win)  # HF-padded canvas
+    tok = b * h * w
     n = win * win
-    return (2 * b * h * w * c * e + 4 * c * c * (1 if quant else e) + 4 * heads * n * n,
+    return (2 * tok * c * e + 4 * c * c * (1 if quant else e) + 4 * heads * n * n,
             op_counts(("int8" if quant else mm_type(dt), 8 * tok * c * c),
                       (mm_type(dt), 4 * tok * n * c)))
 
@@ -428,6 +464,18 @@ def v1_prompts(n):
     return [f"a photo of a {name}." for name in names[:n]]
 
 
+# the FTN models by decoder (phase 12), for the launches of phase 3's cases
+# on each FTN forward: FTNDecoder, FTNDecoderV2
+FTN_DEC1 = ("DenseCLIPFTN", "PromptFTNv1")
+FTN_DEC2 = ("BaseFTN", "PromptFTNv2")
+FTN_ALL = FTN_DEC1 + FTN_DEC2
+
+
+def ftn_counts(n, models):
+    """{model: n} for ``models`` ({} where n is None)."""
+    return {} if n is None else {m: n for m in models}
+
+
 def kernel_cases(rs, dt):
     """Every main-path shape of the 512² / batch-16 forwards: dicts of kernel
     name, shape label, launches per forward, kernel call, plain call, check
@@ -454,14 +502,16 @@ def kernel_cases(rs, dt):
     cases = []
 
     def case(name, label, count, kern, plain, work, check="close", library=None, scores=None,
-             tie_dt=None, control=None, pairs=None):
+             tie_dt=None, control=None, pairs=None, ftn=None, ftn_dt=torch.bfloat16):
         """``count``: launches per forward of the path the kernel's JSON row
         reports (0: one call, on no path; None: checked and timed, not
         summed); ``control``: (what, a wrong call) that must fail the same
-        check; ``pairs``: a mask kernel's (output pixel, class) pairs."""
+        check; ``pairs``: a mask kernel's (output pixel, class) pairs;
+        ``ftn``: {FTN model: launches per bf16 batch-16 forward}, summed from
+        the ``ftn_dt`` pass (the dtype that forward runs the shape in)."""
         cases.append(dict(name=name, label=label, count=count, kern=kern, plain=plain, work=work,
                           check=check, library=library, scores=scores, tie_dt=tie_dt,
-                          control=control, pairs=pairs))
+                          control=control, pairs=pairs, ftn=ftn or None, ftn_dt=ftn_dt))
 
     def w(o, i):
         return rand(rs, o, i, scale=i ** -0.5)
@@ -498,9 +548,39 @@ def kernel_cases(rs, dt):
                  lambda a=margs, k=kern: k(*a, activation="gelu", ln_position="pre"),
                  lambda a=margs, p_=plain: p_(*a, activation="gelu", ln_position="pre"),
                  mlp_work(b * grid * grid, c, 4 * c, dt, q), check="int8" if q else "close")
-    # decoder: (tokens per image, SR keys, layers at that size)
+    # swin-base, stages 1-3 in all four FTN models (phase 12; ``ftn``:
+    # launches per forward of each): stages 1-2 through the canvas entry (row
+    # 6), stage 3 through the windowed one the JAX package takes at C > 384
+    # (row 9), reported as fused_window_block, 9 blocks a shift a DenseCLIPFTN
+    # forward; stage 4 (C 1024, the bf16 body's split plan) and its
+    # feed-forward, which no model runs (phase 12 drives them through the
+    # whole backbone): checked and timed, not summed
+    for s, (grid, c, heads, n) in enumerate([(g, 128, 4, 1), (g // 2, 256, 8, 1),
+                                             (g // 4, 512, 16, 9), (g // 8, 1024, 32, None)]):
+        name = "fused_window_block" if c > 384 else "swin_window_block"
+        x = rand(rs, b, grid, grid, c, dtype=dt)
+        args = (x, vec(c, 1.0), vec(c), w(3 * c, c), vec(3 * c), w(c, c), vec(c),
+                rand(rs, heads, 49, 49, scale=0.1))
+        for shift in (0, 3):
+            case(name, f"swin-base{s + 1} ({b},{grid},{grid},{c}) h{heads} shift{shift}",
+                 n if name == "fused_window_block" else None,
+                 lambda a=args, h=heads, sh_=shift: swin_window_block(*a, h, 7, sh_),
+                 lambda a=args, h=heads, sh_=shift: swin_window_block_plain(*a, h, 7, sh_),
+                 swin_work(b, grid, grid, c, heads, dt), ftn=ftn_counts(n, FTN_ALL))
+        xt = rand(rs, b * grid * grid, c, dtype=dt)
+        margs = (xt, vec(c, 1.0), vec(c), w(4 * c, c), vec(4 * c), w(c, 4 * c), vec(c))
+        case("fused_mlp", f"swin-base{s + 1} ({b * grid * grid},{c}) gelu pre", None,
+             lambda a=margs: fused_mlp(*a, activation="gelu", ln_position="pre"),
+             lambda a=margs: fused_mlp_plain(*a, activation="gelu", ln_position="pre"),
+             mlp_work(b * grid * grid, c, 4 * c, dt),
+             ftn=ftn_counts(None if n is None else 2 * n, FTN_ALL))
+    # decoder: (tokens per image, SR keys, layers at that size); the FTN
+    # decoders have as many layers at each size, FTNDecoder's with the same
+    # two attention halves, FTNDecoderV2's with the SR keys once (its
+    # RepeatTransformers' other halves follow)
+    xs = {}
     for p, l_sr, n in [(256, 64, 1), (1024, 256, 2), (4096, 1024, 3)]:
-        x = rand(rs, b, p, 512, dtype=dt)
+        x = xs[p] = rand(rs, b, p, 512, dtype=dt)
         margs = (x.reshape(-1, 512), vec(512, 1.0), vec(512), w(2048, 512), vec(2048),
                  w(512, 2048), vec(512))
         for name, kern, plain, q in [("fused_mlp", fused_mlp, fused_mlp_plain, False),
@@ -508,24 +588,68 @@ def kernel_cases(rs, dt):
             case(name, f"decoder ({b * p},512) relu post", n,
                  lambda a=margs, k=kern: k(*a, activation="relu", ln_position="post"),
                  lambda a=margs, p_=plain: p_(*a, activation="relu", ln_position="post"),
-                 mlp_work(b * p, 512, 2048, dt, q), check="int8" if q else "close")
+                 mlp_work(b * p, 512, 2048, dt, q), check="int8" if q else "close",
+                 ftn=None if q else ftn_counts(n, FTN_ALL))
         for l, kind in [(l_sr, "SR self"), (N_CLASSES, "cross")]:
             aargs = (x, rand(rs, b, l, 512, dtype=dt), rand(rs, b, l, 512, dtype=dt),
                      w(512, 512), vec(512), w(512, 512), vec(512), vec(512, 1.0), vec(512))
+            on_ftn = dict(ftn_counts(n, FTN_DEC1), **(ftn_counts(1, FTN_DEC2) if l == l_sr
+                                                       else {}))
             for name, kern, plain, q in [
                     ("fused_attn_block", fused_attn_block, fused_attn_block_plain, False),
                     ("fused_attn_block_q", fused_attn_block_q, fused_attn_block_q_plain, True)]:
                 case(name, f"{kind} ({b},{p},512) L{l} h8", n,
                      lambda a=aargs, k=kern: k(*a, 8), lambda a=aargs, p_=plain: p_(*a, 8),
-                     attn_work(b, p, l, 512, dt, q), check="int8" if q else "close")
-    for grid, c, n in [(16, 768, 1), (32, 384, 1), (16, 512, 1), (32, 512, 2), (64, 512, 1)]:
+                     attn_work(b, p, l, 512, dt, q), check="int8" if q else "close",
+                     ftn=None if q else on_ftn)
+    # FTNDecoderV2's other attention halves: each RepeatTransformer layer's
+    # self-attention over its own tokens and its cross-attention over the
+    # stream's fixed SR memory, (tokens, keys, launches a forward); checked
+    # and timed, not summed
+    for p, l, n in [(4096, 4096, 3), (4096, 256, 1), (4096, 64, 1), (1024, 1024, 2),
+                    (1024, 64, 1), (256, 256, 1)]:
+        kv = xs[p] if l == p else None
+        aargs = (xs[p], rand(rs, b, l, 512, dtype=dt) if kv is None else kv,
+                 rand(rs, b, l, 512, dtype=dt) if kv is None else kv,
+                 w(512, 512), vec(512), w(512, 512), vec(512), vec(512, 1.0), vec(512))
+        case("fused_attn_block", f"{'self' if kv is not None else 'cross'} ({b},{p},512) L{l} h8",
+             None, lambda a=aargs: fused_attn_block(*a, 8),
+             lambda a=aargs: fused_attn_block_plain(*a, 8), attn_work(b, p, l, 512, dt),
+             ftn=ftn_counts(n, FTN_DEC2))
+    # the prompt decoders of PromptFTNv1 / v2 (8 post-norm layers each), f32
+    # on the bf16 path (JAX's promotion with the f32 text tower): 151 prompts
+    # over swin-base's last level, 16² tokens of C 1024 whose K / V are
+    # projected to 512 outside the kernel (d_kv 1024), and over the 128²
+    # decoded map; their self-attention and feed-forward follow with
+    # DenseClip's.  Checked and timed, not summed
+    x = rand(rs, b, N_CLASSES, 512, dtype=dt)
+    mem = rand(rs, b, (g // 8) ** 2, 1024, dtype=dt)
+    wk, wv = w(512, 1024), w(512, 1024)
+    aargs = (x, F.linear(mem, wk.to(dt)), F.linear(mem, wv.to(dt)),
+             w(512, 512), vec(512), w(512, 512), vec(512), vec(512, 1.0), vec(512))
+    case("fused_attn_block", f"prompt d_kv 1024 ({b},{N_CLASSES},512) L{(g // 8) ** 2} h8", None,
+         lambda a=aargs: fused_attn_block(*a, 8), lambda a=aargs: fused_attn_block_plain(*a, 8),
+         attn_work(b, N_CLASSES, (g // 8) ** 2, 512, dt), ftn={"PromptFTNv1": 8},
+         ftn_dt=torch.float32)
+    aargs = (x, rand(rs, b, g * g, 512, dtype=dt), rand(rs, b, g * g, 512, dtype=dt),
+             w(512, 512), vec(512), w(512, 512), vec(512), vec(512, 1.0), vec(512))
+    case("fused_attn_block", f"prompt ({b},{N_CLASSES},512) L{g * g} h8", None,
+         lambda a=aargs: fused_attn_block(*a, 8), lambda a=aargs: fused_attn_block_plain(*a, 8),
+         attn_work(b, N_CLASSES, g * g, 512, dt), ftn={"PromptFTNv2": 8}, ftn_dt=torch.float32)
+    # ×2 upsamples: (grid, C, launches a flagship forward, an FTNDecoder
+    # forward, an FTNDecoderV2 forward); the last, (16, 1024), the FTN
+    # decoders' first top-down ×2
+    for grid, c, n, n1, n2 in [(16, 768, 1, None, None), (32, 384, 1, None, None),
+                               (16, 512, 1, 1, 1), (32, 512, 2, 3, 3), (64, 512, 1, 1, 3),
+                               (16, 1024, None, 1, 1)]:
         x = rand(rs, b, grid * grid, c, dtype=dt)
         case("upsample_tokens", f"({b},{grid}²,{c}) x2", n,
              lambda x_=x, g_=grid: upsample_tokens(x_, (g_, g_), 2),
              lambda x_=x, g_=grid: upsample_tokens_plain(x_, (g_, g_), 2),
              upsample_work(b, grid, grid, c, 2, dt), check="bits",
              library=lambda x_=x, g_=grid, c_=c: F.interpolate(
-                 x_.view(b, g_, g_, c_).permute(0, 3, 1, 2), scale_factor=2, mode="bilinear"))
+                 x_.view(b, g_, g_, c_).permute(0, 3, 1, 2), scale_factor=2, mode="bilinear"),
+             ftn=dict(ftn_counts(n1, FTN_DEC1), **ftn_counts(n2, FTN_DEC2)))
     # the served head at the stage-1 grid: decoder tokens (B, 128², 512), 151 classes
     v = rand(rs, b, g * g, 512, dtype=dt)
     tn = l2_normalize(rand(rs, b, N_CLASSES, 512, dtype=dt), 2)
@@ -586,21 +710,25 @@ def kernel_cases(rs, dt):
              control=("the kernel without its mask",
                       lambda a=fqkv: flash_attention(*a)) if control else None)
     # fused_mlp / fused_attn_block at the v1 decoders' shapes (f32 on the bf16
-    # path, by JAX's promotion): checked and timed, not summed
+    # path, by JAX's promotion), the prompt ones also the FTN prompt decoders':
+    # checked and timed, not summed
+    prompt_ftn = ftn_counts(8, ("PromptFTNv1", "PromptFTNv2"))
     for p, c, pos in [(1024, 768, "pre"), (1025, 768, "pre"), (N_CLASSES, 512, "post")]:
         margs = (rand(rs, b * p, c, dtype=dt), vec(c, 1.0), vec(c), w(2048, c), vec(2048),
                  w(c, 2048), vec(c))
         case("fused_mlp", f"v1 ({b * p},{c}) relu {pos}", None,
              lambda a=margs, ps=pos: fused_mlp(*a, activation="relu", ln_position=ps),
              lambda a=margs, ps=pos: fused_mlp_plain(*a, activation="relu", ln_position=ps),
-             mlp_work(b * p, c, 2048, dt))
+             mlp_work(b * p, c, 2048, dt), ftn=prompt_ftn if p == N_CLASSES else None,
+             ftn_dt=torch.float32)
     prompts = rand(rs, b, N_CLASSES, 512, dtype=dt)
     for l in (N_CLASSES, 1025):
         aargs = (prompts, rand(rs, b, l, 512, dtype=dt), rand(rs, b, l, 512, dtype=dt),
                  w(512, 512), vec(512), w(512, 512), vec(512), vec(512, 1.0), vec(512))
         case("fused_attn_block", f"DenseClip prompt ({b},{N_CLASSES},512) L{l} h8", None,
              lambda a=aargs: fused_attn_block(*a, 8), lambda a=aargs: fused_attn_block_plain(*a, 8),
-             attn_work(b, N_CLASSES, l, 512, dt))
+             attn_work(b, N_CLASSES, l, 512, dt), ftn=prompt_ftn if l == N_CLASSES else None,
+             ftn_dt=torch.float32)
     return cases
 
 
@@ -705,10 +833,12 @@ def compare(c, got, want, dt):
     return ok, d.max().item(), f"max {d.max().item():.3e} mean {d.mean().item():.3e} (<= {bound})"
 
 
-def run_case(c, dt, stats):
+def run_case(c, dt, stats, ftn_stats=None):
     """Check one kernel case against its plain version (and its control,
     which must fail), time it beside its plain version and one-call twin, and
-    add its bf16 numbers, times its launches, to ``stats``."""
+    add its bf16 numbers, times its launches, to ``stats`` (and, in its
+    ``ftn_dt`` pass, its numbers times its launches on each FTN forward to
+    ``ftn_stats``)."""
     with torch.no_grad():
         got = c["kern"]()
         torch.cuda.synchronize()
@@ -721,8 +851,8 @@ def run_case(c, dt, stats):
     lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
     if c["name"] == "flash_attention":  # its rate and its ratio to SDPA
         lib += f" ({rate_of(c['work'], k_ms)}, {k_ms / lib_ms:.2f}x SDPA)"
-    elif c["name"] in ("swin_window_block", "fused_mlp", "fused_attn_block", "fused_mlp_q",
-                       "fused_attn_block_q"):
+    elif c["name"] in ("swin_window_block", "fused_window_block", "fused_mlp",
+                       "fused_attn_block", "fused_mlp_q", "fused_attn_block_q"):
         lib += f" ({rate_of(c['work'], k_ms)})"
     elif c["name"] == "score_upsample_argmax":  # the product's rate, the argmax's pairs a second
         mm = sum(n for k_, n in c["work"][1].items() if k_ != "f32")
@@ -734,6 +864,9 @@ def run_case(c, dt, stats):
         lib += (f" ({c['work'][0] / k_ms / 1e6:.1f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}, "
                 f"{k_ms / lib_ms:.2f}x SDPA)")
     per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
+    on_ftn = c.get("ftn") if dt == c.get("ftn_dt") else None
+    if on_ftn:
+        per += "; FTN " + ", ".join(f"{m} x{n}" for m, n in on_ftn.items())
     print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
           f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -758,19 +891,59 @@ def run_case(c, dt, stats):
         s["by"][by] = s["by"].get(by, 0.0) + n * b_ms
         if lib_ms is not None:
             s["library_ms"] = (s["library_ms"] or 0.0) + n * lib_ms
+    for model, n in (on_ftn or {}).items() if ftn_stats is not None else ():
+        f = ftn_stats.setdefault(model, {}).setdefault(
+            c["name"], dict(launches=0, ms=0.0, plain_ms=0.0, bound_ms=0.0))
+        f["launches"] += n
+        f["ms"] += n * k_ms
+        f["plain_ms"] += n * p_ms
+        f["bound_ms"] += n * b_ms
     return k_ms, p_ms, lib_ms, b_ms
+
+
+def report_ftn_kernels(ftn_stats):
+    """Phase 3's times at the FTN paths' shapes, per bf16 batch-16 forward of
+    each FTN model (each shape in the dtype that forward runs it in); the
+    launches so summed must equal those phase 12 counts (row 9's blocks,
+    fused_window_block, among swin_window_block's)."""
+    print("\n[kernels] per bf16 b16 FTN forward, from the cases above (launches x ms at the "
+          "path's shapes and dtypes):", flush=True)
+    for model, (_, expected) in FTN_MODELS.items():
+        got = ftn_stats.get(model, {})
+        tot = [sum(f[k] for f in got.values()) for k in ("ms", "plain_ms", "bound_ms")]
+        print(f"  {model}: " + "; ".join(
+            f"{name} {f['launches']} kernel {f['ms']:.3f} plain {f['plain_ms']:.3f} bound "
+            f"{f['bound_ms']:.3f}" for name, f in got.items())
+            + f"; all kernel {tot[0]:.3f} ms plain {tot[1]:.3f} bound {tot[2]:.3f}", flush=True)
+        launches = {}
+        for name, f in got.items():
+            key = "swin_window_block" if name == "fused_window_block" else name
+            launches[key] = launches.get(key, 0) + f["launches"]
+        if launches != expected:
+            raise AssertionError(f"phase 3's shapes of {model} give launches {launches}, "
+                                 f"phase 12 counts {expected}")
 
 
 def check_kernels(smi):
     """Phase 3.  Returns per-kernel stats for the JSON line: bf16 times,
     bounds and one-call times summed per forward of the path using each."""
-    stats = {}
+    stats, ftn_stats = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         print(f"\n[kernels] {dt} on {smi}", flush=True)
         rs = np.random.RandomState(SEED)
-        for c in kernel_cases(rs, dt):
-            run_case(c, dt, stats)
+        t0 = time.time()
+        cases = kernel_cases(rs, dt)
+        walls = []
+        print(f"  ({len(cases)} cases, inputs made in {time.time() - t0:.1f} s)", flush=True)
+        for c in cases:
+            t0 = time.time()
+            run_case(c, dt, stats, ftn_stats)
+            walls.append((time.time() - t0, f"{c['name']} {c['label']}"))
+        del cases
         torch.cuda.empty_cache()
+        print(f"  {dt} cases: {sum(t for t, _ in walls):.1f} s; the slowest: "
+              + "; ".join(f"{what} {t:.1f} s" for t, what in sorted(walls)[::-1][:4]), flush=True)
+    report_ftn_kernels(ftn_stats)
     return stats
 
 
@@ -2109,6 +2282,182 @@ def mma_registers(log):
             "bf16 tensor-core bodies' kernels: no ptxas report (library found already built)")
 
 
+# the FTN family (phase 12): swin-base, decoder 512, 151 classes; per model,
+# whether it takes the v1 text inputs (151 class-name prompts), and its
+# launches over one bf16 batch-16 forward: the swin's 22 blocks of stages
+# 1-3 (hidden_states[:4]; stage 4 does not run) and their feed-forwards;
+# FTNDecoder: 6 SR decoder layers (two attention halves and a feed-forward
+# each) and 6 ×2 upsamples; FTNDecoderV2: the 6 decoder layers of its
+# RepeatTransformers and 8 ×2 upsamples; the prompt decoders of
+# PromptFTNv1 / v2: 8 post-norm layers.  The CLIP text towers' causal
+# attention takes the einsum path: no flash launch.
+FTN_MODELS = {
+    "DenseCLIPFTN": (False, {"swin_window_block": 22, "fused_mlp": 28, "fused_attn_block": 12,
+                             "upsample_tokens": 6}),
+    "PromptFTNv1": (True, {"swin_window_block": 22, "fused_mlp": 36, "fused_attn_block": 28,
+                           "upsample_tokens": 6}),
+    "BaseFTN": (False, {"swin_window_block": 22, "fused_mlp": 28, "fused_attn_block": 12,
+                        "upsample_tokens": 8}),
+    "PromptFTNv2": (True, {"swin_window_block": 22, "fused_mlp": 36, "fused_attn_block": 28,
+                           "upsample_tokens": 8}),
+}
+# the one FTN model whose forward phase 12 profiles: the slowest, its f32
+# prompt decoder over the 128² map (phase 3 sums every model's kernels)
+FTN_PROFILED = "PromptFTNv2"
+# of the 22 window blocks, those the JAX package sends through its windowed
+# kernel (row 9, fused_window_block; nn/swin.py's canvas gate: C > 384): the
+# 18 of swin-base stage 3 (C 512)
+FTN_ROW9_LAUNCHES = 18
+# the whole swin-base backbone, every stage run (SwinModel.forward with all
+# hidden states): 24 window blocks (stage 4's 2 at C 1024) and feed-forwards
+FTN_BACKBONE_LAUNCHES = {"swin_window_block": 24, "fused_mlp": 24}
+
+
+def ftn_gate(got, want, max_abs, mean_abs=None):
+    """(ok, message): |Δ| against max_abs (and its mean against mean_abs)
+    times max(1, max |ref|): phase 4a's / 4b's gates on the cosine score maps
+    (|ref| <= 1), scaled to BaseFTN's logits; the argmax over the classes."""
+    scale = max(1.0, want.abs().max().item())
+    d = (got.float() - want.float()).abs()
+    agree = (got.float().argmax(1) == want.float().argmax(1)).float().mean().item()
+    ok = d.max().item() <= max_abs * scale and bool(torch.isfinite(got).all())
+    msg = (f"max |Δ| {d.max().item():.3e} (bound {max_abs} x {scale:.3g}) mean "
+           f"{d.mean().item():.3e}")
+    if mean_abs is not None:
+        ok = ok and d.mean().item() <= mean_abs * scale
+        msg += f" (bound {mean_abs} x {scale:.3g})"
+    return ok, agree, f"{msg}, argmax agreement {agree:.5f}"
+
+
+def swin_of(model):
+    from lc2is_tpu_torch.nn.swin import SwinModel
+
+    return next(m for m in model.modules() if isinstance(m, SwinModel))
+
+
+def row9_launches(model):
+    """Hooks on the model's swin stages: {stage: window-block launches in its
+    last call}, for the stages whose blocks the JAX package sends through its
+    windowed kernel (not takes_canvas_kernel)."""
+    from lc2is_tpu_torch.nn.swin import takes_canvas_kernel
+    from lc2is_tpu_torch.ops.swin_window import swin_window_block
+
+    per_stage = {}
+    for i, stage in enumerate(swin_of(model).stages):
+        def pre(m, args, i=i):
+            per_stage[i] = -swin_window_block.launches
+
+        def post(m, args, out, i=i):
+            h, w = args[1]
+            c = args[0].shape[-1]
+            if takes_canvas_kernel(h, w, c, args[0].dtype):
+                per_stage.pop(i)
+            else:
+                per_stage[i] += swin_window_block.launches
+
+        stage.register_forward_pre_hook(pre)
+        stage.register_forward_hook(post)
+    return per_stage
+
+
+def check_ftn_model(smi, name, batches):
+    """Phase 12 for one model: (a) f32 batch 1, the card against the same
+    model's plain run on the CPU under ftn_gate's phase-4a bounds; (b) bf16
+    batch 16, three batches answered and timed, the launch counts of one
+    forward asserted (and its row-9 launches, per swin stage), a profile of
+    one more, held against f32 on the card under phase 4b's bounds.  For DenseCLIPFTN also the whole
+    backbone, every stage run: f32 b1 card vs CPU, bf16 b16 counts and time.
+    Returns (median ms, row-9 launches of one forward)."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models import zoo
+
+    text_inputs, expected = FTN_MODELS[name]
+    kw = dict(class_names=NAMES) if name == "DenseCLIPFTN" else {}
+    t0 = time.time()
+    cpu = seeded_init_(getattr(zoo, name)(device="cpu", **kw), SEED).eval()
+    state = cpu.state_dict()
+    print(f"\n[ftn] {name}: swin-base, {sum(p.numel() for p in cpu.parameters())} parameters "
+          f"from numpy seed {SEED} ({time.time() - t0:.1f} s)", flush=True)
+    gpu = getattr(zoo, name)(**kw)
+    gpu.load_state_dict(state, strict=True)
+    gpu.eval()
+    x1 = rand(np.random.RandomState(SEED + 1), 1, 3, IMG, IMG, device="cpu")
+    with torch.no_grad():
+        text_c = v1_text(N_CLASSES, "cpu") if text_inputs else {}
+        text_g = v1_text(N_CLASSES, "cuda") if text_inputs else {}
+        if name == "DenseCLIPFTN":
+            text_c = {"text_static": cpu.embed_text()}
+            text_g = {"text_static": gpu.embed_text()}
+        t0 = time.time()
+        none_c, want = cpu({"pixel_values": x1, **text_c})
+        cpu_s = time.time() - t0
+        none_g, got = gpu({"pixel_values": x1.cuda(), **text_g})
+        torch.cuda.synchronize()
+        got = got.cpu()
+        if none_c is not None or none_g is not None or got.shape != want.shape \
+                or tuple(got.shape) != (1, N_CLASSES, IMG, IMG):
+            raise AssertionError(f"ftn {name} f32: outputs {none_g}, {tuple(got.shape)}")
+        ok, agree, msg = ftn_gate(got, want, SLICE_F32_MAX_ABS)
+        print(f"[ftn] (a) {name} f32 b1 {tuple(got.shape)}: card vs CPU plain {msg} (bound "
+              f"{SLICE_F32_ARGMAX_AGREE}); CPU forward {cpu_s:.1f} s", flush=True)
+        if not ok or agree < SLICE_F32_ARGMAX_AGREE:
+            raise AssertionError(f"ftn {name}: f32 on the card disagrees with the CPU plain run")
+        if name == "DenseCLIPFTN":
+            want_h = swin_of(cpu)(x1)
+            got_h = swin_of(gpu)(x1.cuda())
+            errs = [((g.cpu() - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(got_h, want_h)]
+            print(f"[ftn] (a) swin-base backbone, every stage, f32 b1: hidden states "
+                  f"{[tuple(h.shape[1:]) for h in got_h]}, card vs CPU max |Δ| / max |ref| "
+                  f"{[f'{e:.2e}' for e in errs]} (bound 1e-3)", flush=True)
+            if len(got_h) != 5 or max(errs) > 1e-3:
+                raise AssertionError("ftn: the swin-base backbone on the card disagrees")
+        del cpu, want, got
+        gpu16 = getattr(zoo, name)(dtype=torch.bfloat16, **kw)
+        gpu16.load_state_dict(state, strict=True)
+        gpu16.eval()
+        text = v1_text(N_CLASSES, "cuda") if text_inputs else {}
+        if name == "DenseCLIPFTN":
+            text = {"text_static": gpu16.embed_text()}
+        per_stage = row9_launches(gpu16)
+        first, ms, _ = serve_batches(lambda inp: gpu16(inp)[1], batches, text, launch_counters(),
+                                     expected, f"ftn {name} (b)", smi)
+        row9 = sum(per_stage.values())
+        print(f"[ftn] (b) {name}: window-block launches per swin stage the JAX package sends "
+              f"through fused_window_block (row 9): {per_stage}, {row9} (expected "
+              f"{FTN_ROW9_LAUNCHES})", flush=True)
+        if row9 != FTN_ROW9_LAUNCHES:
+            raise AssertionError(f"ftn {name}: row-9 launches {row9} != {FTN_ROW9_LAUNCHES}")
+        if name == FTN_PROFILED:
+            profile_step(lambda: gpu16({"pixel_values": batches[1], **text}),
+                         f"one bf16 b{BATCH} {name} forward", rows=15)
+        ref = gpu({"pixel_values": batches[1].float(), **text_g})[1]
+        if tuple(first.shape) != (BATCH, N_CLASSES, IMG, IMG):
+            raise AssertionError(f"ftn {name} bf16: {tuple(first.shape)}")
+        ok, agree, msg = ftn_gate(first, ref, SLICE_BF16_MAX_ABS, SLICE_BF16_MEAN_ABS)
+        print(f"[ftn] (b) {name} bf16 b{BATCH} {tuple(first.shape)} {first.dtype} vs f32 on the "
+              f"card: {msg}", flush=True)
+        if not ok:
+            raise AssertionError(f"ftn {name}: bf16 outside its bound of f32")
+        del ref, first, gpu
+        if name == "DenseCLIPFTN":
+            enc = swin_of(gpu16)
+            serve_batches(lambda inp: enc(inp["pixel_values"]), batches, {}, launch_counters(),
+                          FTN_BACKBONE_LAUNCHES, "ftn swin-base backbone, every stage (b)", smi)
+    del gpu16
+    torch.cuda.empty_cache()
+    return ms, row9
+
+
+def check_ftn(smi):
+    """Phase 12: the FTN family served.  Returns ({name: median ms}, row-9
+    launches of one forward)."""
+    batches = [rand(np.random.RandomState(SEED + 60 + i), BATCH, 3, IMG, IMG,
+                    dtype=torch.bfloat16) for i in range(4)]
+    out = {name: check_ftn_model(smi, name, batches) for name in FTN_MODELS}
+    return {k: ms for k, (ms, _) in out.items()}, out["DenseCLIPFTN"][1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2170,6 +2519,7 @@ def main() -> int:
     counts["flash_attention_bwd"] = v1_train_counts["flash_attention_bwd"]
     v4 = phase("10", check_v4, smi)
     _, v4_step_ms = phase("11", check_v4_train, smi)
+    ftn, counts["fused_window_block"] = phase("12", check_ftn, smi)
     print(f"[time] all phases: {time.time() - t0:.1f} s", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2185,7 +2535,9 @@ def main() -> int:
           f"batch-{TRAIN_BATCH} training step (phase 6b) for the backwards and the fused CE, "
           f"the bf16 batch-{BATCH} BaseModelWithText forward (phase 7) for flash_attention, "
           f"one bf16 batch-{BATCH} BaseModelWithText training step (phase 8b) for "
-          f"flash_attention_bwd; "
+          f"flash_attention_bwd, the bf16 batch-{BATCH} DenseCLIPFTN forward (phase 12) for "
+          f"fused_window_block (the window blocks of the swin stages whose C the JAX package "
+          f"sends through fused_window_block, TPU row 9: swin-base stage 3); "
           f"upsample_argmax and window_attention are on no path (the JAX package reaches "
           f"them from tests only; window_attention is driven through SwinAttention.forward "
           f"in phase 3w): launches 0. ms / "
@@ -2201,7 +2553,8 @@ def main() -> int:
           f"{step_ms:.2f} ms; v1 training step {v1_step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
           f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms; v4 bf16 b{BATCH} mask "
           f"forwards { {k: round(ms, 2) for k, ms in v4.items()} } ms; BaseCrossA training "
-          f"step {v4_step_ms:.2f} ms on {smi}")
+          f"step {v4_step_ms:.2f} ms; FTN bf16 b{BATCH} forwards "
+          f"{ {k: round(ms, 2) for k, ms in ftn.items()} } ms on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,12 +3,16 @@ drawn from a numpy seed.
 
 Counterpart of ``lc2is_tpu/core/torch_import.py`` in the other direction.
 The port keeps the flax module names, so a flax path maps to a torch key by
-three rules, and nothing else changes:
+four rules, and nothing else changes:
 
 - a list element ``<list>_<i>`` becomes ``<list>.<i>``, for the lists
   listed in ``LIST_NAMES`` only.  ``torch_import.params_to_state_dict``
-  splits every ``name_<digit>``, which is wrong for ``linear2_stage_1`` ..
-  ``linear2_stage_4`` (plain attributes, ``decoders.py:244-247``);
+  splits every ``name_<digit>``, which is wrong for ``linear_stage_2`` /
+  ``_3`` and ``linear2_stage_1`` .. ``linear2_stage_4`` (plain attributes,
+  ``decoders.py:120-125,244-247``);
+- ``RepeatTransformer``'s ``trans_<i>_layers_<j>`` (one flax name for the
+  reference's ``trans[i].layers[j]``, ``decoders.py:337-341``) becomes
+  ``trans.<i>.layers.<j>``;
 - swin's ``self_`` becomes HF's ``self``;
 - the SR reduction stays nested as ``sr_reduce`` (the port keeps the flax
   nesting; ``torch_import`` flattens it to the reference's layout).
@@ -30,7 +34,8 @@ from torch import nn
 from lc2is_tpu_torch.nn.layers import LayerNorm
 
 LIST_NAMES = frozenset({"stages", "blocks", "resblocks", "decoder", "layers", "encoder_layers",
-                        "attention_stage_2", "attention_stage_3", "attention_stage_4"})
+                        "attention_stage_2", "attention_stage_3", "attention_stage_4",
+                        "linears", "linears2", "attentions"})
 
 
 def torch_key(path: Tuple[str, ...]) -> str:
@@ -38,7 +43,10 @@ def torch_key(path: Tuple[str, ...]) -> str:
     out = []
     for seg in path:
         m = re.fullmatch(r"(.+)_(\d+)", seg)
-        if m and m.group(1) in LIST_NAMES:
+        nested = re.fullmatch(r"trans_(\d+)_layers_(\d+)", seg)
+        if nested:
+            out += ["trans", nested.group(1), "layers", nested.group(2)]
+        elif m and m.group(1) in LIST_NAMES:
             out += [m.group(1), m.group(2)]
         elif seg == "self_":
             out.append("self")

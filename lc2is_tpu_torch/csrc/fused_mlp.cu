@@ -25,15 +25,16 @@
 //   shapes); the workspace (lc2_fused_mlp_workspace_bf16, allocated by the
 //   wrapper) holds u and h or s.  b1 and b2 arrive as f32 holding bf16
 //   values: the TPU kernel adds the bf16 biases in f32.
-// - f32 (the control): one block owns BM = 32 whole rows
-//   (LayerNorm needs the full C row: C <= 768) and walks the hidden dimension
-//   in chunks: u = act(h · W1[chunk]ᵀ + b1) lands in shared memory (never in
-//   device memory), then y += u · W2[:, chunk]ᵀ accumulates on chip, on the
-//   CUDA cores in f32 (tensor cores would round the operands to TF32); lane l
-//   owns columns l + 32j of its warp's 4 rows, 96 accumulators a thread at
-//   C = 768; the FF input rows and a weight chunk take ≈ 203 KB of shared
-//   memory.  Post-LN needs whole rows: a warp owns 4 rows and reduces their
-//   statistics with shuffles.
+// - f32 (the control): one block owns BM whole rows (LayerNorm needs the
+//   full C row) and walks the hidden dimension in chunks: u = act(h ·
+//   W1[chunk]ᵀ + b1) lands in shared memory (never in device memory), then
+//   y += u · W2[:, chunk]ᵀ accumulates on chip, on the CUDA cores in f32
+//   (tensor cores would round the operands to TF32); lane l owns columns
+//   l + 32j of its warp's R rows.  BM = 32 (R = 4) up to C = 768, 96
+//   accumulators a thread there, the FF input rows and a weight chunk
+//   ≈ 203 KB of shared memory; BM = 16 (R = 2) at C = 1024, 64 accumulators
+//   and ≈ 203 KB, since 32 rows of 1024 would not fit.  Post-LN needs whole
+//   rows: a warp owns R rows and reduces their statistics with shuffles.
 #include "activation.cuh"
 #include "common.cuh"
 #include "gemm_bf16.cuh"
@@ -42,9 +43,7 @@
 namespace lc2 {
 namespace {
 
-constexpr int kBM = 32;        // token rows per block
-constexpr int kThreads = 256;  // 8 warps x 4 rows
-constexpr int kRows = 4;       // rows per warp
+constexpr int kThreads = 256;  // 8 warps
 
 using bf16 = __nv_bfloat16;
 
@@ -116,6 +115,8 @@ constexpr int kFC = 32;  // hidden chunk
 template <int NJ>
 struct FmaLayout {
   static constexpr int C = NJ * 32;
+  static constexpr int kRows = C > 768 ? 2 : 4;  // rows per warp
+  static constexpr int kBM = 8 * kRows;          // token rows per block
   static constexpr int kWb = (kFC * (C + 1) > C * (kFC + 1)) ? kFC * (C + 1) : C * (kFC + 1);
   static constexpr size_t kBytes = sizeof(float) * (kBM * C + kWb + kBM * kFC);
 };
@@ -129,6 +130,7 @@ fused_mlp_fma_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
                      float* __restrict__ upre, int n_tok, int F, int act, int pre, int residual,
                      float eps) {
   constexpr int C = NJ * 32;
+  constexpr int kRows = FmaLayout<NJ>::kRows, kBM = FmaLayout<NJ>::kBM;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* hs = reinterpret_cast<float*>(smem_raw);  // [kBM][C]: FF input rows
   float* wb = hs + kBM * C;                          // weight chunk
@@ -159,7 +161,9 @@ fused_mlp_fma_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
     }
     __syncthreads();
     {  // u[r][lane] = act(h[r] · W1[f0 + lane] + b1)
-      float acc[kRows] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float acc[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
       const float* wr = wb + lane * (C + 1);
       for (int k = 0; k < C; k += 4) {
         const float w0 = wr[k], w1_ = wr[k + 1], w2_ = wr[k + 2], w3 = wr[k + 3];
@@ -205,13 +209,13 @@ fused_mlp_fma_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
 }
 
 template <typename T, typename K>
-cudaError_t launch_kernel(K kernel, size_t smem, const void* x, const void* lnw,
+cudaError_t launch_kernel(K kernel, size_t smem, int bm, const void* x, const void* lnw,
                           const void* lnb, const void* w1, const void* b1, const void* w2,
                           const void* b2, void* out, void* upre, int n_tok, int F, int act,
                           int pre, int residual, float eps, cudaStream_t stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n_tok + kBM - 1) / kBM);
+  const dim3 grid((n_tok + bm - 1) / bm);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(lnw), static_cast<const T*>(lnb),
       static_cast<const T*>(w1), static_cast<const T*>(b1), static_cast<const T*>(w2),
@@ -256,7 +260,7 @@ cudaError_t fused_mlp_bf16(const bf16* x, const bf16* lnw, const bf16* lnb, cons
 // (C,) f32 (holding bf16 values in bf16: the TPU kernel adds the bias of
 // its dtype in f32); upre (n_tok, F) or null.  ws: null in f32, in bf16
 // lc2_fused_mlp_workspace_bf16 floats, with 16-byte aligned operands.
-// C in {96, 128, 192, 256, 384, 512, 768}; F % 32 == 0.  act: 0 relu,
+// C in {96, 128, 192, 256, 384, 512, 768, 1024}; F % 32 == 0.  act: 0 relu,
 // 1 erf-gelu, 2 polynomial gelu.  All tensors contiguous.
 extern "C" int lc2_fused_mlp(int dtype, const void* x, const void* lnw, const void* lnb,
                              const void* w1, const void* b1, const void* w2,
@@ -265,7 +269,7 @@ extern "C" int lc2_fused_mlp(int dtype, const void* x, const void* lnw, const vo
   if (n_tok < 1 || F % lc2::kFC || act < 0 || act > 2) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == lc2::kBF16) {
-    if (C < 96 || C > 768 || C % 32 || ws == nullptr) return cudaErrorInvalidValue;
+    if (C < 96 || C > 1024 || C % 32 || ws == nullptr) return cudaErrorInvalidValue;
     using bf = __nv_bfloat16;
     auto t = [](const void* p) { return static_cast<const bf*>(p); };
     auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -277,8 +281,8 @@ extern "C" int lc2_fused_mlp(int dtype, const void* x, const void* lnw, const vo
 #define LC2_MLP_CASE(NJ)                                                                       \
   case NJ * 32:                                                                                \
     return lc2::launch_kernel<float>(lc2::fused_mlp_fma_kernel<NJ>, lc2::FmaLayout<NJ>::kBytes, \
-                                     x, lnw, lnb, w1, b1, w2, b2, out, upre, n_tok, F, act, pre, \
-                                     residual, eps, s);
+                                     lc2::FmaLayout<NJ>::kBM, x, lnw, lnb, w1, b1, w2, b2, out,  \
+                                     upre, n_tok, F, act, pre, residual, eps, s);
   switch (C) {
     LC2_MLP_CASE(3)
     LC2_MLP_CASE(4)
@@ -287,6 +291,7 @@ extern "C" int lc2_fused_mlp(int dtype, const void* x, const void* lnw, const vo
     LC2_MLP_CASE(12)
     LC2_MLP_CASE(16)
     LC2_MLP_CASE(24)
+    LC2_MLP_CASE(32)
     default:
       return cudaErrorInvalidValue;
   }

@@ -59,7 +59,7 @@ inline cudaError_t launch_rows(const TI* in, const TW* w, const TW* b, __nv_bflo
   return cudaGetLastError();
 }
 
-// out = round(LN(in)) over rows of C, C a multiple of 32 from 64 to 768.
+// out = round(LN(in)) over rows of C, C in {64, 96, 128, 192, 256, 384, 512, 768, 1024}.
 template <typename TI, typename TW>
 inline cudaError_t layer_norm(const TI* in, const TW* w, const TW* b, __nv_bfloat16* out,
                               long long rows, int C, float eps, cudaStream_t s) {
@@ -72,6 +72,7 @@ inline cudaError_t layer_norm(const TI* in, const TW* w, const TW* b, __nv_bfloa
     case 384: return launch_rows<12>(in, w, b, out, rows, eps, s);
     case 512: return launch_rows<16>(in, w, b, out, rows, eps, s);
     case 768: return launch_rows<24>(in, w, b, out, rows, eps, s);
+    case 1024: return launch_rows<32>(in, w, b, out, rows, eps, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -39,7 +39,9 @@
 //   3. per head, softmax(q·kᵀ + relative-position bias + region mask) · v;
 //   4. the head outputs (49 x C) stay in shared memory and the
 //      out-projection, + bo and the residual run per 128-column chunk.
-// Shared memory: 49·C floats for the head outputs + tiles (≈ 200 KB at C = 768).
+// Shared memory: 49·C floats for the head outputs + tiles (the q, k, v tiles
+// overlay the product's A|B tiles, which are consumed before they are
+// written): ≈ 200 KB at C = 768, ≈ 224 KB at C = 1024 with dh 32.
 //
 // bf16 float block (swin_mma_kernel): tensor cores, mma.sync m16n8k16 with
 // f32 accumulators (mma_bf16.cuh).  A block takes 4, 2 or 1 windows, as
@@ -69,6 +71,14 @@
 // Shared memory: 2 · 49 · windows · (C + 8) bf16 for the LN and head-output
 // tiles, the q, k, v tiles of one head and the ring: with one 7 x 7 window
 // C <= 992 at dh 16 and 32, 864 at dh 64 (8 x 8: 800, 736, 608).
+// Where no window fits so (swin-base's C 1024), a second plan drops the
+// head-output tile: step 3 writes the head outputs of real tokens, rounded
+// to bf16 as above, to a (B, H, W, C) bf16 workspace in device memory, the
+// ring streams only the q|k|v slices, and step 4 runs as a second launch,
+// the out-projection of every real token on the GEMM of gemm_bf16.cuh with
+// + bo (widened to f32 into the workspace by the first launch's block 0)
+// and the residual in its epilogue, rounded once as step 4 rounds (lc2_swin_window_workspace_bf16
+// gives the workspace's size; 0 where the one-kernel plan fits).
 //
 // lc2_swin_window_q is the int8 serving variant of the same kernel, the
 // quant=True branch of window_attention.py::_block_kernel (:414-418,
@@ -77,7 +87,7 @@
 // outputs per token for an int8 out-projection (common.cuh: quant_scale /
 // quant_code / dequant; per-output-channel weight codes with f32 scales).
 // Both products stay on the CUDA cores as integer-valued f32 sums, exact
-// while |acc| < 2^24 (C·127² <= 1.24e7 at C <= 768).
+// while |acc| < 2^24 (C·127² <= 1.66e7 at C <= 1024).
 #include <math.h>
 #include <math_constants.h>
 
@@ -86,6 +96,7 @@
 
 #include "attn_tiles.cuh"
 #include "common.cuh"
+#include "gemm_bf16.cuh"
 
 namespace lc2 {
 namespace {
@@ -102,6 +113,9 @@ struct Layout {
   static constexpr int kQJ = kNQ / 16;               // columns per thread (16 column groups)
   static constexpr int kTileRows = (kNP + kNQ > kNO) ? kNP + kNQ : kNO;
   static constexpr int kLDH = DH + 1;
+  // the A|B tiles (or the Wo tile), overlaid by the q, k, v tiles
+  static constexpr int kRegion =
+      kTileRows * kLD > 3 * kNP * kLDH ? kTileRows * kLD : 3 * kNP * kLDH;
 };
 
 // LayerNorm of one value with the int8 variant's fixed rounding: the same
@@ -129,10 +143,10 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
   float* tiles = as + N * C;                          // A|B tiles, or the Wo tile
   float* at = tiles;                                  // [kNP][kLD]
   float* bt = tiles + kNP * kLD;                      // [kNQ][kLD]
-  float* qs = tiles + Lay::kTileRows * kLD;           // [kNP][kLDH]
+  float* qs = tiles;                                  // [kNP][kLDH], over the A|B tiles
   float* ks = qs + kNP * Lay::kLDH;
   float* vs = ks + kNP * Lay::kLDH;
-  float* ps = vs + kNP * Lay::kLDH;                   // [8 warps][kNP] probabilities
+  float* ps = tiles + Lay::kRegion;                   // [8 warps][kNP] probabilities
   float* mean = ps + 8 * kNP;                         // [kNP]
   float* rstd = mean + kNP;                           // [kNP]
   float* qsc = rstd + kNP;                            // [kNP] int8: LN-output row scales
@@ -239,6 +253,7 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         }
       }
     }
+    __syncthreads();  // the last A|B tiles consumed: q, k, v overwrite them
 #pragma unroll
     for (int j = 0; j < Lay::kQJ; ++j) {
       const int n = tx + 16 * j, part = n / DH, d = n % DH, wrow = part * C + hd * DH + d;
@@ -352,8 +367,7 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
 template <int DH>
 size_t smem_bytes(int N, int C) {
   using Lay = Layout<DH>;
-  return sizeof(float) * ((size_t)N * C + Lay::kTileRows * kLD + 3 * kNP * Lay::kLDH +
-                          8 * kNP + 4 * kNP) +
+  return sizeof(float) * ((size_t)N * C + Lay::kRegion + 8 * kNP + 4 * kNP) +
          sizeof(int) * 2 * kNP;
 }
 
@@ -361,6 +375,7 @@ struct SwinArgs {
   const void *x, *lnw, *lnb, *wqkv, *wqkvs, *bqkv, *wo, *wos, *bo;
   const float* bias;
   void* out;
+  void* ws;  // bf16 float block, split plan: bo in f32, then the head outputs
   int B, H, W, C, heads, win, shift, residual;
   float eps;
 };
@@ -421,19 +436,21 @@ struct MmaSizes {
 };
 
 // Shared memory: the LayerNorm tile and the head outputs (N·WPB rows of C
-// bf16 each), the q, k and v tiles of one head (rq rows of DH), the 2-stage
-// weight ring, the tokens' canvas pixel and region label.  A product's last
-// m-tile reads up to 15 rows past either tile (past the head outputs, into
-// what follows them; rows that are dropped), which the size covers.
-template <int DH, int WPB>
+// bf16 each; kWs: the LayerNorm tile only), the q, k and v tiles of one head
+// (rq rows of DH), the 2-stage weight ring, the tokens' canvas pixel and
+// region label.  A product's last m-tile reads up to 15 rows past its tile
+// (past the LN tile into the head outputs or, kWs, the q tile; past the
+// head outputs into what follows them; rows that are dropped), which the
+// size covers.
+template <int DH, int WPB, bool kWs = false>
 size_t mma_smem_bytes(int win, int C, int kt) {
   using Plan = MmaPlan<DH, WPB>;
   const MmaSizes z(win, WPB, C);
-  const size_t body = sizeof(bf16) * (2 * (size_t)z.mreal * z.lda +
+  const size_t body = sizeof(bf16) * ((kWs ? 1 : 2) * (size_t)z.mreal * z.lda +
                                       3 * (size_t)z.rq * Plan::kLdh +
                                       2 * (size_t)Plan::kRingRows * (kt + 8)) +
                       sizeof(int) * 2 * z.mp;
-  return std::max(body, sizeof(bf16) * (size_t)(z.mreal + z.mp) * z.lda);
+  return std::max(body, sizeof(bf16) * (size_t)((kWs ? 0 : z.mreal) + z.mp) * z.lda);
 }
 
 __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
@@ -446,14 +463,18 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   }
 }
 
-template <int DH, int WPB>
+// kWs: the split plan, steps 1-3 only, the head outputs of real tokens into
+// ho (B, H, W, C) in device memory and, from block 0, bo widened into bo32
+// (C,) for the second launch's epilogue (the one-kernel plan: both null).
+template <int DH, int WPB, bool kWs>
 __global__ void __launch_bounds__(kThreads, MmaPlan<DH, WPB>::kMinBlocks)
 swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
                 const bf16* __restrict__ lnb, const bf16* __restrict__ wqkv,
                 const bf16* __restrict__ bqkv, const bf16* __restrict__ wo,
                 const bf16* __restrict__ bo, const float* __restrict__ bias,
-                bf16* __restrict__ out, int H, int W, int C, int heads, int win, int shift,
-                int nwh, int nww, int nwin, int residual, float eps, int KT) {
+                bf16* __restrict__ out, bf16* __restrict__ ho, float* __restrict__ bo32, int H,
+                int W, int C, int heads, int win, int shift, int nwh, int nww, int nwin,
+                int residual, float eps, int KT) {
   using Plan = MmaPlan<DH, WPB>;
   constexpr int LDH = Plan::kLdh, TPW = Plan::kTPW;
   const int LDR = KT + 8, STAGE = Plan::kRingRows * LDR;
@@ -461,8 +482,8 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   const int N = z.n, Mreal = z.mreal, Mp = z.mp, LDA = z.lda;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [Mreal][LDA] LN(x), rounded
-  bf16* Ho = As + Mreal * LDA;                    // [Mreal][LDA] head outputs
-  bf16* Qs = Ho + Mreal * LDA;                    // [rq][LDH] one head's q, k, v
+  bf16* Ho = As + Mreal * LDA;                    // [Mreal][LDA] head outputs (not kWs)
+  bf16* Qs = kWs ? Ho : Ho + Mreal * LDA;         // [rq][LDH] one head's q, k, v
   bf16* Ks = Qs + z.rq * LDH;
   bf16* Vs = Ks + z.rq * LDH;
   bf16* ring = Vs + z.rq * LDH;                   // [2][kRingRows][LDR]
@@ -473,6 +494,8 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   const int g = lane >> 2, c2 = 2 * (lane & 3);
   const int lr = lane & 7, l3 = (lane >> 3) & 1, l4 = lane >> 4;
   const int Hp = nwh * win, Wp = nww * win;
+  if (kWs && blockIdx.x == 0)
+    for (int i = tid; i < C; i += kThreads) bo32[i] = __bfloat162float(bo[i]);
 
   // ---- token geometry: roll, HF pad, 9-region labels (as the f32 block) ----
   for (int r = tid; r < Mp; r += kThreads) {
@@ -498,7 +521,7 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   // ---- the weight ring: one stream of KT-wide k-slices, the heads' q|k|v
   // rows (3·DH each) and then the out-projection's 64-row chunks of Wo ----
   const int ks_per = C / KT, n_qkv = heads * ks_per, kchunks = KT / 8;
-  const int n_slices = n_qkv + (C + kOutCols - 1) / kOutCols * ks_per;
+  const int n_slices = kWs ? n_qkv : n_qkv + (C + kOutCols - 1) / kOutCols * ks_per;
   auto issue = [&](int u) {
     if (u < n_slices) {
       bf16* st = ring + (u % 2) * STAGE;
@@ -731,7 +754,14 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
         const int t = i0 + g + 8 * r;
         if (t >= N) continue;
         const float inv = 1.0f / l[r];
-        bf16* dst = Ho + (R + t) * LDA + hd * DH + c2;
+        bf16* dst;
+        if (kWs) {
+          const int pix = tok[R + t];
+          if (pix < 0) continue;  // HF pad: cropped
+          dst = ho + (size_t)pix * C + hd * DH + c2;
+        } else {
+          dst = Ho + (R + t) * LDA + hd * DH + c2;
+        }
 #pragma unroll
         for (int j = 0; j < DH / 8; ++j)
           *reinterpret_cast<uint32_t*>(dst + 8 * j) =
@@ -743,9 +773,9 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   }
 
   // ---- out-projection + bo + residual, 64 columns at a time, real tokens
-  // only (HF pad tokens are cropped) ----
+  // only (HF pad tokens are cropped); kWs: the second launch's ----
   constexpr int ONT = Plan::kOutNT;
-  for (int n0 = 0; n0 < C; n0 += kOutCols) {
+  for (int n0 = 0; n0 < (kWs ? 0 : C); n0 += kOutCols) {
     float acc[TPW][ONT][4];
 #pragma unroll
     for (int i = 0; i < TPW; ++i)
@@ -780,10 +810,10 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   mma::cp_async_wait<0>();
 }
 
-template <int DH, int WPB>
+template <int DH, int WPB, bool kWs = false>
 cudaError_t launch_mma_wpb(const SwinArgs& a, int nwh, int nww, int kt, size_t smem,
-                           cudaStream_t stream) {
-  auto kernel = swin_mma_kernel<DH, WPB>;
+                           bf16* ho, float* bo32, cudaStream_t stream) {
+  auto kernel = swin_mma_kernel<DH, WPB, kWs>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int nwin = a.B * nwh * nww;
@@ -791,23 +821,42 @@ cudaError_t launch_mma_wpb(const SwinArgs& a, int nwh, int nww, int kt, size_t s
       static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.lnw),
       static_cast<const bf16*>(a.lnb), static_cast<const bf16*>(a.wqkv),
       static_cast<const bf16*>(a.bqkv), static_cast<const bf16*>(a.wo),
-      static_cast<const bf16*>(a.bo), a.bias, static_cast<bf16*>(a.out), a.H, a.W, a.C,
-      a.heads, a.win, a.shift, nwh, nww, nwin, a.residual, a.eps, kt);
+      static_cast<const bf16*>(a.bo), a.bias, static_cast<bf16*>(a.out), ho, bo32, a.H, a.W,
+      a.C, a.heads, a.win, a.shift, nwh, nww, nwin, a.residual, a.eps, kt);
   return cudaGetLastError();
 }
 
-// The plan: the most windows a block (4, 2 or 1; 2 at most at DH 64, whose
-// q|k|v accumulators would not fit four) for which two blocks fit an SM
-// (shared memory, and kMinBlocks' registers), else the most for which one
-// does; 64-wide weight slices where C allows.  On the H100 at the swin-small
-// stages: two blocks of 2 windows at C 96, one of 2 at C 192 and 384, one of
-// 1 at C 768; a third or fourth ring stage, or 32-wide slices to fit two
-// blocks, timed no faster.
+// Floats of the split plan's workspace: bo widened to f32 (C), then the head
+// outputs (B·H·W·C bf16).
+long long split_ws_floats(const SwinArgs& a) {
+  return a.C + ((long long)a.B * a.H * a.W * a.C + 1) / 2;
+}
+
+// The split plan: steps 1-3 into the workspace, then the out-projection of
+// the B·H·W real tokens, + bo + the residual, on the GEMM of gemm_bf16.cuh.
 template <int DH>
-cudaError_t launch_mma(const SwinArgs& a, cudaStream_t stream) {
-  if (a.C > 1024) return cudaErrorInvalidValue;  // the LayerNorm's registers
-  const int nwh = (a.H + a.win - 1) / a.win, nww = (a.W + a.win - 1) / a.win;
-  const int kt = a.C % 64 == 0 ? 64 : 32;
+cudaError_t launch_split(const SwinArgs& a, int nwh, int nww, int kt, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<DH, 1, true>(a.win, a.C, kt);
+  if (a.ws == nullptr || smem > 232448) return cudaErrorInvalidValue;
+  float* bo32 = static_cast<float*>(a.ws);
+  bf16* ho = reinterpret_cast<bf16*>(bo32 + a.C);
+  LC2_TRY((launch_mma_wpb<DH, 1, true>(a, nwh, nww, kt, smem, ho, bo32, stream)));
+  const gemm16::Epilogue ep{bo32, nullptr, a.residual ? static_cast<const bf16*>(a.x) : nullptr,
+                            nullptr, static_cast<bf16*>(a.out), a.C, false};
+  return gemm16::gemm<false, false>(a.B * a.H * a.W, a.C, a.C, ho, a.C,
+                                    static_cast<const bf16*>(a.wo), a.C, ep, stream);
+}
+
+// The one-kernel plan: the most windows a block (4, 2 or 1; 2 at most at DH
+// 64, whose q|k|v accumulators would not fit four) for which two blocks fit
+// an SM (shared memory, and kMinBlocks' registers), else the most for which
+// one does; 64-wide weight slices where C allows.  On the H100 at the
+// swin-small stages: two blocks of 2 windows at C 96, one of 2 at C 192 and
+// 384, one of 1 at C 768; a third or fourth ring stage, or 32-wide slices to
+// fit two blocks, timed no faster.  Returns the windows a block and sets
+// *smem, or returns 0 where no window fits (the split plan's case).
+template <int DH>
+int one_kernel_wpb(int win, int C, int kt, size_t* smem) {
   constexpr size_t kOne = 232448, kTwo = 115712;  // bytes a block, 1 or 2 an SM
   for (const size_t cap : {kTwo, kOne}) {
     auto fits = [&](size_t sm, int min_blocks) {
@@ -815,16 +864,40 @@ cudaError_t launch_mma(const SwinArgs& a, cudaStream_t stream) {
     };
     if (DH < 64) {
       constexpr int W4 = DH < 64 ? 4 : 2;
-      const size_t sm = mma_smem_bytes<DH, W4>(a.win, a.C, kt);
-      if (fits(sm, MmaPlan<DH, W4>::kMinBlocks))
-        return launch_mma_wpb<DH, W4>(a, nwh, nww, kt, sm, stream);
+      *smem = mma_smem_bytes<DH, W4>(win, C, kt);
+      if (fits(*smem, MmaPlan<DH, W4>::kMinBlocks)) return W4;
     }
-    const size_t s2 = mma_smem_bytes<DH, 2>(a.win, a.C, kt);
-    if (fits(s2, MmaPlan<DH, 2>::kMinBlocks)) return launch_mma_wpb<DH, 2>(a, nwh, nww, kt, s2, stream);
-    const size_t s1 = mma_smem_bytes<DH, 1>(a.win, a.C, kt);
-    if (fits(s1, MmaPlan<DH, 1>::kMinBlocks)) return launch_mma_wpb<DH, 1>(a, nwh, nww, kt, s1, stream);
+    *smem = mma_smem_bytes<DH, 2>(win, C, kt);
+    if (fits(*smem, MmaPlan<DH, 2>::kMinBlocks)) return 2;
+    *smem = mma_smem_bytes<DH, 1>(win, C, kt);
+    if (fits(*smem, MmaPlan<DH, 1>::kMinBlocks)) return 1;
   }
-  return cudaErrorInvalidValue;
+  return 0;
+}
+
+inline int slice_width(int C) { return C % 64 == 0 ? 64 : 32; }
+
+template <int DH>
+cudaError_t launch_mma(const SwinArgs& a, cudaStream_t stream) {
+  if (a.C > 1024) return cudaErrorInvalidValue;  // the LayerNorm's registers
+  const int nwh = (a.H + a.win - 1) / a.win, nww = (a.W + a.win - 1) / a.win;
+  const int kt = slice_width(a.C);
+  size_t smem = 0;
+  switch (one_kernel_wpb<DH>(a.win, a.C, kt, &smem)) {
+    case 4:
+      return launch_mma_wpb<DH, DH < 64 ? 4 : 2>(a, nwh, nww, kt, smem, nullptr, nullptr,
+                                                 stream);
+    case 2: return launch_mma_wpb<DH, 2>(a, nwh, nww, kt, smem, nullptr, nullptr, stream);
+    case 1: return launch_mma_wpb<DH, 1>(a, nwh, nww, kt, smem, nullptr, nullptr, stream);
+    default: return launch_split<DH>(a, nwh, nww, kt, stream);
+  }
+}
+
+// Workspace floats of the bf16 float block: 0 where the one-kernel plan fits.
+template <int DH>
+long long mma_ws_floats(const SwinArgs& a) {
+  size_t smem = 0;
+  return one_kernel_wpb<DH>(a.win, a.C, slice_width(a.C), &smem) ? 0 : split_ws_floats(a);
 }
 
 // The f32 and int8 blocks run swin_window_kernel; the bf16 float block the
@@ -874,15 +947,32 @@ cudaError_t dispatch(int dtype, const SwinArgs& a, void* stream) {
 // bias (heads, win², win²) f32 in standard token order; residual 0 drops the
 // + x.  win <= 8,
 // 0 <= shift < win, C % 32 == 0, C / heads in {16, 32, 64}.
+// ws: in bf16, lc2_swin_window_workspace_bf16 floats where that is not 0
+// (else null); null in f32.
 extern "C" int lc2_swin_window(int dtype, const void* x, const void* lnw, const void* lnb,
                                const void* wqkv, const void* bqkv, const void* wo,
-                               const void* bo, const void* bias, void* out, int B, int H,
-                               int W, int C, int heads, int win, int shift, int residual,
-                               float eps, void* stream) {
+                               const void* bo, const void* bias, void* out, void* ws, int B,
+                               int H, int W, int C, int heads, int win, int shift,
+                               int residual, float eps, void* stream) {
   const lc2::SwinArgs a{x, lnw, lnb, wqkv, nullptr, bqkv, wo, nullptr, bo,
-                        static_cast<const float*>(bias), out, B, H, W, C, heads, win, shift,
+                        static_cast<const float*>(bias), out, ws, B, H, W, C, heads, win, shift,
                         residual, eps};
   return lc2::dispatch<false>(dtype, a, stream);
+}
+
+// Floats of the bf16 float block's workspace for these sizes (0: none, the
+// one-kernel plan fits; -1: sizes no plan takes).
+extern "C" long long lc2_swin_window_workspace_bf16(int B, int H, int W, int C, int heads,
+                                                    int win) {
+  const lc2::SwinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, nullptr, B, H, W, C, heads, win, 0, 1, 0.0f};
+  if (heads < 1 || C % heads || win < 1 || win * win > lc2::kNP) return -1;
+  switch (C / heads) {
+    case 16: return lc2::mma_ws_floats<16>(a);
+    case 32: return lc2::mma_ws_floats<32>(a);
+    case 64: return lc2::mma_ws_floats<64>(a);
+    default: return -1;
+  }
 }
 
 // The int8 variant: wqkv (3C, C) and wo (C, C) int8 codes with f32
@@ -895,7 +985,7 @@ extern "C" int lc2_swin_window_q(int dtype, const void* x, const void* lnw, cons
                                  int heads, int win, int shift, int residual, float eps,
                                  void* stream) {
   const lc2::SwinArgs a{x, lnw, lnb, wqkv, wqkvs, bqkv, wo, wos, bo,
-                        static_cast<const float*>(bias), out, B, H, W, C, heads, win, shift,
-                        residual, eps};
+                        static_cast<const float*>(bias), out, nullptr, B, H, W, C, heads, win,
+                        shift, residual, eps};
   return lc2::dispatch<true>(dtype, a, stream);
 }

@@ -1,15 +1,18 @@
 """The v4 family (the flagship ``PromptAuxCrossA``, ``BaseSelfA``,
 ``BaseCrossA``, ``PromptSelfA``, ``PromptCrossA``, ``PromptAuxSelfA``:
-serving and training forward) and the v1 CLIP family (serving;
-``BaseModelWithText`` also trains), counterparts of
-``lc2is_tpu/models/zoo.py`` (``_norm``/``_score_map``/``default_denseclip_cfg`` :49-76,
+serving and training forward), the v1 CLIP family (serving;
+``BaseModelWithText`` also trains) and the swin-base FTN family (serving:
+the v1 ``PromptFTNv1``, the v2 ``BaseFTN`` and ``PromptFTNv2``, the v3
+``DenseCLIPFTN``), counterparts of ``lc2is_tpu/models/zoo.py``
+(``_norm``/``_score_map``/``default_denseclip_cfg`` :49-76,
 ``BaseModelWithText`` :84-143, ``ContrastiveModel`` :146-176, ``DenseClip``
-:179-214, ``PromptContextBase`` :311-349, ``_FinalBase`` :389-443,
-``ClassWeightTable`` :446-457, ``BaseSelfA`` / ``BaseCrossA`` :460-488,
-``_PromptFinalBase`` :490-506, ``PromptSelfA`` / ``PromptCrossA`` :509-538,
-``_AuxMixin`` :541-545, ``PromptAuxSelfA`` :548-566, ``PromptAuxCrossA``
-:569-587, ``ZOO`` / ``FROZEN_PREFIXES`` :594-626 for the models the port
-has).  The Base models take their class embeddings from a learned
+:179-214, ``PromptFTNv1`` :217-249, ``BaseFTN`` :257-276, ``PromptFTNv2``
+:279-303, ``PromptContextBase`` :311-349, ``DenseCLIPFTN`` :352-381,
+``_FinalBase`` :389-443, ``ClassWeightTable`` :446-457, ``BaseSelfA`` /
+``BaseCrossA`` :460-488, ``_PromptFinalBase`` :490-506, ``PromptSelfA`` /
+``PromptCrossA`` :509-538, ``_AuxMixin`` :541-545, ``PromptAuxSelfA``
+:548-566, ``PromptAuxCrossA`` :569-587, ``ZOO`` / ``FROZEN_PREFIXES``
+:594-626: all thirteen models).  The Base models take their class embeddings from a learned
 ``classes.weight`` table (K, decoder width); the SelfA models decode the
 pyramid without the classes (``HierarchicalSelfA``).
 
@@ -62,6 +65,20 @@ flash kernels have their backward, and ``dropout`` (0 by default, as
 ``zoo.py:90``) reaches its fusion decoder, its masks drawn from the generator
 given to ``forward``; no parameter of it is frozen (``FROZEN_PREFIXES`` has no
 ``base_with_text`` entry, ``zoo.py:617-626``).
+
+The FTN family runs swin-base (``swin_variant="small"`` takes swin-small
+where the JAX model offers it) and reads ``hidden_states[:4]``: the patch
+embedding and stages 1-3 after their patch merging, C 128 to 1024; the
+swin's fourth stage does not run, as for every model.  ``PromptFTNv1`` and
+``PromptFTNv2`` take the v1 inputs (``pixel_values``, ``input_ids``, an
+optional ``attention_mask``) and pool the frozen CLIP text tower;
+``BaseFTN`` and ``DenseCLIPFTN`` take ``pixel_values`` (and
+``DenseCLIPFTN`` an optional ``text_static`` from :meth:`embed_text`).  Each
+returns the JAX package's ``(None, score map ×4)``, (B, K, H, W).
+``BaseFTN`` and ``PromptFTNv2`` decode with ``FTNDecoderV2``, whose grids
+are fixed for 512² input, as in the JAX package.  Dtypes as in the JAX
+package: the backbone computes in ``dtype``, the text towers in f32, the
+decoders in the dtype of what they are given.
 """
 
 from __future__ import annotations
@@ -73,21 +90,23 @@ import torch
 from torch import nn
 
 from lc2is_tpu_torch.nn.clip import CLIPTextTransformer, CLIPVisionTransformer
-from lc2is_tpu_torch.nn.decoders import (DecoderBlock, HierarchicalCrossA, HierarchicalSelfA,
-                                         TextToPatch)
+from lc2is_tpu_torch.nn.decoders import (DecoderBlock, FTNDecoder, FTNDecoderV2,
+                                         HierarchicalCrossA, HierarchicalSelfA, TextToPatch)
 from lc2is_tpu_torch.nn.denseclip import CLIPTextContextEncoder, ContextDecoder
 from lc2is_tpu_torch.nn.layers import Linear, _param
-from lc2is_tpu_torch.nn.swin import SWIN_SMALL, SwinModel
+from lc2is_tpu_torch.nn.swin import SWIN_BASE, SWIN_SMALL, SwinModel
 from lc2is_tpu_torch.ops.bpe import tokenize
 from lc2is_tpu_torch.ops.resize import resize
 from lc2is_tpu_torch.ops.upsample_argmax import l2_normalize, score_upsample_argmax
 
 ADE20K_NUM_CLASSES = 151
 
-# parameter prefixes the reference freezes (requires_grad=False), zoo.py:617-625,
-# for the models the port has
+# parameter prefixes the reference freezes (requires_grad=False), zoo.py:617-625
 FROZEN_PREFIXES = {
     "dense_clip": ("text_encoder",),
+    "prompt_ftn_v1": ("textual_encoder",),
+    "prompt_ftn": ("text_encoder",),
+    "denseclip_ftn": ("prompt.text_encoder",),
     "prompt_self_a": ("prompt.text_encoder",),
     "prompt_cross_a": ("prompt.text_encoder",),
     "prompt_aux_self_a": ("prompt.text_encoder",),
@@ -296,6 +315,127 @@ class DenseClip(_ClipBase):
 
 
 # ---------------------------------------------------------------------------
+# v1-v3: the swin-base FTN family (model/model.py, model/ftn.py, model/new.py),
+# serving
+# ---------------------------------------------------------------------------
+
+
+def _swin(variant: str) -> Dict[str, Any]:
+    return SWIN_BASE if variant == "base" else SWIN_SMALL
+
+
+def _pyramid_dims(cfg: Dict[str, Any]) -> tuple:
+    return tuple(cfg["embed_dim"] * 2 ** i for i in range(4))
+
+
+def _upsampled_scores(v_tokens: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """The cosine score map at the tokens' grid, then the bilinear ×4."""
+    grid = int(round(v_tokens.shape[1] ** 0.5))
+    return resize(_score_map(v_tokens, t, grid), scale_factor=4, method="bilinear")
+
+
+class PromptFTNv1(nn.Module):
+    """``model/model.py:174-214``: the frozen CLIP text tower's pooled
+    prompts, a post-norm prompt decoder (8 layers, 8 heads, dropout 0.1) of
+    the prompts over the swin's last pyramid level (``d_kv`` its width),
+    prompts + 1e-4 · context, an ``FTNDecoder`` over the pyramid and the
+    score map ×4.  Returns (None, score_map (B, K, H, W))."""
+
+    def __init__(self, swin_variant: str = "base", dtype: torch.dtype = torch.float32,
+                 device="cuda"):
+        super().__init__()
+        device = _model_device(device)
+        cfg = _swin(swin_variant)
+        dims = _pyramid_dims(cfg)
+        self.textual_encoder = CLIPTextTransformer(device=device)  # frozen
+        self.visual_encoder = SwinModel(dtype=dtype, device=device, **cfg)
+        self.prompt_decoder = DecoderBlock(512, 8, 8, d_kv=dims[3], dropout=0.1, device=device)
+        self.decoder = FTNDecoder(dims, 512, device=device)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        b = inputs["pixel_values"].shape[0]
+        _, pooled = self.textual_encoder(inputs["input_ids"], inputs.get("attention_mask"))
+        text = pooled[None].expand(b, *pooled.shape)
+        stages = self.visual_encoder(inputs["pixel_values"], num_hidden=4)
+        text = text + 1e-4 * self.prompt_decoder(text, stages[-1])  # model.py:200
+        return None, _upsampled_scores(self.decoder(stages, text), text)
+
+
+class BaseFTN(nn.Module):
+    """``model/ftn.py:9-27``: swin-base, ``FTNDecoderV2``, a linear
+    classifier per token and its (B, K, 128, 128) map ×4.  Returns
+    (None, logits (B, K, 512, 512))."""
+
+    def __init__(self, num_classes: int = ADE20K_NUM_CLASSES, dtype: torch.dtype = torch.float32,
+                 device="cuda"):
+        super().__init__()
+        device = _model_device(device)
+        self.backbone = SwinModel(dtype=dtype, device=device, **SWIN_BASE)
+        self.decoder = FTNDecoderV2(device=device)
+        self.classif = Linear(512, num_classes, device=device)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        stages = self.backbone(inputs["pixel_values"], num_hidden=4)
+        cls = self.classif(self.decoder(stages))  # (B, 128², K)
+        g = FTNDecoderV2.GRIDS[0]
+        cls = cls.reshape(cls.shape[0], g, g, -1).permute(0, 3, 1, 2)
+        return None, resize(cls, scale_factor=4, method="bilinear")
+
+
+class PromptFTNv2(nn.Module):
+    """``model/ftn.py:29-64``: swin-base and ``FTNDecoderV2``, then a
+    post-norm prompt decoder (8 layers, 8 heads, dropout 0.1) of the frozen
+    CLIP text tower's pooled prompts over the decoded 128² map, prompts +
+    1e-5 · context, and the score map ×4.  Returns (None, score_map)."""
+
+    def __init__(self, dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        device = _model_device(device)
+        self.text_encoder = CLIPTextTransformer(device=device)  # frozen
+        self.backbone = SwinModel(dtype=dtype, device=device, **SWIN_BASE)
+        self.prompt_decoder = DecoderBlock(512, 8, 8, d_kv=512, dropout=0.1, device=device)
+        self.decoder = FTNDecoderV2(device=device)
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        b = inputs["pixel_values"].shape[0]
+        _, classes = self.text_encoder(inputs["input_ids"], inputs.get("attention_mask"))
+        v = self.decoder(self.backbone(inputs["pixel_values"], num_hidden=4))
+        classes = classes[None].expand(b, *classes.shape)
+        text = classes + 1e-5 * self.prompt_decoder(classes, v)  # ftn.py:53
+        return None, _upsampled_scores(v, text)
+
+
+class DenseCLIPFTN(nn.Module):
+    """``model/new.py:13-73`` (class ``Base``): the prompt tower
+    (``PromptContextBase``) on the swin's last pyramid level, an
+    ``FTNDecoder`` (dropout 0) over the pyramid and the prompted classes,
+    and the score map ×4.  Returns (None, score_map (B, K, H, W))."""
+
+    def __init__(self, cfg: Optional[Dict[str, Any]] = None,
+                 class_names: Optional[Sequence[str]] = None, swin_variant: str = "base",
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        super().__init__()
+        device = _model_device(device)
+        names = class_names or [f"class {i}" for i in range(ADE20K_NUM_CLASSES)]
+        swin = _swin(swin_variant)
+        dims = _pyramid_dims(swin)
+        self.vision_encoder = SwinModel(dtype=dtype, device=device, **swin)
+        self.prompt = PromptContextBase(cfg or default_denseclip_cfg(), tuple(names),
+                                        visual_dim=dims[3], device=device)
+        self.decoder = FTNDecoder(dims, 512, dropout=0.0, device=device)
+
+    def embed_text(self) -> torch.Tensor:
+        """Serving precompute: run once per checkpoint and feed the result
+        back as ``inputs["text_static"]``."""
+        return self.prompt.embed_text()
+
+    def forward(self, inputs: Dict[str, torch.Tensor]):
+        stages = self.vision_encoder(inputs["pixel_values"], num_hidden=4)
+        text = self.prompt(stages[-1], text_static=inputs.get("text_static"))  # new.py:40
+        return None, _upsampled_scores(self.decoder(stages, text), text)
+
+
+# ---------------------------------------------------------------------------
 # v4: the FINAL family (model/final.py)
 # ---------------------------------------------------------------------------
 
@@ -494,11 +634,15 @@ class PromptAuxCrossA(_PromptFinalBase, _AuxMixin):
         return dict(outputs=self._finish(x, t), low_score_map=low)
 
 
-# the models the port has, under the JAX package's registry names (zoo.py:594-611)
+# the registry, under the JAX package's names (zoo.py:594-611)
 ZOO = {
     "base_with_text": BaseModelWithText,
     "contrastive": ContrastiveModel,
     "dense_clip": DenseClip,
+    "prompt_ftn_v1": PromptFTNv1,
+    "base_ftn": BaseFTN,
+    "prompt_ftn": PromptFTNv2,
+    "denseclip_ftn": DenseCLIPFTN,
     "base_self_a": BaseSelfA,
     "base_cross_a": BaseCrossA,
     "prompt_self_a": PromptSelfA,

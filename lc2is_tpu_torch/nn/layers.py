@@ -250,8 +250,9 @@ class TransformerDecoderLayer(nn.Module):
     Post-norm with no masks runs the fused halves; ``norm_first``, a
     key-padding mask or active dropout the unfused ones.  ``quant`` selects
     the int8 serving variants of the fused halves and of the FF kernel.
-    ``dropout`` is 0 by default: the JAX layer's 0.1 is overridden by every
-    caller but ``DenseClip``'s prompt decoder, which passes it."""
+    ``dropout`` is 0 by default: the v4 callers override the JAX layer's 0.1;
+    the prompt decoders of ``DenseClip``, ``PromptFTNv1`` and ``PromptFTNv2``
+    and the FTN decoders' layers pass it."""
 
     def __init__(self, d_model: int, nhead: int, d_kv: Optional[int] = None,
                  dim_feedforward: int = 2048, dropout: float = 0.0, activation: str = "relu",

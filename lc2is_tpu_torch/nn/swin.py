@@ -1,5 +1,6 @@
 """Swin Transformer backbone, counterpart of ``lc2is_tpu/nn/swin.py``
-(``SwinModel``, HF ``SwinModel`` semantics, swin-small ``SWIN_SMALL`` :615).
+(``SwinModel``, HF ``SwinModel`` semantics, swin-small ``SWIN_SMALL`` :615,
+swin-base ``SWIN_BASE`` :616).
 
 Every block runs its two halves through the ported kernels: the attention
 half is ``ops/swin_window.swin_window_block`` (LN, packed QKV, shifted
@@ -56,6 +57,7 @@ from lc2is_tpu_torch.ops.swin_window import swin_window_block, swin_window_block
 from lc2is_tpu_torch.ops.window_attention import region_labels, window_attention
 
 SWIN_SMALL = dict(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24))
+SWIN_BASE = dict(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32))
 
 # the JAX package's canvas-kernel gate at its defaults (swin.py:290-296)
 CANVAS_MAX_C = 384

@@ -41,7 +41,7 @@ SIGNATURES = {
     "lc2_attn_block_bwd": [_I] + [_P] * 19 + [_I] * 5 + [_F, _P],
     "lc2_upsample": [_I, _P, _P] + [_I] * 5 + [_P],
     "lc2_upsample_adjoint": [_I, _P, _P] + [_I] * 5 + [_P],
-    "lc2_swin_window": [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+    "lc2_swin_window": [_I] + [_P] * 10 + [_I] * 8 + [_F, _P],
     "lc2_swin_window_bwd": [_I] + [_P] * 17 + [_I] * 8 + [_F, _P],
     "lc2_fused_ce": [_I, _P, _P, _I] + [_P] * 3 + [_I] * 7 + [_P],
     "lc2_score_upsample_argmax": [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
@@ -55,6 +55,7 @@ SIGNATURES = {
 }
 # entry points returning a size (floats of scratch a kernel needs)
 SIZE_SIGNATURES = {
+    "lc2_swin_window_workspace_bf16": [_I] * 6,
     "lc2_swin_window_bwd_workspace": [_I] * 5,
     "lc2_swin_window_bwd_workspace_bf16": [_I] * 5,
     "lc2_attn_block_bwd_workspace": [_I] * 5,

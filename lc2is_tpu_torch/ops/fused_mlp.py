@@ -36,7 +36,7 @@ from lc2is_tpu_torch.ops import _build
 from lc2is_tpu_torch.ops.dispatch import use_kernel
 
 _ACT_CODES = {"relu": 0, "gelu_erf": 1, "gelu_poly": 2}
-KERNEL_WIDTHS = (96, 128, 192, 256, 384, 512, 768)  # C values csrc/fused_mlp.cu instantiates
+KERNEL_WIDTHS = (96, 128, 192, 256, 384, 512, 768, 1024)  # C values csrc/fused_mlp.cu instantiates
 
 
 def gelu_poly(x: torch.Tensor) -> torch.Tensor:

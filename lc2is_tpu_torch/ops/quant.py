@@ -39,8 +39,9 @@ import torch.nn.functional as F
 
 from lc2is_tpu_torch.ops import _build
 from lc2is_tpu_torch.ops.dispatch import use_kernel
-from lc2is_tpu_torch.ops.fused_mlp import _ACT_CODES, KERNEL_WIDTHS, _act, _act_name
+from lc2is_tpu_torch.ops.fused_mlp import _ACT_CODES, _act, _act_name
 
+KERNEL_WIDTHS = (96, 128, 192, 256, 384, 512, 768)  # C values csrc/fused_mlp_q.cu instantiates
 # csrc/fused_mlp_q.cu's f32 body keeps 16 rows of the f32 hidden in shared memory
 MAX_HIDDEN_F32 = 3072
 

@@ -7,7 +7,10 @@ Counterpart of both ``lc2is_tpu/ops/swin_canvas.py::swin_canvas_block``
 fused_window_block`` (:645, stage 4), which compute this same function.  On
 a CUDA tensor :func:`swin_window_block` launches ``csrc/swin_window.cu``
 (indices from canvas coordinates, any stage: in f32 one block per window on
-the CUDA cores, in bf16 up to four windows a block on the tensor cores); on
+the CUDA cores, in bf16 up to four windows a block on the tensor cores, and
+at C 1024, where one window's tiles do not fit the SM, the head outputs
+through the scratch ``lc2_swin_window_workspace_bf16`` and a second
+tensor-core launch for the out-projection); on
 a CPU tensor it runs :func:`swin_window_block_plain`, HF's pipeline written out:
 LN, zero pad to window multiples (pad AFTER the LN), roll by -shift,
 partition, attention with the relative-position bias and the 9-region
@@ -127,11 +130,15 @@ def _launch_fwd(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shi
                                                                    wo, bo))
     biasc = bias.float().contiguous()
     out = torch.empty_like(xc)
+    # the bf16 body's split plan (C 1024): bo in f32 and the head outputs
+    n_ws = _build.size("lc2_swin_window_workspace_bf16", b, h, w, c, num_heads,
+                       win) if dt == torch.bfloat16 else 0
+    ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws > 0 else None
     _build.launch(
         "lc2_swin_window", xc.device, _build.dtype_code(xc), xc.data_ptr(), lnw.data_ptr(),
         lnb.data_ptr(), wq.data_ptr(), bq.data_ptr(), woc.data_ptr(), boc.data_ptr(),
-        biasc.data_ptr(), out.data_ptr(), b, h, w, c, num_heads, win, shift, int(residual),
-        float(eps), _build.stream_of(xc))
+        biasc.data_ptr(), out.data_ptr(), _build.ptr(ws), b, h, w, c, num_heads, win, shift,
+        int(residual), float(eps), _build.stream_of(xc))
     swin_window_block.launches += 1
     return out
 

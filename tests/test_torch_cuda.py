@@ -236,14 +236,15 @@ def test_fused_attn_block_bf16_control_fails(cuda):
         torch.testing.assert_close(got, want, **TOL[torch.bfloat16])
 
 
-@pytest.mark.parametrize("c", [96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("c", [96, 128, 192, 256, 384, 512, 768, 1024])
 @pytest.mark.parametrize("act,pos,residual", [("gelu", "pre", True), ("relu", "post", True),
                                               ("gelu", "post", False)])
 def test_fused_mlp_bf16_every_width(cuda, c, act, pos, residual):
     """The bf16 body (two 128 x 128-tile GEMMs around LayerNorm passes) at
     every C of KERNEL_WIDTHS, token counts off the 64- and 128-row tiles."""
     rs = np.random.RandomState(c)
-    n_tok, f = {96: 1, 128: 63, 192: 65, 256: 200, 384: 129, 512: 257, 768: 100}[c], 4 * c
+    n_tok = {96: 1, 128: 63, 192: 65, 256: 200, 384: 129, 512: 257, 768: 100, 1024: 131}[c]
+    f = 4 * c
     args = (_rand(rs, n_tok, c, dtype=torch.bfloat16), _rand(rs, c, scale=0.1, offset=1.0),
             _rand(rs, c, scale=0.1), _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
             _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
@@ -327,7 +328,7 @@ def test_upsample_tokens_kernel(cuda, dtype, hw, c, r):
 
 
 # the decoder's six x2 upsamples of a 512² forward (grid², C), at batch 2
-UPSAMPLE_MAIN_PATH = [(16, 768), (32, 384), (16, 512), (32, 512), (64, 512)]
+UPSAMPLE_MAIN_PATH = [(16, 768), (32, 384), (16, 512), (32, 512), (64, 512), (16, 1024)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -373,7 +374,7 @@ def test_swin_window_block_kernel(cuda, dtype, h, w, c, heads, win, shift):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shift", [0, 3])
-@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12), (768, 24)])
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12), (768, 24), (1024, 32)])
 def test_swin_window_block_kernel_window_tail(cuda, dtype, c, heads, shift):
     """27 windows (3 images of 15², padded to 21²): no multiple of the 4 or
     2 windows a bf16 block takes at the swin-small widths, so the last block
@@ -1351,9 +1352,9 @@ def test_small_v1_train_step_on_card(cuda, vision, nhead):
 
 def test_swin_base_shaped_model_serves_on_card(cuda):
     """A PromptAuxCrossA on a swin-base-shaped backbone (C 128 .. 1024, one
-    block a stage): its fourth stage, C 1024, where fused_mlp takes C <= 768,
-    is never run (no model reads it), so the model serves on the card, f32
-    against its plain run on the CPU."""
+    block a stage; stage 3 at C 512 takes the window block's row-9 shapes,
+    the fourth stage is not run, as no model reads it) serves on the card,
+    f32 against its plain run on the CPU."""
     from lc2is_tpu_torch.core.convert import seeded_init_
     from lc2is_tpu_torch.models.zoo import PromptAuxCrossA
 
@@ -1510,3 +1511,95 @@ def test_small_v4_model_on_card(cuda, name):
     with torch.no_grad():
         out = gpu16({"pixel_values": x.to(cuda)})
     assert all(torch.isfinite(o).all() for o in out.values())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_tok,act,pos,residual", [(1, "gelu", "pre", True),
+                                                    (300, "gelu", "pre", True),
+                                                    (77, "relu", "post", True),
+                                                    (129, "gelu", "pre", False)])
+def test_fused_mlp_kernel_c1024(cuda, dtype, n_tok, act, pos, residual):
+    """Swin-base's fourth-stage feed-forward, C 1024, F 4096: the bf16 body's
+    LayerNorm pass at C 1024, the f32 body at 16 rows a block."""
+    rs = np.random.RandomState(n_tok)
+    c, f = 1024, 4096
+    args = (_rand(rs, n_tok, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.1), _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
+            _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
+    _check(fused_mlp, fused_mlp, fused_mlp_plain, *args, activation=act, ln_position=pos,
+           residual=residual)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("b,grid,c,heads", [(16, 16, 1024, 32), (16, 32, 512, 16)])
+def test_swin_window_block_kernel_swin_base(cuda, dtype, b, grid, c, heads, shift):
+    """Swin-base's window blocks at 512², batch 16: stage 4 (16² padded to
+    21², C 1024, dh 32: the bf16 body's split plan, head outputs through the
+    workspace) and stage 3 (32² padded to 35², C 512, 16 heads)."""
+    rs = np.random.RandomState(grid + shift)
+    args = (_rand(rs, b, grid, grid, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
+            _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, heads, 49, 49, scale=0.1))
+    _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, 7, shift)
+
+
+def test_swin_base_all_stages_on_card(cuda):
+    """SwinModel at swin-base widths (one block in stages 1-3, two in stage 4)
+    on a 512² input with every stage run (num_hidden None): stage 4 at C
+    1024 on a 16² grid padded to 21², unshifted and shifted; f32 on the card
+    against its plain run on the CPU, and bf16 finite with every launch
+    counted."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.nn.swin import SwinModel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(embed_dim=128, depths=(1, 1, 1, 2), num_heads=(4, 8, 16, 32))
+    cpu = seeded_init_(SwinModel(**cfg), seed=30).eval()
+    x = _rand(np.random.RandomState(31), 1, 3, 512, 512, device="cpu")
+    with torch.no_grad():
+        want = cpu(x)
+        for dtype in DTYPES:
+            gpu = SwinModel(device=cuda, dtype=dtype, **cfg).eval()
+            gpu.load_state_dict(cpu.state_dict(), strict=True)
+            before = (swin_window_block.launches, fused_mlp.launches)
+            got = gpu(x.to(cuda))
+            torch.cuda.synchronize()
+            assert (swin_window_block.launches - before[0], fused_mlp.launches - before[1]) == \
+                (5, 5)
+            assert [tuple(h.shape[1:]) for h in got] == [(16384, 128), (4096, 256), (1024, 512),
+                                                         (256, 1024), (256, 1024)]
+            for g, w in zip(got, want):
+                assert g.dtype == dtype and torch.isfinite(g).all()
+                if dtype == torch.float32:
+                    torch.testing.assert_close(g.cpu(), w, atol=1e-3, rtol=1e-3)
+
+
+def test_swin_base_denseclip_ftn_on_card(cuda):
+    """DenseCLIPFTN at full swin-base depth and widths (the small prompt cfg,
+    3 classes) at 128²: f32 on the card against its plain run on the CPU."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models.zoo import DenseCLIPFTN
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(class_names=("wall", "sky", "tree"),
+              cfg=dict(text_encoder=dict(context_length=10, vocab_size=49408,
+                                         transformer_width=512, transformer_heads=8,
+                                         transformer_layers=1, embed_dim=512),
+                       context_decoder=dict(transformer_width=64, transformer_heads=4,
+                                            transformer_layers=1),
+                       context_length=5, text_dim=512))
+    cpu = seeded_init_(DenseCLIPFTN(device="cpu", **kw), seed=32).eval()
+    gpu = DenseCLIPFTN(device=cuda, **kw).eval()
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    x = _rand(np.random.RandomState(33), 2, 3, 128, 128, device="cpu")
+    with torch.no_grad():
+        none_c, want = cpu({"pixel_values": x})
+        before = swin_window_block.launches
+        none_g, got = gpu({"pixel_values": x.to(cuda)})
+    assert none_c is None and none_g is None
+    assert swin_window_block.launches - before == 22
+    assert tuple(got.shape) == (2, 3, 128, 128) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.cpu(), want, atol=1e-3, rtol=0)

@@ -120,7 +120,7 @@ def test_v4_model_bf16(v4_run):
 def test_registry_matches_jax():
     """The port's ``ZOO`` names the JAX package's classes under the same keys,
     and ``FROZEN_PREFIXES`` equals JAX's for every key the port has."""
-    assert set(zoo.ZOO) <= set(jzoo.ZOO) and len(zoo.ZOO) == 9
+    assert set(zoo.ZOO) <= set(jzoo.ZOO) and len(zoo.ZOO) == 13
     assert {k: c.__name__ for k, c in zoo.ZOO.items()} == \
         {k: jzoo.ZOO[k].__name__ for k in zoo.ZOO}
     assert zoo.FROZEN_PREFIXES == {k: v for k, v in jzoo.FROZEN_PREFIXES.items()
