@@ -1,5 +1,5 @@
-// The feed-forward activations of csrc/fused_mlp.cu, shared by its f32 body
-// and by the bf16 GEMM's epilogue (gemm_bf16.cuh) that its bf16 body runs.
+// The feed-forward activations of csrc/fused_mlp.cu, applied in the
+// epilogues of the GEMMs its two bodies run (gemm_bf16.cuh, gemm_f32x3.cuh).
 #pragma once
 
 #include <math.h>

@@ -20,18 +20,31 @@
 // (layer_norm.cuh).  The workspace (the wrapper allocates it,
 // lc2_attn_block_fwd_workspace_bf16) holds q / att in bf16 and s in f32.
 //
-// f32 body (the control) on the CUDA cores: one block owns a
-// tile of BQ = 32 query rows with all C channels, because the out-projection
-// and the LayerNorm need every head of a row.
-//   1. x tile -> shared memory; q = x·Wqᵀ + bq -> shared memory;
-//   2. warp h takes head h and lane r query row r: q_h row in registers, then
-//      a loop over K/V tiles of BK = 16 keys in shared memory with an online
-//      (max-subtracted) softmax, so L is unbounded (1024 at 512², more at
-//      larger inputs);
-//   3. the normalised head output overwrites the q tile;
-//   4. out-projection, residual and LayerNorm with f32 statistics, one row per
-//      warp-shuffle reduction.
-// Heads <= 8 (one warp each), dh in {16, 32, 64}, C % 32 == 0, C <= 512.
+// f32 body (attn_block_f32): every product on the tensor cores in 3xTF32
+// (gemm_f32x3.cuh: each product three TF32 mma.sync products, f32-accurate),
+// four or five launches.  The FTN prompt decoders run it under bf16 (their
+// queries are the f32 text): 151 queries over up to 16,384 keys, which
+// give a grid of images x heads too small to fill the card unless the keys
+// are cut into ranges.
+//   1. q = x · Wqᵀ + bq on the 3xTF32 GEMM (1/√dh folded into Wq, bq);
+//   2. the attention core attn_core_f32: a block owns one (image, head, key
+//      range) and all of that head's query rows up to 160 (10 warps, 16 rows
+//      each; more rows: query tiles of 128), so each K/V byte is read from
+//      device memory once; 64-key K and V tiles stream through a 4-stage
+//      cp.async ring and are split once a block in shared memory (not
+//      again by each of the 10 warps that read them); S = Q ·
+//      Kᵀ and O += P · V in 3xTF32 with Q and P split in registers; the
+//      online softmax in f32 with the row max subtracted, in log2 units.
+//      Key ranges are cut so that a call fills two waves of the 132 SMs
+//      (CorePlan); with one range (enough query tiles, heads and images to
+//      fill the card alone) the core writes O / l over q;
+//   3. with several ranges, attn_merge_f32 merges each range's (m, l, O) in
+//      range order and writes the normalised head outputs over q;
+//   4. s = att · Woᵀ + bo + x in f32 on the GEMM; 5. LayerNorm of s with f32
+//      statistics (layer_norm.cuh).
+// Workspace (lc2_attn_block_fwd_workspace_f32, the wrapper allocates it): q
+// (then the head outputs), s, the ranges' partials.
+// Heads <= 8, dh in {16, 32, 64}, C in {64, 128, 256, 512}.
 //
 // lc2_attn_block_q is the int8 serving variant, the quant=True branch of the
 // TPU kernel (attention_block.py:38-96, forward only): int8 q- and
@@ -51,11 +64,17 @@
 //   (lc2_attn_block_q_workspace_bf16, the wrapper allocates it): s in f32,
 //   whose first half q / att occupies until step 5 overwrites it, the codes,
 //   the row scales, and the weights' codes and scales.
-// - f32 (the control): the f32 body's kernel above with TW = int8_t.
+// - f32 (the control): attn_block_q_kernel on the CUDA cores, one block a
+//   tile of 32 query rows with all C channels (the out-projection and the
+//   LayerNorm need every head of a row): x tile and its codes, q = dequant(x
+//   codes · Wq codes) + bq in shared memory; warp h takes head h and lane r
+//   query row r, an online softmax over 16-key K/V tiles; the head outputs
+//   quantised, the out-projection, residual and LayerNorm.
 #include <math_constants.h>
 
 #include "attn_block_fwd.cuh"
 #include "common.cuh"
+#include "gemm_f32x3.cuh"
 #include "gemm_s8.cuh"
 #include "layer_norm.cuh"
 
@@ -69,9 +88,10 @@ constexpr int kThreads = 256;
 constexpr int kRows = 4;  // projection rows per warp
 
 // acc[i][j] = Σ_k A[4w+i][k] · W[lane+32j][k] over k < C; A in shared memory
-// (row stride lda), W (C, C) in device memory, staged through wt in tiles.
-template <typename T, int NJ>
-__device__ __forceinline__ void project(const float* A, int lda, const T* __restrict__ W,
+// (row stride lda), W (C, C) int8 codes in device memory, staged through wt
+// in tiles.
+template <int NJ>
+__device__ __forceinline__ void project(const float* A, int lda, const int8_t* __restrict__ W,
                                         float* wt, float (&acc)[kRows][NJ]) {
   constexpr int C = NJ * 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -130,24 +150,22 @@ __host__ __device__ constexpr int kv_floats() {
   return (2 * kBK * C > C * (kKT + 1)) ? 2 * kBK * C : C * (kKT + 1);
 }
 
-// TW = T: the float block.  TW = int8_t: the int8 serving variant (the
-// quant=True branch of the TPU kernel, attention_block.py:38-96): wq, wo
-// hold per-output-channel codes with scales wqs, wos (C,), and x and the
-// head outputs are quantised per row right before their projections
-// (common.cuh: quant_scale / quant_code / dequant).  The products stay on
-// the CUDA cores: each sums integer-valued f32 products, exact while
-// |acc| < 2^24 (C·127² <= 8.3e6 at C <= 512), so the f32 sum equals the
-// TPU's s32 one.
-template <typename T, typename TW, int NJ, int DH>
+// The int8 serving variant's f32 block (the quant=True branch of the TPU
+// kernel, attention_block.py:38-96): wq, wo hold per-output-channel codes
+// with scales wqs, wos (C,), and x and the head outputs are quantised per row
+// right before their projections (common.cuh: quant_scale / quant_code /
+// dequant).  The products stay on the CUDA cores: each sums integer-valued
+// f32 products, exact while |acc| < 2^24 (C·127² <= 8.3e6 at C <= 512), so
+// the f32 sum equals the TPU's s32 one.
+template <int NJ, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
-attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                  const T* __restrict__ v, const TW* __restrict__ wq,
-                  const float* __restrict__ wqs, const T* __restrict__ bq,
-                  const TW* __restrict__ wo, const float* __restrict__ wos,
-                  const T* __restrict__ bo, const T* __restrict__ lnw,
-                  const T* __restrict__ lnb, T* __restrict__ out, int P, int L,
-                  int heads, float eps) {
-  constexpr bool kQ = sizeof(TW) == 1;
+attn_block_q_kernel(const float* __restrict__ x, const float* __restrict__ k,
+                    const float* __restrict__ v, const int8_t* __restrict__ wq,
+                    const float* __restrict__ wqs, const float* __restrict__ bq,
+                    const int8_t* __restrict__ wo, const float* __restrict__ wos,
+                    const float* __restrict__ bo, const float* __restrict__ lnw,
+                    const float* __restrict__ lnb, float* __restrict__ out, int P, int L,
+                    int heads, float eps) {
   constexpr int C = NJ * 32;
   constexpr int LDQ = C + 4;  // keeps float4 rows 16-byte aligned, spreads banks
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -160,31 +178,25 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.y, p0 = blockIdx.x * kBQ;
-  const T* xb = x + (size_t)b * P * C;
+  const float* xb = x + (size_t)b * P * C;
 
   for (int idx = tid; idx < kBQ * C; idx += kThreads) {
     const int r = idx / C, c = idx - r * C;
-    xs[idx] = p0 + r < P ? to_f(xb[(size_t)(p0 + r) * C + c]) : 0.0f;
+    xs[idx] = p0 + r < P ? xb[(size_t)(p0 + r) * C + c] : 0.0f;
   }
 
   float acc[kRows][NJ];
-  if (kQ) {
-    __syncthreads();  // the x tile is complete
-    quantize_rows<NJ>(xs, C, qs, LDQ, rsc);
-    project<TW, NJ>(qs, LDQ, wq, kv, acc);
-    __syncthreads();  // every warp done reading the codes before q overwrites them
-  } else {
-    project<TW, NJ>(xs, C, wq, kv, acc);
-  }
+  __syncthreads();  // the x tile is complete
+  quantize_rows<NJ>(xs, C, qs, LDQ, rsc);
+  project<NJ>(qs, LDQ, wq, kv, acc);
+  __syncthreads();  // every warp done reading the codes before q overwrites them
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = warp * kRows + i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = lane + 32 * j;
-      const float bias = to_f(bq[c]);
-      qs[r * LDQ + c] = round_t<T>(kQ ? dequant(acc[i][j], rsc[r], wqs[c], bias)
-                                      : acc[i][j] + bias);
+      qs[r * LDQ + c] = dequant(acc[i][j], rsc[r], wqs[c], bq[c]);
     }
   }
   __syncthreads();
@@ -201,15 +213,15 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
       o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.0f;
     }
   }
-  const T* kb = k + (size_t)b * L * C;
-  const T* vb = v + (size_t)b * L * C;
+  const float* kb = k + (size_t)b * L * C;
+  const float* vb = v + (size_t)b * L * C;
   for (int j0 = 0; j0 < L; j0 += kBK) {
     __syncthreads();  // previous tile consumed
     for (int idx = tid; idx < kBK * C; idx += kThreads) {
       const int j = idx / C, c = idx - j * C;
       const bool in = j0 + j < L;
-      ks[idx] = in ? to_f(kb[(size_t)(j0 + j) * C + c]) : 0.0f;
-      vs[idx] = in ? to_f(vb[(size_t)(j0 + j) * C + c]) : 0.0f;
+      ks[idx] = in ? kb[(size_t)(j0 + j) * C + c] : 0.0f;
+      vs[idx] = in ? vb[(size_t)(j0 + j) * C + c] : 0.0f;
     }
     __syncthreads();
     if (h < heads) {
@@ -250,14 +262,14 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
   if (h < heads) {
     const float inv = 1.0f / l;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qs[lane * LDQ + h * DH + d] = round_t<T>(o[d] * inv);
+    for (int d = 0; d < DH; ++d) qs[lane * LDQ + h * DH + d] = o[d] * inv;
   }
   __syncthreads();
 
   // ---- out-projection + residual + LayerNorm ----
-  if (kQ) quantize_rows<NJ>(qs, LDQ, qs, LDQ, rsc);  // a warp's own rows, in place
-  project<TW, NJ>(qs, LDQ, wo, kv, acc);
-  T* ob = out + (size_t)b * P * C;
+  quantize_rows<NJ>(qs, LDQ, qs, LDQ, rsc);  // a warp's own rows, in place
+  project<NJ>(qs, LDQ, wo, kv, acc);
+  float* ob = out + (size_t)b * P * C;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = warp * kRows + i;
@@ -267,8 +279,7 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = lane + 32 * j;
-      s[j] = kQ ? __fadd_rn(dequant(acc[i][j], rsc[r], wos[c], to_f(bo[c])), xs[r * C + c])
-                : acc[i][j] + to_f(bo[c]) + xs[r * C + c];
+      s[j] = __fadd_rn(dequant(acc[i][j], rsc[r], wos[c], bo[c]), xs[r * C + c]);
       a += s[j];
     }
     const float mean = warp_sum(a) / C;
@@ -279,8 +290,7 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int c = lane + 32 * j;
-      ob[(size_t)(p0 + r) * C + c] =
-          from_f<T>((s[j] - mean) * rstd * to_f(lnw[c]) + to_f(lnb[c]));
+      ob[(size_t)(p0 + r) * C + c] = (s[j] - mean) * rstd * lnw[c] + lnb[c];
     }
   }
 }
@@ -292,62 +302,386 @@ struct AttnArgs {
   float eps;
 };
 
-template <typename T, typename TW, int NJ, int DH>
-cudaError_t launch(const AttnArgs& a, cudaStream_t stream) {
+template <int NJ, int DH>
+cudaError_t launch_q(const AttnArgs& a, cudaStream_t stream) {
   constexpr int C = NJ * 32;
   const size_t smem = sizeof(float) * (kBQ * C + kBQ * (C + 4) + kv_floats<C>() + kBQ);
-  auto kernel = attn_block_kernel<T, TW, NJ, DH>;
+  auto kernel = attn_block_q_kernel<NJ, DH>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.P + kBQ - 1) / kBQ, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const TW*>(a.wq), static_cast<const float*>(a.wqs),
-      static_cast<const T*>(a.bq), static_cast<const TW*>(a.wo),
-      static_cast<const float*>(a.wos), static_cast<const T*>(a.bo),
-      static_cast<const T*>(a.lnw), static_cast<const T*>(a.lnb), static_cast<T*>(a.out), a.P,
-      a.L, a.heads, a.eps);
+      static_cast<const float*>(a.x), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const int8_t*>(a.wq),
+      static_cast<const float*>(a.wqs), static_cast<const float*>(a.bq),
+      static_cast<const int8_t*>(a.wo), static_cast<const float*>(a.wos),
+      static_cast<const float*>(a.bo), static_cast<const float*>(a.lnw),
+      static_cast<const float*>(a.lnb), static_cast<float*>(a.out), a.P, a.L, a.heads, a.eps);
   return cudaGetLastError();
 }
 
-template <typename T, typename TW, int DH>
-cudaError_t dispatch_c(int C, const AttnArgs& a, cudaStream_t stream) {
+template <int DH>
+cudaError_t dispatch_q_c(int C, const AttnArgs& a, cudaStream_t stream) {
   switch (C) {
     case 64:
-      return launch<T, TW, 2, DH>(a, stream);
+      return launch_q<2, DH>(a, stream);
     case 128:
-      return launch<T, TW, 4, DH>(a, stream);
+      return launch_q<4, DH>(a, stream);
     case 256:
-      return launch<T, TW, 8, DH>(a, stream);
+      return launch_q<8, DH>(a, stream);
     case 512:
-      return launch<T, TW, 16, DH>(a, stream);
+      return launch_q<16, DH>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T, typename TW>
-cudaError_t dispatch_dh(int C, const AttnArgs& a, cudaStream_t stream) {
-  if (a.heads < 1 || a.heads > 8 || C % a.heads != 0) return cudaErrorInvalidValue;
+// The int8 variant's f32 block.
+cudaError_t attn_block_q_f32(const AttnArgs& a, int C, cudaStream_t s) {
+  if (a.L < 1 || a.heads < 1 || a.heads > 8 || C % a.heads != 0) return cudaErrorInvalidValue;
   switch (C / a.heads) {
     case 16:
-      return dispatch_c<T, TW, 16>(C, a, stream);
+      return dispatch_q_c<16>(C, a, s);
     case 32:
-      return dispatch_c<T, TW, 32>(C, a, stream);
+      return dispatch_q_c<32>(C, a, s);
     case 64:
-      return dispatch_c<T, TW, 64>(C, a, stream);
+      return dispatch_q_c<64>(C, a, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-// kQ false: the f32 block; true: the f32 int8 one (the bf16 bodies:
-// attn_block_bf16, attn_block_q_bf16)
-template <bool kQ>
-cudaError_t dispatch(int dtype, int C, const AttnArgs& a, void* stream) {
-  if (a.L < 1 || dtype != kF32) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return kQ ? dispatch_dh<float, int8_t>(C, a, s) : dispatch_dh<float, float>(C, a, s);
+// ---------------------------------------------------------------------------
+// The f32 body: 3xTF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Keys = 64;      // keys of a streamed K/V tile
+constexpr int kF32Stages = 4;     // K/V tiles in the ring
+constexpr int kF32MaxWarps = 10;  // P <= 160: one block holds every query row of a head
+constexpr int kF32TileWarps = 8;  // P > 160: query tiles of 128 rows
+constexpr int kSMs = 132;
+
+// Shared memory of the core: the ring's stages of a K tile at row stride DH
+// + 8 (a half-warp's 8-byte loads of rows g, columns 2t, 2t + 1 fall in
+// distinct banks) and a V tile at DH + 4 (the 4-byte loads of rows 2t and
+// 2t + 1, column g, do), then two stages for the lo halves of the tiles
+// being split and computed (their hi halves overwrite the tiles in the
+// ring): 210 KB at dh 64.
+template <int DH>
+struct CoreLayout {
+  static constexpr int kLdK = DH + 8, kLdV = DH + 4;
+  static constexpr int kStage = kF32Keys * (kLdK + kLdV);
+  static constexpr size_t kBytes = sizeof(float) * (kF32Stages + 2) * kStage;
+};
+
+// Split a landed K/V stage in place: each value's TF32 hi half over it, its
+// lo half into the same place of `lo`; by all nthreads threads, 16 bytes at
+// a time.  Once a block, so that no warp splits a K/V value again.
+template <int DH>
+__device__ __forceinline__ void split_stage(float* st, float* lo, int nthreads) {
+  using Lay = CoreLayout<DH>;
+  constexpr int kChunks = DH / 4;
+  for (int idx = threadIdx.x; idx < 2 * kF32Keys * kChunks; idx += nthreads) {
+    const int r = idx / kChunks, c = (idx - r * kChunks) * 4;  // rows 64.. are V's
+    const int o = r < kF32Keys ? r * Lay::kLdK + c
+                               : kF32Keys * Lay::kLdK + (r - kF32Keys) * Lay::kLdV + c;
+    float4 v = *reinterpret_cast<const float4*>(st + o);
+    uint4 h, l;
+    gemm32::split(v.x, h.x, l.x);
+    gemm32::split(v.y, h.y, l.y);
+    gemm32::split(v.z, h.z, l.z);
+    gemm32::split(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(st + o) = h;
+    *reinterpret_cast<uint4*>(lo + o) = l;
+  }
+}
+
+// How a call is cut: warps a block (16 query rows each), query tiles, key
+// ranges and 64-key tiles a range.  Enough ranges that the blocks fill two
+// waves of the SMs (one block an SM: 210 KB of shared memory at dh 64), at
+// most one range a key tile.  Query tiles above 160 rows hold 128 rows, so
+// that each split tile serves 8 warps.
+struct CorePlan {
+  int warps, q_tiles, splits, tiles_per_split;
+  CorePlan(int B, int P, int L, int heads) {
+    warps = P <= 16 * kF32MaxWarps ? (P + 15) / 16 : kF32TileWarps;
+    q_tiles = (P + 16 * warps - 1) / (16 * warps);
+    const int n_tiles = (L + kF32Keys - 1) / kF32Keys;
+    const long long base = (long long)B * heads * q_tiles;
+    const long long s = (2LL * kSMs + base - 1) / base;
+    tiles_per_split = (n_tiles + (int)(s < n_tiles ? s : n_tiles) - 1) /
+                      (int)(s < n_tiles ? s : n_tiles);
+    splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
+  }
+  // floats of the ranges' partials: O (DH) and (m, l) a row, head and range
+  long long partial_floats(int B, int P, int C, int heads) const {
+    return splits > 1 ? (long long)splits * B * heads * P * (C / heads + 2) : 0;
+  }
+};
+
+// The attention core of the f32 body: grid (query tiles x key ranges,
+// heads, B), 32 · warps threads.  Warp w owns query rows p0 + 16w .. + 15 of
+// head h of image b as split A fragments in registers and walks the 64-key
+// tiles of its range: each tile split once in shared memory (split_stage,
+// by every thread while the warps compute the tile before it, one barrier a
+// tile; cp.async runs two tiles ahead), S = Q · Kᵀ (3xTF32), the online
+// softmax in f32 in log2 units with the row max subtracted, O += P · V
+// (3xTF32).  S's C fragment is
+// P · V's A fragment with the mma's k order permuted (k t <- key 2t, k t + 4
+// <- key 2t + 1 of each 8-key group), and V's B fragment is read in that
+// order.  One range: O / l into att (which may be q: a block reads its q
+// rows before it writes them, and no other block reads them); several: the
+// unnormalised O and (m, l) into the partials, range-major.
+template <int DH>
+__global__ void __launch_bounds__(32 * kF32MaxWarps, 1)
+attn_core_f32(const float* q, const float* __restrict__ k, const float* __restrict__ v,
+              float* att, float* __restrict__ part_o, float2* __restrict__ part_ml, int P, int L,
+              int C, int splits, int tiles_per_split) {
+  using Lay = CoreLayout<DH>;
+  constexpr int KC = DH / 8, NO = DH / 8, G = NO < 4 ? NO : 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  const int nthreads = blockDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int split = blockIdx.x % splits, qt = blockIdx.x / splits;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y, B = gridDim.z;
+  const int p0 = qt * 16 * (nthreads >> 5) + 16 * warp;
+  const int n_tiles = (L + kF32Keys - 1) / kF32Keys;
+  const int t0 = split * tiles_per_split, n_mine = min(n_tiles, t0 + tiles_per_split) - t0;
+  const float* kb = k + (size_t)b * L * C + h * DH;
+  const float* vb = v + (size_t)b * L * C + h * DH;
+
+  auto issue = [&](int i) {  // tile t0 + i into stage i % kF32Stages, one group
+    if (i < n_mine) {
+      float* ks = ring + (i % kF32Stages) * Lay::kStage;
+      float* vs = ks + kF32Keys * Lay::kLdK;
+      const int key0 = (t0 + i) * kF32Keys;
+      constexpr int kChunks = DH / 4;
+      for (int idx = threadIdx.x; idx < kF32Keys * kChunks; idx += nthreads) {
+        const int r = idx / kChunks, c = (idx - r * kChunks) * 4;
+        const bool full = key0 + r < L;
+        const size_t off = (size_t)(key0 + r) * C + c;
+        mma::cp_async16(ks + r * Lay::kLdK + c, full ? kb + off : kb, full);
+        mma::cp_async16(vs + r * Lay::kLdV + c, full ? vb + off : vb, full);
+      }
+    }
+    mma::cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kF32Stages - 1; ++i) issue(i);
+
+  // the warp's q rows g and g + 8, columns 2t, 2t + 1 of each 8-wide step
+  const bool live = p0 < P;
+  gemm32::Split<4> qf[KC];
+  {
+    const float* qrow = q + ((size_t)b * P + p0 + g) * C + h * DH + 2 * t;
+    const bool in0 = p0 + g < P, in8 = p0 + g + 8 < P;
+    const float2 zero = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+      qf[kc] = gemm32::split_a(in0 ? *reinterpret_cast<const float2*>(qrow + 8 * kc) : zero,
+                               in8 ? *reinterpret_cast<const float2*>(qrow + 8 * C + 8 * kc)
+                                   : zero);
+  }
+  float o[NO / G][G][4];  // head columns 8(G·jg + j) .. + 7
+#pragma unroll
+  for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+    for (int j = 0; j < G; ++j) o[jg][j][0] = o[jg][j][1] = o[jg][j][2] = o[jg][j][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+
+  // the lo halves of tile i in lo_of(i)
+  auto lo_of = [&](int i) { return ring + (kF32Stages + (i & 1)) * Lay::kStage; };
+  mma::cp_async_wait<kF32Stages - 2>();  // tile 0 has landed (this thread's copies)
+  __syncthreads();  // ... every thread's
+  split_stage<DH>(ring, lo_of(0), nthreads);
+  for (int i = 0; i < n_mine; ++i) {
+    mma::cp_async_wait<kF32Stages - 3>();  // tile i + 1 has landed (this thread's copies)
+    // ... every thread's; tile i is split; every warp is done with tile i - 1
+    __syncthreads();
+    issue(i + kF32Stages - 1);  // into tile i - 1's stage
+    if (i + 1 < n_mine)  // tile i + 1 into the lo stage tile i - 1 used
+      split_stage<DH>(ring + ((i + 1) % kF32Stages) * Lay::kStage, lo_of(i + 1), nthreads);
+    if (!live) continue;
+    const float* lo = lo_of(i);
+    const int kofs = g * Lay::kLdK + 2 * t;
+    const int vofs = kF32Keys * Lay::kLdK + 2 * t * Lay::kLdV + g;
+    const float* ks = ring + (i % kF32Stages) * Lay::kStage + kofs;
+    const float* vs = ring + (i % kF32Stages) * Lay::kStage + vofs;
+    // S = Q · Kᵀ: 8 groups of 8 keys (key group 4jg + j in s[jg][j]), 4 at a time
+    float s[2][4][4];
+#pragma unroll
+    for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[jg][j][0] = s[jg][j][1] = s[jg][j][2] = s[jg][j][3] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg) {
+        gemm32::Split<2> kf[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int o = 8 * (4 * jg + j) * Lay::kLdK + 8 * kc;
+          const uint2 h = *reinterpret_cast<const uint2*>(ks + o);
+          const uint2 l = *reinterpret_cast<const uint2*>(lo + kofs + o);
+          kf[j] = gemm32::Split<2>{{h.x, h.y}, {l.x, l.y}};
+        }
+        gemm32::mma_x3_row<4>(s[jg], qf[kc], kf);
+      }
+    // the online softmax: a row lives in the 4 lanes of a quad
+    const int key0 = (t0 + i) * kF32Keys;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float* sj = s[jg][j];
+          if (key0 + 8 * (4 * jg + j) + 2 * t + e >= L) sj[e] = sj[2 + e] = -INFINITY;
+          mx[0] = fmaxf(mx[0], sj[e]);
+          mx[1] = fmaxf(mx[1], sj[2 + e]);
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // every tile holds a key below L: m_new is finite, alpha 0 on the first
+      const float m_new = fmaxf(m[r], mx[r] * mma::kLog2e);
+      const float alpha = mma::exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          o[jg][j][2 * r] *= alpha;
+          o[jg][j][2 * r + 1] *= alpha;
+        }
+    }
+#pragma unroll
+    for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float& p = s[jg][j][e];
+          p = mma::exp2_approx(fmaf(p, mma::kLog2e, -m[e >> 1]));  // −∞ gives 0
+          l[e >> 1] += p;
+        }
+    // O += P · V: key group kk of S is the A fragment (k t <- key 2t, k t + 4 <- key 2t + 1)
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const float* sk = s[kk >> 2][kk & 3];
+      const gemm32::Split<4> pf =
+          gemm32::split_a(make_float2(sk[0], sk[1]), make_float2(sk[2], sk[3]));
+      const float* vr = vs + 8 * kk * Lay::kLdV;
+      const float* vl = lo + vofs + 8 * kk * Lay::kLdV;
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg) {
+        gemm32::Split<2> vf[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const int col = 8 * (G * jg + j);
+          vf[j] = gemm32::Split<2>{{__float_as_uint(vr[col]), __float_as_uint(vr[Lay::kLdV + col])},
+                                   {__float_as_uint(vl[col]), __float_as_uint(vl[Lay::kLdV + col])}};
+        }
+        gemm32::mma_x3_row<G>(o[jg], pf, vf);
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const size_t rows = splits == 1 ? 0 : (((size_t)split * B + b) * heads + h) * P;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = p0 + g + 8 * r;
+    if (row >= P) continue;
+    if (splits == 1) {
+      const float inv = 1.0f / l[r];
+      float* dst = att + ((size_t)b * P + row) * C + h * DH + 2 * t;
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * (G * jg + j)) =
+              make_float2(o[jg][j][2 * r] * inv, o[jg][j][2 * r + 1] * inv);
+    } else {
+      float* dst = part_o + (rows + row) * DH + 2 * t;
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          *reinterpret_cast<float2*>(dst + 8 * (G * jg + j)) =
+              make_float2(o[jg][j][2 * r], o[jg][j][2 * r + 1]);
+      if (t == 0) part_ml[rows + row] = make_float2(m[r], l[r]);
+    }
+  }
+}
+
+// att[b, p, h · DH + d] = Σ_s O_s · 2^(m_s − M) / Σ_s l_s · 2^(m_s − M), M
+// the largest m_s, the ranges s summed in order; one block a (b, p) row, C
+// threads.
+template <int DH>
+__global__ void __launch_bounds__(512)
+attn_merge_f32(const float* __restrict__ part_o, const float2* __restrict__ part_ml,
+               float* __restrict__ att, int B, int P, int C, int heads, int splits) {
+  const int row = blockIdx.x, b = row / P, p = row - b * P;
+  const int c = threadIdx.x, h = c / DH, d = c - h * DH;
+  const size_t range = (size_t)B * heads * P, r0 = ((size_t)b * heads + h) * P + p;
+  float mx = -INFINITY;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[s * range + r0].x);
+  float l = 0.0f, o = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    const float2 ml = part_ml[s * range + r0];
+    const float w = mma::exp2_approx(ml.x - mx);
+    l += ml.y * w;
+    o += part_o[(s * range + r0) * DH + d] * w;
+  }
+  att[(size_t)row * C + c] = o * (1.0f / l);
+}
+
+// Steps 2-3 of the f32 body: the head outputs over q (att may be q).
+template <int DH>
+cudaError_t attn_core_launch(const float* q, const float* k, const float* v, float* att,
+                             float* part, int B, int P, int L, int C, int heads,
+                             cudaStream_t st) {
+  const CorePlan plan(B, P, L, heads);
+  constexpr size_t smem = CoreLayout<DH>::kBytes;
+  LC2_TRY(allow_smem(attn_core_f32<DH>, smem));
+  float2* part_ml = reinterpret_cast<float2*>(part + (size_t)plan.splits * B * heads * P * DH);
+  attn_core_f32<DH><<<dim3(plan.q_tiles * plan.splits, heads, B), 32 * plan.warps, smem, st>>>(
+      q, k, v, att, part, part_ml, P, L, C, plan.splits, plan.tiles_per_split);
+  LC2_TRY(cudaGetLastError());
+  if (plan.splits == 1) return cudaSuccess;
+  attn_merge_f32<DH><<<B * P, C, 0, st>>>(part, part_ml, att, B, P, C, heads, plan.splits);
+  return cudaGetLastError();
+}
+
+// The f32 body, steps 1-5.  ws: q / att (B·P, C), s (B·P, C), the partials.
+cudaError_t attn_block_f32(const AttnArgs& a, int C, void* ws, cudaStream_t st) {
+  using gemm32::Epilogue;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const int rows = a.B * a.P;
+  float* q = static_cast<float*>(ws);
+  float* s = q + (long long)rows * C;
+  float* part = s + (long long)rows * C;
+  LC2_TRY(gemm32::gemm(rows, C, C, f(a.x), C, f(a.wq), C, Epilogue{f(a.bq), nullptr, q, C}, st));
+  switch (C / a.heads) {
+    case 16: LC2_TRY(attn_core_launch<16>(q, f(a.k), f(a.v), q, part, a.B, a.P, a.L, C,
+                                          a.heads, st)); break;
+    case 32: LC2_TRY(attn_core_launch<32>(q, f(a.k), f(a.v), q, part, a.B, a.P, a.L, C,
+                                          a.heads, st)); break;
+    case 64: LC2_TRY(attn_core_launch<64>(q, f(a.k), f(a.v), q, part, a.B, a.P, a.L, C,
+                                          a.heads, st)); break;
+    default: return cudaErrorInvalidValue;
+  }
+  LC2_TRY(gemm32::gemm(rows, C, C, q, C, f(a.wo), C, Epilogue{f(a.bo), f(a.x), s, C}, st));
+  return ln::layer_norm(s, f(a.lnw), f(a.lnb), static_cast<float*>(a.out), rows, C, a.eps, st);
 }
 
 // The bf16 body: steps 1-3 (attn_block_fwd.cuh), then the LayerNorm of s.
@@ -427,9 +761,10 @@ cudaError_t attn_block_q_bf16(const AttnArgs& a, int C, void* ws, cudaStream_t s
 
 // x (B, P, C); k, v (B, L, C); wq, wo (C, C) torch layout; lnw, lnb (C,), all
 // of the dtype; bq, bo (C,) f32 (holding bf16 values in bf16: the TPU kernel
-// adds the bias of its dtype in f32).  ws: null in f32, in bf16
-// lc2_attn_block_fwd_workspace_bf16 floats, with 16-byte aligned operands.
-// C in {64, 128, 256, 512}; heads <= 8 with C / heads in {16, 32, 64}; L >= 1.
+// adds the bias of its dtype in f32).  ws: lc2_attn_block_fwd_workspace_bf16
+// (bf16) or lc2_attn_block_fwd_workspace_f32 (f32) floats.  Every operand
+// 16-byte aligned and contiguous.  C in {64, 128, 256, 512}; heads <= 8 with
+// C / heads in {16, 32, 64}; L >= 1.
 extern "C" int lc2_attn_block(int dtype, const void* x, const void* k, const void* v,
                               const void* wq, const void* bq, const void* wo,
                               const void* bo, const void* lnw, const void* lnb, void* out,
@@ -437,11 +772,13 @@ extern "C" int lc2_attn_block(int dtype, const void* x, const void* k, const voi
                               void* stream) {
   const lc2::AttnArgs a{x, k, v, wq, nullptr, bq, wo, nullptr, bo, lnw, lnb, out, B, P, L,
                         heads, eps};
-  if (dtype != lc2::kBF16) return lc2::dispatch<false>(dtype, C, a, stream);
   if (B < 1 || P < 1 || L < 1 || heads < 1 || heads > 8 || C % heads ||
       (C != 64 && C != 128 && C != 256 && C != 512) || ws == nullptr)
     return cudaErrorInvalidValue;
-  return lc2::attn_block_bf16(a, C, ws, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == lc2::kBF16) return lc2::attn_block_bf16(a, C, ws, s);
+  if (dtype != lc2::kF32) return cudaErrorInvalidValue;
+  return lc2::attn_block_f32(a, C, ws, s);
 }
 
 // The int8 variant.  f32: wq, wo (C, C) int8 codes with f32
@@ -456,7 +793,8 @@ extern "C" int lc2_attn_block_q(int dtype, const void* x, const void* k, const v
                                 const void* lnw, const void* lnb, void* out, void* ws, int B,
                                 int P, int L, int C, int heads, float eps, void* stream) {
   const lc2::AttnArgs a{x, k, v, wq, wqs, bq, wo, wos, bo, lnw, lnb, out, B, P, L, heads, eps};
-  if (dtype != lc2::kBF16) return lc2::dispatch<true>(dtype, C, a, stream);
+  if (dtype == lc2::kF32) return lc2::attn_block_q_f32(a, C, static_cast<cudaStream_t>(stream));
+  if (dtype != lc2::kBF16) return cudaErrorInvalidValue;
   if (B < 1 || P < 1 || L < 1 || heads < 1 || heads > 8 || C % heads ||
       (C != 64 && C != 128 && C != 256 && C != 512) || ws == nullptr)
     return cudaErrorInvalidValue;
@@ -476,4 +814,12 @@ extern "C" long long lc2_attn_block_q_workspace_bf16(int B, int P, int L, int C,
 extern "C" long long lc2_attn_block_fwd_workspace_bf16(int B, int P, int L, int C, int heads) {
   const long long n = (long long)B * P * C;
   return (n + 1) / 2 + n;
+}
+
+// Workspace floats of the f32 body: q (whose rows the head outputs
+// overwrite) and s, B·P·C of each, then the key ranges' partials (none when
+// the call takes one range).
+extern "C" long long lc2_attn_block_fwd_workspace_f32(int B, int P, int L, int C, int heads) {
+  const long long n = (long long)B * P * C;
+  return 2 * n + lc2::CorePlan(B, P, L, heads).partial_floats(B, P, C, heads);
 }

@@ -61,7 +61,9 @@ SIZE_SIGNATURES = {
     "lc2_attn_block_bwd_workspace": [_I] * 5,
     "lc2_attn_block_bwd_workspace_bf16": [_I] * 5,
     "lc2_attn_block_fwd_workspace_bf16": [_I] * 5,
+    "lc2_attn_block_fwd_workspace_f32": [_I] * 5,
     "lc2_fused_mlp_workspace_bf16": [_I] * 4,
+    "lc2_fused_mlp_workspace_f32": [_I] * 4,
     "lc2_fused_mlp_q_workspace_bf16": [_I] * 4,
     "lc2_attn_block_q_workspace_bf16": [_I] * 5,
     "lc2_fused_ce_partials": [_I] * 6,

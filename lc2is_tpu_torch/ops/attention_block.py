@@ -9,8 +9,12 @@ tensor :func:`fused_attn_block` launches ``csrc/attention_block.cu`` with
 tensor-core body (the GEMM of ``csrc/gemm_bf16.cuh`` and the attention core
 of ``csrc/attn_block_fwd.cuh``, which the backward's recompute shares, then
 a LayerNorm pass; scratch ``lc2_attn_block_fwd_workspace_bf16``), in f32 its
-CUDA-core body.  On a CPU tensor it runs :func:`fused_attn_block_plain`, the
-module composition of ``attention_block.py:93-113``.
+3xTF32 body (every product three TF32 tensor-core products, f32-accurate:
+the GEMM of ``csrc/gemm_f32x3.cuh`` and an attention core that splits the
+keys into ranges and merges them; scratch
+``lc2_attn_block_fwd_workspace_f32``).  On a CPU tensor it runs
+:func:`fused_attn_block_plain`, the module composition of
+``attention_block.py:93-113``.
 
 Training: on a CUDA tensor the kernel runs inside a ``torch.autograd.Function``
 whose backward is :func:`fused_attn_block_bwd` (``csrc/attention_block_bwd.cu``,
@@ -106,14 +110,15 @@ def _launch_fwd(x, k, v, wq_s, bq_s, wo, bo, ln_w, ln_b, num_heads, eps):
                                      for t in (x, k, v, wq_s, wo, ln_w, ln_b))
     # f32 holding the biases of the dtype: the TPU kernel adds them in f32
     bq, boc = (t.to(dt).float().contiguous() for t in (bq_s, bo))
-    ws = (torch.empty(_build.size("lc2_attn_block_fwd_workspace_bf16", b, p, l, c, num_heads),
-                      dtype=torch.float32, device=x.device) if dt == torch.bfloat16 else None)
+    ws_size = ("lc2_attn_block_fwd_workspace_bf16" if dt == torch.bfloat16
+               else "lc2_attn_block_fwd_workspace_f32")
+    ws = torch.empty(_build.size(ws_size, b, p, l, c, num_heads), dtype=torch.float32,
+                     device=x.device)
     out = torch.empty_like(xc)
     _build.launch(
         "lc2_attn_block", xc.device, _build.dtype_code(xc),
-        *(t.data_ptr() for t in (xc, kc, vc, wq, bq, woc, boc, lnw, lnb, out)),
-        None if ws is None else ws.data_ptr(), b, p, l, c, num_heads, float(eps),
-        _build.stream_of(xc))
+        *(t.data_ptr() for t in (xc, kc, vc, wq, bq, woc, boc, lnw, lnb, out, ws)), b, p, l, c,
+        num_heads, float(eps), _build.stream_of(xc))
     fused_attn_block.launches += 1
     return out
 

@@ -7,13 +7,14 @@ Two orderings, matching the two module families:
 - ``ln_position="post"`` (torch layer): out = LN(x + W2·act(W1·x))
 
 On a CUDA tensor :func:`fused_mlp` launches the Hopper kernel
-``csrc/fused_mlp.cu``: in bf16 its tensor-core body (two products on the
-GEMM of ``csrc/gemm_bf16.cuh``, the activation in the first one's epilogue,
-LayerNorm passes before or after; the (T, F) hidden activation goes through
-the scratch ``lc2_fused_mlp_workspace_bf16``), in f32 its CUDA-core body,
-which keeps the hidden activation on the SM.  On a CPU tensor it runs
-:func:`fused_mlp_plain`, the same function in plain PyTorch (the module
-composition of ``fused_mlp.py:146-167``).
+``csrc/fused_mlp.cu``: two products on a hand-written tensor-core GEMM, the
+activation in the first one's epilogue, LayerNorm passes before or after;
+the (T, F) hidden activation goes through a scratch buffer.  In bf16 the
+GEMM of ``csrc/gemm_bf16.cuh`` (scratch ``lc2_fused_mlp_workspace_bf16``),
+in f32 the 3xTF32 GEMM of ``csrc/gemm_f32x3.cuh`` (every product three TF32
+tensor-core products, f32-accurate; scratch ``lc2_fused_mlp_workspace_f32``).
+On a CPU tensor it runs :func:`fused_mlp_plain`, the same function in plain
+PyTorch (the module composition of ``fused_mlp.py:146-167``).
 
 Activation policy as in ``fused_mlp.py:89-101``: ``gelu`` is the
 division-free polynomial for bf16 and exact erf for f32; ``relu`` for the
@@ -162,16 +163,16 @@ def _launch(x, ln_w, ln_b, w1, b1, w2, b2, activation, ln_position, residual, ep
     lnw, lnb, w1c, w2c = (_build.contiguous16(t.to(dt)) for t in (ln_w, ln_b, w1, w2))
     # f32 holding the biases of the dtype: the TPU kernel adds them in f32
     b1f, b2f = (t.to(dt).float().contiguous() for t in (b1, b2))
-    ws = (torch.empty(_build.size("lc2_fused_mlp_workspace_bf16", n, c, f, pre),
-                      dtype=torch.float32, device=x.device) if dt == torch.bfloat16 else None)
+    ws_size = ("lc2_fused_mlp_workspace_bf16" if dt == torch.bfloat16
+               else "lc2_fused_mlp_workspace_f32")
+    ws = torch.empty(_build.size(ws_size, n, c, f, pre), dtype=torch.float32, device=x.device)
     out = torch.empty_like(xt)
     upre = torch.empty((n, f), dtype=dt, device=x.device) if save_upre else None
     _build.launch(
         "lc2_fused_mlp", xt.device, _build.dtype_code(xt),
-        *(t.data_ptr() for t in (xt, lnw, lnb, w1c, b1f, w2c, b2f, out)),
-        None if upre is None else upre.data_ptr(), None if ws is None else ws.data_ptr(), n, c,
-        f, _ACT_CODES[_act_name(activation, dt)], pre, int(residual), float(eps),
-        _build.stream_of(xt))
+        *(t.data_ptr() for t in (xt, lnw, lnb, w1c, b1f, w2c, b2f, out)), _build.ptr(upre),
+        ws.data_ptr(), n, c, f, _ACT_CODES[_act_name(activation, dt)], pre, int(residual),
+        float(eps), _build.stream_of(xt))
     fused_mlp.launches += 1
     return out.reshape(x.shape), upre
 

@@ -18,14 +18,17 @@ int8 product shapes (a yardstick only, on no path), window attention
 forward and a batch-8 step's forward, and its adjoint
 (``upsample_tokens_adjoint``, row 5) at a batch-8 step's six, beside
 ``F.interpolate`` and ``aten::upsample_bilinear2d_backward`` (yardsticks
-only), with the f32 bodies as controls:
+only), with the f32 bodies as controls, and the f32 bodies of rows 1 and 2
+(rows ``1f``, ``2f``) at the shapes the served bf16 forwards run them in f32
+(the FTN and DenseClip prompt decoders, the v1 decoders), each beside its
+plain version's time and its error over max |plain|:
 CUDA-event medians of a call, and the device time of its kernels
 (torch.profiler; the event time also holds the wrapper's host work when the
 kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
 bias and region mask as its additive mask (``scaled_dot_product_attention``,
 a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,2,2q,3,4,5,6,7,8,12,13,17]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,1f,2,2f,2q,3,4,5,6,7,8,12,13,17]
 
 ROOT is a checkout of this repository (default: the one holding this
 script); only the sources of those kernels are built (``fused_mlp*.cu``,
@@ -76,6 +79,17 @@ MLP_SHAPES = [(128 * 128, 96, 384, "gelu", "pre", 2), (64 * 64, 192, 768, "gelu"
               (1024, 512, 2048, "relu", "post", 2), (4096, 512, 2048, "relu", "post", 3),
               (16 * 16, 768, 3072, "gelu", "pre", None), (1024, 768, 2048, "relu", "pre", None),
               (1025, 768, 2048, "relu", "pre", None), (151, 512, 2048, "relu", "post", None)]
+# rows 2f and 1f, the f32 bodies: (queries, keys) of a batch-16 call, 512
+# wide, 8 heads: the FTN prompt decoders' 151 prompts over 16,384 keys
+# (PromptFTNv2) and 256 (PromptFTNv1), DenseClip's over 151 and 1,025,
+# FTNDecoderV2's self-attention over 4096, and the keys' scale (x4: the
+# peaked softmax of chip_smoke.py's 16,384-key case); (tokens, C, F, activation, LN
+# position): the prompt decoders' feed-forward (16 x 151 rows), the v1
+# decoders', the flagship's stage-3 and largest decoder feed-forwards
+F32_ATTN_SHAPES = [(151, 16384, 1.0), (151, 16384, 4.0), (151, 256, 1.0), (151, 151, 1.0),
+                   (151, 1025, 1.0), (4096, 4096, 1.0)]
+F32_MLP_SHAPES = [(2416, 512, 2048, "relu", "post"), (16384, 768, 2048, "relu", "pre"),
+                  (16384, 384, 1536, "gelu", "pre"), (65536, 512, 2048, "relu", "post")]
 # row 6: the swin-small stages of a batch-16 512² forward (grid, C, heads,
 # blocks a shift); stage 4 (row 9) runs on no path and is one call.  Row 7
 # runs at the same stages at batch 8 (a training step's launches a shift:
@@ -194,7 +208,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--rows", default="1,2,2q,3,4,5,6,7,8,12,13,17")
+    ap.add_argument("--rows", default="1,1f,2,2f,2q,3,4,5,6,7,8,12,13,17")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
@@ -211,6 +225,9 @@ def main() -> int:
         if name == "lc2_attn_block_fwd_workspace_bf16":
             print(f"[{tag}] {name} (16, 4096, 512) L1024 h8: "
                   f"{4 * build.size(name, 16, 4096, 1024, 512, 8)} bytes", flush=True)
+        if name == "lc2_attn_block_fwd_workspace_f32":
+            print(f"[{tag}] {name} (16, 151, 512) L16384 h8: "
+                  f"{4 * build.size(name, 16, 151, 16384, 512, 8)} bytes", flush=True)
         if name == "lc2_fused_mlp_workspace_bf16":
             print(f"[{tag}] {name} (65536, 512) F 2048 post: "
                   f"{4 * build.size(name, 65536, 512, 2048, 0)} bytes", flush=True)
@@ -303,6 +320,52 @@ def main() -> int:
     def rel_diff(got, want):
         d = (got.float() - want.float()).abs().max().item()
         return f" max|Δ| {d:.2e} = {d / want.float().abs().max().item():.2e} x max|plain|"
+
+    # rows 1f and 2f: the f32 bodies at the shapes the served bf16 forwards
+    # give them (the FTN prompt decoders, DenseClip's prompt decoder, the v1
+    # decoders; their queries are the f32 text), FTNDecoderV2's largest f32
+    # case and the flagship decoder's, batch 16: CUDA-event time, device time,
+    # the plain version's time, and the error against it over max |plain|
+    # (the F32X3_REL rule of chip_smoke.py, 1e-5), in this checkout whatever
+    # its f32 body, and the plain version's with TF32 products (that rule's
+    # control)
+    def tf32_diff(plain, want):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = plain()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        d = (got - want).abs().max().item() / want.abs().max().item()
+        return f"; TF32 plain {d:.2e} x max|plain|"
+
+    for p, l, k_scale in F32_ATTN_SHAPES if "2f" in rows else ():
+        a = attn_args(rs, 16, p, l, torch.float32)
+        a[1] = k_scale * a[1]
+        fwd = lambda a=a: ab.fused_attn_block(*a, 8)
+        plain = lambda a=a: ab.fused_attn_block_plain(*a, 8)
+        with torch.no_grad():
+            ms = time_ms(fwd, reps=20)
+            p_ms = time_ms(plain, reps=10)
+            want = plain()
+            note = rel_diff(fwd(), want) + tf32_diff(plain, want) + f"; plain {p_ms:.3f} ms"
+        report("2f", f"(16,{p},512) L{l} h8 keys x{k_scale:g}", torch.float32, ms, 1,
+               4 * 16 * p * 512 * 512 + 4 * 16 * p * l * 512, fwd, note, split=True)
+        del a
+        torch.cuda.empty_cache()
+    for t, c, f, act, pos in F32_MLP_SHAPES if "1f" in rows else ():
+        a = mlp_args(rs, t, c, f, torch.float32)
+        fwd = lambda a=a, act=act, pos=pos: mlp.fused_mlp(*a, activation=act, ln_position=pos)
+        plain = lambda a=a, act=act, pos=pos: mlp.fused_mlp_plain(*a, activation=act,
+                                                                 ln_position=pos)
+        with torch.no_grad():
+            ms = time_ms(fwd, reps=20)
+            p_ms = time_ms(plain, reps=10)
+            want = plain()
+            note = rel_diff(fwd(), want) + tf32_diff(plain, want) + f"; plain {p_ms:.3f} ms"
+        report("1f", f"({t},{c}) F{f} {act} {pos}", torch.float32, ms, 1, 4 * t * c * f, fwd,
+               note, split=True)
+        del a
+        torch.cuda.empty_cache()
 
     # row 17 (int8 feed-forward) at batch 16, bf16 at every serving shape
     # (stage 4: one call, not summed), f32 at two (controls); row 2q (int8

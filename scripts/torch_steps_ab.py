@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
-"""Time the flagship's bf16 served-mask forward and the two bf16 training
-steps of two checkouts of this repository on one NVIDIA GPU, in turns, each
-through that checkout's own ``chip_smoke.py`` phase functions (4m: the
-batch-16 512² masks forward, 6b: the flagship's batch-8 step, 11b:
-``BaseCrossA``'s batch-8 step; host clock to a synchronize, medians of 3 and
-6 runs), so that a change's end-to-end times stand beside its parent's from
-the same card:
+"""Time the flagship's bf16 served-mask forward, the two bf16 training steps
+and the served bf16 forwards of ``PromptFTNv1`` and ``PromptFTNv2`` of two
+checkouts of this repository on one NVIDIA GPU, in turns, each through that
+checkout's own ``chip_smoke.py`` phase functions (4m: the batch-16 512²
+masks forward, 6b: the flagship's batch-8 step, 11b: ``BaseCrossA``'s
+batch-8 step, 12: ``check_ftn_model``, whose (b) half serves three batch-16
+512² batches and profiles one ``PromptFTNv2`` forward; host clock to a
+synchronize, medians of 3 and 6 runs), so that a change's end-to-end times
+stand beside its parent's from the same card:
 
-    python3 scripts/torch_steps_ab.py PARENT CHANGE [--pairs 3]
+    python3 scripts/torch_steps_ab.py PARENT CHANGE [--pairs 3] [--log DIR]
 
 PARENT and CHANGE are checkouts (e.g. ``git archive HEAD | tar -x -C
 build/parent``); each is run in a process of its own, in the order parent,
 change, change, parent, parent, change, ... (``--pairs`` pairs), and each
 builds its kernels into its own ``build/`` at first use.  Every run prints
-one line ``STEPS {json}``; the script ends with each metric's runs and
-medians for both.  Fails without a CUDA device.
+one line ``STEPS {json}`` (with ``--log``, its whole output, profiles
+included, goes to ``DIR/<tag>_<i>.log``); the script ends with each metric's
+runs and medians for both.  Fails without a CUDA device.
 """
 
 from __future__ import annotations
@@ -26,12 +29,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-METRICS = ("masks_ms", "step_ms", "basecrossa_ms")
+METRICS = ("masks_ms", "step_ms", "basecrossa_ms", "PromptFTNv1_ms", "PromptFTNv2_ms")
+FTN_TIMED = ("PromptFTNv1", "PromptFTNv2")
 
 
 def one(root: Path) -> None:
     """The three times of the checkout at ``root``, as a ``STEPS`` line."""
     sys.path.insert(0, str(root))
+    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -48,8 +53,13 @@ def one(root: Path) -> None:
     del state
     torch.cuda.empty_cache()
     basecrossa_ms = cs.check_v4_train(smi)[1]
+    torch.cuda.empty_cache()
+    batches = [cs.rand(np.random.RandomState(cs.SEED + 60 + i), cs.BATCH, 3, cs.IMG, cs.IMG,
+                       dtype=torch.bfloat16) for i in range(4)]  # phase 12's
+    ftn = {f"{name}_ms": cs.check_ftn_model(smi, name, batches)[0] for name in FTN_TIMED}
     print("STEPS " + json.dumps({"root": str(root), "masks_ms": masks_ms, "step_ms": step_ms,
-                                 "basecrossa_ms": basecrossa_ms, "device": smi}), flush=True)
+                                 "basecrossa_ms": basecrossa_ms, **ftn, "device": smi}),
+          flush=True)
 
 
 def main() -> int:
@@ -57,6 +67,7 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--pairs", type=int, default=3)
+    ap.add_argument("--log", default=None, help="directory for each run's whole output")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.one:
@@ -70,10 +81,13 @@ def main() -> int:
     for i in range(args.pairs):
         order += [("parent", "change"), ("change", "parent")][i % 2]
     runs = {"parent": [], "change": []}
-    for tag in order:
+    for i, tag in enumerate(order):
         root = Path(getattr(args, tag)).resolve()
         proc = subprocess.run([sys.executable, __file__, str(root), str(root), "--one"],
                               capture_output=True, text=True)
+        if args.log:
+            Path(args.log).mkdir(parents=True, exist_ok=True)
+            (Path(args.log) / f"{tag}_{i}.log").write_text(proc.stdout + proc.stderr)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("STEPS ")]
         if proc.returncode != 0 or not lines:
             print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)

@@ -20,6 +20,10 @@ Masks (the argmax head) equal their plain version's except at near-ties, a
 pixel whose two best blended scores are within 1e-5 (f32) or, where each
 side rounds its scores to bf16, two bf16 steps at the largest score (a score
 differs by at most one step, and the blend is convex).
+The f32 bodies of the feed-forward and the decoder attention block (3xTF32
+on the tensor cores) are also held to |Δ| <= 1e-5 · max |ref|, which their
+plain versions run with TF32 products fail: the f32 bound above would pass
+a TF32 product too.
 Int8 kernels: |Δ| <= 1e-3 · max |ref| (f32), 2e-2 · max |ref| (bf16): a code
 that rounds the other way moves an output by one step of its scale.
 The upsample kernels and their adjoint, against the plain forward and the
@@ -65,6 +69,9 @@ UPSAMPLE_F32_REL = 1e-6
 # over 1025 unit-normal keys), so TOL's bf16 atol would pass a kernel that
 # dropped a key tile: bf16 flash is held to a share of the largest output
 FLASH_BF16_REL = 2e-2
+# the f32 bodies of rows 1 and 2 (3xTF32) against their plain versions: a
+# share of the largest output, tight enough that a TF32 product fails it
+F32X3_REL = 1e-5
 
 
 def flash_tol(want):
@@ -277,6 +284,111 @@ def test_fused_mlp_bf16_training_upre(cuda, n_tok, c, f, act, pos):
     torch.testing.assert_close(upre.float(), want.float(), **TOL[dt])
     plain = fused_mlp_plain(x, *args, activation=act, ln_position=pos)
     torch.testing.assert_close(out.float(), plain.float(), **TOL[dt])
+
+
+def _f32x3_close(got, want, what=""):
+    """got within F32X3_REL · max |want| of want, both f32 and finite."""
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape, what
+    assert torch.isfinite(got).all(), what
+    err = (got - want).abs().max().item()
+    lim = F32X3_REL * want.abs().max().item()
+    assert err <= lim, f"{what}: max |Δ| {err:.3e} > {F32X3_REL} · max |plain| = {lim:.3e}"
+
+
+@pytest.mark.parametrize("l", [16384, 256])
+def test_fused_attn_block_f32x3_prompt_decoders(cuda, l):
+    """Row 2's f32 body at the FTN prompt decoders' shapes at batch 2: 151
+    queries over 16,384 keys (PromptFTNv2's, cut into 16 key ranges) and over
+    256 keys (PromptFTNv1's), against the plain version under F32X3_REL (and
+    TOL's f32 bound)."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rs = np.random.RandomState(l)
+    args = _attn_args(rs, 2, 151, l, 512, torch.float32)
+    # keys at 4x: a peaked softmax, so the attention path carries the output
+    args = (args[0], 4 * args[1]) + args[2:]
+    _check(fused_attn_block, fused_attn_block, fused_attn_block_plain, *args, 8)
+    _f32x3_close(fused_attn_block(*args, 8), fused_attn_block_plain(*args, 8), f"L {l}")
+
+
+@pytest.mark.parametrize("p,l,c,heads", [(161, 1, 64, 4), (300, 65, 128, 4), (1, 1025, 512, 8),
+                                         (129, 200, 256, 8), (500, 64, 512, 8), (16, 64, 64, 2)])
+def test_fused_attn_block_f32x3_tile_edges(cuda, p, l, c, heads):
+    """Row 2's f32 body off its tiles, under F32X3_REL: query counts past the
+    one-block 160 rows (128-row tiles, the last one partly dead warps), one
+    key, key counts off the 64-key tile, dh 16, 32 and 64, one query."""
+    rs = np.random.RandomState(p + l)
+    args = _attn_args(rs, 2, p, l, c, torch.float32)
+    _check(fused_attn_block, fused_attn_block, fused_attn_block_plain, *args, heads)
+    _f32x3_close(fused_attn_block(*args, heads), fused_attn_block_plain(*args, heads))
+
+
+@pytest.mark.parametrize("c", [96, 128, 192, 256, 384, 512, 768, 1024])
+@pytest.mark.parametrize("n_tok", [63, 8500])
+def test_fused_mlp_f32x3_every_width(cuda, c, n_tok):
+    """Row 1's f32 body at every C of KERNEL_WIDTHS, post relu with the
+    residual, under F32X3_REL: 63 rows (64 x 64 GEMM tiles, one partial) and
+    8,500 (128 x 64 tiles, a partial last one)."""
+    rs = np.random.RandomState(c + n_tok)
+    f = 4 * c
+    args = (_rand(rs, n_tok, c), _rand(rs, c, scale=0.1, offset=1.0), _rand(rs, c, scale=0.1),
+            _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
+            _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
+    _check(fused_mlp, fused_mlp, fused_mlp_plain, *args, activation="relu", ln_position="post")
+    _f32x3_close(fused_mlp(*args, activation="relu", ln_position="post"),
+                 fused_mlp_plain(*args, activation="relu", ln_position="post"))
+
+
+@pytest.mark.parametrize("n_tok,c,f,act,pos,save", [
+    (302, 512, 2048, "relu", "post", False),  # the prompt decoders' feed-forward at batch 2
+    (131, 1024, 4096, "gelu", "pre", False),  # swin-base stage 4's
+    (302, 512, 2048, "relu", "post", True),   # with the training launch's pre-activation
+    (77, 96, 384, "gelu", "pre", True),
+])
+def test_fused_mlp_f32x3(cuda, n_tok, c, f, act, pos, save):
+    """Row 1's f32 body (two 3xTF32 GEMMs around LayerNorm passes) against
+    the plain version under F32X3_REL; with ``save`` the launch that keeps
+    the pre-activation, held to h · w1ᵀ + b1 in f32 under the same rule."""
+    from lc2is_tpu_torch.ops import fused_mlp as mlp
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rs = np.random.RandomState(n_tok + c)
+    x = _rand(rs, n_tok, c)
+    args = (_rand(rs, c, scale=0.1, offset=1.0), _rand(rs, c, scale=0.1),
+            _rand(rs, f, c, scale=c ** -0.5), _rand(rs, f, scale=0.1),
+            _rand(rs, c, f, scale=f ** -0.5), _rand(rs, c, scale=0.1))
+    before = fused_mlp.launches
+    out, upre = mlp._launch(x, *args, act, pos, True, 1e-5, save_upre=save)
+    torch.cuda.synchronize()
+    assert fused_mlp.launches == before + 1
+    plain = fused_mlp_plain(x, *args, activation=act, ln_position=pos)
+    torch.testing.assert_close(out, plain, **TOL[torch.float32])
+    _f32x3_close(out, plain, "out")
+    if save:
+        h = mlp._ln(x, args[0], args[1], 1e-5) if pos == "pre" else x
+        _f32x3_close(upre, h @ args[2].t() + args[3], "upre")
+    else:
+        assert upre is None
+
+
+def test_f32x3_rule_fails_tf32_products(cuda):
+    """The control: the plain versions with TF32 products
+    (torch.backends.cuda.matmul.allow_tf32) fail F32X3_REL against
+    themselves in f32, so the rule tells TF32 from f32."""
+    rs = np.random.RandomState(7)
+    a_args = _attn_args(rs, 2, 151, 256, 512, torch.float32)
+    m_args = (_rand(rs, 302, 512), _rand(rs, 512, scale=0.1, offset=1.0), _rand(rs, 512, scale=0.1),
+              _rand(rs, 2048, 512, scale=512 ** -0.5), _rand(rs, 2048, scale=0.1),
+              _rand(rs, 512, 2048, scale=2048 ** -0.5), _rand(rs, 512, scale=0.1))
+    want = (fused_attn_block_plain(*a_args, 8),
+            fused_mlp_plain(*m_args, activation="relu", ln_position="post"))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = (fused_attn_block_plain(*a_args, 8),
+               fused_mlp_plain(*m_args, activation="relu", ln_position="post"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    for g, w in zip(got, want):
+        with pytest.raises(AssertionError):
+            _f32x3_close(g, w)
 
 
 def _bf16_steps(a, b):
@@ -1520,7 +1632,7 @@ def test_small_v4_model_on_card(cuda, name):
                                                     (129, "gelu", "pre", False)])
 def test_fused_mlp_kernel_c1024(cuda, dtype, n_tok, act, pos, residual):
     """Swin-base's fourth-stage feed-forward, C 1024, F 4096: the bf16 body's
-    LayerNorm pass at C 1024, the f32 body at 16 rows a block."""
+    LayerNorm pass at C 1024, the f32 body's 3xTF32 GEMMs at K 1024."""
     rs = np.random.RandomState(n_tok)
     c, f = 1024, 4096
     args = (_rand(rs, n_tok, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
