@@ -34,7 +34,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    fused_mlp and fused_attn_block (timed, not summed into the flagship
    forward); each swin_window_block, fused_mlp and fused_attn_block case
    prints its TFLOP/s, the mask head its score product's TFLOP/s and its
-   argmax's (pixel, class) pairs a second over the whole kernel time;
+   argmax's (pixel, class) pairs a second over the whole kernel time; and
+   the device time of each step of the bf16 window block's token-major plan
+   (C > 384, row 9: LayerNorm, QKV GEMM, attention core, out-projection
+   GEMM) at swin-base stage 3, both shifts, from one torch.profiler call;
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
@@ -562,9 +565,9 @@ def kernel_cases(rs, dt):
     # launches per forward of each): stages 1-2 through the canvas entry (row
     # 6), stage 3 through the windowed one the JAX package takes at C > 384
     # (row 9), reported as fused_window_block, 9 blocks a shift a DenseCLIPFTN
-    # forward; stage 4 (C 1024, the bf16 body's split plan) and its
-    # feed-forward, which no model runs (phase 12 drives them through the
-    # whole backbone): checked and timed, not summed
+    # forward; stage 4 (C 1024, like stage 3 on the bf16 body's token-major
+    # plan) and its feed-forward, which no model runs (phase 12 drives them
+    # through the whole backbone): checked and timed, not summed
     for s, (grid, c, heads, n) in enumerate([(g, 128, 4, 1), (g // 2, 256, 8, 1),
                                              (g // 4, 512, 16, 9), (g // 8, 1024, 32, None)]):
         name = "fused_window_block" if c > 384 else "swin_window_block"
@@ -985,7 +988,65 @@ def check_kernels(smi):
         print(f"  {dt} cases: {sum(t for t, _ in walls):.1f} s; the slowest: "
               + "; ".join(f"{what} {t:.1f} s" for t, what in sorted(walls)[::-1][:4]), flush=True)
     report_ftn_kernels(ftn_stats)
+    report_token_major_steps(smi)
     return stats
+
+
+def report_token_major_steps(smi, tries=3):
+    """The device time of each step of the bf16 window block's token-major
+    plan (C > 384: TPU row 9) at swin-base stage 3, (16, 32, 32, 512) h16,
+    both shifts, from one torch.profiler call: the LayerNorm pass, the QKV
+    GEMM, the gathered attention core, the out-projection GEMM (the GEMMs
+    told apart by their order), and the wrapper's casts before them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from lc2is_tpu_torch.ops.swin_window import swin_window_block
+
+    rs = np.random.RandomState(SEED + 17)
+    b, grid, c, heads = BATCH, IMG // 16, 512, 16
+    args = (rand(rs, b, grid, grid, c, dtype=torch.bfloat16), rand(rs, c, scale=0.1, offset=1.0),
+            rand(rs, c, scale=0.1), rand(rs, 3 * c, c, scale=c ** -0.5), rand(rs, 3 * c, scale=0.1),
+            rand(rs, c, c, scale=c ** -0.5), rand(rs, c, scale=0.1),
+            rand(rs, heads, 49, 49, scale=0.1))
+    label = f"({b},{grid},{grid},{c}) h{heads}"
+    with torch.no_grad():
+        for shift in (0, 3):
+            swin_window_block(*args, heads, 7, shift)
+        torch.cuda.synchronize()
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for shift in (0, 3):
+                    swin_window_block(*args, heads, 7, shift)
+                torch.cuda.synchronize()
+            events = sorted((e for e in prof.events()
+                             if e.device_type == torch.autograd.DeviceType.CUDA),
+                            key=lambda e: e.time_range.start)
+            if events:
+                break
+    calls, steps = [], None
+    for e in events:
+        name, ms = e.name, (e.time_range.end - e.time_range.start) / 1e3
+        if steps is None:
+            steps = {"wrapper casts": 0.0}
+        if "swin_ln_kernel" in name:
+            steps["LN"] = ms
+        elif "gemm_bf16_kernel" in name:
+            steps["QKV GEMM" if "QKV GEMM" not in steps else "out GEMM"] = ms
+        elif "swin_core_mma" in name:
+            steps["core"] = ms
+        else:
+            steps["wrapper casts"] += ms
+        if "out GEMM" in steps:
+            calls.append(steps)
+            steps = None
+    if len(calls) != 2:
+        print(f"[kernels] row 9's token-major plan at {label}: the profiler's device times "
+              f"not measured ({len(events)} kernels recorded) on {smi}", flush=True)
+        return
+    for shift, st in zip((0, 3), calls):
+        print(f"[kernels] row 9's token-major plan at {label} shift{shift}, device ms by step "
+              f"(one torch.profiler call): " + ", ".join(f"{k} {v:.4f}" for k, v in st.items())
+              + f"; sum {sum(st.values()):.4f} on {smi}", flush=True)
 
 
 # swin-small's window-attention shapes in a 512² batch-16 forward: (stage,
@@ -2294,8 +2355,8 @@ def check_v1_train(smi):
 # 10), and the int8 row's s8 GEMM and row pass (rows 2q, 17)
 MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
                "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "layer_norm_rows",
-               "swin_mma_kernel", "window_attention_mma", "swin_attn_bwd_mma", "gemm_s8_kernel",
-               "quant_rows_kernel", "head_kernel", "fused_ce_kernel")
+               "swin_mma_kernel", "swin_core_mma", "window_attention_mma", "swin_attn_bwd_mma",
+               "gemm_s8_kernel", "quant_rows_kernel", "head_kernel", "fused_ce_kernel")
 
 
 def mma_registers(log):

@@ -10,18 +10,19 @@
 // only by VMEM and compile gates (lc2is_tpu/nn/swin.py:277-306):
 // lc2is_tpu/ops/swin_canvas.py::_canvas_kernel (:224, entry swin_canvas_block
 // :974; stages 1-3) and lc2is_tpu/ops/window_attention.py::_block_kernel
-// (:386, entry fused_window_block :645; stage 4).  Each body below serves all four
-// stages, with no C gate.
+// (:386, entry fused_window_block :645; C > 384).  The f32 and int8 bodies
+// serve every stage with no C gate; the bf16 float body takes two plans,
+// split at the JAX package's gate (C 384).
 //
 // What bounds it on the card: arithmetic.  Per token it does 3C² (QKV) + C²
 // (out-proj) + 2·49·C (attention) multiply-adds against 2·C·bytes of canvas
 // traffic.
 //
-// Token geometry, shared by both bodies: the block computes window, shift and
+// Token geometry, shared by every body: a block computes window, shift and
 // pad membership of its tokens from canvas coordinates (explicit roll
 // indexing: rolled (R, Cc) is canvas ((R + shift) % Hp, (Cc + shift) % Wp)),
-// so it reads the raw canvas and writes each real token back exactly once;
-// no pad, roll or partition pass runs outside.  HF pads AFTER
+// so it reads canvas-ordered rows and writes each real token back exactly
+// once; no pad, roll or partition pass runs outside.  HF pads AFTER
 // layernorm_before: a token at row >= H or col >= W of the padded canvas is
 // post-LN zero, so its k = bk and v = bv, and it takes part in attention
 // (swin_canvas.py:19-25).  The region mask is HF's 9-region img_mask on
@@ -43,12 +44,12 @@
 // overlay the product's A|B tiles, which are consumed before they are
 // written): ≈ 200 KB at C = 768, ≈ 224 KB at C = 1024 with dh 32.
 //
-// bf16 float block (swin_mma_kernel): tensor cores, mma.sync m16n8k16 with
-// f32 accumulators (mma_bf16.cuh).  A block takes 4, 2 or 1 windows, as
-// many as fit the SM's shared memory with one or two blocks an SM
-// (launch_mma: at the swin-small stages 2, 2, 2 and 1), their tokens packed
-// at N = win² rows a window, so each bf16 k-slice of Wqkv and Wo serves up
-// to 4·N token rows:
+// bf16 float block, C <= 384 (TPU row 6; swin_mma_kernel, the one-kernel
+// plan): tensor cores, mma.sync m16n8k16 with f32 accumulators
+// (mma_bf16.cuh).  A block takes 4, 2 or 1 windows, as many as fit the
+// SM's shared memory with one or two blocks an SM (one_kernel_wpb: 2 at
+// each of the swin-small stages 1-3), their tokens packed at N = win² rows
+// a window, so each bf16 k-slice of Wqkv and Wo serves up to 4·N token rows:
 //   1. LayerNorm once per token (two-pass f32 statistics, rounded to bf16 as
 //      the reference rounds the LN output; HF pad tokens zero) into a bf16
 //      tile that serves every head's QKV product;
@@ -69,16 +70,30 @@
 //      tile, + bo and the residual in the epilogue, written for real tokens
 //      only (HF pad tokens are cropped).
 // Shared memory: 2 · 49 · windows · (C + 8) bf16 for the LN and head-output
-// tiles, the q, k, v tiles of one head and the ring: with one 7 x 7 window
-// C <= 992 at dh 16 and 32, 864 at dh 64 (8 x 8: 800, 736, 608).
-// Where no window fits so (swin-base's C 1024), a second plan drops the
-// head-output tile: step 3 writes the head outputs of real tokens, rounded
-// to bf16 as above, to a (B, H, W, C) bf16 workspace in device memory, the
-// ring streams only the q|k|v slices, and step 4 runs as a second launch,
-// the out-projection of every real token on the GEMM of gemm_bf16.cuh with
-// + bo (widened to f32 into the workspace by the first launch's block 0)
-// and the residual in its epilogue, rounded once as step 4 rounds (lc2_swin_window_workspace_bf16
-// gives the workspace's size; 0 where the one-kernel plan fits).
+// tiles, the q, k, v tiles of one head and the ring.
+//
+// bf16 float block, C > 384 (TPU row 9's range, the JAX package's gate
+// lc2is_tpu/nn/swin.py:290-306; the token-major plan, launch_token_major).
+// There one window a block is all that fits an SM, so every block would
+// stream all of Wqkv and Wo for 49 token rows.  Instead the plan runs four
+// launches from the one C entry, through a workspace the wrapper allocates
+// (lc2_swin_window_workspace_bf16), keeping every rounding point above:
+//   1. swin_ln_kernel: the LayerNorm of step 1 for the B·H·W real tokens in
+//      canvas order, a warp a row, into a (B·H·W, C) bf16 buffer (and bqkv,
+//      bo widened to f32 for the two epilogues);
+//   2. q|k|v = LN · Wqkvᵀ + bqkv for the real tokens on the GEMM of
+//      gemm_bf16.cuh, rounded to bf16 into a (B·H·W, 3C) buffer; an HF pad
+//      token gets no row: its LN output is zero, so its q|k|v is bqkv;
+//   3. swin_core_mma, step 3 with the tokens gathered: a block walks windows
+//      of one head, each window's q, k and v head slices gathered from that
+//      buffer by the roll and pad indexing (bqkv's slices at HF pad tokens)
+//      through a 2-stage cp.async ring, the head's bias in shared memory;
+//      the head outputs of real tokens, rounded as in step 3, into step 1's
+//      buffer (consumed by then);
+//   4. the out-projection of the real tokens on the same GEMM, + bo and the
+//      residual in its epilogue, rounded once as step 4 rounds.
+// The products run at the GEMM's rate over M = B·H·W rows, and each weight
+// matrix is read once a 128-row tile instead of once a window.
 //
 // lc2_swin_window_q is the int8 serving variant of the same kernel, the
 // quant=True branch of window_attention.py::_block_kernel (:414-418,
@@ -375,7 +390,7 @@ struct SwinArgs {
   const void *x, *lnw, *lnb, *wqkv, *wqkvs, *bqkv, *wo, *wos, *bo;
   const float* bias;
   void* out;
-  void* ws;  // bf16 float block, split plan: bo in f32, then the head outputs
+  void* ws;  // bf16 float block above C 384: the token-major plan's workspace
   int B, H, W, C, heads, win, shift, residual;
   float eps;
 };
@@ -403,7 +418,92 @@ cudaError_t launch(const SwinArgs& a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int kOutCols = 64;  // out-projection column chunk
+constexpr int kOutCols = 64;        // out-projection column chunk
+constexpr int kOneKernelMaxC = 384;  // above it, the token-major plan
+
+// The canvas a launch reads: a window gw of the B·nwh·nww windows, token t
+// (< win²) of it.
+struct Canvas {
+  int H, W, win, shift, nwh, nww;
+  // canvas pixel of the token (-1: an HF pad token) and, where shift > 0,
+  // its region label (HF's 9-region img_mask on rolled coordinates; else 0)
+  __device__ __forceinline__ int pixel(int gw, int t, int* label) const {
+    const int per = nwh * nww, b = gw / per, wr = gw - b * per, wi = wr / nww, wj = wr - wi * nww;
+    const int Hp = nwh * win, Wp = nww * win;
+    const int R = wi * win + t / win, Cc = wj * win + t % win;  // rolled coords
+    const int y = (R + shift) % Hp, xq = (Cc + shift) % Wp;     // canvas coords
+    *label = shift > 0
+                 ? ((R >= Hp - win) + (R >= Hp - shift)) * 3 + (Cc >= Wp - win) + (Cc >= Wp - shift)
+                 : 0;
+    return y < H && xq < W ? (b * H + y) * W + xq : -1;
+  }
+};
+
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(h[i]);
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// The LayerNorm of one token row by a warp: two-pass f32 statistics, the
+// output rounded to bf16 into dst (xr null: an HF pad token, zeros).  Lane
+// l holds the row's 8-column chunks c = 8 · l + 256 · i (C <= 1024), read
+// once.  Both plans' step 1.
+__device__ __forceinline__ void ln_row(const bf16* __restrict__ xr, const bf16* __restrict__ lnw,
+                                       const bf16* __restrict__ lnb, int C, float eps, int lane,
+                                       bf16* __restrict__ dst) {
+  constexpr int kV = 4;
+  if (xr == nullptr) {  // warp-uniform
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = 8 * lane + 256 * i;
+      if (c < C) *reinterpret_cast<uint4*>(dst + c) = make_uint4(0, 0, 0, 0);
+    }
+    return;
+  }
+  uint4 xv[kV];
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int c = 8 * lane + 256 * i;
+    xv[i] = c < C ? *reinterpret_cast<const uint4*>(xr + c) : make_uint4(0, 0, 0, 0);
+  }
+  float f[kV][8], s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    unpack8(xv[i], f[i]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += f[i][e];
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kV; ++i)
+    if (8 * lane + 256 * i < C)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) q += (f[i][e] - mu) * (f[i][e] - mu);
+  const float rs = rsqrtf(warp_sum(q) / C + eps);
+#pragma unroll
+  for (int i = 0; i < kV; ++i) {
+    const int c = 8 * lane + 256 * i;
+    if (c >= C) continue;
+    float w8[8], b8[8];
+    unpack8(*reinterpret_cast<const uint4*>(lnw + c), w8);
+    unpack8(*reinterpret_cast<const uint4*>(lnb + c), b8);
+    uint4 o;
+    uint32_t* op = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      op[e] = mma::pack_bf16((f[i][2 * e] - mu) * rs * w8[2 * e] + b8[2 * e],
+                             (f[i][2 * e + 1] - mu) * rs * w8[2 * e + 1] + b8[2 * e + 1]);
+    *reinterpret_cast<uint4*>(dst + c) = o;
+  }
+}
+
+// ---- the one-kernel plan (C <= 384) ----
 
 // A block takes WPB windows, its tokens packed at N = win² rows a window
 // (token t of window w is row w·N + t), Mp = N·WPB rounded up to 16 rows.
@@ -436,54 +536,39 @@ struct MmaSizes {
 };
 
 // Shared memory: the LayerNorm tile and the head outputs (N·WPB rows of C
-// bf16 each; kWs: the LayerNorm tile only), the q, k and v tiles of one head
-// (rq rows of DH), the 2-stage weight ring, the tokens' canvas pixel and
-// region label.  A product's last m-tile reads up to 15 rows past its tile
-// (past the LN tile into the head outputs or, kWs, the q tile; past the
-// head outputs into what follows them; rows that are dropped), which the
-// size covers.
-template <int DH, int WPB, bool kWs = false>
+// bf16 each), the q, k and v tiles of one head (rq rows of DH), the 2-stage
+// weight ring, the tokens' canvas pixel and region label.  A product's last
+// m-tile reads up to 15 rows past its tile (past the LN tile into the head
+// outputs; past the head outputs into what follows them; rows that are
+// dropped), which the size covers.
+template <int DH, int WPB>
 size_t mma_smem_bytes(int win, int C, int kt) {
   using Plan = MmaPlan<DH, WPB>;
   const MmaSizes z(win, WPB, C);
-  const size_t body = sizeof(bf16) * ((kWs ? 1 : 2) * (size_t)z.mreal * z.lda +
+  const size_t body = sizeof(bf16) * (2 * (size_t)z.mreal * z.lda +
                                       3 * (size_t)z.rq * Plan::kLdh +
                                       2 * (size_t)Plan::kRingRows * (kt + 8)) +
                       sizeof(int) * 2 * z.mp;
-  return std::max(body, sizeof(bf16) * (size_t)((kWs ? 0 : z.mreal) + z.mp) * z.lda);
+  return std::max(body, sizeof(bf16) * (size_t)(z.mreal + z.mp) * z.lda);
 }
 
-__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-// kWs: the split plan, steps 1-3 only, the head outputs of real tokens into
-// ho (B, H, W, C) in device memory and, from block 0, bo widened into bo32
-// (C,) for the second launch's epilogue (the one-kernel plan: both null).
-template <int DH, int WPB, bool kWs>
+template <int DH, int WPB>
 __global__ void __launch_bounds__(kThreads, MmaPlan<DH, WPB>::kMinBlocks)
 swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
                 const bf16* __restrict__ lnb, const bf16* __restrict__ wqkv,
                 const bf16* __restrict__ bqkv, const bf16* __restrict__ wo,
                 const bf16* __restrict__ bo, const float* __restrict__ bias,
-                bf16* __restrict__ out, bf16* __restrict__ ho, float* __restrict__ bo32, int H,
-                int W, int C, int heads, int win, int shift, int nwh, int nww, int nwin,
-                int residual, float eps, int KT) {
+                bf16* __restrict__ out, Canvas cv, int C, int heads, int nwin, int residual,
+                float eps, int KT) {
   using Plan = MmaPlan<DH, WPB>;
   constexpr int LDH = Plan::kLdh, TPW = Plan::kTPW;
   const int LDR = KT + 8, STAGE = Plan::kRingRows * LDR;
-  const MmaSizes z(win, WPB, C);
+  const MmaSizes z(cv.win, WPB, C);
   const int N = z.n, Mreal = z.mreal, Mp = z.mp, LDA = z.lda;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* As = reinterpret_cast<bf16*>(smem_raw);  // [Mreal][LDA] LN(x), rounded
-  bf16* Ho = As + Mreal * LDA;                    // [Mreal][LDA] head outputs (not kWs)
-  bf16* Qs = kWs ? Ho : Ho + Mreal * LDA;         // [rq][LDH] one head's q, k, v
+  bf16* Ho = As + Mreal * LDA;                    // [Mreal][LDA] head outputs
+  bf16* Qs = Ho + Mreal * LDA;                    // [rq][LDH] one head's q, k, v
   bf16* Ks = Qs + z.rq * LDH;
   bf16* Vs = Ks + z.rq * LDH;
   bf16* ring = Vs + z.rq * LDH;                   // [2][kRingRows][LDR]
@@ -493,22 +578,12 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   const int tid = threadIdx.x, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, c2 = 2 * (lane & 3);
   const int lr = lane & 7, l3 = (lane >> 3) & 1, l4 = lane >> 4;
-  const int Hp = nwh * win, Wp = nww * win;
-  if (kWs && blockIdx.x == 0)
-    for (int i = tid; i < C; i += kThreads) bo32[i] = __bfloat162float(bo[i]);
 
-  // ---- token geometry: roll, HF pad, 9-region labels (as the f32 block) ----
+  // ---- token geometry: roll, HF pad, 9-region labels ----
   for (int r = tid; r < Mp; r += kThreads) {
     int pix = -1, t_lab = 0;
-    const int w = r / N, t = r - w * N, gw = blockIdx.x * WPB + w;
-    if (r < Mreal && gw < nwin) {
-      const int b = gw / (nwh * nww), wr = gw - b * nwh * nww, wi = wr / nww, wj = wr - wi * nww;
-      const int R = wi * win + t / win, Cc = wj * win + t % win;  // rolled coords
-      const int y = (R + shift) % Hp, xq = (Cc + shift) % Wp;     // canvas coords
-      if (y < H && xq < W) pix = (b * H + y) * W + xq;
-      if (shift > 0)
-        t_lab = ((R >= Hp - win) + (R >= Hp - shift)) * 3 + (Cc >= Wp - win) + (Cc >= Wp - shift);
-    }
+    const int w = r / N, gw = blockIdx.x * WPB + w;
+    if (r < Mreal && gw < nwin) pix = cv.pixel(gw, r - w * N, &t_lab);
     tok[r] = pix;
     lab[r] = t_lab;
   }
@@ -521,7 +596,7 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   // ---- the weight ring: one stream of KT-wide k-slices, the heads' q|k|v
   // rows (3·DH each) and then the out-projection's 64-row chunks of Wo ----
   const int ks_per = C / KT, n_qkv = heads * ks_per, kchunks = KT / 8;
-  const int n_slices = kWs ? n_qkv : n_qkv + (C + kOutCols - 1) / kOutCols * ks_per;
+  const int n_slices = n_qkv + (C + kOutCols - 1) / kOutCols * ks_per;
   auto issue = [&](int u) {
     if (u < n_slices) {
       bf16* st = ring + (u % 2) * STAGE;
@@ -556,51 +631,10 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   };
   __syncthreads();  // tok, lab
 
-  // ---- LayerNorm once per token: two-pass f32 statistics, the output
-  // rounded to bf16; HF pad tokens zero.  A lane holds its 8-column chunks
-  // c = 8 · lane + 256 · i of a row (C <= 1024), read once ----
+  // ---- LayerNorm once per token, rounded to bf16; HF pad tokens zero ----
   for (int r = warp; r < Mreal; r += 8) {
-    constexpr int kV = 4;
     const int pix = tok[r];
-    uint4 xv[kV];
-#pragma unroll
-    for (int i = 0; i < kV; ++i) {
-      const int c = 8 * lane + 256 * i;
-      xv[i] = make_uint4(0, 0, 0, 0);
-      if (pix >= 0 && c < C) xv[i] = *reinterpret_cast<const uint4*>(x + (size_t)pix * C + c);
-    }
-    float f[kV][8], s = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kV; ++i) {
-      unpack8(xv[i], f[i]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += f[i][e];
-    }
-    const float mu = warp_sum(s) / C;
-    float q = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kV; ++i)
-      if (8 * lane + 256 * i < C)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) q += (f[i][e] - mu) * (f[i][e] - mu);
-    const float rs = rsqrtf(warp_sum(q) / C + eps);
-#pragma unroll
-    for (int i = 0; i < kV; ++i) {
-      const int c = 8 * lane + 256 * i;
-      if (c >= C) continue;
-      uint4 o = make_uint4(0, 0, 0, 0);
-      if (pix >= 0) {
-        float w8[8], b8[8];
-        unpack8(*reinterpret_cast<const uint4*>(lnw + c), w8);
-        unpack8(*reinterpret_cast<const uint4*>(lnb + c), b8);
-        uint32_t* op = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          op[e] = mma::pack_bf16((f[i][2 * e] - mu) * rs * w8[2 * e] + b8[2 * e],
-                                 (f[i][2 * e + 1] - mu) * rs * w8[2 * e + 1] + b8[2 * e + 1]);
-      }
-      *reinterpret_cast<uint4*>(As + r * LDA + c) = o;
-    }
+    ln_row(pix >= 0 ? x + (size_t)pix * C : nullptr, lnw, lnb, C, eps, lane, As + r * LDA);
   }
 
   // the warp's m-tiles and its column share of each product
@@ -754,14 +788,7 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
         const int t = i0 + g + 8 * r;
         if (t >= N) continue;
         const float inv = 1.0f / l[r];
-        bf16* dst;
-        if (kWs) {
-          const int pix = tok[R + t];
-          if (pix < 0) continue;  // HF pad: cropped
-          dst = ho + (size_t)pix * C + hd * DH + c2;
-        } else {
-          dst = Ho + (R + t) * LDA + hd * DH + c2;
-        }
+        bf16* dst = Ho + (R + t) * LDA + hd * DH + c2;
 #pragma unroll
         for (int j = 0; j < DH / 8; ++j)
           *reinterpret_cast<uint32_t*>(dst + 8 * j) =
@@ -773,9 +800,9 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   }
 
   // ---- out-projection + bo + residual, 64 columns at a time, real tokens
-  // only (HF pad tokens are cropped); kWs: the second launch's ----
+  // only (HF pad tokens are cropped) ----
   constexpr int ONT = Plan::kOutNT;
-  for (int n0 = 0; n0 < (kWs ? 0 : C); n0 += kOutCols) {
+  for (int n0 = 0; n0 < C; n0 += kOutCols) {
     float acc[TPW][ONT][4];
 #pragma unroll
     for (int i = 0; i < TPW; ++i)
@@ -810,51 +837,30 @@ swin_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
   mma::cp_async_wait<0>();
 }
 
-template <int DH, int WPB, bool kWs = false>
-cudaError_t launch_mma_wpb(const SwinArgs& a, int nwh, int nww, int kt, size_t smem,
-                           bf16* ho, float* bo32, cudaStream_t stream) {
-  auto kernel = swin_mma_kernel<DH, WPB, kWs>;
+template <int DH, int WPB>
+cudaError_t launch_mma_wpb(const SwinArgs& a, const Canvas& cv, int kt, size_t smem,
+                           cudaStream_t stream) {
+  auto kernel = swin_mma_kernel<DH, WPB>;
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int nwin = a.B * nwh * nww;
+  const int nwin = a.B * cv.nwh * cv.nww;
   kernel<<<(nwin + WPB - 1) / WPB, kThreads, smem, stream>>>(
       static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.lnw),
       static_cast<const bf16*>(a.lnb), static_cast<const bf16*>(a.wqkv),
       static_cast<const bf16*>(a.bqkv), static_cast<const bf16*>(a.wo),
-      static_cast<const bf16*>(a.bo), a.bias, static_cast<bf16*>(a.out), ho, bo32, a.H, a.W,
-      a.C, a.heads, a.win, a.shift, nwh, nww, nwin, a.residual, a.eps, kt);
+      static_cast<const bf16*>(a.bo), a.bias, static_cast<bf16*>(a.out), cv, a.C, a.heads, nwin,
+      a.residual, a.eps, kt);
   return cudaGetLastError();
 }
 
-// Floats of the split plan's workspace: bo widened to f32 (C), then the head
-// outputs (B·H·W·C bf16).
-long long split_ws_floats(const SwinArgs& a) {
-  return a.C + ((long long)a.B * a.H * a.W * a.C + 1) / 2;
-}
-
-// The split plan: steps 1-3 into the workspace, then the out-projection of
-// the B·H·W real tokens, + bo + the residual, on the GEMM of gemm_bf16.cuh.
-template <int DH>
-cudaError_t launch_split(const SwinArgs& a, int nwh, int nww, int kt, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<DH, 1, true>(a.win, a.C, kt);
-  if (a.ws == nullptr || smem > 232448) return cudaErrorInvalidValue;
-  float* bo32 = static_cast<float*>(a.ws);
-  bf16* ho = reinterpret_cast<bf16*>(bo32 + a.C);
-  LC2_TRY((launch_mma_wpb<DH, 1, true>(a, nwh, nww, kt, smem, ho, bo32, stream)));
-  const gemm16::Epilogue ep{bo32, nullptr, a.residual ? static_cast<const bf16*>(a.x) : nullptr,
-                            nullptr, static_cast<bf16*>(a.out), a.C, false};
-  return gemm16::gemm<false, false>(a.B * a.H * a.W, a.C, a.C, ho, a.C,
-                                    static_cast<const bf16*>(a.wo), a.C, ep, stream);
-}
-
-// The one-kernel plan: the most windows a block (4, 2 or 1; 2 at most at DH
-// 64, whose q|k|v accumulators would not fit four) for which two blocks fit
-// an SM (shared memory, and kMinBlocks' registers), else the most for which
-// one does; 64-wide weight slices where C allows.  On the H100 at the
-// swin-small stages: two blocks of 2 windows at C 96, one of 2 at C 192 and
-// 384, one of 1 at C 768; a third or fourth ring stage, or 32-wide slices to
-// fit two blocks, timed no faster.  Returns the windows a block and sets
-// *smem, or returns 0 where no window fits (the split plan's case).
+// The most windows a block (4, 2 or 1; 2 at most at DH 64, whose q|k|v
+// accumulators would not fit four) for which two blocks fit an SM (shared
+// memory, and kMinBlocks' registers), else the most for which one does;
+// 64-wide weight slices where C allows.  On the H100 at the swin-small
+// stages 1-3: two blocks of 2 windows at C 96, one of 2 at C 192 and 384
+// (one window at C 384 with dh 64); a third or fourth ring stage, or 32-wide
+// slices to fit two blocks, timed no faster.  Returns the windows a block
+// and sets *smem, or returns 0 where no window fits.
 template <int DH>
 int one_kernel_wpb(int win, int C, int kt, size_t* smem) {
   constexpr size_t kOne = 232448, kTwo = 115712;  // bytes a block, 1 or 2 an SM
@@ -878,26 +884,258 @@ int one_kernel_wpb(int win, int C, int kt, size_t* smem) {
 inline int slice_width(int C) { return C % 64 == 0 ? 64 : 32; }
 
 template <int DH>
-cudaError_t launch_mma(const SwinArgs& a, cudaStream_t stream) {
-  if (a.C > 1024) return cudaErrorInvalidValue;  // the LayerNorm's registers
-  const int nwh = (a.H + a.win - 1) / a.win, nww = (a.W + a.win - 1) / a.win;
+cudaError_t launch_one_kernel(const SwinArgs& a, const Canvas& cv, cudaStream_t stream) {
   const int kt = slice_width(a.C);
   size_t smem = 0;
   switch (one_kernel_wpb<DH>(a.win, a.C, kt, &smem)) {
-    case 4:
-      return launch_mma_wpb<DH, DH < 64 ? 4 : 2>(a, nwh, nww, kt, smem, nullptr, nullptr,
-                                                 stream);
-    case 2: return launch_mma_wpb<DH, 2>(a, nwh, nww, kt, smem, nullptr, nullptr, stream);
-    case 1: return launch_mma_wpb<DH, 1>(a, nwh, nww, kt, smem, nullptr, nullptr, stream);
-    default: return launch_split<DH>(a, nwh, nww, kt, stream);
+    case 4: return launch_mma_wpb<DH, DH < 64 ? 4 : 2>(a, cv, kt, smem, stream);
+    case 2: return launch_mma_wpb<DH, 2>(a, cv, kt, smem, stream);
+    case 1: return launch_mma_wpb<DH, 1>(a, cv, kt, smem, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
-// Workspace floats of the bf16 float block: 0 where the one-kernel plan fits.
+// ---- the token-major plan (C > 384) ----
+
+// Step 1: the LayerNorm of every real token, a warp a row, rounded to bf16
+// into ln (rows in canvas order); and bqkv, bo widened to f32 into vec32
+// (3C + C floats) for the two GEMMs' epilogues.
+__global__ void __launch_bounds__(kThreads)
+swin_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ lnw,
+               const bf16* __restrict__ lnb, const bf16* __restrict__ bqkv,
+               const bf16* __restrict__ bo, bf16* __restrict__ ln, float* __restrict__ vec32,
+               long long rows, int C, float eps) {
+  const int lane = threadIdx.x & 31;
+  for (long long r = blockIdx.x * 8LL + (threadIdx.x >> 5); r < rows; r += gridDim.x * 8LL)
+    ln_row(x + r * C, lnw, lnb, C, eps, lane, ln + r * C);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < 4 * C; i += gridDim.x * kThreads)
+    vec32[i] = __bfloat162float(i < 3 * C ? bqkv[i] : bo[i - 3 * C]);
+}
+
+// Step 3's shared memory: the head's bias (kNP rows at a stride of kNP + 8
+// floats: the float2 a lane reads of its two rows and keys fall in distinct
+// banks), then two stages of one window's q, k and v head slices (kNP rows
+// of DH + 8 bf16 each, mma_bf16.cuh's stride), its tokens' canvas pixel and
+// region label.
+constexpr int kCoreThreads = 128;  // a warp per 16 of a window's kNP rows
+constexpr int kLdb = kNP + 8;
+
 template <int DH>
-long long mma_ws_floats(const SwinArgs& a) {
-  size_t smem = 0;
-  return one_kernel_wpb<DH>(a.win, a.C, slice_width(a.C), &smem) ? 0 : split_ws_floats(a);
+struct CoreLayout {
+  static constexpr int kLd = DH + 8;
+  static constexpr size_t kStage = sizeof(bf16) * 3 * kNP * kLd + sizeof(int) * 2 * kNP;
+  static constexpr size_t kBytes = sizeof(float) * kNP * kLdb + 2 * kStage;
+};
+
+// Step 3: the window attention of one head over a group of windows: grid
+// (window group, head), `wpb` windows a block.  Each window's q, k and v
+// head slices are gathered from qkv (rows in canvas order, 3C wide) by the
+// token geometry, bqkv's slices at HF pad tokens and zeros past the window,
+// through a 2-stage cp.async ring (window t + 1 loads while window t
+// computes); a warp per 16 query rows computes as step 3 of the one-kernel
+// plan (the same operations in the same order) and writes the head outputs
+// of real tokens to ho, through its own q rows, in 16-byte stores.
+template <int DH>
+__global__ void __launch_bounds__(kCoreThreads)
+swin_core_mma(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
+              const float* __restrict__ bias, bf16* __restrict__ ho, Canvas cv, int C, int nwin,
+              int wpb) {
+  using Lay = CoreLayout<DH>;
+  constexpr int LD = Lay::kLd, kChunks = DH / 8;
+  const int N = cv.win * cv.win, hd = blockIdx.y;
+  const int w0 = blockIdx.x * wpb, nw = min(wpb, nwin - w0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c2 = 2 * (lane & 3);
+  const int lr = lane & 7, l3 = (lane >> 3) & 1, l4 = lane >> 4;
+  const long long ld3 = 3LL * C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* bs = reinterpret_cast<float*>(smem_raw);  // [kNP][kLdb]
+  unsigned char* ring = smem_raw + sizeof(float) * kNP * kLdb;
+
+  // window t of the block into stage t % 2 (called by every thread, past a
+  // barrier that freed the stage): its tokens' pixels and labels, then one
+  // cp.async group of its q, k and v rows (empty past the block's windows)
+  auto issue = [&](int t) {
+    if (t < nw) {
+      bf16* qs = reinterpret_cast<bf16*>(ring + (t & 1) * Lay::kStage);
+      int* tok = reinterpret_cast<int*>(qs + 3 * kNP * LD);
+      if (tid < kNP) {
+        int lab = 0;
+        tok[tid] = tid < N ? cv.pixel(w0 + t, tid, &lab) : -1;
+        tok[kNP + tid] = lab;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < 3 * kNP * kChunks; idx += kCoreThreads) {
+        const int part = idx / (kNP * kChunks), rem = idx - part * kNP * kChunks;
+        const int r = rem / kChunks, c = (rem - r * kChunks) * 8;
+        const int pix = r < N ? tok[r] : -1;
+        const bf16* src = (pix >= 0 ? qkv + pix * ld3 : bqkv) + part * C + hd * DH + c;
+        mma::cp_async16(qs + (part * kNP + r) * LD + c, src, r < N);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+  // the head's bias, zeros past N (rows and keys that are dropped)
+  const float* bh = bias + (size_t)hd * N * N;
+  for (int idx = tid; idx < kNP * kNP; idx += kCoreThreads) {
+    const int r = idx / kNP, c = idx - r * kNP;
+    bs[r * kLdb + c] = r < N && c < N ? bh[r * N + c] : 0.0f;
+  }
+
+  const int r0 = 16 * warp;
+  for (int t = 0; t < nw; ++t) {
+    mma::cp_async_wait<1>();
+    __syncthreads();  // window t's tiles, pixels and labels (and the bias)
+    bf16* qs = reinterpret_cast<bf16*>(ring + (t & 1) * Lay::kStage);
+    const bf16* ks = qs + kNP * LD;
+    const bf16* vs = ks + kNP * LD;
+    const int* tok = reinterpret_cast<const int*>(vs + kNP * LD);
+    const int* lab = tok + kNP;
+    if (r0 < N) {  // warp-uniform
+      uint32_t qa[DH / 16][4];
+      mma::own_fragments<DH>(qs + r0 * LD, lane, qa);
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+#pragma unroll
+      for (int np = 0; np < 4; ++np)
+#pragma unroll
+        for (int kc = 0; kc < DH / 16; ++kc) {
+          uint32_t b[4];
+          mma::ldsm_x4(b, ks + (16 * np + lr + 8 * l4) * LD + kc * 16 + 8 * l3);
+          mma::mma_bf16(s[2 * np], qa[kc], b[0], b[1]);
+          mma::mma_bf16(s[2 * np + 1], qa[kc], b[2], b[3]);
+        }
+      // + bias, −100 across regions, keys past N dropped; the row max
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        const int lt = row < N ? lab[row] : 0;  // rows past N are computed and dropped
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int key = 8 * j + c2;
+          const float2 b2 = *reinterpret_cast<const float2*>(bs + row * kLdb + key);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float v = -INFINITY;
+            if (key + e < N) {
+              v = s[j][2 * r + e] + (e ? b2.y : b2.x);
+              if (lab[key + e] != lt) v -= 100.0f;
+            }
+            s[j][2 * r + e] = v;
+            mx[r] = fmaxf(mx[r], v);
+          }
+        }
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      // e = exp(v − max), unnormalised; the row sum of the unrounded e
+      float l[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = mma::exp2_approx((s[j][e] - mx[e >> 1]) * mma::kLog2e);
+          l[e >> 1] += s[j][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      // O = round(e) · V, then · 1 / sum, rounded
+      float o[DH / 8][4];
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[4];
+        mma::pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dn = 0; dn < DH / 16; ++dn) {
+          uint32_t b[4];
+          mma::ldsm_x4_t(b, vs + (16 * kk + lr + 8 * l3) * LD + 16 * dn + 8 * l4);
+          mma::mma_bf16(o[2 * dn], pa, b[0], b[1]);
+          mma::mma_bf16(o[2 * dn + 1], pa, b[2], b[3]);
+        }
+      }
+      // through the warp's own q rows (read above, by this warp only) to
+      // the real tokens' rows of ho
+      bf16* st = qs + r0 * LD;
+      __syncwarp();
+      mma::stage_rows<DH, DH / 8>(o, 1.0f / l[0], 1.0f / l[1], st, lane);
+      __syncwarp();
+      for (int idx = lane; idx < 16 * kChunks; idx += 32) {
+        const int r = idx / kChunks, c = (idx - r * kChunks) * 8;
+        const int pix = r0 + r < N ? tok[r0 + r] : -1;
+        if (pix >= 0)
+          *reinterpret_cast<uint4*>(ho + (size_t)pix * C + hd * DH + c) =
+              *reinterpret_cast<const uint4*>(st + r * LD + c);
+      }
+    }
+    __syncthreads();  // every warp is done with stage t % 2
+    issue(t + 2);
+  }
+  mma::cp_async_wait<0>();
+}
+
+// Floats of the token-major plan's workspace: bqkv and bo in f32 (4C), then
+// the LN output, later the head outputs (B·H·W·C bf16), and q|k|v
+// (B·H·W·3C bf16).
+long long token_major_ws_floats(const SwinArgs& a) {
+  return 4LL * a.C + 2LL * a.B * a.H * a.W * a.C;
+}
+
+template <int DH>
+cudaError_t launch_token_major(const SwinArgs& a, const Canvas& cv, cudaStream_t stream) {
+  if (a.ws == nullptr || a.heads > 65535) return cudaErrorInvalidValue;
+  const long long M = (long long)a.B * a.H * a.W;
+  if (M * 3 * a.C > 0x7fffffffLL) return cudaErrorInvalidValue;  // the GEMMs' int rows
+  const int C = a.C;
+  float* vec32 = static_cast<float*>(a.ws);
+  bf16* ln = reinterpret_cast<bf16*>(vec32 + 4 * C);  // later the head outputs
+  bf16* qkv = ln + M * C;
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* bqkv = static_cast<const bf16*>(a.bqkv);
+  // 1. LayerNorm
+  const int ln_blocks = (int)std::min<long long>((M + 7) / 8, 132LL * 16);
+  swin_ln_kernel<<<ln_blocks, kThreads, 0, stream>>>(
+      x, static_cast<const bf16*>(a.lnw), static_cast<const bf16*>(a.lnb), bqkv,
+      static_cast<const bf16*>(a.bo), ln, vec32, M, C, a.eps);
+  LC2_TRY(cudaGetLastError());
+  // 2. q|k|v = LN · Wqkvᵀ + bqkv, rounded
+  const gemm16::Epilogue ep_qkv{vec32, nullptr, nullptr, nullptr, qkv, 3LL * C, false};
+  LC2_TRY((gemm16::gemm<false, false>((int)M, 3 * C, C, ln, C,
+                                      static_cast<const bf16*>(a.wqkv), C, ep_qkv, stream)));
+  // 3. the gathered window attention, head outputs into ln's buffer; about
+  // 8 blocks an SM in all: enough windows a block to share its bias load,
+  // enough blocks to fill the card
+  using Lay = CoreLayout<DH>;
+  auto core = swin_core_mma<DH>;
+  LC2_TRY(allow_smem(core, Lay::kBytes));
+  const int nwin = a.B * cv.nwh * cv.nww;
+  const long long units = (long long)nwin * a.heads;
+  const int wpb = (int)std::max(1LL, (units + 8 * 132 - 1) / (8 * 132));
+  core<<<dim3((nwin + wpb - 1) / wpb, a.heads), kCoreThreads, Lay::kBytes, stream>>>(
+      qkv, bqkv, a.bias, ln, cv, C, nwin, wpb);
+  LC2_TRY(cudaGetLastError());
+  // 4. out = head outputs · Woᵀ + bo [+ x], rounded once
+  const gemm16::Epilogue ep_out{vec32 + 3 * C, nullptr, a.residual ? x : nullptr, nullptr,
+                                static_cast<bf16*>(a.out), C, false};
+  return gemm16::gemm<false, false>((int)M, C, C, ln, C, static_cast<const bf16*>(a.wo), C,
+                                    ep_out, stream);
+}
+
+template <int DH>
+cudaError_t launch_mma(const SwinArgs& a, cudaStream_t stream) {
+  if (a.C > 1024) return cudaErrorInvalidValue;  // ln_row's registers
+  const Canvas cv{a.H, a.W, a.win, a.shift, (a.H + a.win - 1) / a.win,
+                  (a.W + a.win - 1) / a.win};
+  return a.C > kOneKernelMaxC ? launch_token_major<DH>(a, cv, stream)
+                              : launch_one_kernel<DH>(a, cv, stream);
 }
 
 // The f32 and int8 blocks run swin_window_kernel; the bf16 float block the
@@ -948,7 +1186,9 @@ cudaError_t dispatch(int dtype, const SwinArgs& a, void* stream) {
 // + x.  win <= 8,
 // 0 <= shift < win, C % 32 == 0, C / heads in {16, 32, 64}.
 // ws: in bf16, lc2_swin_window_workspace_bf16 floats where that is not 0
-// (else null); null in f32.
+// (else null); null in f32.  In bf16 above C 384 the entry launches the
+// token-major plan's four kernels in order on the stream and returns the
+// first error.
 extern "C" int lc2_swin_window(int dtype, const void* x, const void* lnw, const void* lnb,
                                const void* wqkv, const void* bqkv, const void* wo,
                                const void* bo, const void* bias, void* out, void* ws, int B,
@@ -960,19 +1200,18 @@ extern "C" int lc2_swin_window(int dtype, const void* x, const void* lnw, const 
   return lc2::dispatch<false>(dtype, a, stream);
 }
 
-// Floats of the bf16 float block's workspace for these sizes (0: none, the
-// one-kernel plan fits; -1: sizes no plan takes).
+// Floats of the bf16 float block's workspace for these sizes: 0 at C <= 384
+// (the one-kernel plan needs none), the token-major plan's above; -1 for
+// sizes no plan takes.
 extern "C" long long lc2_swin_window_workspace_bf16(int B, int H, int W, int C, int heads,
                                                     int win) {
+  if (heads < 1 || C % heads || win < 1 || win * win > lc2::kNP || C % lc2::kKT || C > 1024)
+    return -1;
+  const int dh = C / heads;
+  if (dh != 16 && dh != 32 && dh != 64) return -1;
   const lc2::SwinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, B, H, W, C, heads, win, 0, 1, 0.0f};
-  if (heads < 1 || C % heads || win < 1 || win * win > lc2::kNP) return -1;
-  switch (C / heads) {
-    case 16: return lc2::mma_ws_floats<16>(a);
-    case 32: return lc2::mma_ws_floats<32>(a);
-    case 64: return lc2::mma_ws_floats<64>(a);
-    default: return -1;
-  }
+  return C > lc2::kOneKernelMaxC ? lc2::token_major_ws_floats(a) : 0;
 }
 
 // The int8 variant: wqkv (3C, C) and wo (C, C) int8 codes with f32

@@ -4,13 +4,15 @@
 
 Counterpart of both ``lc2is_tpu/ops/swin_canvas.py::swin_canvas_block``
 (:974, swin stages 1-3) and ``lc2is_tpu/ops/window_attention.py::
-fused_window_block`` (:645, stage 4), which compute this same function.  On
+fused_window_block`` (:645, C > 384), which compute this same function.  On
 a CUDA tensor :func:`swin_window_block` launches ``csrc/swin_window.cu``
 (indices from canvas coordinates, any stage: in f32 one block per window on
-the CUDA cores, in bf16 up to four windows a block on the tensor cores, and
-at C 1024, where one window's tiles do not fit the SM, the head outputs
-through the scratch ``lc2_swin_window_workspace_bf16`` and a second
-tensor-core launch for the out-projection); on
+the CUDA cores; in bf16 on the tensor cores, at C <= 384 one kernel with up
+to four windows a block, above it the token-major plan: a LayerNorm pass,
+the QKV product of the real tokens on the tiled GEMM, a window-attention
+core that gathers each window's q, k and v from it, and the out-projection
+GEMM, through the scratch ``lc2_swin_window_workspace_bf16``, all from one
+call of the C entry); on
 a CPU tensor it runs :func:`swin_window_block_plain`, HF's pipeline written out:
 LN, zero pad to window multiples (pad AFTER the LN), roll by -shift,
 partition, attention with the relative-position bias and the 9-region
@@ -125,12 +127,13 @@ def _launch_fwd(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shi
                 residual):
     b, h, w, c = x.shape
     dt = x.dtype
-    xc = x.contiguous()
-    lnw, lnb, wq, bq, woc, boc = (t.to(dt).contiguous() for t in (ln_w, ln_b, wqkv_s, bqkv_s,
-                                                                   wo, bo))
+    xc = _build.contiguous16(x)
+    lnw, lnb, wq, bq, woc, boc = (_build.contiguous16(t.to(dt))
+                                  for t in (ln_w, ln_b, wqkv_s, bqkv_s, wo, bo))
     biasc = bias.float().contiguous()
     out = torch.empty_like(xc)
-    # the bf16 body's split plan (C 1024): bo in f32 and the head outputs
+    # the bf16 body's token-major plan (C > 384): the biases in f32, the LN
+    # output (then the head outputs) and q|k|v
     n_ws = _build.size("lc2_swin_window_workspace_bf16", b, h, w, c, num_heads,
                        win) if dt == torch.bfloat16 else 0
     ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws > 0 else None

@@ -13,7 +13,10 @@ int8 product shapes (a yardstick only, on no path), window attention
 (``window_attention``, row 8), the swin window block's backward
 (``swin_window_block_bwd``, rows 7 and 10), the decoder attention backward
 (``fused_attn_block_bwd``, row 3) and the swin window block
-(``swin_window_block``, rows 6 and 9), the decoder's x2 upsample
+(``swin_window_block``, rows 6 and 9; row 9, C > 384, at swin-base stage 3's
+9 launches a shift of a batch-16 FTN forward and one call each of
+swin-base's and swin-small's stage 4, with its device time by kernel, its
+plain version's time and the host time of its enqueue), the decoder's x2 upsample
 (``upsample_tokens``, row 4) at its six launches of a batch-16 serving
 forward and a batch-8 step's forward, and its adjoint
 (``upsample_tokens_adjoint``, row 5) at a batch-8 step's six, beside
@@ -28,7 +31,7 @@ kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
 bias and region mask as its additive mask (``scaled_dot_product_attention``,
 a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,1f,2,2f,2q,3,4,5,6,7,8,12,13,17]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,1f,2,2f,2q,3,4,5,6,7,8,9,12,13,17]
 
 ROOT is a checkout of this repository (default: the one holding this
 script); only the sources of those kernels are built (``fused_mlp*.cu``,
@@ -37,10 +40,10 @@ script); only the sources of those kernels are built (``fused_mlp*.cu``,
 into ``build/block_ab/`` of that checkout),
 so two versions compare on one card by running the script on each in
 turns, e.g. parent, change, change, parent.  ``--rows`` picks the rows
-timed (all by default; rows 9 and 10 come with 6 and 7).  Each bf16 case is
+timed (all by default; row 10 comes with 7).  Each bf16 case is
 also held against its plain version: rows 3 and 7 by their worst
 ‖Δ‖/‖plain‖ over their gradients (autograd through the plain version), rows
-1, 2, 6 and 8 by their largest |Δ|, rows 2q and 17 by their largest |Δ| over
+1, 2, 6, 8 and 9 by their largest |Δ|, rows 2q and 17 by their largest |Δ| over
 max |plain|, row 12 by the pixels whose mask differs, row 13 by its loss's
 relative error and its gradient's ‖Δ‖/‖plain‖, rows 4 and 5 by the share
 of bf16 elements equal to their plain version's and the most bf16 steps
@@ -90,11 +93,15 @@ F32_ATTN_SHAPES = [(151, 16384, 1.0), (151, 16384, 4.0), (151, 256, 1.0), (151, 
                    (151, 1025, 1.0), (4096, 4096, 1.0)]
 F32_MLP_SHAPES = [(2416, 512, 2048, "relu", "post"), (16384, 768, 2048, "relu", "pre"),
                   (16384, 384, 1536, "gelu", "pre"), (65536, 512, 2048, "relu", "post")]
-# row 6: the swin-small stages of a batch-16 512² forward (grid, C, heads,
-# blocks a shift); stage 4 (row 9) runs on no path and is one call.  Row 7
-# runs at the same stages at batch 8 (a training step's launches a shift:
-# 1, 1, 9); stage 4 is row 10, one call
+# row 6: the swin-small stages 1-3 of a batch-16 512² forward (grid, C,
+# heads, blocks a shift).  Row 7 runs at the same stages at batch 8 (a
+# training step's launches a shift: 1, 1, 9); stage 4 is row 10, one call
 SWIN_STAGES = [(128, 96, 3, 1), (64, 192, 6, 1), (32, 384, 12, 9), (16, 768, 24, 1)]
+# row 9 (C > 384): swin-base stage 3 at its blocks a shift of a batch-16 FTN
+# forward, and swin-base's and swin-small's stage 4 (on no model's path), one
+# call each: (name, grid, C, heads, launches a shift)
+ROW9_SHAPES = [("swin-base3", 32, 512, 16, 9), ("swin-base4", 16, 1024, 32, 1),
+               ("swin-small4", 16, 768, 24, 1)]
 # row 8: window attention at the same stages of a batch-16 512² forward:
 # (HF-padded grid, C, heads, blocks a shift), windows of 7 x 7; the 22
 # blocks of stages 1-3 are summed, stage 4 apart
@@ -118,6 +125,21 @@ def time_ms(fn, reps=10, warmup=2):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps=20):
+    """Median host time of fn()'s enqueue: the host clock around one call
+    that starts on an idle device and is not synchronised."""
+    import time
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -208,7 +230,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--rows", default="1,1f,2,2f,2q,3,4,5,6,7,8,12,13,17")
+    ap.add_argument("--rows", default="1,1f,2,2f,2q,3,4,5,6,7,8,9,12,13,17")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
@@ -445,9 +467,8 @@ def main() -> int:
             del a, g
             torch.cuda.empty_cache()
 
-    # row 6 (stages 1-3) and row 9 (stage 4), bf16 b16 every shape, f32 at
-    # stage 3; rows 7 and 10 (the swin backward) at b8, bf16 every shape,
-    # f32 at stage 3 shifted
+    # row 6 (stages 1-3), bf16 b16 every shape, f32 at stage 3; rows 7 and
+    # 10 (the swin backward) at b8, bf16 every shape, f32 at stage 3 shifted
     for dt in (torch.bfloat16, torch.float32) if rows & {"6", "7"} else ():
         for s, (grid, c, heads, n) in enumerate(SWIN_STAGES):
             if dt == torch.float32 and s != 2:
@@ -455,7 +476,7 @@ def main() -> int:
             a = swin_args(rs, 16, grid, c, heads, dt)
             tok = 16 * (-(-grid // 7) * 7) ** 2
             ops = 8 * tok * c * c + 4 * tok * 49 * c
-            for shift in (0, 3) if "6" in rows else ():
+            for shift in (0, 3) if "6" in rows and s < 3 else ():
                 with torch.no_grad():
                     ms = time_ms(lambda: sw.swin_window_block(*a, heads, 7, shift), reps=20)
                     note = ""
@@ -463,7 +484,7 @@ def main() -> int:
                         d = (sw.swin_window_block(*a, heads, 7, shift).float()
                              - sw.swin_window_block_plain(*a, heads, 7, shift).float()).abs()
                         note = f" max|Δ| {d.max().item():.2e}"
-                report("6" if s < 3 else "9", f"stage{s + 1} (16,{grid},{grid},{c}) shift{shift}",
+                report("6", f"stage{s + 1} (16,{grid},{grid},{c}) shift{shift}",
                        dt, ms, n, ops, lambda: sw.swin_window_block(*a, heads, 7, shift), note)
             a8 = [a[0][:8].contiguous()] + a[1:]
             g8 = rand(rs, 8, grid, grid, c, dtype=dt)
@@ -489,6 +510,35 @@ def main() -> int:
                 report("7" if s < 3 else "10", f"stage{s + 1} (8,{grid},{grid},{c}) shift{shift}",
                        dt, ms, n, 1.5 * ops, swin_bwd, note)
             del a, a8, g8
+            torch.cuda.empty_cache()
+
+    # row 9: bf16 at every shape with the plain version's time and the
+    # device time by kernel (the token-major plan's steps; its two GEMMs
+    # share a name), f32 at swin-base stage 3 (a control); the projections'
+    # operations over the real tokens only
+    for dt in (torch.bfloat16, torch.float32) if "9" in rows else ():
+        for name, grid, c, heads, n in ROW9_SHAPES:
+            if dt == torch.float32 and name != "swin-base3":
+                continue
+            a = swin_args(rs, 16, grid, c, heads, dt)
+            tok = 16 * grid * grid
+            ops = 8 * tok * c * c + 4 * tok * 49 * c
+            for shift in (0, 3):
+                def kern(a=a, heads=heads, shift=shift):
+                    return sw.swin_window_block(*a, heads, 7, shift)
+
+                def plain(a=a, heads=heads, shift=shift):
+                    return sw.swin_window_block_plain(*a, heads, 7, shift)
+
+                with torch.no_grad():
+                    ms, p_ms = time_ms(kern, reps=20), time_ms(plain, reps=20)
+                    note = f" plain {p_ms:.3f} ms, host enqueue {host_ms(kern):.3f} ms"
+                    if dt == torch.bfloat16:
+                        note += max_diff(kern(), plain())
+                report("9" if n > 1 else f"9 {name}",
+                       f"{name} (16,{grid},{grid},{c}) h{heads} shift{shift}", dt, ms, n, ops,
+                       kern, note, split=dt == torch.bfloat16)
+            del a
             torch.cuda.empty_cache()
 
     # row 8: window attention at the 22 blocks' shapes of stages 1-3 and

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Time two served bf16 forwards of two checkouts of this repository on one
+"""Time served bf16 forwards of two checkouts of this repository on one
 NVIDIA GPU, in turns, by host clock and by device time: the flagship's
-batch-16 512² masks forward (phase 4m's model and inputs) and
-``PromptFTNv1``'s batch-16 512² forward (phase 12's).  Each run builds the
-models from that checkout's ``chip_smoke.py`` helpers and reports, per
-forward, the host-clock median of 10 calls ending in a synchronize (after 2
-warm-up calls) and the device's busy time over one more call (torch.profiler:
-the union of its kernels' intervals), which the host's noise does not reach:
+batch-16 512² masks forward (phase 4m's model and inputs), and
+``PromptFTNv1``'s, ``DenseCLIPFTN``'s and ``BaseFTN``'s batch-16 512²
+forwards (phase 12's).  Each run builds the models from that checkout's
+``chip_smoke.py`` helpers and reports, per forward, the host-clock median of
+10 calls ending in a synchronize (after 2 warm-up calls) and the device's
+busy time over one more call (torch.profiler: the union of its kernels'
+intervals), which the host's noise does not reach:
 
     python3 scripts/torch_fwd_ab.py PARENT CHANGE [--pairs 4]
 
@@ -30,7 +31,7 @@ from pathlib import Path
 
 import numpy as np
 
-METRICS = ("masks_ms", "masks_busy", "v1_ms", "v1_busy")
+FORWARDS = ("masks", "v1", "denseclip", "baseftn")
 
 
 def busy_ms(fn):
@@ -71,7 +72,7 @@ def timed(fn, n=10):
 
 
 def one(root: Path) -> None:
-    """The two forwards of the checkout at ``root``, as a ``FWD`` line."""
+    """The four forwards of the checkout at ``root``, as a ``FWD`` line."""
     sys.path.insert(0, str(root))
     import torch
 
@@ -84,34 +85,37 @@ def one(root: Path) -> None:
     out = {"root": str(root),
            "device": cs.sh(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"])}
+
+    def measure(key, fn):
+        out[f"{key}_ms"], out[f"{key}_runs"] = timed(fn)
+        out[f"{key}_busy"], out[f"{key}_span"] = busy_ms(fn)
+
+    def ftn_model(name, **kw):
+        cpu = seeded_init_(getattr(zoo, name)(device="cpu", **kw), cs.SEED).eval()
+        model = getattr(zoo, name)(dtype=torch.bfloat16, **kw)
+        model.load_state_dict(cpu.state_dict(), strict=True)
+        return model.eval()
+
     with torch.no_grad():
+        px = cs.rand(np.random.RandomState(cs.SEED + 60), cs.BATCH, 3, cs.IMG, cs.IMG,
+                     dtype=torch.bfloat16)
         state = cs.seeded_state()
         gpu32 = cs.model_from(state).eval()
         text_static = gpu32.embed_text()
         del gpu32
         model = cs.model_from(state, dtype=torch.bfloat16, predict_masks=True).eval()
-        px = cs.rand(np.random.RandomState(cs.SEED + 60), cs.BATCH, 3, cs.IMG, cs.IMG,
-                     dtype=torch.bfloat16)
-
-        def masks():
-            return model({"pixel_values": px, "text_static": text_static})
-
-        out["masks_ms"], out["masks_runs"] = timed(masks)
-        out["masks_busy"], out["masks_span"] = busy_ms(masks)
+        measure("masks", lambda: model({"pixel_values": px, "text_static": text_static}))
         del model, state
-        torch.cuda.empty_cache()
-        cpu = seeded_init_(zoo.PromptFTNv1(device="cpu"), cs.SEED).eval()
-        ftn = zoo.PromptFTNv1(dtype=torch.bfloat16)
-        ftn.load_state_dict(cpu.state_dict(), strict=True)
-        ftn.eval()
-        del cpu
+        model = ftn_model("PromptFTNv1")
         text = cs.v1_text(cs.N_CLASSES, "cuda")
-
-        def v1():
-            return ftn({"pixel_values": px, **text})
-
-        out["v1_ms"], out["v1_runs"] = timed(v1)
-        out["v1_busy"], out["v1_span"] = busy_ms(v1)
+        measure("v1", lambda: model({"pixel_values": px, **text}))
+        model = ftn_model("DenseCLIPFTN", class_names=cs.NAMES)
+        text_static = model.embed_text()
+        measure("denseclip", lambda: model({"pixel_values": px, "text_static": text_static}))
+        model = ftn_model("BaseFTN")
+        measure("baseftn", lambda: model({"pixel_values": px}))
+        del model
+        torch.cuda.empty_cache()
     print("FWD " + json.dumps(out), flush=True)
 
 
@@ -143,7 +147,7 @@ def main() -> int:
             raise RuntimeError(f"{tag} ({root}) failed with {proc.returncode}")
         print(f"[{tag}] {lines[-1]}", flush=True)
         runs[tag].append(json.loads(lines[-1][len("FWD "):]))
-    for m in METRICS:
+    for m in (f"{f}_{k}" for f in FORWARDS for k in ("ms", "busy")):
         for tag in ("parent", "change"):
             v = [r[m] for r in runs[tag]]
             print(f"{m} {tag}: {[round(x, 2) for x in v]} median {statistics.median(v):.2f} ms",

@@ -486,11 +486,13 @@ def test_swin_window_block_kernel(cuda, dtype, h, w, c, heads, win, shift):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shift", [0, 3])
-@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12), (768, 24), (1024, 32)])
+@pytest.mark.parametrize("c,heads", [(96, 3), (192, 6), (384, 12), (512, 16), (768, 24),
+                                     (1024, 32)])
 def test_swin_window_block_kernel_window_tail(cuda, dtype, c, heads, shift):
     """27 windows (3 images of 15², padded to 21²): no multiple of the 4 or
     2 windows a bf16 block takes at the swin-small widths, so the last block
-    runs part-empty; the residual off at shift 3."""
+    runs part-empty (and above C 384, no multiple of the windows a block of
+    the token-major plan's attention core walks); the residual off at shift 3."""
     rs = np.random.RandomState(4)
     args = (_rand(rs, 3, 15, 15, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
             _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
@@ -1647,14 +1649,65 @@ def test_fused_mlp_kernel_c1024(cuda, dtype, n_tok, act, pos, residual):
 @pytest.mark.parametrize("b,grid,c,heads", [(16, 16, 1024, 32), (16, 32, 512, 16)])
 def test_swin_window_block_kernel_swin_base(cuda, dtype, b, grid, c, heads, shift):
     """Swin-base's window blocks at 512², batch 16: stage 4 (16² padded to
-    21², C 1024, dh 32: the bf16 body's split plan, head outputs through the
-    workspace) and stage 3 (32² padded to 35², C 512, 16 heads)."""
+    21², C 1024, dh 32) and stage 3 (32² padded to 35², C 512, 16 heads),
+    both on the bf16 body's token-major plan."""
     rs = np.random.RandomState(grid + shift)
     args = (_rand(rs, b, grid, grid, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
             _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
             _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
             _rand(rs, heads, 49, 49, scale=0.1))
     _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, 7, shift)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shift", [0, 3])
+@pytest.mark.parametrize("b,grid,c,heads", [(2, 32, 512, 16), (1, 16, 1024, 32), (2, 9, 448, 7)])
+def test_swin_window_block_token_major_plan(cuda, dtype, b, grid, c, heads, shift):
+    """The bf16 body's token-major plan (C > 384): swin-base stage 3 at
+    batch 2 and stage 4 at batch 1, and a width that is neither (C 448, dh
+    64, a 9² canvas padded to 14²), with and without the residual."""
+    rs = np.random.RandomState(c + shift)
+    args = (_rand(rs, b, grid, grid, c, dtype=dtype), _rand(rs, c, scale=0.1, offset=1.0),
+            _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
+            _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
+            _rand(rs, heads, 49, 49, scale=0.1))
+    _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, 7, shift,
+           residual=shift == 0)
+
+
+def test_swin_window_workspace_bf16(cuda):
+    """The bf16 body's scratch: none at C <= 384 (the one-kernel plan); above
+    it, bqkv and bo in f32 (4C floats) and the LN output and q|k|v of the
+    B·H·W real tokens in bf16 (2·B·H·W·C floats); -1 where no plan takes
+    the sizes."""
+    from lc2is_tpu_torch.ops import _build
+
+    def size(*a):
+        return _build.size("lc2_swin_window_workspace_bf16", *a)
+
+    assert size(16, 128, 128, 96, 3, 7) == 0
+    assert size(16, 32, 32, 384, 12, 7) == 0
+    assert size(16, 32, 32, 512, 16, 7) == 4 * 512 + 2 * 16 * 32 * 32 * 512
+    assert size(16, 16, 16, 1024, 32, 7) == 4 * 1024 + 2 * 16 * 16 * 16 * 1024
+    assert size(3, 15, 15, 768, 24, 7) == 4 * 768 + 2 * 3 * 15 * 15 * 768
+    assert size(1, 7, 7, 1088, 17, 7) == -1  # past C 1024
+    assert size(1, 7, 7, 512, 5, 7) == -1    # dh not 16, 32 or 64
+    assert size(1, 7, 7, 512, 16, 9) == -1   # a window past 64 tokens
+
+
+def test_swin_window_block_raises_on_a_refused_launch(cuda):
+    """C 1088 (dh 64) passes the wrapper's shape check, and the C entry
+    refuses it (past the LayerNorm's C 1024): the wrapper raises, counts no
+    launch and does not fall back to the plain version."""
+    rs = np.random.RandomState(5)
+    c, heads = 1088, 17
+    args = (_rand(rs, 1, 7, 7, c, dtype=torch.bfloat16), _rand(rs, c), _rand(rs, c),
+            _rand(rs, 3 * c, c), _rand(rs, 3 * c), _rand(rs, c, c), _rand(rs, c),
+            _rand(rs, heads, 49, 49))
+    before = swin_window_block.launches
+    with pytest.raises(RuntimeError, match="lc2_swin_window"):
+        swin_window_block(*args, heads, 7, 0)
+    assert swin_window_block.launches == before
 
 
 def test_swin_base_all_stages_on_card(cuda):
