@@ -54,7 +54,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
    that must fail (the kernel over all keys but the last 64; the masked case
    run unmasked) and SDPA's backward timed beside it (TFLOP/s over the five
-   products and the ratio printed);
+   products and the ratio printed); and every backward at the shapes of the
+   FTN training steps (phase 13): the swin-base window blocks' backwards at
+   stages 1-2 (row 7, (8, 128², 128) h4 and (8, 64², 256) h8) and stage 3
+   (row 10, reported as fused_window_block_bwd, (8, 32², 512) h16, both
+   shifts), the decoder attention backward at DenseCLIPFTN's FTNDecoder
+   shapes, the upsample adjoint at the FTN decoders' shapes, each tagged
+   with its launches per step of each FTN model (in the dtype that step runs
+   it in), their kernel / plain / bound times summed per step of each, and
+   the launches so summed held to phase 13's counts;
 3w. window attention (TPU row 8, on no model's path): window_attention
    against its plain version at swin-small's four stage shapes of a 512²
    batch-16 forward (N 5776 / 1600 / 400 / 144 windows of 49 tokens, C 96 to
@@ -129,7 +137,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    frozen part): (a) f32 batch 1, 512² images and labels, card vs CPU under
    phase 6a's gates; (b) bf16 batch 8, dropout 0, drop path 0.1: two
    warm-up steps, the launch counts of one step, six timed steps, a
-   torch.profiler table of one more.
+   torch.profiler table of one more; then BaseSelfA's, PromptSelfA's and
+   PromptCrossA's bf16 batch-8 steps the same way, each profile's five
+   largest items only.  Every bf16 step prints its peak device memory.
 12. the FTN family on swin-base (DenseCLIPFTN, PromptFTNv1, BaseFTN,
    PromptFTNv2; decoder 512, 151 classes or class-name prompts), weights
    from the numpy seed: (a) f32 batch 1, the card's score map (BaseFTN: its
@@ -150,10 +160,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    upsample at C 1024), and sums its times, plain times and bounds per
    forward of each FTN model, in the dtype that forward runs each shape in;
    the launches so summed must equal phase 12's counts.
+13. the FTN family's training steps (engine.train_step: the plain CE of the
+   512² map against 512² labels, AdamW lr 1e-5, the frozen text towers),
+   weights from the numpy seed: (a) f32 batch 1, every Dropout rate, MHA
+   dropout and drop-path rate set to 0 on the built model (the layers keep
+   their dropout attribute, so they take the unfused halves the real step
+   takes), the card's step against the same step on the CPU under phase
+   6a's gates (the prompt decoders' gradients within 1e-2 norm-relative:
+   their 151-token relu layers switch units between card and CPU), the CPU
+   step's seconds printed; (b) bf16 batch 8 (or the
+   largest batch that fits, the failure printed), the decoders' dropout as
+   built (0.1; DenseCLIPFTN's FTNDecoder 0) and drop path 0.1 from a seeded
+   generator: two warm-up steps, the launch counts of one step asserted, the
+   window blocks and their backwards of swin-base stage 3 (rows 9 and 10)
+   counted per stage, 18 each, six timed steps, finite losses, trainable
+   parameters changed and frozen ones not, the peak device memory, a fresh
+   model repeating the first step's loss bit for bit from the same seed, and
+   a torch.profiler table of one more step (idle share; 20 items for
+   DenseCLIPFTN and BaseFTN, 5 for the other two).
 
 Then a JSON line of the kernels (launches over one run of the path that
 uses each: the served-mask forward, the int8 forward, the training step, the
-v1 BaseModelWithText forward or its training step; 0 for upsample_argmax and
+v1 BaseModelWithText forward or its training step, the DenseCLIPFTN forward
+and training step for rows 9 and 10; 0 for upsample_argmax and
 window_attention, which lie on no path), the nvidia-smi line, and as the
 last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Each phase prints its seconds.
@@ -166,6 +195,7 @@ repository, it fails without printing a result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import re
@@ -279,6 +309,25 @@ UPSAMPLE_F32_REL = 1e-6
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_REL = 1e-3
 STEP_PARAM_ATOL = 1e-2 * TRAIN_LR + 1e-7
+# the bf16 steps: a trainable parameter that did not move in 8 steps passes
+# only where its last AdamW step is below ROUNDED_AWAY x eps · |p| (eps of
+# p's dtype) on every element.  Round to nearest keeps p only where the step
+# is at most half of p's spacing, which is at most eps · |p|; the f32 FTN
+# prompt-decoder parameters that stay reach 0.07-0.13 of it on an H100
+ROUNDED_AWAY = 0.5
+# the FTN steps (phase 13a): a relu unit of a prompt decoder's post-norm
+# layers whose pre-activation has another sign on the card than on the CPU
+# switches, and the gradients of its layer and of every layer before it move
+# together.  In PromptFTNv2 one unit of layer 2 switches and layers 0-2 part by 2.1e-3 to
+# 4.0e-3; fed the CPU step's inputs, the decoder on the CPU lies within
+# 1.1e-5 of float64 and on the card 2.1e-3 to 4.0e-3 from it in layers 0-2,
+# its f32 error having switched that unit against float64
+# (scripts/ftn_prompt_grad_probe.py on an H100).  So the gradients of a prompt
+# decoder's layers up to the deepest one with a switched unit are held to
+# PROMPT_DECODER_GRAD_REL, those of the later layers to STEP_GRAD_REL, and a
+# step may switch at most RELU_SWITCHES units
+PROMPT_DECODER_GRAD_REL = 5e-3
+RELU_SWITCHES = 4
 # per-step launches of the training step: the forward's, the backwards (22
 # swin blocks run, so 22 swin backwards), one fused CE kernel per loss
 EXPECTED_TRAIN_LAUNCHES = dict(EXPECTED_LAUNCHES, swin_window_block_bwd=22,
@@ -330,6 +379,10 @@ SOURCES = {
     "swin_window_block_bwd": ("lc2is_tpu_torch/csrc/swin_window_bwd.cu",
                               "lc2is_tpu/ops/swin_canvas.py:530; "
                               "lc2is_tpu/ops/window_attention.py:701"),
+    # the same kernel where the JAX package takes its windowed backward
+    # (C > 384, up to 768): swin-base stage 3 in the FTN training steps
+    "fused_window_block_bwd": ("lc2is_tpu_torch/csrc/swin_window_bwd.cu",
+                               "lc2is_tpu/ops/window_attention.py:701"),
     "fused_attn_block_bwd": ("lc2is_tpu_torch/csrc/attention_block_bwd.cu",
                              "lc2is_tpu/ops/attention_block.py:264"),
     "upsample_tokens_adjoint": ("lc2is_tpu_torch/csrc/upsample.cu",
@@ -1161,7 +1214,11 @@ def backward_cases(rs, dt):
     """(kernel name, shape label, launches per training step, kernel call,
     (kernel-path fn, plain fn, args, g) for the gradient check, work (bytes,
     ops), the one PyTorch call of the same function or None, the plain
-    adjoint or None) at every shape of the 512² / batch-8 training step.  The
+    adjoint or None, {FTN model: launches per bf16 batch-8 step of it in this
+    dtype}) at every shape of the 512² / batch-8 training steps of the
+    flagship and of the FTN models (phase 13).  Row 10, the window blocks of
+    swin-base stage 3 (C 512, the JAX package's windowed backward), reports
+    as ``fused_window_block_bwd``, its launches per DenseCLIPFTN step.  The
     plain time is autograd's backward through the plain version; for the
     fused CE, whose one kernel computes the loss and the gradient, it is the
     plain forward + backward; for the upsample adjoint, which has a plain
@@ -1212,7 +1269,33 @@ def backward_cases(rs, dt):
                     (lambda *a, k=kw: swin_window_block(*a, **k),
                      lambda *a, k=kw: swin_window_block_plain(*a, **k), args, gr),
                     (3 * nbytes // 2 + 4 * 4 * c * c, {k_: 3 * v_ for k_, v_ in ops.items()}),
-                    None, None))
+                    None, None, {}))
+    # swin-base in the FTN steps (phase 13: drop path 0.1 over 24 blocks, so
+    # block 0 alone keeps the in-kernel residual): stages 1-2 (row 7), one
+    # block a shift each; stage 3 (row 10), 9 blocks a shift
+    for s, (grid, c, heads, cases_) in enumerate([
+            (g, 128, 4, [(0, True, 1), (3, False, 1)]),
+            (g // 2, 256, 8, [(0, False, 1), (3, False, 1)]),
+            (g // 4, 512, 16, [(0, False, 9), (3, False, 9)])]):
+        x = rand(rs, b, grid, grid, c, dtype=dt)
+        args = [x, vec(c, 1.0), vec(c), w(3 * c, c), vec(3 * c), w(c, c), vec(c),
+                rand(rs, heads, 49, 49, scale=0.1)]
+        gr = rand(rs, b, grid, grid, c, dtype=dt)
+        wq_s, bq_s = fold_q_scale(args[3], args[4], heads)
+        name = "fused_window_block_bwd" if c > 384 else "swin_window_block_bwd"
+        for shift, res, n in cases_:
+            kw = dict(num_heads=heads, win=7, shift=shift, residual=res)
+            nbytes, ops = swin_work(b, grid, grid, c, heads, dt)
+            cases.append((
+                name, f"swin-base{s + 1} ({b},{grid},{grid},{c}) h{heads} shift{shift} "
+                      f"res{int(res)}",
+                n if name == "fused_window_block_bwd" else 0,
+                lambda a=args, q=(wq_s, bq_s), k=kw, g_=gr: swin_window_block_bwd(
+                    a[0], g_, a[1], a[2], q[0], q[1], *a[5:], **k),
+                (lambda *a, k=kw: swin_window_block(*a, **k),
+                 lambda *a, k=kw: swin_window_block_plain(*a, **k), args, gr),
+                (3 * nbytes // 2 + 4 * 4 * c * c, {k_: 3 * v_ for k_, v_ in ops.items()}),
+                None, None, ftn_counts(n if dt == torch.bfloat16 else None, FTN_ALL)))
     for p, l_sr, n in [(256, 64, 1), (1024, 256, 2), (4096, 1024, 3)]:
         x = rand(rs, b, p, 512, dtype=dt)
         gr = rand(rs, b, p, 512, dtype=dt)
@@ -1228,8 +1311,23 @@ def backward_cases(rs, dt):
                 (lambda *a: fused_attn_block(*a, 8), lambda *a: fused_attn_block_plain(*a, 8),
                  args, gr),
                 (2 * nbytes + 4 * 512 * 512 * 4, {k_: 3 * v_ for k_, v_ in ops.items()}), None,
-                None))
-    for grid, c, n in [(16, 768, 1), (32, 384, 1), (16, 512, 1), (32, 512, 2), (64, 512, 1)]:
+                # DenseCLIPFTN's FTNDecoder (dropout 0) runs these halves fused; the
+                # other FTN decoders train on the unfused ones (dropout 0.1)
+                None, ftn_counts(n if dt == torch.bfloat16 else None, ("DenseCLIPFTN",))))
+    # the x2 upsamples' adjoints: (grid, C, launches per flagship step, per FTN
+    # step in this dtype).  PromptFTNv1's unfused FTNDecoder layers leave f32
+    # (their cross-attention over the f32 text promotes, as in JAX), so its
+    # upsamples after a block, and the deferred one, are f32
+    bf = dt == torch.bfloat16
+    for grid, c, n, on_ftn in [
+            (16, 768, 1, {}), (32, 384, 1, {}),
+            (16, 1024, 0, ftn_counts(1 if bf else None, FTN_ALL)),
+            (16, 512, 1, dict(ftn_counts(1, ("DenseCLIPFTN",) + FTN_DEC2)) if bf
+             else {"PromptFTNv1": 1}),
+            (32, 512, 2, dict(ftn_counts(3, ("DenseCLIPFTN",) + FTN_DEC2), PromptFTNv1=1) if bf
+             else {"PromptFTNv1": 2}),
+            (64, 512, 1, dict(ftn_counts(3, FTN_DEC2), DenseCLIPFTN=1) if bf
+             else {"PromptFTNv1": 1})]:
         x = rand(rs, b, grid * grid, c, dtype=dt)
         gr = rand(rs, b, 4 * grid * grid, c, dtype=dt)
         cases.append((
@@ -1241,7 +1339,7 @@ def backward_cases(rs, dt):
             lambda g_=gr, h=grid, c_=c: torch.ops.aten.upsample_bilinear2d_backward(
                 g_.view(b, 2 * h, 2 * h, c_).permute(0, 3, 1, 2), [2 * h, 2 * h], [b, c_, h, h],
                 False, None, None),
-            lambda g_=gr, h=grid: upsample_tokens_adjoint_plain(g_, (h, h), 2)))
+            lambda g_=gr, h=grid: upsample_tokens_adjoint_plain(g_, (h, h), 2), on_ftn))
     for h, r in [(g, 4), (g // 4, 16)]:
         x = rand(rs, b, N_CLASSES, h, h, dtype=dt)
         y = seeded_labels(SEED + r, b, IMG, IMG)
@@ -1254,7 +1352,7 @@ def backward_cases(rs, dt):
             # and class a blend, an exp and a sum (about 8 operations, 2 of
             # them exponentials: the softmax's, and the gradient's recomputed)
             (2 * x.numel() * dt.itemsize + 8 * y.numel(), {"f32": 8 * N_CLASSES * y.numel()}),
-            None, None))
+            None, None, {}))
     return cases
 
 
@@ -1376,14 +1474,14 @@ def check_flash_backward(stats):
 
 def check_backward_kernels():
     """Phase 3b.  Returns per-kernel stats for the JSON line."""
-    stats = {}
+    stats, ftn_stats = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         bound = GRAD_BOUNDS[dt]
         print(f"\n[backward] {dt}: bound ‖kernel - plain‖ / ‖plain‖ <= {bound} over every "
               f"gradient", flush=True)
         rs = np.random.RandomState(SEED + 3)
         for (name, label, count, kern, (kfn, pfn, args, g), work, library,
-             adjoint_plain) in backward_cases(rs, dt):
+             adjoint_plain, on_ftn) in backward_cases(rs, dt):
             ka = [a.detach().clone().requires_grad_() for a in args]
             pa = [a.detach().clone().requires_grad_() for a in args]
             got = torch.autograd.grad(kfn(*ka), ka, g)
@@ -1413,14 +1511,17 @@ def check_backward_kernels():
             if adjoint_plain is not None:
                 ok, _, msg = upsample_bits(got[0], want[0])
                 lib += f"{memory_rate(work[0], k_ms)}; {msg}"
-            if name in ("fused_attn_block_bwd", "swin_window_block_bwd"):
+            if name in ("fused_attn_block_bwd", "swin_window_block_bwd",
+                        "fused_window_block_bwd"):
                 lib += f" ({rate_of(work, k_ms)})"
             if name == "upsampled_cross_entropy":  # its exponentials and f32 operations a second
                 f32_ops = work[1]["f32"]
                 lib += (f" ({f32_ops / 4 / k_ms / 1e9:.2f} T exp/s, "
                         f"{f32_ops / k_ms / 1e9:.1f} T f32 op/s)")
+            per = f"x{count}/step" + ("; FTN " + ", ".join(f"{m} x{n}" for m, n in on_ftn.items())
+                                      if on_ftn else "")
             print(f"  {name:23s} {label:46s} max {mx:.3e} rel {rel:.3e} kernel {k_ms:8.3f} ms "
-                  f"plain {p_ms:8.3f}{lib} bound {b_ms:7.3f} ({by}) x{count}/step "
+                  f"plain {p_ms:8.3f}{lib} bound {b_ms:7.3f} ({by}) {per} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 raise AssertionError(f"{name} {label} {dt}: backward kernel disagrees with "
@@ -1442,11 +1543,42 @@ def check_backward_kernels():
                 st["by"][by] = st["by"].get(by, 0.0) + count * b_ms
                 if lib_ms is not None:
                     st["library_ms"] = (st["library_ms"] or 0.0) + count * lib_ms
+            for model, n in on_ftn.items():  # per bf16 batch-8 step of each FTN model
+                f = ftn_stats.setdefault(model, {}).setdefault(
+                    name, dict(launches=0, ms=0.0, plain_ms=0.0, bound_ms=0.0))
+                f["launches"] += n
+                for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
+                    f[key] += n * v
             del got, want, out_p, ka, pa
             control = None
         torch.cuda.empty_cache()
+    report_ftn_backward(ftn_stats)
     check_flash_backward(stats)
     return stats
+
+
+def report_ftn_backward(ftn_stats):
+    """Phase 3b's times at the FTN steps' shapes, per bf16 batch-8 step of
+    each FTN model (each shape in the dtype that step runs it in); the
+    launches so summed must equal phase 13's backward counts (row 10's
+    blocks, fused_window_block_bwd, among swin_window_block_bwd's)."""
+    print("\n[backward] per bf16 b8 FTN training step, from the cases above (launches x ms at "
+          "the step's shapes and dtypes):", flush=True)
+    for model, expected in EXPECTED_FTN_TRAIN_LAUNCHES.items():
+        got = ftn_stats.get(model, {})
+        tot = [sum(f[k] for f in got.values()) for k in ("ms", "plain_ms", "bound_ms")]
+        print(f"  {model}: " + "; ".join(
+            f"{name} {f['launches']} kernel {f['ms']:.3f} plain {f['plain_ms']:.3f} bound "
+            f"{f['bound_ms']:.3f}" for name, f in got.items())
+            + f"; all kernel {tot[0]:.3f} ms plain {tot[1]:.3f} bound {tot[2]:.3f}", flush=True)
+        launches = {}
+        for name, f in got.items():
+            key = "swin_window_block_bwd" if name == "fused_window_block_bwd" else name
+            launches[key] = launches.get(key, 0) + f["launches"]
+        want = {k: v for k, v in expected.items() if k in BACKWARD_KERNELS}
+        if launches != want:
+            raise AssertionError(f"phase 3b's shapes of {model} give launches {launches}, "
+                                 f"phase 13 counts {want}")
 
 
 NAMES = tuple(f"thing {i}" for i in range(N_CLASSES))
@@ -1795,20 +1927,52 @@ def train_models(state, name="PromptAuxCrossA", **kw):
 def check_train_f32(state, name="PromptAuxCrossA", label="train"):
     """Phase 6a (11a for BaseCrossA): one f32 step at batch 1, 512² images and
     labels, drop path off, card vs CPU."""
-    from lc2is_tpu_torch.engine.engine import train_step
     from lc2is_tpu_torch.nn.swin import SWIN_SMALL
 
-    frozen = frozen_prefixes(name)
     nodrop = dict(swin_cfg=dict(SWIN_SMALL, drop_path_rate=0.0))
     cpu, opt_c = train_models(state, name, device="cpu", **nodrop)
     gpu, opt_g = train_models(state, name, **nodrop)
     x = rand(np.random.RandomState(SEED + 20), 1, 3, IMG, IMG, device="cpu")
+    compare_f32_steps(state, name, label, cpu, opt_c, gpu, opt_g, {"pixel_values": x})
+
+
+def prompt_decoder_relu_inputs(model):
+    """{layer: its ``linear1`` output, the relu's input, in the last forward}
+    for the layers of the model's prompt decoder (none without one)."""
+    pre = {}
+    decoder = getattr(model, "prompt_decoder", None)
+    for i, layer in enumerate(decoder.layers if decoder is not None else ()):
+        layer.linear1.register_forward_hook(
+            lambda m, a, out, i=i: pre.__setitem__(i, out.detach().cpu()))
+    return pre
+
+
+def compare_f32_steps(state, name, label, cpu, opt_c, gpu, opt_g, inputs):
+    """One f32 ``train_step`` of the same model on the CPU and on the card
+    (``inputs`` on the CPU, 512² labels from the seed), under phase 6a's
+    gates: the losses, every trainable gradient (those of a prompt
+    decoder's layers up to the deepest one where a relu unit switched:
+    PROMPT_DECODER_GRAD_REL), the parameters after AdamW, the frozen
+    parameters unchanged bit for bit."""
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    frozen = frozen_prefixes(name)
     y = seeded_labels(SEED + 21, 1, IMG, IMG, device="cpu")
+    pre_c, pre_g = prompt_decoder_relu_inputs(cpu), prompt_decoder_relu_inputs(gpu)
     t0 = time.time()
-    want = train_step(cpu, opt_c, {"pixel_values": x}, y)
+    want = train_step(cpu, opt_c, inputs, y)
     cpu_s = time.time() - t0
-    got = train_step(gpu, opt_g, {"pixel_values": x.cuda()}, y.cuda())
+    got = train_step(gpu, opt_g, {k: v.cuda() for k, v in inputs.items()}, y.cuda())
     torch.cuda.synchronize()
+    switched = [int(((pre_g[i] > 0) != (pre_c[i] > 0)).sum()) for i in range(len(pre_c))]
+    loose = tuple(f"prompt_decoder.layers.{i}." for i in range(
+        max((i + 1 for i, n in enumerate(switched) if n), default=0)))
+    if switched:
+        print(f"[{label}] (a) relu units with another sign on the card than on the CPU, per "
+              f"prompt-decoder layer: {switched} (bound {RELU_SWITCHES} in all); "
+              f"{len(loose)} layers held to {PROMPT_DECODER_GRAD_REL}", flush=True)
+    if sum(switched) > RELU_SWITCHES:
+        raise AssertionError(f"{name}: {sum(switched)} relu units switched in the f32 step")
     for key in want:
         g_, w_ = got[key].item(), want[key].item()
         print(f"[{label}] (a) {name} f32 b1 {IMG}² {key}: card {g_:.6f} CPU {w_:.6f} "
@@ -1816,6 +1980,7 @@ def check_train_f32(state, name="PromptAuxCrossA", label="train"):
         if not (np.isfinite(g_) and abs(g_ - w_) <= STEP_LOSS_RTOL * abs(w_)):
             raise AssertionError(f"f32 step {key}: card {g_} vs CPU {w_}")
     worst, worst_name, n_grads, worst_param = 0.0, "", 0, 0.0
+    worst_pd, worst_pd_name = 0.0, ""
     gp = dict(gpu.named_parameters())
     for pname, p in cpu.named_parameters():
         q = gp[pname]
@@ -1833,7 +1998,10 @@ def check_train_f32(state, name="PromptAuxCrossA", label="train"):
         ref = dict(cpu.named_parameters())[pname.replace("key.bias", "query.bias")] \
             if zero_in_exact else p
         rel = ((gq - p.grad).norm() / ref.grad.norm().clamp_min(1e-30)).item()
-        if rel > worst:
+        if pname.startswith(loose):
+            if rel > worst_pd:
+                worst_pd, worst_pd_name = rel, pname
+        elif rel > worst:
             worst, worst_name = rel, pname
         if zero_in_exact:
             continue
@@ -1842,30 +2010,48 @@ def check_train_f32(state, name="PromptAuxCrossA", label="train"):
         worst_param = max(worst_param, d.max().item() if d.numel() else 0.0)
     tower = ("frozen " + ", ".join(frozen) + ": no gradient, unchanged bit for bit"
              if frozen else "nothing frozen")
+    pd = (f"; of its layers 0-{len(loose) - 1} the worst {worst_pd:.3e} ({worst_pd_name}; "
+          f"bound {PROMPT_DECODER_GRAD_REL})" if loose else "")
     print(f"[{label}] (a) {n_grads} trainable gradients, card vs CPU: worst norm-relative "
-          f"{worst:.3e} ({worst_name}; bound {STEP_GRAD_REL}); parameters after AdamW max "
+          f"{worst:.3e} ({worst_name}; bound {STEP_GRAD_REL}){pd}; parameters after AdamW max "
           f"|Δ| {worst_param:.3e} (bound {STEP_PARAM_ATOL:.1e}); {tower}; CPU step "
           f"{cpu_s:.1f} s", flush=True)
-    if worst > STEP_GRAD_REL or worst_param > STEP_PARAM_ATOL:
+    if (worst > STEP_GRAD_REL or worst_pd > PROMPT_DECODER_GRAD_REL
+            or worst_param > STEP_PARAM_ATOL):
         raise AssertionError("f32 training step on the card disagrees with the CPU run")
 
 
-def check_train_bf16(smi, state, name="PromptAuxCrossA", expected=None, label="train"):
-    """Phase 6b (11b for BaseCrossA): bf16 batch 8, drop path 0.1, decoder
-    dropout 0.  Returns (launch counts of one step, median step ms)."""
-    from lc2is_tpu_torch.engine.engine import train_step
-
+def check_train_bf16(smi, state, name="PromptAuxCrossA", expected=None, label="train",
+                     profile_rows=40):
+    """Phase 6b (11b for the other v4 models): bf16 batch 8, drop path 0.1,
+    decoder dropout 0, a profile table of ``profile_rows`` items.  Returns
+    (launch counts of one step, median step ms)."""
     expected = EXPECTED_TRAIN_LAUNCHES if expected is None else expected
-    frozen = frozen_prefixes(name)
     model, opt = train_models(state, name, dtype=torch.bfloat16)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = rand(np.random.RandomState(SEED + 30), TRAIN_BATCH, 3, IMG, IMG, dtype=torch.bfloat16)
     y = seeded_labels(SEED + 31, TRAIN_BATCH, IMG, IMG)
-    inputs = {"pixel_values": x}
+    counts, ms, _, _ = run_train_bf16(smi, model, opt, {"pixel_values": x}, y, name, expected,
+                                      label, "drop path 0.1", profile_rows)
+    return counts, ms
+
+
+def run_train_bf16(smi, model, opt, inputs, y, name, expected, label, what, profile_rows=40):
+    """Two warm-up steps (the generator seeded SEED), the launch counts of one
+    step asserted, six timed steps, finite losses, every trainable parameter
+    changed (but stage 4's dead blocks and the swin key biases), the frozen
+    ones unchanged, the peak device memory; a torch.profiler table (its
+    ``profile_rows`` largest items) of one more step.  Returns (counts,
+    median ms, the first warm-up step's train_loss, peak bytes)."""
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    frozen = frozen_prefixes(name)
+    batch = y.shape[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     counters = launch_counters()
-    for _ in range(2):  # warm-up
-        train_step(model, opt, inputs, y, generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    first = train_step(model, opt, inputs, y, generator=gen)["train_loss"]
+    train_step(model, opt, inputs, y, generator=gen)
     torch.cuda.synchronize()
     times, losses = [], []
     for i in range(6):
@@ -1879,7 +2065,7 @@ def check_train_bf16(smi, state, name="PromptAuxCrossA", expected=None, label="t
         if i == 0:
             counts = {k: f.launches for k, f in counters.items() if f.launches}
         losses.append({k: v.item() for k, v in out.items()})
-    print(f"[{label}] (b) {name} bf16 b{TRAIN_BATCH} {IMG}², drop path 0.1: losses per step "
+    print(f"[{label}] (b) {name} bf16 b{batch} {IMG}², {what}: losses per step "
           f"{[tuple(round(v, 5) for v in d.values()) for d in losses]} ({', '.join(losses[0])})")
     print(f"[{label}] launches over one step: {counts} (expected {expected})")
     if counts != expected:
@@ -1892,22 +2078,53 @@ def check_train_bf16(smi, state, name="PromptAuxCrossA", expected=None, label="t
     # stage 4's blocks are dead code (hidden_states[:4]): no gradient, no
     # update; a swin key bias's gradient is zero in exact arithmetic (softmax
     # is invariant to the q·bk a row's logits share), so it may not move
-    dead = [n for n in trainable if n.startswith("vision_encoder.stages.3.blocks.")]
+    dead = [n for n in trainable if ".stages.3.blocks." in n]
     zero = [n for n in trainable if n.endswith("attention.self.key.bias") and n not in dead]
-    stuck = sorted(set(trainable) - set(changed) - set(dead) - set(zero))
+    # a parameter that got a gradient and AdamW moments but did not move is
+    # excused only where the last step, from its group's own lr, betas, eps
+    # and weight decay, is below ROUNDED_AWAY x eps · |p| (eps of p's dtype)
+    # on every element, so the rounding keeps it (the FTN prompt decoders, whose
+    # output the models scale by 1e-4 and 1e-5: Adam's m / (sqrt(v) + eps)
+    # is far below 1 where |g| << eps); the group's lr must be the step's
+    # TRAIN_LR, so a schedule at 0 excuses nothing
+    params, adam = dict(model.named_parameters()), opt.adamw.state
+    group_of = {id(p): g for g in opt.adamw.param_groups for p in g["params"]}
+    below, unexplained = {}, []
+    for n in sorted(set(trainable) - set(changed) - set(dead) - set(zero)):
+        p, st, g = params[n], adam.get(params[n], {}), group_of.get(id(params[n]))
+        if (p.grad is None or not p.grad.any() or not st or not st["exp_avg"].any()
+                or g is None or g["lr"] != TRAIN_LR):
+            unexplained.append(n)
+            continue
+        (b1, b2), t = g["betas"], float(st["step"])
+        step = (g["lr"] * st["exp_avg"] / (1 - b1 ** t)
+                / ((st["exp_avg_sq"] / (1 - b2 ** t)).sqrt() + g["eps"])).abs()
+        step = step + g["lr"] * g["weight_decay"] * p.detach().abs()
+        spacing = (torch.finfo(p.dtype).eps * p.detach().abs()).clamp_min(1e-30)
+        below[n] = (step / spacing).max().item()
+        if below[n] >= ROUNDED_AWAY:
+            unexplained.append(n)
     print(f"[{label}] {len(changed)} of {len(trainable)} trainable parameters changed after 8 "
           f"steps; not required to: the {len(dead)} of stage 4's dead blocks (as in the "
-          f"reference) and the {len(zero)} swin key biases ({len(set(zero) - set(changed))} "
-          f"did not move); frozen changed: {len(moved_frozen)}", flush=True)
-    if stuck or moved_frozen:
-        raise AssertionError(f"parameters not updated {stuck[:5]} / frozen moved {moved_frozen[:5]}")
+          f"reference), the {len(zero)} swin key biases ({len(set(zero) - set(changed))} "
+          f"did not move) and those whose last AdamW step is below {ROUNDED_AWAY} x eps·|p|: "
+          f"{len(set(below) - set(unexplained))}; frozen changed: {len(moved_frozen)}",
+          flush=True)
+    for n, r in below.items():
+        print(f"[{label}]   did not move: {n}, last step / (eps·|p|) at most {r:.3f} "
+              f"(bound {ROUNDED_AWAY})", flush=True)
+    if unexplained or moved_frozen:
+        raise AssertionError(f"parameters not updated {unexplained[:5]} / frozen moved "
+                             f"{moved_frozen[:5]}")
     ms = statistics.median(times)
-    print(f"[{label}] (b) {name} bf16 b{TRAIN_BATCH} {IMG}² step (host clock to synchronize): "
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{label}] (b) {name} bf16 b{batch} {IMG}² step (host clock to synchronize): "
           f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = "
-          f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s on {smi}", flush=True)
+          f"{batch * 1e3 / ms:.2f} img/s, peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated) on {smi}", flush=True)
     profile_step(lambda: train_step(model, opt, inputs, y, generator=gen),
-                 f"one {name} bf16 step")
-    return counts, ms
+                 f"one {name} bf16 b{batch} step", rows=profile_rows)
+    return counts, ms, first, peak
 
 
 # the five other v4 models (phase 10): per-forward launches of the bf16
@@ -1922,6 +2139,13 @@ EXPECTED_V4_LAUNCHES = {
 # BaseCrossA's training step (phase 11b): the flagship's, with one loss (no
 # low-res map, so one fused CE kernel)
 EXPECTED_V4_TRAIN_LAUNCHES = dict(EXPECTED_TRAIN_LAUNCHES, upsampled_cross_entropy=1)
+# the other v4 models phase 11 trains in bf16: one loss each; the SelfA
+# decoders' 6 layers have one attention half each
+V4_TRAINED = ("BaseSelfA", "PromptSelfA", "PromptCrossA")
+EXPECTED_V4_TRAIN_LAUNCHES_OF = {
+    name: dict(EXPECTED_V4_TRAIN_LAUNCHES,
+               **({} if "CrossA" in name else {"fused_attn_block": 6, "fused_attn_block_bwd": 6}))
+    for name in V4_TRAINED}
 
 
 def check_v4_model(smi, name):
@@ -2006,15 +2230,29 @@ def check_v4(smi):
 
 def check_v4_train(smi):
     """Phase 11: BaseCrossA's training step (the CLI's default model), one
-    loss through the fused upsample-CE, nothing frozen.  Returns (launch
-    counts of one 11b step, its median ms)."""
+    loss through the fused upsample-CE, nothing frozen: (a) f32 card vs CPU,
+    (b) bf16 with a profile; then the bf16 steps of BaseSelfA, PromptSelfA
+    and PromptCrossA.  Returns (launch counts of one BaseCrossA 11b step,
+    {name: median ms})."""
     from lc2is_tpu_torch.core.convert import seeded_init_
-    from lc2is_tpu_torch.models.zoo import BaseCrossA
+    from lc2is_tpu_torch.models import zoo
 
-    state = seeded_init_(BaseCrossA(class_names=NAMES, device="cpu"), SEED).state_dict()
+    def state_of(name):
+        return seeded_init_(getattr(zoo, name)(class_names=NAMES, device="cpu"),
+                            SEED).state_dict()
+
+    state = state_of("BaseCrossA")
     check_train_f32(state, "BaseCrossA", "v4 train")
     torch.cuda.empty_cache()
-    return check_train_bf16(smi, state, "BaseCrossA", EXPECTED_V4_TRAIN_LAUNCHES, "v4 train")
+    counts, ms = check_train_bf16(smi, state, "BaseCrossA", EXPECTED_V4_TRAIN_LAUNCHES,
+                                  "v4 train")
+    step_ms = {"BaseCrossA": ms}
+    for name in V4_TRAINED:
+        torch.cuda.empty_cache()
+        step_ms[name] = check_train_bf16(smi, state_of(name), name,
+                                         EXPECTED_V4_TRAIN_LAUNCHES_OF[name], "v4 train",
+                                         profile_rows=5)[1]
+    return counts, step_ms
 
 
 def profile_step(step, label, rows=40):
@@ -2560,6 +2798,153 @@ def check_ftn(smi):
     return {k: ms for k, (ms, _) in out.items()}, out["DenseCLIPFTN"][1]
 
 
+# the FTN training steps (phase 13), bf16 batch 8, the decoders' dropout
+# (hardwired 0.1 but DenseCLIPFTN's FTNDecoder, 0) and drop path 0.1: the
+# launches of one step.  The swin's 22 window blocks and feed-forwards and
+# the 22 window-block backwards (18 of them row 10, swin-base stage 3);
+# DenseCLIPFTN's FTNDecoder runs its fused halves as served (12 attention
+# halves, 6 feed-forwards) and their backwards; the other decoders' and the
+# prompt decoders' layers train on the unfused halves (JAX's gate at dropout
+# 0.1): no decoder kernel; every x2 upsample and its adjoint
+_FTN_SWIN_STEP = {"swin_window_block": 22, "fused_mlp": 22, "swin_window_block_bwd": 22}
+EXPECTED_FTN_TRAIN_LAUNCHES = {
+    "DenseCLIPFTN": dict(_FTN_SWIN_STEP, fused_mlp=28, fused_attn_block=12,
+                         fused_attn_block_bwd=12, upsample_tokens=6, upsample_tokens_adjoint=6),
+    "PromptFTNv1": dict(_FTN_SWIN_STEP, upsample_tokens=6, upsample_tokens_adjoint=6),
+    "BaseFTN": dict(_FTN_SWIN_STEP, upsample_tokens=8, upsample_tokens_adjoint=8),
+    "PromptFTNv2": dict(_FTN_SWIN_STEP, upsample_tokens=8, upsample_tokens_adjoint=8),
+}
+# the window-block backwards of the stages the JAX package sends through its
+# windowed backward (row 10; C > 384): swin-base stage 3's 18
+FTN_ROW10_LAUNCHES = 18
+# the two FTN steps whose profile phase 13b prints in full: the fused decoder
+# and FTNDecoderV2's unfused one
+FTN_PROFILED_STEPS = ("DenseCLIPFTN", "BaseFTN")
+
+
+def ftn_built(name, state, **kw):
+    """The FTN model ``name`` (on the card unless ``device`` says otherwise)
+    with the weights of ``state`` copied in, and its AdamW (lr 1e-5, the
+    reference's frozen prefixes)."""
+    from lc2is_tpu_torch.engine.optim import make_optimizer
+    from lc2is_tpu_torch.models import zoo
+
+    extra = dict(class_names=NAMES) if name == "DenseCLIPFTN" else {}
+    m = getattr(zoo, name)(**extra, **kw)
+    m.load_state_dict(state, strict=True)
+    return m, make_optimizer(m, lr=TRAIN_LR, frozen_prefixes=frozen_prefixes(name))
+
+
+def ftn_inputs(name, batch, seed, device="cuda", dtype=torch.float32):
+    """512² images from the seed, and the 151 class-name prompts for the
+    models that read text."""
+    x = rand(np.random.RandomState(seed), batch, 3, IMG, IMG, dtype=dtype, device=device)
+    return {"pixel_values": x, **(v1_text(N_CLASSES, device) if FTN_MODELS[name][0] else {})}
+
+
+def row10_launches(model):
+    """Hooks on the model's swin stages: {stage: window-block backward
+    launches in the last backward}, for the stages whose blocks the JAX
+    package sends through its windowed backward (not takes_canvas_kernel):
+    counted between the gradient reaching the stage's output and its input."""
+    from lc2is_tpu_torch.nn.swin import takes_canvas_kernel
+    from lc2is_tpu_torch.ops.swin_window import swin_window_block_bwd
+
+    per_stage = {}
+    for i, stage in enumerate(swin_of(model).stages):
+        def post(m, args, out, i=i):
+            x, (h, w) = args[0], args[1]
+            if takes_canvas_kernel(h, w, x.shape[-1], x.dtype) or not out[0].requires_grad:
+                return
+            out[0].register_hook(
+                lambda g: per_stage.__setitem__(i, -swin_window_block_bwd.launches))
+            x.register_hook(
+                lambda g: per_stage.__setitem__(i, per_stage[i] + swin_window_block_bwd.launches))
+
+        stage.register_forward_hook(post)
+    return per_stage
+
+
+def ftn_train_bf16(smi, name, state, batch):
+    """Phase 13b for one model at ``batch``: run_train_bf16's checks with
+    the launch counts of one step, the window blocks and their backwards of
+    the stages the JAX package sends through its windowed kernels (rows 9
+    and 10) counted per stage, the peak device memory, and a fresh model's
+    first step repeating the first step's loss bit for bit from the same
+    seed.  Returns (median ms, row-10 launches, peak bytes)."""
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    model, opt = ftn_built(name, state, dtype=torch.bfloat16)
+    inputs = ftn_inputs(name, batch, SEED + 30, dtype=torch.bfloat16)
+    y = seeded_labels(SEED + 31, batch, IMG, IMG)
+    row9, row10 = row9_launches(model), row10_launches(model)
+    _, ms, first, peak = run_train_bf16(smi, model, opt, inputs, y, name,
+                                        EXPECTED_FTN_TRAIN_LAUNCHES[name], "ftn train",
+                                        "decoder dropout as built, drop path 0.1",
+                                        20 if name in FTN_PROFILED_STEPS else 5)
+    r9, r10 = sum(row9.values()), sum(row10.values())
+    del model, opt
+    model, opt = ftn_built(name, state, dtype=torch.bfloat16)
+    again = train_step(model, opt, inputs, y,
+                       generator=torch.Generator(device="cuda").manual_seed(SEED))["train_loss"]
+    print(f"[ftn train] (b) {name} b{batch}: window blocks per stage through the windowed "
+          f"kernels (row 9) {row9}, their backwards (row 10) {row10} (expected "
+          f"{FTN_ROW9_LAUNCHES} each); first step's train_loss {first.item():.6f}, a "
+          f"fresh model's from the same seed {again.item():.6f} "
+          f"({'bit for bit' if torch.equal(first, again) else 'DIFFERENT'})", flush=True)
+    if r9 != FTN_ROW9_LAUNCHES or r10 != FTN_ROW10_LAUNCHES:
+        raise AssertionError(f"ftn {name} step: rows 9 / 10 launches {r9} / {r10}")
+    if not torch.equal(first, again):
+        raise AssertionError(f"ftn {name} step does not repeat from its seed")
+    return ms, r10, peak
+
+
+def check_ftn_train_model(smi, name):
+    """Phase 13 for one model: (a) f32 batch 1, dropout and drop path rates
+    0, the card's step against the same step on the CPU under phase 6a's
+    gates; (b) bf16 batch 8 (or, where it does not fit, the largest batch
+    that does), ftn_train_bf16.  Returns (median ms, row-10 launches, peak
+    bytes, batch)."""
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models import zoo
+
+    extra = dict(class_names=NAMES) if name == "DenseCLIPFTN" else {}
+    t0 = time.time()
+    state = seeded_init_(getattr(zoo, name)(device="cpu", **extra), SEED).state_dict()
+    print(f"\n[ftn train] {name}: swin-base, weights from numpy seed {SEED} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    cpu, opt_c = ftn_built(name, state, device="cpu")
+    gpu, opt_g = ftn_built(name, state)
+    compare_f32_steps(state, name, "ftn train", zoo.without_dropout(cpu), opt_c,
+                      zoo.without_dropout(gpu), opt_g, ftn_inputs(name, 1, SEED + 20, "cpu"))
+    del cpu, gpu, opt_c, opt_g
+    torch.cuda.empty_cache()
+    batch = TRAIN_BATCH
+    while True:
+        try:
+            return (*ftn_train_bf16(smi, name, state, batch), batch)
+        except torch.cuda.OutOfMemoryError as e:
+            print(f"[ftn train] (b) {name} bf16 batch {batch} does not fit: {e}", flush=True)
+            if batch == 1:
+                raise
+        gc.collect()
+        torch.cuda.empty_cache()
+        batch //= 2
+
+
+def check_ftn_train(smi):
+    """Phase 13: the FTN family's training steps.  Returns ({name: (median
+    ms, batch, peak bytes)}, DenseCLIPFTN's row-10 launches of one step)."""
+    out = {}
+    for name in FTN_MODELS:
+        ms, r10, peak, batch = check_ftn_train_model(smi, name)
+        out[name] = (ms, batch, peak)
+        if name == "DenseCLIPFTN":
+            row10 = r10
+        torch.cuda.empty_cache()
+    return out, row10
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2622,6 +3007,7 @@ def main() -> int:
     v4 = phase("10", check_v4, smi)
     _, v4_step_ms = phase("11", check_v4_train, smi)
     ftn, counts["fused_window_block"] = phase("12", check_ftn, smi)
+    ftn_train, counts["fused_window_block_bwd"] = phase("13", check_ftn_train, smi)
     print(f"[time] all phases: {time.time() - t0:.1f} s", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -2631,10 +3017,15 @@ def main() -> int:
                     bound_by=max(stats[name]["by"], key=stats[name]["by"].get),
                     library_ms=stats[name]["library_ms"])
                for name, (src, rep) in SOURCES.items()]
+    ftn_steps = {k: (round(ms, 2), b, round(pk / 2 ** 30, 2))
+                 for k, (ms, b, pk) in ftn_train.items()}
     print(f"\n[summary] launches: over one run of the path that uses the kernel: the bf16 "
           f"batch-{BATCH} {IMG}² served-mask forward (phase 4m) for the float forward kernels "
           f"and the head, the int8 forward (phase 5) for the *_q kernels, one bf16 "
           f"batch-{TRAIN_BATCH} training step (phase 6b) for the backwards and the fused CE, "
+          f"one bf16 batch-{TRAIN_BATCH} DenseCLIPFTN training step (phase 13b) for "
+          f"fused_window_block_bwd (the window-block backwards of swin-base stage 3, TPU row "
+          f"10, among swin_window_block_bwd's 22), "
           f"the bf16 batch-{BATCH} BaseModelWithText forward (phase 7) for flash_attention, "
           f"one bf16 batch-{BATCH} BaseModelWithText training step (phase 8b) for "
           f"flash_attention_bwd, the bf16 batch-{BATCH} DenseCLIPFTN forward (phase 12) for "
@@ -2654,9 +3045,10 @@ def main() -> int:
           f"score gap at a pixel where it differs from its plain version. Training step "
           f"{step_ms:.2f} ms; v1 training step {v1_step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
           f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms; v4 bf16 b{BATCH} mask "
-          f"forwards { {k: round(ms, 2) for k, ms in v4.items()} } ms; BaseCrossA training "
-          f"step {v4_step_ms:.2f} ms; FTN bf16 b{BATCH} forwards "
-          f"{ {k: round(ms, 2) for k, ms in ftn.items()} } ms on {smi}")
+          f"forwards { {k: round(ms, 2) for k, ms in v4.items()} } ms; v4 bf16 b{TRAIN_BATCH} "
+          f"training steps { {k: round(ms, 2) for k, ms in v4_step_ms.items()} } ms; FTN bf16 "
+          f"b{BATCH} forwards { {k: round(ms, 2) for k, ms in ftn.items()} } ms; FTN bf16 "
+          f"training steps (ms, batch, peak GiB) {ftn_steps} on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,8 @@
 """The v4 family (the flagship ``PromptAuxCrossA``, ``BaseSelfA``,
 ``BaseCrossA``, ``PromptSelfA``, ``PromptCrossA``, ``PromptAuxSelfA``:
 serving and training forward), the v1 CLIP family (serving;
-``BaseModelWithText`` also trains) and the swin-base FTN family (serving:
-the v1 ``PromptFTNv1``, the v2 ``BaseFTN`` and ``PromptFTNv2``, the v3
+``BaseModelWithText`` also trains) and the swin-base FTN family (serving and
+training: the v1 ``PromptFTNv1``, the v2 ``BaseFTN`` and ``PromptFTNv2``, the v3
 ``DenseCLIPFTN``), counterparts of ``lc2is_tpu/models/zoo.py``
 (``_norm``/``_score_map``/``default_denseclip_cfg`` :49-76,
 ``BaseModelWithText`` :84-143, ``ContrastiveModel`` :146-176, ``DenseClip``
@@ -78,7 +78,13 @@ returns the JAX package's ``(None, score map ×4)``, (B, K, H, W).
 ``BaseFTN`` and ``PromptFTNv2`` decode with ``FTNDecoderV2``, whose grids
 are fixed for 512² input, as in the JAX package.  Dtypes as in the JAX
 package: the backbone computes in ``dtype``, the text towers in f32, the
-decoders in the dtype of what they are given.
+decoders in the dtype of what they are given.  They train through
+``engine/engine.py::train_step`` as the JAX engine trains them: no
+``return_score_map``, so the plain CE of the (B, K, H, W) map against labels
+at the map's size (labels of another size raise, as in JAX); the generator
+draws the swin's drop path (0.1) and the decoders' hardwired dropout (0.1,
+``DenseCLIPFTN``'s ``FTNDecoder`` 0), which sends those layers to the
+unfused halves (JAX's gate, ``nn/layers.py``).
 """
 
 from __future__ import annotations
@@ -93,8 +99,8 @@ from lc2is_tpu_torch.nn.clip import CLIPTextTransformer, CLIPVisionTransformer
 from lc2is_tpu_torch.nn.decoders import (DecoderBlock, FTNDecoder, FTNDecoderV2,
                                          HierarchicalCrossA, HierarchicalSelfA, TextToPatch)
 from lc2is_tpu_torch.nn.denseclip import CLIPTextContextEncoder, ContextDecoder
-from lc2is_tpu_torch.nn.layers import Linear, _param
-from lc2is_tpu_torch.nn.swin import SWIN_BASE, SWIN_SMALL, SwinModel
+from lc2is_tpu_torch.nn.layers import Dropout, Linear, MultiheadAttention, _param
+from lc2is_tpu_torch.nn.swin import SWIN_BASE, SWIN_SMALL, SwinBlock, SwinModel
 from lc2is_tpu_torch.ops.bpe import tokenize
 from lc2is_tpu_torch.ops.resize import resize
 from lc2is_tpu_torch.ops.upsample_argmax import l2_normalize, score_upsample_argmax
@@ -316,7 +322,7 @@ class DenseClip(_ClipBase):
 
 # ---------------------------------------------------------------------------
 # v1-v3: the swin-base FTN family (model/model.py, model/ftn.py, model/new.py),
-# serving
+# serving and training
 # ---------------------------------------------------------------------------
 
 
@@ -352,13 +358,16 @@ class PromptFTNv1(nn.Module):
         self.prompt_decoder = DecoderBlock(512, 8, 8, d_kv=dims[3], dropout=0.1, device=device)
         self.decoder = FTNDecoder(dims, 512, device=device)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the drop-path and dropout masks in training mode."""
         b = inputs["pixel_values"].shape[0]
         _, pooled = self.textual_encoder(inputs["input_ids"], inputs.get("attention_mask"))
         text = pooled[None].expand(b, *pooled.shape)
-        stages = self.visual_encoder(inputs["pixel_values"], num_hidden=4)
-        text = text + 1e-4 * self.prompt_decoder(text, stages[-1])  # model.py:200
-        return None, _upsampled_scores(self.decoder(stages, text), text)
+        stages = self.visual_encoder(inputs["pixel_values"], generator, num_hidden=4)
+        text = text + 1e-4 * self.prompt_decoder(text, stages[-1],
+                                                 generator=generator)  # model.py:200
+        return None, _upsampled_scores(self.decoder(stages, text, generator=generator), text)
 
 
 class BaseFTN(nn.Module):
@@ -374,9 +383,11 @@ class BaseFTN(nn.Module):
         self.decoder = FTNDecoderV2(device=device)
         self.classif = Linear(512, num_classes, device=device)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
-        stages = self.backbone(inputs["pixel_values"], num_hidden=4)
-        cls = self.classif(self.decoder(stages))  # (B, 128², K)
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the drop-path and dropout masks in training mode."""
+        stages = self.backbone(inputs["pixel_values"], generator, num_hidden=4)
+        cls = self.classif(self.decoder(stages, generator))  # (B, 128², K)
         g = FTNDecoderV2.GRIDS[0]
         cls = cls.reshape(cls.shape[0], g, g, -1).permute(0, 3, 1, 2)
         return None, resize(cls, scale_factor=4, method="bilinear")
@@ -396,12 +407,16 @@ class PromptFTNv2(nn.Module):
         self.prompt_decoder = DecoderBlock(512, 8, 8, d_kv=512, dropout=0.1, device=device)
         self.decoder = FTNDecoderV2(device=device)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the drop-path and dropout masks in training mode."""
         b = inputs["pixel_values"].shape[0]
         _, classes = self.text_encoder(inputs["input_ids"], inputs.get("attention_mask"))
-        v = self.decoder(self.backbone(inputs["pixel_values"], num_hidden=4))
+        v = self.decoder(self.backbone(inputs["pixel_values"], generator, num_hidden=4),
+                         generator)
         classes = classes[None].expand(b, *classes.shape)
-        text = classes + 1e-5 * self.prompt_decoder(classes, v)  # ftn.py:53
+        text = classes + 1e-5 * self.prompt_decoder(classes, v,
+                                                    generator=generator)  # ftn.py:53
         return None, _upsampled_scores(v, text)
 
 
@@ -429,10 +444,14 @@ class DenseCLIPFTN(nn.Module):
         back as ``inputs["text_static"]``."""
         return self.prompt.embed_text()
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
-        stages = self.vision_encoder(inputs["pixel_values"], num_hidden=4)
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the drop-path masks in training mode (the
+        decoder's dropout is 0, and the prompt tower's ContextDecoder has none:
+        the JAX module hardwires it at 0)."""
+        stages = self.vision_encoder(inputs["pixel_values"], generator, num_hidden=4)
         text = self.prompt(stages[-1], text_static=inputs.get("text_static"))  # new.py:40
-        return None, _upsampled_scores(self.decoder(stages, text), text)
+        return None, _upsampled_scores(self.decoder(stages, text, generator=generator), text)
 
 
 # ---------------------------------------------------------------------------
@@ -650,3 +669,18 @@ ZOO = {
     "prompt_aux_self_a": PromptAuxSelfA,
     "prompt_aux_cross_a": PromptAuxCrossA,
 }
+
+
+def without_dropout(model: nn.Module) -> nn.Module:
+    """``model`` with every ``Dropout`` rate, MHA dropout and swin drop-path
+    rate set to 0, for a training step that another device or package must
+    repeat; the transformer layers keep their own ``dropout``, so they take
+    the unfused halves the real step takes (``lc2is_tpu/nn/layers.py:469-477``)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+        elif isinstance(m, MultiheadAttention):
+            m.dropout = 0.0
+        elif isinstance(m, SwinBlock):
+            m.drop_path = 0.0
+    return model

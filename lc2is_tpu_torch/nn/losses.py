@@ -16,7 +16,12 @@ def cross_entropy(logits: torch.Tensor, target: torch.Tensor,
                   ignore_index: Optional[int] = None) -> torch.Tensor:
     """torch ``nn.CrossEntropyLoss`` (mean reduction) on (B, K, *spatial)
     logits: f32 log-softmax over dim 1, NLL of the target clipped to [0, K),
-    averaged over the non-ignored elements (denominator at least 1)."""
+    averaged over the non-ignored elements (denominator at least 1).  A
+    target whose shape is not the logits' without dim 1 raises, as JAX's
+    ``take_along_axis`` does (no resize)."""
+    if tuple(target.shape) != tuple(logits.shape[:1] + logits.shape[2:]):
+        raise ValueError(f"cross_entropy: target {tuple(target.shape)} does not match logits "
+                         f"{tuple(logits.shape)} without their class dim")
     k = logits.shape[1]
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=1)

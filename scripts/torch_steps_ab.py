@@ -10,6 +10,7 @@ synchronize, medians of 3 and 6 runs), so that a change's end-to-end times
 stand beside its parent's from the same card:
 
     python3 scripts/torch_steps_ab.py PARENT CHANGE [--pairs 3] [--log DIR]
+        [--metrics step_ms,...]   # a subset of METRICS; all by default
 
 PARENT and CHANGE are checkouts (e.g. ``git archive HEAD | tar -x -C
 build/parent``); each is run in a process of its own, in the order parent,
@@ -33,8 +34,9 @@ METRICS = ("masks_ms", "step_ms", "basecrossa_ms", "PromptFTNv1_ms", "PromptFTNv
 FTN_TIMED = ("PromptFTNv1", "PromptFTNv2")
 
 
-def one(root: Path) -> None:
-    """The three times of the checkout at ``root``, as a ``STEPS`` line."""
+def one(root: Path, metrics) -> None:
+    """The times in ``metrics`` of the checkout at ``root``, as a ``STEPS``
+    line."""
     sys.path.insert(0, str(root))
     import numpy as np
     import torch
@@ -44,22 +46,27 @@ def one(root: Path) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    out = {}
     state = cs.seeded_state()
-    cpu_head, x1, _, ts_gpu, batches = cs.check_slice(smi, state)
-    masks_ms = cs.check_masks(smi, state, cpu_head, x1, ts_gpu, batches)[2]
-    del cpu_head, batches
-    torch.cuda.empty_cache()
-    step_ms = cs.check_train_bf16(smi, state)[1]
+    if "masks_ms" in metrics:
+        cpu_head, x1, _, ts_gpu, batches = cs.check_slice(smi, state)
+        out["masks_ms"] = cs.check_masks(smi, state, cpu_head, x1, ts_gpu, batches)[2]
+        del cpu_head, batches
+        torch.cuda.empty_cache()
+    if "step_ms" in metrics:
+        out["step_ms"] = cs.check_train_bf16(smi, state)[1]
     del state
     torch.cuda.empty_cache()
-    basecrossa_ms = cs.check_v4_train(smi)[1]
-    torch.cuda.empty_cache()
+    if "basecrossa_ms" in metrics:
+        v4 = cs.check_v4_train(smi)[1]  # BaseCrossA's ms, or {model: ms} where phase 11 trains more
+        out["basecrossa_ms"] = v4["BaseCrossA"] if isinstance(v4, dict) else v4
+        torch.cuda.empty_cache()
     batches = [cs.rand(np.random.RandomState(cs.SEED + 60 + i), cs.BATCH, 3, cs.IMG, cs.IMG,
                        dtype=torch.bfloat16) for i in range(4)]  # phase 12's
-    ftn = {f"{name}_ms": cs.check_ftn_model(smi, name, batches)[0] for name in FTN_TIMED}
-    print("STEPS " + json.dumps({"root": str(root), "masks_ms": masks_ms, "step_ms": step_ms,
-                                 "basecrossa_ms": basecrossa_ms, **ftn, "device": smi}),
-          flush=True)
+    for name in FTN_TIMED:
+        if f"{name}_ms" in metrics:
+            out[f"{name}_ms"] = cs.check_ftn_model(smi, name, batches)[0]
+    print("STEPS " + json.dumps({"root": str(root), **out, "device": smi}), flush=True)
 
 
 def main() -> int:
@@ -68,10 +75,13 @@ def main() -> int:
     ap.add_argument("change")
     ap.add_argument("--pairs", type=int, default=3)
     ap.add_argument("--log", default=None, help="directory for each run's whole output")
+    ap.add_argument("--metrics", default=",".join(METRICS),
+                    help=f"the times to take, a comma-separated subset of {','.join(METRICS)}")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    metrics = [m for m in METRICS if m in args.metrics.split(",")]
     if args.one:
-        one(Path(args.parent).resolve())
+        one(Path(args.parent).resolve(), metrics)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -83,7 +93,8 @@ def main() -> int:
     runs = {"parent": [], "change": []}
     for i, tag in enumerate(order):
         root = Path(getattr(args, tag)).resolve()
-        proc = subprocess.run([sys.executable, __file__, str(root), str(root), "--one"],
+        proc = subprocess.run([sys.executable, __file__, str(root), str(root), "--one",
+                               "--metrics", ",".join(metrics)],
                               capture_output=True, text=True)
         if args.log:
             Path(args.log).mkdir(parents=True, exist_ok=True)
@@ -94,7 +105,7 @@ def main() -> int:
             raise RuntimeError(f"{tag} ({root}) failed with {proc.returncode}")
         print(f"[{tag}] {lines[-1]}", flush=True)
         runs[tag].append(json.loads(lines[-1][len("STEPS "):]))
-    for m in METRICS:
+    for m in metrics:
         for tag in ("parent", "change"):
             v = [r[m] for r in runs[tag]]
             print(f"{m} {tag}: {[round(x, 2) for x in v]} median {statistics.median(v):.2f} ms",

@@ -1,11 +1,13 @@
-"""One training step of two v4 models on the CPU against lc2is_tpu's on the
+"""One training step of five v4 models on the CPU against lc2is_tpu's on the
 same parameters and batch: ``BaseCrossA`` (the CLI's default model: the fused
-upsample-CE main loss only, nothing frozen) and ``PromptAuxSelfA`` (main +
-0.4 x aux loss, the SelfA decoder, the frozen text tower), tiny (TINY_SWIN,
-7 classes), drop path off, labels at the image size (r = 4, as the CLI builds
-swin-family labels).  JAX: the engine's loss (``engine.py:283-303``: frozen
-leaves under ``stop_gradient``, ``upsampled_cross_entropy`` in interpret
-mode), ``value_and_grad`` and the optax AdamW step of its ``make_optimizer``.
+upsample-CE main loss only, nothing frozen), ``BaseSelfA`` (the same with the
+SelfA decoder), ``PromptSelfA`` and ``PromptCrossA`` (the main loss, the
+frozen text tower) and ``PromptAuxSelfA`` (main + 0.4 x aux loss, the SelfA
+decoder, the frozen text tower), tiny (TINY_SWIN, 7 classes), drop path off,
+labels at the image size (r = 4, as the CLI builds swin-family labels).  JAX:
+the engine's loss (``engine.py:283-303``: frozen leaves under
+``stop_gradient``, ``upsampled_cross_entropy`` in interpret mode),
+``value_and_grad`` and the optax AdamW step of its ``make_optimizer``.
 
 Stated tolerances, those of ``tests/test_torch_train_step.py``: losses rtol
 1e-5; every trainable gradient rtol 1e-3, atol 1e-3 · max |ref| + 1e-10
@@ -36,6 +38,9 @@ from lc2is_tpu_torch.models import zoo
 LR = 1e-3
 MODELS = {
     "BaseCrossA": ("base_cross_a", dict(dec_dim=64, nhead=4)),
+    "BaseSelfA": ("base_self_a", dict(dec_dim=64, nhead=4)),
+    "PromptSelfA": ("prompt_self_a", dict(cfg=small_denseclip_cfg())),
+    "PromptCrossA": ("prompt_cross_a", dict(cfg=small_denseclip_cfg())),
     "PromptAuxSelfA": ("prompt_aux_self_a", dict(cfg=small_denseclip_cfg())),
 }
 
@@ -86,7 +91,8 @@ def _frozen(run, name):
 def test_v4_losses(step_run):
     want = step_run["want"]
     assert set(step_run["losses"]) == set(want) == (
-        {"train_loss"} if step_run["name"] == "BaseCrossA" else {"train_loss", "train_aux_loss"})
+        {"train_loss", "train_aux_loss"} if step_run["name"] == "PromptAuxSelfA"
+        else {"train_loss"})
     for key in want:
         np.testing.assert_allclose(step_run["losses"][key].item(), float(want[key]), rtol=1e-5)
 
@@ -111,7 +117,7 @@ def test_v4_every_trainable_gradient(step_run):
                                    atol=1e-3 * float(np.abs(scale).max()) + 1e-10, err_msg=name)
         n += 1
     assert n > 60
-    if step_run["name"] == "PromptAuxSelfA":  # the contexts learn through the frozen tower
+    if step_run["name"].startswith("Prompt"):  # the contexts learn through the frozen tower
         assert step_run["port"].prompt.contexts.grad.abs().sum() > 0
     else:
         assert not step_run["frozen"] and step_run["port"].classes.weight.grad.abs().sum() > 0
