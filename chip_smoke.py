@@ -38,6 +38,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device time of each step of the bf16 window block's token-major plan
    (C > 384, row 9: LayerNorm, QKV GEMM, attention core, out-projection
    GEMM) at swin-base stage 3, both shifts, from one torch.profiler call;
+   and rows 1, 2, 4 and 6 at the 480² crop of the sliding sweep (phase 14):
+   each distinct call of the flagship's score-map forward there, recorded by
+   hooks, on the inputs it had (bf16 at the sweep's batch, 4, each tagged
+   with its launches a sweep; f32 at batch 1), with the sums per 480²
+   forward and per bf16 sweep of two 640² images (the 512² batch-16 cases
+   tagged twice a sweep), whose launches phase 14 must count;
 3b. backward kernels: each Hopper backward against autograd through its
    plain version at every shape of the 512², batch-8 training step, bf16 and
    f32: max |Δ| and the norm-relative error ‖Δ‖/‖ref‖ over every gradient
@@ -178,6 +184,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    model repeating the first step's loss bit for bit from the same seed, and
    a torch.profiler table of one more step (idle share; 20 items for
    DenseCLIPFTN and BaseFTN, 5 for the other two).
+14. the evaluation (engine.eval_step / evaluate, engine/sliding.py,
+   metrics/), weights from the numpy seed: (a) eval_step of PromptAuxCrossA
+   and BaseCrossA, f32 batch 1, 512² images and labels, card against CPU:
+   losses, the argmax maps at 512² and at 2048² (the per-image mIoU's
+   bicubic x4) equal but at near-ties, the confusion counts, the per-image
+   mIoU; (b) bf16 batch 16, three batches through evaluate after a warm-up:
+   host ms a batch, forward and metric ms by CUDA events, img/s, peak memory,
+   launch counts; (c) evaluate_sliding of PromptAuxCrossA (640², scales
+   0.75 / 1.0 / 1.25, crop 512, stride 341, flip): one image f32 card against
+   CPU (probabilities, argmax, eval_mIOU_sliding), then a bf16 sweep of two
+   images timed, its launches held to phase 3's sweep tags; (d) the
+   GT-resolution mIoU of seeded (4, 151, 128, 128) logits at four GT sizes,
+   card against CPU per image, bucket=64 against the exact path.
 
 Then a JSON line of the kernels (launches over one run of the path that
 uses each: the served-mask forward, the int8 forward, the training step, the
@@ -237,6 +256,18 @@ EXPECTED_LAUNCHES = {"swin_window_block": 22, "fused_mlp": 28, "fused_attn_block
                      "upsample_tokens": 6}
 # the served head: one fused score + upsample + argmax kernel a forward
 EXPECTED_MASK_LAUNCHES = dict(EXPECTED_LAUNCHES, score_upsample_argmax=1)
+# the multi-scale sliding evaluation (phase 14; lc2is_tpu/cli/common.py:63-65,
+# lc2is_tpu/engine/sliding.py): a 640² image at scales 0.75, 1.0 and 1.25,
+# crop 512, stride 341, flip in the same batch.  At 0.75 the image is 480² and
+# the crop min(512, 480): one window, the swin at grids 120², 60², 30², 15²; at
+# 1.0 and 1.25 2 x 2 windows of 512².  Each scale is one forward of its
+# windows, so a sweep of SLIDE_IMAGES images runs three score-map forwards:
+# 2·n tiles of 480², 8·n and 8·n of 512² (n = 2: BATCH, phase 3's shapes)
+SLIDE_BASE, SLIDE_SCALES, SLIDE_CROP, SLIDE_STRIDE = 640, (0.75, 1.0, 1.25), 512, 341
+SLIDE_IMAGES = 2
+SWEEP = "sliding sweep"
+CROP = "480² crop forward"
+EXPECTED_SWEEP_LAUNCHES = {k: len(SLIDE_SCALES) * n for k, n in EXPECTED_LAUNCHES.items()}
 # the bf16 int8 row: stages 1-3 keep the float attention half (the JAX
 # package's canvas kernel has no int8 branch, nn/swin.py); stage 4, whose two
 # blocks would take the int8 window block, does not run; every MLP and
@@ -567,14 +598,20 @@ def kernel_cases(rs, dt):
     g = IMG // 4
     cases = []
 
+    def sweep(n):
+        """Launches a bf16 sliding sweep of SLIDE_IMAGES images gives a
+        flagship shape at 512², batch 16: n a forward, at scales 1.0 and 1.25."""
+        return {} if n is None else {SWEEP: 2 * n}
+
     def case(name, label, count, kern, plain, work, check="close", library=None, scores=None,
              tie_dt=None, control=None, pairs=None, ftn=None, ftn_dt=torch.bfloat16):
         """``count``: launches per forward of the path the kernel's JSON row
         reports (0: one call, on no path; None: checked and timed, not
         summed); ``control``: (what, a wrong call) that must fail the same
         check; ``pairs``: a mask kernel's (output pixel, class) pairs;
-        ``ftn``: {FTN model: launches per bf16 batch-16 forward}, summed from
-        the ``ftn_dt`` pass (the dtype that forward runs the shape in)."""
+        ``ftn``: {FTN model: launches per bf16 batch-16 forward, or SWEEP:
+        launches per bf16 sliding sweep}, summed from the ``ftn_dt`` pass (the
+        dtype that path runs the shape in)."""
         cases.append(dict(name=name, label=label, count=count, kern=kern, plain=plain, work=work,
                           check=check, library=library, scores=scores, tie_dt=tie_dt,
                           control=control, pairs=pairs, ftn=ftn or None, ftn_dt=ftn_dt))
@@ -599,7 +636,7 @@ def kernel_cases(rs, dt):
             case("swin_window_block", lab, n,
                  lambda a=args, h=heads, sh_=shift: swin_window_block(*a, h, 7, sh_),
                  lambda a=args, h=heads, sh_=shift: swin_window_block_plain(*a, h, 7, sh_),
-                 swin_work(b, grid, grid, c, heads, dt))
+                 swin_work(b, grid, grid, c, heads, dt), ftn=sweep(n))
             if s == 3 or (s == 0 and dt == torch.float32):
                 case("swin_window_block_q", lab, 0,
                      lambda a=args, h=heads, sh_=shift: swin_window_block_q(*a, h, 7, sh_),
@@ -613,7 +650,8 @@ def kernel_cases(rs, dt):
                  None if n is None else 2 * n,
                  lambda a=margs, k=kern: k(*a, activation="gelu", ln_position="pre"),
                  lambda a=margs, p_=plain: p_(*a, activation="gelu", ln_position="pre"),
-                 mlp_work(b * grid * grid, c, 4 * c, dt, q), check="int8" if q else "close")
+                 mlp_work(b * grid * grid, c, 4 * c, dt, q), check="int8" if q else "close",
+                 ftn=None if q or n is None else sweep(2 * n))
     # swin-base, stages 1-3 in all four FTN models (phase 12; ``ftn``:
     # launches per forward of each): stages 1-2 through the canvas entry (row
     # 6), stage 3 through the windowed one the JAX package takes at C > 384
@@ -655,7 +693,7 @@ def kernel_cases(rs, dt):
                  lambda a=margs, k=kern: k(*a, activation="relu", ln_position="post"),
                  lambda a=margs, p_=plain: p_(*a, activation="relu", ln_position="post"),
                  mlp_work(b * p, 512, 2048, dt, q), check="int8" if q else "close",
-                 ftn=None if q else ftn_counts(n, FTN_ALL))
+                 ftn=None if q else dict(ftn_counts(n, FTN_ALL), **sweep(n)))
         for l, kind in [(l_sr, "SR self"), (N_CLASSES, "cross")]:
             aargs = (x, rand(rs, b, l, 512, dtype=dt), rand(rs, b, l, 512, dtype=dt),
                      w(512, 512), vec(512), w(512, 512), vec(512), vec(512, 1.0), vec(512))
@@ -667,7 +705,7 @@ def kernel_cases(rs, dt):
                 case(name, f"{kind} ({b},{p},512) L{l} h8", n,
                      lambda a=aargs, k=kern: k(*a, 8), lambda a=aargs, p_=plain: p_(*a, 8),
                      attn_work(b, p, l, 512, dt, q), check="int8" if q else "close",
-                     ftn=None if q else on_ftn)
+                     ftn=None if q else dict(on_ftn, **sweep(n)))
     # FTNDecoderV2's other attention halves: each RepeatTransformer layer's
     # self-attention over its own tokens and its cross-attention over the
     # stream's fixed SR memory, (tokens, keys, launches a forward); checked
@@ -719,7 +757,7 @@ def kernel_cases(rs, dt):
              upsample_work(b, grid, grid, c, 2, dt), check="bits",
              library=lambda x_=x, g_=grid, c_=c: F.interpolate(
                  x_.view(b, g_, g_, c_).permute(0, 3, 1, 2), scale_factor=2, mode="bilinear"),
-             ftn=dict(ftn_counts(n1, FTN_DEC1), **ftn_counts(n2, FTN_DEC2)))
+             ftn=dict(ftn_counts(n1, FTN_DEC1), **ftn_counts(n2, FTN_DEC2), **sweep(n)))
     # the served head at the stage-1 grid: decoder tokens (B, 128², 512), 151 classes
     v = rand(rs, b, g * g, 512, dtype=dt)
     tn = l2_normalize(rand(rs, b, N_CLASSES, 512, dtype=dt), 2)
@@ -800,6 +838,117 @@ def kernel_cases(rs, dt):
              attn_work(b, N_CLASSES, l, 512, dt), ftn=prompt_ftn if l == N_CLASSES else None,
              ftn_dt=torch.float32)
     return cases
+
+
+@contextlib.contextmanager
+def recording_kernel_calls():
+    """Record every call the model's modules make to the four float forward
+    kernels of the score-map path, by rebinding the names nn/layers.py,
+    nn/swin.py and ops/resize.py call them by.  Yields the list of (kernel
+    name, wrapper, args, kwargs)."""
+    import lc2is_tpu_torch.nn.layers as layers
+    import lc2is_tpu_torch.nn.swin as swin
+    import lc2is_tpu_torch.ops.resize as resize_ops
+
+    calls, saved = [], []
+    for mod in (layers, swin, resize_ops):
+        for name in ("swin_window_block", "fused_mlp", "fused_attn_block", "upsample_tokens"):
+            if hasattr(mod, name):
+                op = getattr(mod, name)
+                saved.append((mod, name, op))
+
+                def rec(*a, _op=op, **kw):
+                    calls.append((_op.__name__, _op, a, kw))
+                    return _op(*a, **kw)
+                setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        for mod, name, op in saved:
+            setattr(mod, name, op)
+
+
+def crop_cases(state, dt):
+    """Phase 3's cases at the sliding sweep's 480² crop (scale 0.75 of 640²):
+    the flagship's kernel calls in one score-map forward there, recorded by
+    recording_kernel_calls, one case per distinct call (its shapes and
+    arguments) on the inputs it had, held against its plain version; bf16 at
+    the sweep's batch (SLIDE_IMAGES images and their flips), each tagged with
+    its launches a sweep; f32 at batch 1."""
+    import torch.nn.functional as F
+
+    from lc2is_tpu_torch.ops.attention_block import fused_attn_block_plain
+    from lc2is_tpu_torch.ops.fused_mlp import fused_mlp_plain
+    from lc2is_tpu_torch.ops.swin_window import swin_window_block_plain
+    from lc2is_tpu_torch.ops.upsample import upsample_tokens_plain
+
+    plain = {"swin_window_block": swin_window_block_plain, "fused_mlp": fused_mlp_plain,
+             "fused_attn_block": fused_attn_block_plain, "upsample_tokens": upsample_tokens_plain}
+    side = int(round(SLIDE_BASE * SLIDE_SCALES[0]))
+    b = 2 * SLIDE_IMAGES if dt == torch.bfloat16 else 1
+    model = model_from(state, dtype=dt).eval()
+    x = rand(np.random.RandomState(SEED + 30), b, 3, side, side, dtype=dt)
+    with torch.no_grad():
+        extra = {"text_static": model.embed_text()}
+        with recording_kernel_calls() as calls:
+            model({"pixel_values": x, **extra})
+    del model
+    groups = {}
+    for name, fn, a, kw in calls:
+        key = (name,) + tuple(tuple(v.shape) if torch.is_tensor(v) else v for v in a) + tuple(
+            sorted(kw.items()))
+        groups.setdefault(key, [name, fn, a, kw, 0])[4] += 1
+    cases = []
+    for name, fn, a, kw, n in groups.values():
+        x0, library, check = a[0], None, "close"
+        if name == "swin_window_block":
+            bb, h, w, c = x0.shape
+            label = f"({bb},{h},{w},{c}) h{a[8]} shift{a[10]}"
+            work = swin_work(bb, h, w, c, a[8], dt, win=a[9])
+        elif name == "fused_mlp":
+            t, c = x0.numel() // x0.shape[-1], x0.shape[-1]
+            label = f"({t},{c}) {kw.get('activation')} {kw.get('ln_position')}"
+            work = mlp_work(t, c, a[3].shape[0], dt)
+        elif name == "fused_attn_block":
+            bb, p, c = x0.shape
+            label = f"({bb},{p},{c}) L{a[1].shape[1]} h{a[9]}"
+            work = attn_work(bb, p, a[1].shape[1], c, dt)
+        else:
+            (bb, p, c), (h, w), r = x0.shape, a[1], a[2]
+            label, check = f"({bb},{h}x{w},{c}) x{r}", "bits"
+            work = upsample_work(bb, h, w, c, r, dt)
+            library = (lambda x_=x0, h_=h, w_=w, r_=r: F.interpolate(
+                x_.reshape(x_.shape[0], h_, w_, -1).permute(0, 3, 1, 2), scale_factor=r_,
+                mode="bilinear"))
+        cases.append(dict(name=name, label=f"{side}² crop {label}", count=None,
+                          kern=lambda f=fn, a_=a, k_=kw: f(*a_, **k_),
+                          plain=lambda f=plain[name], a_=a, k_=kw: f(*a_, **k_), work=work,
+                          check=check, library=library, scores=None, tie_dt=None, control=None,
+                          pairs=None, ftn={SWEEP: n, CROP: n} if dt == torch.bfloat16 else None,
+                          ftn_dt=torch.bfloat16))
+    return cases
+
+
+def report_sweep_kernels(ftn_stats):
+    """Phase 3's times at the bf16 sliding sweep's shapes: per forward at the
+    480² crop (batch 2·SLIDE_IMAGES), and per sweep of SLIDE_IMAGES images
+    (the crop's cases and the 512² batch-16 ones, each as many times as the
+    sweep launches it); returns the sweep's launches so summed, which phase
+    14 must count."""
+    for key, what in ((CROP, f"bf16 forward at the sweep's 480² crop, batch {2 * SLIDE_IMAGES}"),
+                      (SWEEP, f"bf16 sliding sweep of {SLIDE_IMAGES} {SLIDE_BASE}² images "
+                              f"(scales {SLIDE_SCALES}, flip)")):
+        got = ftn_stats.get(key, {})
+        tot = [sum(f[k] for f in got.values()) for k in ("ms", "plain_ms", "bound_ms")]
+        print(f"\n[kernels] per {what}, from the cases above (launches x ms): " + "; ".join(
+            f"{name} {f['launches']} kernel {f['ms']:.3f} plain {f['plain_ms']:.3f} bound "
+            f"{f['bound_ms']:.3f}" for name, f in got.items())
+            + f"; all kernel {tot[0]:.3f} ms plain {tot[1]:.3f} bound {tot[2]:.3f}", flush=True)
+    launches = {name: f["launches"] for name, f in ftn_stats.get(SWEEP, {}).items()}
+    if launches != EXPECTED_SWEEP_LAUNCHES:
+        raise AssertionError(f"phase 3's sweep shapes give launches {launches}, a sweep runs "
+                             f"{EXPECTED_SWEEP_LAUNCHES}")
+    return launches
 
 
 def near_tie_gaps(scores, differ, r=4):
@@ -954,7 +1103,7 @@ def run_case(c, dt, stats, ftn_stats=None):
     per = "not summed" if c["count"] is None else f"x{c['count']}/fwd"
     on_ftn = c.get("ftn") if dt == c.get("ftn_dt") else None
     if on_ftn:
-        per += "; FTN " + ", ".join(f"{m} x{n}" for m, n in on_ftn.items())
+        per += "; per " + ", ".join(f"{m} x{n}" for m, n in on_ftn.items())
     print(f"  {c['name']:21s} {c['label']:42s} kernel {k_ms:8.3f} ms plain {p_ms:8.3f}"
           f"{lib} bound {b_ms:7.3f} ({by}) {per}; {msg} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -1012,15 +1161,16 @@ def report_ftn_kernels(ftn_stats):
                                  f"phase 12 counts {expected}")
 
 
-def check_kernels(smi):
-    """Phase 3.  Returns per-kernel stats for the JSON line: bf16 times,
-    bounds and one-call times summed per forward of the path using each."""
+def check_kernels(smi, state):
+    """Phase 3.  Returns per-kernel stats for the JSON line (bf16 times,
+    bounds and one-call times summed per forward of the path using each) and
+    the launches a bf16 sliding sweep gives phase 3's shapes."""
     stats, ftn_stats = {}, {}
     for dt in (torch.bfloat16, torch.float32):
         print(f"\n[kernels] {dt} on {smi}", flush=True)
         rs = np.random.RandomState(SEED)
         t0 = time.time()
-        cases = kernel_cases(rs, dt)
+        cases = kernel_cases(rs, dt) + crop_cases(state, dt)
         walls = []
         print(f"  ({len(cases)} cases, inputs made in {time.time() - t0:.1f} s)", flush=True)
         sums = {}  # name: [kernel, plain, bound] ms summed as the launches, this dtype
@@ -1041,8 +1191,9 @@ def check_kernels(smi):
         print(f"  {dt} cases: {sum(t for t, _ in walls):.1f} s; the slowest: "
               + "; ".join(f"{what} {t:.1f} s" for t, what in sorted(walls)[::-1][:4]), flush=True)
     report_ftn_kernels(ftn_stats)
+    sweep = report_sweep_kernels(ftn_stats)
     report_token_major_steps(smi)
-    return stats
+    return stats, sweep
 
 
 def report_token_major_steps(smi, tries=3):
@@ -2945,6 +3096,311 @@ def check_ftn_train(smi):
     return out, row10
 
 
+# the evaluation (phase 14): (a) f32 batch 1, the card's eval step against the
+# CPU's: losses within EVAL_LOSS_RTOL, the argmax maps at 512² (the logits,
+# the confusion counts' map) and at 2048² (bicubic x4, the per-image mIoU's)
+# equal but where the CPU's two best scores lie within EVAL_NEAR_TIE_REL x
+# max |logit| (4m's rule, relative), the confusion counts apart by at most two
+# a differing pixel, the per-image mIoU within EVAL_MIOU_ATOL; (b) bf16 batch
+# 16, EVAL_BATCHES batches through evaluate, timed; (c) the sliding sweep of
+# one 640² image in f32, card against CPU: probabilities within
+# SLIDE_PROB_ATOL, argmax agreement >= SLIDE_ARGMAX_AGREE with every differing
+# pixel a near-tie, eval_mIOU_sliding within EVAL_MIOU_ATOL; then a bf16 sweep
+# of SLIDE_IMAGES images timed, its launches phase 3's sweep tags; (d) the
+# GT-resolution mIoU of seeded logits at GT_SIZES, card against CPU per image
+# within GT_MIOU_ATOL, bucket=64 equal to the exact path on the card
+EVAL_MODELS = ("PromptAuxCrossA", "BaseCrossA")
+EVAL_LOSS_RTOL = 1e-4
+EVAL_NEAR_TIE_REL = 1e-5
+EVAL_MIOU_ATOL = 1e-3
+EVAL_BATCHES = 3
+SLIDE_PROB_ATOL = 1e-3
+SLIDE_ARGMAX_AGREE = 0.999
+GT_SIZES = ((512, 683), (683, 512), (375, 500), (512, 512))
+GT_MIOU_ATOL = 1e-6
+
+
+def argmax_flips(got, want, label):
+    """(pixels whose argmax over dim 1 differs, the largest top-2 gap of
+    ``want`` (CPU, f32) there over max |want|); raises where a differing pixel
+    is no near-tie.  The gaps are computed on the card."""
+    differ = got.argmax(1).cpu() != want.argmax(1)
+    n = int(differ.sum())
+    if n == 0:
+        return 0, 0.0
+    w = want.cuda()
+    top2 = w.topk(2, dim=1).values
+    rel = ((top2[:, 0] - top2[:, 1])[differ.cuda()].max() / w.abs().max()).item()
+    del w, top2
+    if rel > EVAL_NEAR_TIE_REL:
+        raise AssertionError(f"{label}: {n} pixels' argmax differs card vs CPU, the largest "
+                             f"top-2 gap there {rel:.3e} x max |logit| (> {EVAL_NEAR_TIE_REL})")
+    return n, rel
+
+
+def eval_state(name, state):
+    """The flagship's state, or ``name``'s from the numpy seed."""
+    if name == "PromptAuxCrossA":
+        return state
+    from lc2is_tpu_torch.core.convert import seeded_init_
+    from lc2is_tpu_torch.models import zoo
+
+    return seeded_init_(getattr(zoo, name)(class_names=NAMES, device="cpu"), SEED).state_dict()
+
+
+def check_eval_step_f32(name, st):
+    """14a for one model: eval_step of one 512² image, f32, card vs CPU."""
+    from lc2is_tpu_torch.engine.engine import eval_step
+    from lc2is_tpu_torch.metrics.miou import resized_argmax
+    from lc2is_tpu_torch.ops.resize import resize
+
+    x = rand(np.random.RandomState(SEED + 40), 1, 3, IMG, IMG, device="cpu")
+    y = seeded_labels(SEED + 41, 1, IMG, IMG, device="cpu").long()
+    t0 = time.time()
+    cpu = model_from(st, name, device="cpu").eval()
+    c_losses, c_miou, c_cm, c_logits = eval_step(cpu, {"pixel_values": x}, y)
+    cpu_s = time.time() - t0
+    del cpu
+    gpu = model_from(st, name).eval()
+    g_losses, g_miou, g_cm, g_logits = eval_step(gpu, {"pixel_values": x.cuda()}, y.cuda())
+    del gpu
+    for k, v in c_losses.items():
+        rel = abs(g_losses[k].item() - v.item()) / abs(v.item())
+        print(f"[eval] (a) {name} f32 b1 {k}: card {g_losses[k].item():.6f} CPU {v.item():.6f}, "
+              f"relative |Δ| {rel:.3e} (bound {EVAL_LOSS_RTOL})", flush=True)
+        if rel > EVAL_LOSS_RTOL:
+            raise AssertionError(f"{name}: {k} on the card disagrees with the CPU")
+    if tuple(g_logits.shape) != (1, N_CLASSES, IMG, IMG) or not torch.isfinite(g_logits).all():
+        raise AssertionError(f"{name}: eval logits {tuple(g_logits.shape)} / non-finite")
+    n512, gap512 = argmax_flips(g_logits, c_logits, f"{name} 512² map")
+    d_cm = int((g_cm.cpu().long() - c_cm.long()).abs().sum())
+    up_g = resized_argmax(g_logits[0], scale_factor=4)[None].cpu()
+    up_c = resized_argmax(c_logits[0], scale_factor=4)[None]
+    differ4 = up_g != up_c
+    n2048, gap2048 = int(differ4.sum()), 0.0
+    if n2048:
+        w4 = resize(c_logits.cuda(), scale_factor=4, method="bicubic")
+        top2 = w4.topk(2, dim=1).values
+        gap2048 = ((top2[:, 0] - top2[:, 1])[differ4.cuda()].max() / w4.abs().max()).item()
+        del w4, top2
+    d_miou = abs(g_miou.item() - c_miou.item())
+    print(f"[eval] (a) {name} f32 b1: argmax differs at {n512} of {IMG * IMG} pixels at 512² "
+          f"(largest top-2 gap there {gap512:.3e} x max |logit|), {n2048} of {16 * IMG * IMG} "
+          f"at 2048² ({gap2048:.3e}; near-tie bound {EVAL_NEAR_TIE_REL}); confusion counts "
+          f"|Δ| summed {d_cm} (at most {2 * n512}); per-image mIoU card {g_miou.item():.6f} CPU "
+          f"{c_miou.item():.6f}, |Δ| {d_miou:.3e} (bound {EVAL_MIOU_ATOL}); CPU eval step "
+          f"{cpu_s:.1f} s", flush=True)
+    if gap2048 > EVAL_NEAR_TIE_REL or d_cm > 2 * n512 or d_miou > EVAL_MIOU_ATOL:
+        raise AssertionError(f"{name}: the f32 eval step on the card disagrees with the CPU")
+
+
+@contextlib.contextmanager
+def eval_events(model):
+    """CUDA events around each forward of ``model`` and each metric call of
+    engine/engine.py's eval step (per_image_miou, batch_confusion), by hooks
+    and by rebinding the names eval_step calls them by.  Yields
+    {"forward": [(start, end)], "metrics": [(start, end)]}."""
+    import lc2is_tpu_torch.engine.engine as eng
+
+    ev, saved = {"forward": [], "metrics": []}, {}
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    hooks = [model.register_forward_pre_hook(lambda m, a: ev["forward"].append([event()])),
+             model.register_forward_hook(lambda m, a, o: ev["forward"][-1].append(event()))]
+    for name in ("per_image_miou", "batch_confusion"):
+        saved[name] = getattr(eng, name)
+
+        def timed(*a, _f=saved[name], **kw):
+            start = event()
+            out = _f(*a, **kw)
+            ev["metrics"].append([start, event()])
+            return out
+        setattr(eng, name, timed)
+    try:
+        yield ev
+    finally:
+        for h in hooks:
+            h.remove()
+        for name, f in saved.items():
+            setattr(eng, name, f)
+
+
+def check_eval_bf16(smi, name, st):
+    """14b for one model: EVAL_BATCHES bf16 batch-16 512² batches through
+    evaluate after one warm-up batch; the host clock a batch, its forward and
+    metric device times, the peak memory, the launch counts.  Returns (median
+    ms a batch, forward ms, metric ms, peak GiB)."""
+    from lc2is_tpu_torch.engine.engine import evaluate
+
+    model = model_from(st, name, dtype=torch.bfloat16).eval()
+    batches = [dict(pixel_values=rand(np.random.RandomState(SEED + 60 + i), BATCH, 3, IMG, IMG),
+                    label=seeded_labels(SEED + 70 + i, BATCH, IMG, IMG).long())
+               for i in range(EVAL_BATCHES + 1)]
+    evaluate(model, batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    stamps = []
+
+    def stamped():
+        for b in batches[1:]:
+            stamps.append(time.perf_counter())
+            yield b
+
+    torch.cuda.reset_peak_memory_stats()
+    for f in counters.values():
+        f.launches = 0
+    with eval_events(model) as ev:
+        metrics = evaluate(model, stamped())
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    counts = {k: f.launches for k, f in counters.items() if f.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    fwd = [s.elapsed_time(e) for s, e in ev["forward"]]
+    met = [sum(s.elapsed_time(e) for s, e in ev["metrics"][2 * i:2 * i + 2])
+           for i in range(EVAL_BATCHES)]
+    ms, f_ms, m_ms = (statistics.median(v) for v in (host, fwd, met))
+    want = {k: EVAL_BATCHES * n for k, n in EXPECTED_LAUNCHES.items()}
+    print(f"[eval] (b) {name} bf16 b{BATCH} {IMG}², {EVAL_BATCHES} batches through evaluate: "
+          f"host clock a batch {[round(t, 2) for t in host]} ms, median {ms:.2f} ms = "
+          f"{BATCH * 1e3 / ms:.1f} img/s; CUDA events a batch: forward {f_ms:.2f} ms, metrics "
+          f"(per-image mIoU at 2048², confusion counts) {m_ms:.2f} ms, {100 * m_ms / ms:.1f} % of "
+          f"the batch; peak {peak:.2f} GiB (torch.cuda.max_memory_allocated); launches {counts} "
+          f"(expected {want}); {metrics} on {smi}", flush=True)
+    if counts != want:
+        raise AssertionError(f"{name}: evaluate's launch counts {counts} != {want}")
+    if not all(math.isfinite(v) for v in metrics.values()) or not (
+            0.0 <= metrics["eval_mIOU_label"] <= 1.0):
+        raise AssertionError(f"{name}: evaluate's metrics {metrics}")
+    del model, batches
+    torch.cuda.empty_cache()
+    return ms, f_ms, m_ms, peak
+
+
+@contextlib.contextmanager
+def recording_sliding_probs():
+    """The probabilities engine/sliding.py hands per_image_miou, recorded."""
+    import lc2is_tpu_torch.engine.sliding as sl
+
+    seen, orig = [], sl.per_image_miou
+
+    def rec(probs, *a, **kw):
+        seen.append(probs.cpu())
+        return orig(probs, *a, **kw)
+    sl.per_image_miou = rec
+    try:
+        yield seen
+    finally:
+        sl.per_image_miou = orig
+
+
+def check_sliding(smi, state, sweep_launches):
+    """14c: the flagship's sliding evaluation.  Returns (sweep ms, peak GiB)."""
+    from lc2is_tpu_torch.engine.sliding import evaluate_sliding
+
+    kw = dict(scales=SLIDE_SCALES, crop=SLIDE_CROP, stride=SLIDE_STRIDE)
+    x = rand(np.random.RandomState(SEED + 80), 1, 3, SLIDE_BASE, SLIDE_BASE, device="cpu")
+    y = seeded_labels(SEED + 81, 1, SLIDE_BASE, SLIDE_BASE, device="cpu")
+    batch = dict(pixel_values=x, label=y)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.time()
+        model = model_from(state, device=dev).eval()
+        with recording_sliding_probs() as seen:
+            res = evaluate_sliding(model, [batch], **kw)
+        out[dev] = (res, seen[0], time.time() - t0)
+        del model
+    (c_res, c_p, cpu_s), (g_res, g_p, _) = out["cpu"], out["cuda"]
+    if tuple(g_p.shape) != (1, N_CLASSES, SLIDE_BASE, SLIDE_BASE) or not torch.isfinite(g_p).all():
+        raise AssertionError(f"sliding probabilities {tuple(g_p.shape)} / non-finite")
+    d = (g_p - c_p).abs().max().item()
+    differ = g_p.argmax(1) != c_p.argmax(1)
+    agree = 1.0 - differ.float().mean().item()
+    n, gap = argmax_flips(g_p, c_p, "sliding probabilities")
+    d_miou = abs(g_res["eval_mIOU_sliding"] - c_res["eval_mIOU_sliding"])
+    print(f"[eval] (c) PromptAuxCrossA sliding f32, one {SLIDE_BASE}² image, scales "
+          f"{SLIDE_SCALES}, crop {SLIDE_CROP}, stride {SLIDE_STRIDE}, flip: card vs CPU "
+          f"probabilities max |Δ| {d:.3e} (bound {SLIDE_PROB_ATOL}), argmax agreement {agree:.6f} "
+          f"(bound {SLIDE_ARGMAX_AGREE}; {n} differ, largest top-2 gap there {gap:.3e} x max "
+          f"prob), eval_mIOU_sliding card {g_res['eval_mIOU_sliding']:.6f} CPU "
+          f"{c_res['eval_mIOU_sliding']:.6f}, |Δ| {d_miou:.3e} (bound {EVAL_MIOU_ATOL}); CPU "
+          f"sweep {cpu_s:.1f} s", flush=True)
+    if d > SLIDE_PROB_ATOL or agree < SLIDE_ARGMAX_AGREE or d_miou > EVAL_MIOU_ATOL:
+        raise AssertionError("the f32 sliding evaluation on the card disagrees with the CPU")
+    model = model_from(state, dtype=torch.bfloat16).eval()
+    xb = rand(np.random.RandomState(SEED + 82), SLIDE_IMAGES, 3, SLIDE_BASE, SLIDE_BASE)
+    yb = seeded_labels(SEED + 83, SLIDE_IMAGES, SLIDE_BASE, SLIDE_BASE)
+    batch = dict(pixel_values=xb, label=yb)
+    evaluate_sliding(model, [batch], **kw)  # warm-up
+    torch.cuda.synchronize()
+    counters = launch_counters()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2):
+        if i == 0:
+            for f in counters.values():
+                f.launches = 0
+        t0 = time.perf_counter()
+        res = evaluate_sliding(model, [batch], **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = {k: f.launches for k, f in counters.items() if f.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = statistics.median(times)
+    print(f"[eval] (c) PromptAuxCrossA sliding bf16, {SLIDE_IMAGES} {SLIDE_BASE}² images a "
+          f"sweep (tiles a scale: {2 * SLIDE_IMAGES} of 480², {8 * SLIDE_IMAGES} and "
+          f"{8 * SLIDE_IMAGES} of 512²): host clock {[round(t, 2) for t in times]} ms, median "
+          f"{ms:.2f} ms = {SLIDE_IMAGES * 1e3 / ms:.2f} img/s; peak {peak:.2f} GiB; launches "
+          f"over one sweep {counts} (phase 3's sweep tags {sweep_launches}); "
+          f"eval_mIOU_sliding {res['eval_mIOU_sliding']:.6f} on {smi}", flush=True)
+    if counts != sweep_launches or not 0.0 <= res["eval_mIOU_sliding"] <= 1.0:
+        raise AssertionError(f"the bf16 sweep's launches {counts} != phase 3's {sweep_launches} "
+                             f"or its mIoU {res['eval_mIOU_sliding']} out of range")
+    del model
+    torch.cuda.empty_cache()
+    return ms, peak
+
+
+def check_gt_miou():
+    """14d: the GT-resolution mIoU of seeded (4, 151, 128, 128) logits."""
+    from lc2is_tpu_torch.metrics.gt import compute_gt_miou, gt_miou_per_image
+
+    logits = rand(np.random.RandomState(SEED + 90), len(GT_SIZES), N_CLASSES, IMG // 4,
+                  IMG // 4, device="cpu")
+    gts = [seeded_labels(SEED + 91 + i, *s, device="cpu") for i, s in enumerate(GT_SIZES)]
+    t0 = time.time()
+    cpu = gt_miou_per_image(logits, gts, GT_SIZES, device="cpu")
+    cpu_s = time.time() - t0
+    gpu = gt_miou_per_image(logits, gts, GT_SIZES, device="cuda")
+    exact = compute_gt_miou(logits, gts, GT_SIZES, device="cuda")["mIOU_gt"]
+    bucket = compute_gt_miou(logits, gts, GT_SIZES, bucket=64, device="cuda")["mIOU_gt"]
+    d = float(np.abs(gpu - cpu).max())
+    print(f"[eval] (d) GT mIoU, logits {tuple(logits.shape)} to GT sizes {GT_SIZES}: per image "
+          f"card {gpu.tolist()} CPU {cpu.tolist()}, max |Δ| {d:.3e} (bound {GT_MIOU_ATOL}); "
+          f"mIOU_gt on the card exact {exact:.8f}, bucket=64 {bucket:.8f}; CPU {cpu_s:.1f} s",
+          flush=True)
+    if d > GT_MIOU_ATOL or bucket != exact:
+        raise AssertionError("GT mIoU: card vs CPU or bucket vs exact disagree")
+
+
+def check_eval(smi, state, sweep_launches):
+    """Phase 14: the evaluation (a-d).  Returns {what: numbers} for the summary."""
+    out = {}
+    with torch.no_grad():
+        for name in EVAL_MODELS:
+            st = eval_state(name, state)
+            check_eval_step_f32(name, st)
+            out[name] = check_eval_bf16(smi, name, st)
+        out["sliding"] = check_sliding(smi, state, sweep_launches)
+        check_gt_miou()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2984,10 +3440,10 @@ def main() -> int:
         print(f"[time] phase {label}: {time.time() - t_start:.1f} s", flush=True)
         return out
 
-    stats = phase("3", check_kernels, smi)
+    state = seeded_state()
+    stats, sweep_launches = phase("3", check_kernels, smi, state)
     stats.update(phase("3w", check_window_attention, smi))
     stats.update(phase("3b", check_backward_kernels))
-    state = seeded_state()
     cpu_head, x1, ts_cpu, ts_gpu, batches = phase("4", check_slice, smi, state)
     counts, masks16, masks_ms = phase("4m", check_masks, smi, state, cpu_head, x1, ts_gpu,
                                       batches)
@@ -2999,7 +3455,6 @@ def main() -> int:
     phase("6a", check_train_f32, state)
     train_counts, step_ms = phase("6b", check_train_bf16, smi, state)
     counts.update({k: v for k, v in train_counts.items() if k in BACKWARD_KERNELS})
-    del state
     v1 = phase("7", check_v1, smi)
     counts["flash_attention"] = v1["BaseModelWithText"][0]["flash_attention"]
     v1_train_counts, v1_step_ms = phase("8", check_v1_train, smi)
@@ -3008,6 +3463,7 @@ def main() -> int:
     _, v4_step_ms = phase("11", check_v4_train, smi)
     ftn, counts["fused_window_block"] = phase("12", check_ftn, smi)
     ftn_train, counts["fused_window_block_bwd"] = phase("13", check_ftn_train, smi)
+    evals = phase("14", check_eval, smi, state, sweep_launches)
     print(f"[time] all phases: {time.time() - t0:.1f} s", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -3048,7 +3504,11 @@ def main() -> int:
           f"forwards { {k: round(ms, 2) for k, ms in v4.items()} } ms; v4 bf16 b{TRAIN_BATCH} "
           f"training steps { {k: round(ms, 2) for k, ms in v4_step_ms.items()} } ms; FTN bf16 "
           f"b{BATCH} forwards { {k: round(ms, 2) for k, ms in ftn.items()} } ms; FTN bf16 "
-          f"training steps (ms, batch, peak GiB) {ftn_steps} on {smi}")
+          f"training steps (ms, batch, peak GiB) {ftn_steps}; evaluation bf16 b{BATCH} (ms a "
+          f"batch, forward ms, metrics ms, peak GiB) "
+          f"{ {k: tuple(round(v, 2) for v in evals[k]) for k in EVAL_MODELS} }, sliding sweep of "
+          f"{SLIDE_IMAGES} {SLIDE_BASE}² images (ms, peak GiB) "
+          f"{tuple(round(v, 2) for v in evals['sliding'])} on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

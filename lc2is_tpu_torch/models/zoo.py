@@ -276,7 +276,10 @@ class ContrastiveModel(_ClipBase):
                                        self.vision_encoder.hidden_size, out=embed_dim,
                                        device=device)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]):
+    def forward(self, inputs: Dict[str, torch.Tensor],
+                generator: Optional[torch.Generator] = None):
+        """``generator``: taken as the other models take it; nothing here
+        draws from it (no dropout)."""
         _, pooled_t = self.text_encoder(inputs["input_ids"], inputs.get("attention_mask"))
         enc_v = self._upsample4(self.vision_encoder(inputs["pixel_values"])[0][:, 1:])
         feature_t, feature_v = self.pixel_patch(enc_v, pooled_t)

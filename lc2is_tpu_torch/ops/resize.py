@@ -1,8 +1,9 @@
-"""Torch-semantics bilinear and bicubic resize as two matrix products, and
-the channels-last token-grid resize.
+"""Torch-semantics bilinear and bicubic resize as two matrix products,
+nearest as an index gather, and the channels-last token-grid resize.
 
 Counterpart of the ``semantics="torch"`` path of ``lc2is_tpu/ops/resize.py``
-(``_torch_resize_matrix`` :49-78, ``resize`` :225, ``resize_tokens`` :287):
+(``_torch_resize_matrix`` :49-78, ``_nearest_indices`` :198, ``resize``
+:225, ``resize_tokens`` :287):
 ``F.interpolate(mode="bilinear" | "bicubic", align_corners=False)`` without
 antialias (bicubic: a = -0.75, clamped taps), written as an [out, in] weight
 matrix per axis (rows then columns).  Plain PyTorch: the JAX package computes
@@ -55,12 +56,40 @@ def _resize_matrix(in_size: int, out_size: int, scale: Optional[float],
     return m.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def resize_taps(in_size: int, out_size: int, scale: Optional[float],
+                method: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The nonzero entries of :func:`_resize_matrix`'s rows in column order,
+    as (columns (out, T) int64, weights (out, T) f32); a row with fewer than
+    T entries is padded with weight 0 at its first column."""
+    m = _resize_matrix(in_size, out_size, scale, method)
+    nz = m != 0
+    taps = max(1, int(nz.sum(1).max()))
+    cols = np.zeros((out_size, taps), np.int64)
+    wts = np.zeros((out_size, taps), np.float32)
+    for o in range(out_size):
+        c = np.flatnonzero(nz[o])
+        cols[o, :len(c)], cols[o, len(c):] = c, c[0] if len(c) else 0
+        wts[o, :len(c)] = m[o, c]
+    return cols, wts
+
+
+@functools.lru_cache(maxsize=64)
+def _nearest_indices(in_size: int, out_size: int, scale: Optional[float]) -> np.ndarray:
+    """torch ``mode="nearest"`` source indices, ``floor(i · in/out)`` (or
+    ``floor(i · scale)``), clipped to the input."""
+    s = scale if scale is not None else in_size / out_size
+    idx = np.floor(np.arange(out_size, dtype=np.float64) * s)
+    return np.clip(idx.astype(np.int64), 0, in_size - 1)
+
+
 def resize(x: torch.Tensor, size=None, scale_factor: Optional[float] = None,
            method: str = "bilinear") -> torch.Tensor:
-    """Resize the last two axes of ``x`` (torch bilinear or bicubic semantics).
-    Output size follows torch's ``floor(in * scale_factor)`` rule."""
-    if method not in ("bilinear", "bicubic"):
-        raise ValueError(f"only bilinear and bicubic are ported, got {method}")
+    """Resize the last two axes of ``x`` (torch bilinear, bicubic or nearest
+    semantics).  Output size follows torch's ``floor(in * scale_factor)`` rule."""
+    if method not in ("bilinear", "bicubic", "nearest"):
+        raise ValueError(f"only bilinear, bicubic and nearest (torch semantics) are ported, got "
+                         f"{method}; PIL's methods wait for the port of data/preprocess.py")
     in_h, in_w = int(x.shape[-2]), int(x.shape[-1])
     if size is not None:
         out_h, out_w = (size, size) if isinstance(size, int) else map(int, size)
@@ -68,6 +97,10 @@ def resize(x: torch.Tensor, size=None, scale_factor: Optional[float] = None,
     else:
         out_h, out_w = int(math.floor(in_h * scale_factor)), int(math.floor(in_w * scale_factor))
         scale = 1.0 / scale_factor
+    if method == "nearest":
+        ih = torch.from_numpy(_nearest_indices(in_h, out_h, scale)).to(x.device)
+        iw = torch.from_numpy(_nearest_indices(in_w, out_w, scale)).to(x.device)
+        return x.index_select(-2, ih).index_select(-1, iw)
     wdt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
     wh = torch.from_numpy(_resize_matrix(in_h, out_h, scale, method)).to(x.device, wdt)
     ww = torch.from_numpy(_resize_matrix(in_w, out_w, scale, method)).to(x.device, wdt)

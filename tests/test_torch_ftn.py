@@ -3,7 +3,10 @@
 ``FTNDecoder``, ``RepeatTransformer``, ``FTNDecoderV2``) against lc2is_tpu
 on the same parameters (loaded with ``strict=True``) and the same
 numpy-seeded inputs, on the CPU.  JAX runs its XLA path
-(``attn_impl="xla"``, jitted once), the port its plain versions.
+(``attn_impl="xla"``, jitted once), the port its plain versions.  The two
+whole models share one swin-base (its params and input): JAX computes its
+outputs once in each dtype and the models take them in place of their own
+swin call; the port runs each model whole.
 
 Stated tolerances: each decoder module within TOL (2e-4 relative and
 absolute), f32; the whole models' f32 score maps within SLICE_ATOL (1e-3),
@@ -18,6 +21,8 @@ backbone and the decoder replaced on both sides (flax ``intercept_methods``)
 by that output.  Also: a strict full-width load of ``DenseCLIPFTN``'s
 default cfg (the other three load at full width above) and the key rule of
 ``RepeatTransformer``."""
+
+from concurrent.futures import ThreadPoolExecutor
 
 import flax.linen as fnn
 import jax
@@ -144,28 +149,68 @@ MODELS = {  # name: (JAX kwargs, port kwargs, inputs with text)
 }
 
 
-@pytest.fixture(scope="module", params=sorted(MODELS))
-def ftn_run(request):
-    """(name, params, port inputs, JAX f32 and bf16 outputs) of the whole
-    model at 64² on full-width swin-base, JAX in one jitted call."""
-    name = request.param
-    jkw, _, text = MODELS[name]
+SWIN_NAME = {"DenseCLIPFTN": "vision_encoder", "PromptFTNv1": "visual_encoder"}
+
+
+def _swin_replaced(stages):
+    """Interceptor: the model's swin returns ``stages`` (its first four
+    hidden states), computed outside."""
+
+    def intercept(next_fun, args, kwargs, context):
+        if context.method_name == "__call__" and isinstance(context.module, JSwinModel):
+            return list(stages) + [None]
+        return next_fun(*args, **kwargs)
+
+    return intercept
+
+
+@pytest.fixture(scope="module")
+def ftn_runs():
+    """name -> (name, params, port inputs, JAX f32 and bf16 outputs) of the
+    whole model at 64² on full-width swin-base.  The two models share one
+    swin (its params and input): one jitted call computes its first four
+    hidden states in both dtypes, and each model's jitted call takes them in
+    place of its own swin call (``intercept_methods``); the three are traced
+    in turn and compiled together."""
     x = np.random.RandomState(5).randn(1, 3, IMG, IMG).astype(np.float32)
-    jin = {"pixel_values": jnp.asarray(x)}
-    pin = {"pixel_values": t(x)}
-    if text:
-        ids, mask = _text_inputs()
-        jin.update(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask))
-        pin.update(input_ids=torch.from_numpy(ids).long(), attention_mask=torch.from_numpy(mask))
-    jcls = getattr(jzoo, name)
-    params = _fill(jax.eval_shape(jcls(attn_impl="xla", **jkw).init, jax.random.PRNGKey(0), jin))
+    mods = [JSwinModel(attn_impl="xla", dtype=dt, **jzoo.SWIN_BASE)
+            for dt in (jnp.float32, jnp.bfloat16)]
+    swin_params = _fill(jax.eval_shape(mods[0].init, jax.random.PRNGKey(0), jnp.asarray(x)))
+    swin_args = (swin_params, jnp.asarray(x))
+    lowered = {"swin": jax.jit(lambda p, v: [m.apply(p, v)[:4] for m in mods]).lower(*swin_args)}
+    cases = {}
+    for name, (jkw, _, text) in sorted(MODELS.items()):
+        jin = {"pixel_values": jnp.asarray(x)}
+        pin = {"pixel_values": t(x)}
+        if text:
+            ids, mask = _text_inputs()
+            jin.update(input_ids=jnp.asarray(ids), attention_mask=jnp.asarray(mask))
+            pin.update(input_ids=torch.from_numpy(ids).long(),
+                       attention_mask=torch.from_numpy(mask))
+        jcls = getattr(jzoo, name)
+        params = _fill(jax.eval_shape(jcls(attn_impl="xla", **jkw).init, jax.random.PRNGKey(0),
+                                      jin), zero=(SWIN_NAME[name],))
+        params["params"][SWIN_NAME[name]] = swin_params["params"]
 
-    def both(p, inputs):
-        return (jcls(attn_impl="xla", **jkw).apply(p, inputs),
-                jcls(attn_impl="xla", dtype=jnp.bfloat16, **jkw).apply(p, inputs))
+        def both(p, inputs, s32, s16, jcls=jcls, jkw=jkw):
+            with fnn.intercept_methods(_swin_replaced(s32)):
+                out32 = jcls(attn_impl="xla", **jkw).apply(p, inputs)
+            with fnn.intercept_methods(_swin_replaced(s16)):
+                out16 = jcls(attn_impl="xla", dtype=jnp.bfloat16, **jkw).apply(p, inputs)
+            return out32, out16
 
-    want32, want16 = jax.jit(both)(params, jin)
-    return name, params, pin, want32, want16
+        lowered[name] = jax.jit(both).lower(params, jin, *lowered["swin"].out_info)
+        cases[name] = (params, jin, pin)
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        compiled = dict(zip(lowered, pool.map(lambda lw: lw.compile(), lowered.values())))
+    stages = compiled["swin"](*swin_args)
+    return {name: (name, params, pin) + tuple(compiled[name](params, jin, *stages))
+            for name, (params, jin, pin) in cases.items()}
+
+
+@pytest.fixture(params=sorted(MODELS))
+def ftn_run(request, ftn_runs):
+    return ftn_runs[request.param]
 
 
 def _port_model(name, params, **kw):

@@ -263,3 +263,33 @@ def test_unfused_layer_equals_fused_without_dropout():
         fused = layer.eval()(x, mem)
         unfused = layer.train()(x, mem, generator=torch.Generator().manual_seed(0))
     close(unfused, fused.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("name", ["ContrastiveModel", "DenseClip"])
+def test_contrastive_and_dense_clip_steps_raise_as_in_jax(name):
+    """``train_step`` on ``ContrastiveModel`` and ``DenseClip`` against the
+    (B, L, L) labels the data pipeline gives: their last output, the CE's
+    target under ``_normalize_output``, holds patches or tokens at dim 1
+    ((B, 64, K) logits, (B, 1 + 4, C) tokens), so the CE raises, in the port
+    as JAX's ``cross_entropy`` raises on outputs of the same shapes."""
+    from test_torch_v1 import VISION, TinyContrastive, TinyDenseClip, _text
+
+    inputs, y = _batch()
+    kw = dict(in_size=IMG, out_size=OUT, patch_size=PATCH, vision_kwargs=VISION,
+              text_kwargs=_text(999))
+    jcls, extra = {"ContrastiveModel": (TinyContrastive, dict(embed_dim=32)),
+                   "DenseClip": (TinyDenseClip, dict(embed_dim=32, decoder_layers=2,
+                                                     nhead=2))}[name]
+    jin = {k: jnp.asarray(v) for k, v in inputs.items()}
+    shapes = jax.eval_shape(lambda: jcls(**kw).init_with_output(jax.random.PRNGKey(0), jin))[0]
+    target = jax_normalize_output(shapes)["outputs"]
+    with pytest.raises(ValueError):
+        jax_cross_entropy(jnp.zeros(target.shape, target.dtype), jnp.asarray(y))
+    port = seeded_init_(getattr(zoo, name)(device="cpu", **extra, **kw), 0).eval()
+    pin = {k: torch.from_numpy(v) for k, v in inputs.items()}
+    with torch.no_grad():
+        got = engine._normalize_output(port(pin))["outputs"]
+    assert tuple(got.shape) == target.shape and tuple(got.shape[1:2]) != (151,)
+    with pytest.raises(ValueError, match="does not match"):
+        engine.train_step(port, make_optimizer(port, lr=LR), pin, torch.from_numpy(y).long(),
+                          generator=torch.Generator().manual_seed(0))
