@@ -197,6 +197,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    images timed, its launches held to phase 3's sweep tags; (d) the
    GT-resolution mIoU of seeded (4, 151, 128, 128) logits at four GT sizes,
    card against CPU per image, bucket=64 against the exact path.
+15. the CLI (cli/train.py and cli/evaluate.py over engine/engine.py::Engine)
+   on the synthetic ADE20K from the seed, in a temporary directory,
+   PromptAuxCrossA at full width, 512², the weights drawn by nn/init.py:
+   (a) train 4 steps (--fp16 true, batch 8, 16 images, checkpoints every 2
+       steps, an evaluation at step 4, a CSV row a step): finite losses,
+       every step's launch counts equal to phase 6b's step, step-2 and
+       step-4 checkpoints, 4 rows; the train img/s and the share of the time
+       spent waiting on the loader printed beside phase 6b's bare step;
+   (b) --resume to step 6: it starts at step 4 with the model and optimizer
+       state of step-4.pth bit for bit, and ends at step 6;
+   (c) a training subprocess sent SIGUSR1 after its first logged step:
+       it checkpoints the step it is at and exits 0;
+   (d) evaluate step-4.pth and its reference .pt export (bf16, batch 16):
+       the same metrics within 1e-6, rows 1, 2, 4 and 6 launched, eval img/s
+       printed; then f32 on 2 images, --device cuda against --device cpu
+       under phase 14's rules;
+   (e) --sliding (640², 2 images) and --gt_metrics --gt_bucket 64: finite
+       eval_mIOU_sliding and eval_mIOU_gt; base_with_text through
+       scripts/parity_eval.sh's flags (parsed from the script; the port's
+       module, the synthetic dataset, a reference .pt of nn/init.py's
+       weights): finite label, GT and dataset mIoU.
 
 Then a JSON line of the kernels (launches over one run of the path that
 uses each: the served-mask forward, the int8 forward, the training step, the
@@ -217,6 +238,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -3401,6 +3423,317 @@ def check_eval(smi, state, sweep_launches):
     return out
 
 
+# phase 15: the CLI on the card (cli/train.py, cli/evaluate.py over the Engine)
+CLI_MODEL = "prompt_aux_cross_a"
+CLI_DATA = 16
+CLI_STEPS, CLI_RESUMED_STEPS, CLI_SAVE = 4, 6, 2
+CLI_PREEMPT_STEPS = 40
+CLI_NATIVE_PT_ATOL = 1e-6  # the same weights from a .pth and from its .pt export
+CLI_F32_IMAGES = 2
+CLI_SLIDE_IMG = 640
+CLI_GT_BUCKET = 64
+CLI_EVAL_KERNELS = ("swin_window_block", "fused_mlp", "fused_attn_block", "upsample_tokens")
+CLI_DEVICE = "cuda"
+
+
+def cli_args(out_dir, name, img=None, fp16=True, batch=None, data=None, device=None,
+             model=CLI_MODEL, logger="csv"):
+    """The CLI's argv on the synthetic ADE20K from the seed (by default
+    {IMG}², batch TRAIN_BATCH, CLI_DATA images, on CLI_DEVICE)."""
+    img, batch = img or IMG, batch or TRAIN_BATCH
+    data, device = data or CLI_DATA, device or CLI_DEVICE
+    return ["--name", name, "--out_dir", out_dir, "--seed", str(SEED), "--data_name",
+            "synthetic", "--data_size", str(data), "--model", model, "--fp16", str(fp16),
+            "--batch_size", str(batch), "--img_size", str(img), "--device", device,
+            "--logger", logger]
+
+
+@contextlib.contextmanager
+def wrapped(owner, name, wrap):
+    """``owner.name`` replaced by ``wrap(original)`` inside the block."""
+    original = getattr(owner, name)
+    setattr(owner, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(owner, name, original)
+
+
+def same_state(a, b):
+    """Nested dicts / lists of tensors and numbers equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_state(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(),
+                                                                                  b.cpu())
+    return a == b
+
+
+def cli_train(smi, tmp, expected, step_ms):
+    """15a: 4 steps through cli/train.py; returns the checkpoint directory."""
+    import csv
+
+    from lc2is_tpu_torch.cli import train as train_cli
+    from lc2is_tpu_torch.engine.engine import Engine
+
+    counters, per_step, engines = launch_counters(), [], []
+
+    def count_steps(step):
+        def counted(self, inputs, labels):
+            before = {k: f.launches for k, f in counters.items()}
+            out = step(self, inputs, labels)
+            per_step.append({k: f.launches - before[k] for k, f in counters.items()
+                             if f.launches != before[k]})
+            return out
+        return counted
+
+    def keep(train):
+        def kept(self):
+            engines.append(self)
+            return train(self)
+        return kept
+
+    argv = cli_args(tmp, "cli") + ["--max_steps", str(CLI_STEPS), "--exact_steps",
+                                   "--save_step", str(CLI_SAVE), "--eval_step", str(CLI_STEPS),
+                                   "--log_step", "1"]
+    print(f"[cli] (a) python -m lc2is_tpu_torch.cli.train {' '.join(argv)}", flush=True)
+    for f in counters.values():
+        f.launches = 0
+    with wrapped(Engine, "_step", count_steps), wrapped(Engine, "train", keep):
+        metrics = train_cli.main(argv)
+    total = {k: f.launches for k, f in counters.items() if f.launches}
+    eng = engines[0]
+    ckdir = os.path.join(eng.out_dir, "checkpoints")
+    with open(os.path.join(eng.out_dir, "log.csv")) as f:
+        rows = list(csv.DictReader(f))
+    losses = [float(r[k]) for r in rows for k in ("train_loss", "train_aux_loss")]
+    print(f"[cli] (a) launches per step {per_step} (phase 6b's step: {expected}); over the run "
+          f"(4 steps and the step-4 evaluation) {total}", flush=True)
+    print(f"[cli] (a) log.csv rows {len(rows)}, losses {[round(v, 5) for v in losses]}, "
+          f"checkpoints {sorted(os.listdir(ckdir))}; eval at step 4: "
+          f"{ {k: round(v, 6) for k, v in metrics.items() if k.startswith('eval')} }", flush=True)
+    if len(per_step) != CLI_STEPS or any(c != expected for c in per_step):
+        raise AssertionError(f"CLI step launch counts {per_step} != phase 6b's {expected}")
+    if len(rows) != CLI_STEPS or not all(np.isfinite(losses)) or not all(
+            np.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"CLI training log {rows} / metrics {metrics}")
+    if not all(os.path.exists(os.path.join(ckdir, f"step-{n}.pth")) for n in (2, 4)):
+        raise AssertionError(f"checkpoints step-2 and step-4 missing: {os.listdir(ckdir)}")
+    busy = eng.step_seconds + eng.loader_wait_seconds
+    print(f"[cli] (a) train through the CLI ({CLI_MODEL}, bf16, batch {TRAIN_BATCH}, {IMG}²): "
+          f"{eng.train_images / eng.step_seconds:.2f} img/s over {eng.train_step_count} steps "
+          f"({eng.step_seconds * 1e3 / eng.train_step_count:.2f} ms a step, host clock, the "
+          f"first step included), waiting on the loader {eng.loader_wait_seconds * 1e3:.1f} ms "
+          f"= {100 * eng.loader_wait_seconds / busy:.2f} % of step + wait; phase 6b's bare step "
+          f"{step_ms:.2f} ms = {TRAIN_BATCH * 1e3 / step_ms:.2f} img/s; on {smi}", flush=True)
+    return ckdir
+
+
+def cli_resume(tmp, ckdir):
+    """15b: rerun with --resume to step 6, the state checked before the first step."""
+    from lc2is_tpu_torch.cli import train as train_cli
+    from lc2is_tpu_torch.engine.engine import Engine
+
+    saved = torch.load(os.path.join(ckdir, f"step-{CLI_STEPS}.pth"), map_location="cpu",
+                       weights_only=True)
+    seen = {}
+
+    def checked(train):
+        def run(self):
+            seen.update(start=self.train_step_count,
+                        model=same_state(self.model.state_dict(), saved["model"]),
+                        optimizer=same_state(self.optimizer.state_dict(), saved["optimizer"]))
+            out = train(self)
+            seen["end"] = self.train_step_count
+            return out
+        return run
+
+    argv = cli_args(tmp, "cli") + ["--max_steps", str(CLI_RESUMED_STEPS), "--exact_steps",
+                                   "--save_step", str(CLI_SAVE), "--eval_step", str(CLI_STEPS),
+                                   "--log_step", "1", "--resume"]
+    with wrapped(Engine, "train", checked):
+        metrics = train_cli.main(argv)
+    print(f"[cli] (b) --resume: started at step {seen['start']}, model state equal to "
+          f"step-{CLI_STEPS}.pth: {seen['model']}, optimizer state equal: {seen['optimizer']}; "
+          f"ended at step {seen['end']}, train_loss {metrics['train_loss']:.5f}", flush=True)
+    if seen != dict(start=CLI_STEPS, model=True, optimizer=True, end=CLI_RESUMED_STEPS) \
+            or not os.path.exists(os.path.join(ckdir, f"step-{CLI_RESUMED_STEPS}.pth")):
+        raise AssertionError(f"resume: {seen}")
+
+
+def cli_preempt(tmp):
+    """15c: SIGUSR1 to a training subprocess after its first logged step."""
+    import signal
+    import threading
+
+    argv = cli_args(tmp, "preempt", logger="null") + [
+        "--max_steps", str(CLI_PREEMPT_STEPS), "--exact_steps", "--log_step", "1",
+        "--save_step", "1000", "--eval_step", "1000"]
+    lines, sent_at = [], None
+    err_path = os.path.join(tmp, "preempt.err")
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "lc2is_tpu_torch.cli.train", *argv],
+                                cwd=root, stdout=subprocess.PIPE, stderr=err, text=True,
+                                env=dict(os.environ, PYTHONUNBUFFERED="1"))
+        watchdog = threading.Timer(300, proc.kill)
+        watchdog.start()
+        try:
+            for line in proc.stdout:
+                lines.append(line.rstrip())
+                if sent_at is None and line.startswith("[engine] step 1:"):
+                    proc.send_signal(signal.SIGUSR1)
+                    sent_at = 1
+            rc = proc.wait()
+        finally:
+            watchdog.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    found = [re.search(r"preemption signal: checkpointed at step (\d+)", ln) for ln in lines]
+    step = next((int(m.group(1)) for m in found if m), None)
+    logged = [ln for ln in lines if ln.startswith("[engine] step ")]
+    ck = os.path.join(tmp, "preempt", "checkpoints", f"step-{step}.pth")
+    print(f"[cli] (c) SIGUSR1 after the first logged step: exit code {rc}, {len(logged)} steps "
+          f"logged, checkpointed at step {step} of {CLI_PREEMPT_STEPS}, {ck} exists: "
+          f"{os.path.exists(ck)}", flush=True)
+    if rc != 0 or sent_at is None or step is None or not 1 <= step < CLI_PREEMPT_STEPS \
+            or not os.path.exists(ck) or len(logged) != step:
+        with open(err_path) as f:
+            print(f.read()[-4000:], file=sys.stderr)
+        raise AssertionError(f"preemption: rc {rc}, step {step}, output {lines[-5:]}")
+
+
+def cli_evaluate(smi, tmp, ckdir):
+    """15d: the native checkpoint and its .pt export at bf16 batch 16, then
+    f32 on two images, --device cuda against --device cpu."""
+    from lc2is_tpu_torch.cli import evaluate as evaluate_cli
+    from lc2is_tpu_torch.engine.checkpoint import export_reference_pt
+    from lc2is_tpu_torch.engine.engine import Engine
+
+    native = os.path.join(ckdir, f"step-{CLI_STEPS}.pth")
+    pt = os.path.join(tmp, f"step-{CLI_STEPS}.pt")
+    export_reference_pt(torch.load(native, map_location="cpu", weights_only=True)["model"], pt)
+    counters, timed = launch_counters(), []
+
+    def timing(evaluate):
+        def run(self):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = evaluate(self)
+            torch.cuda.synchronize()
+            timed.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    argv = cli_args(tmp, "eval", batch=BATCH)
+    for f in counters.values():
+        f.launches = 0
+    with wrapped(Engine, "evaluate", timing):
+        m_native = evaluate_cli.main(argv + ["--checkpoint", native])
+    counts = {k: f.launches for k, f in counters.items() if f.launches}
+    m_pt = evaluate_cli.main(argv + ["--checkpoint", pt])
+    diff = {k: abs(m_native[k] - m_pt[k]) for k in m_native}
+    print(f"[cli] (d) bf16 b{BATCH}: step-{CLI_STEPS}.pth {m_native}; its .pt export {m_pt}; "
+          f"|Δ| {diff} (bound {CLI_NATIVE_PT_ATOL}); launches {counts}", flush=True)
+    print(f"[cli] (d) evaluate through the CLI ({CLI_MODEL}, bf16, batch {BATCH}, {IMG}², the "
+          f"per-image mIoU at {4 * IMG}²): {CLI_DATA} images in {timed[0] * 1e3:.1f} ms = "
+          f"{CLI_DATA / timed[0]:.2f} img/s (host clock around Engine.evaluate, the loader "
+          f"included) on {smi}", flush=True)
+    if set(m_native) != set(m_pt) or max(diff.values()) > CLI_NATIVE_PT_ATOL \
+            or not all(counts.get(k) for k in CLI_EVAL_KERNELS):
+        raise AssertionError(f"evaluate: native {m_native} / .pt {m_pt} / launches {counts}")
+    f32 = {dev: evaluate_cli.main(cli_args(tmp, f"eval-{dev}", fp16=False, batch=CLI_F32_IMAGES,
+                                           data=CLI_F32_IMAGES, device=dev)
+                                  + ["--checkpoint", native])
+           for dev in (CLI_DEVICE, "cpu")}
+    card, cpu = f32[CLI_DEVICE], f32["cpu"]
+    print(f"[cli] (d) f32, {CLI_F32_IMAGES} images: --device cuda {card}; --device cpu {cpu}",
+          flush=True)
+    for k, v in cpu.items():
+        bad = (abs(card[k] - v) > EVAL_LOSS_RTOL * abs(v) if "loss" in k
+               else abs(card[k] - v) > EVAL_MIOU_ATOL)
+        if bad or not np.isfinite(card[k]):
+            raise AssertionError(f"f32 evaluate: {k} card {card[k]} CPU {v}")
+    return native
+
+
+def cli_paths(tmp, native):
+    """15e: --sliding, --gt_metrics, and parity_eval.sh's flags for base_with_text."""
+    from lc2is_tpu_torch.cli import evaluate as evaluate_cli
+    from lc2is_tpu_torch.engine.checkpoint import export_reference_pt
+    from lc2is_tpu_torch.models import zoo
+    from lc2is_tpu_torch.nn.init import init_parameters_
+
+    slide = evaluate_cli.main(cli_args(tmp, "slide", img=CLI_SLIDE_IMG, batch=SLIDE_IMAGES,
+                                       data=SLIDE_IMAGES) + ["--checkpoint", native, "--sliding"])
+    gt = evaluate_cli.main(cli_args(tmp, "gt", batch=SLIDE_IMAGES, data=SLIDE_IMAGES)
+                           + ["--checkpoint", native, "--gt_metrics", "--gt_bucket",
+                              str(CLI_GT_BUCKET)])
+    print(f"[cli] (e) --sliding at {CLI_SLIDE_IMG}² ({SLIDE_IMAGES} images, bf16): {slide}; "
+          f"--gt_metrics --gt_bucket {CLI_GT_BUCKET}: {gt}", flush=True)
+    if not (np.isfinite(slide["eval_mIOU_sliding"]) and np.isfinite(gt["eval_mIOU_gt"])):
+        raise AssertionError("sliding / GT mIoU not finite")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "scripts", "parity_eval.sh")) as f:
+        sh = f.read()
+    flags = list(dict.fromkeys(re.findall(r"(--[a-z0-9_]+)",
+                                          sh[sh.index("python -m lc2is_tpu.cli.evaluate"):])))
+    ckpt = os.path.join(tmp, "step-400.pt")
+    model = zoo.BaseModelWithText(in_size=IMG, out_size=IMG // 4, device=CLI_DEVICE)
+    init_parameters_(model, torch.Generator(device=CLI_DEVICE).manual_seed(SEED))
+    export_reference_pt(model, ckpt)
+    del model
+    # the script's values; the synthetic dataset (16 images) in place of ADE20K
+    values = {"--name": "parity-eval", "--checkpoint": ckpt, "--seed": "1024",
+              "--data_name": "synthetic", "--data_size": str(CLI_DATA),
+              "--model": "base_with_text", "--patch_size": "16", "--img_size": str(IMG),
+              "--label_size": str(IMG // 4), "--batch_size": str(BATCH), "--dropout": "0",
+              "--fp16": "False", "--gt_bucket": "128", "--logger": "csv"}
+    argv = []
+    for flag in flags:
+        if flag in ("--data_root", "--split"):
+            continue
+        argv += [flag] + ([] if flag == "--gt_metrics" else [values[flag]])
+    argv += ["--out_dir", tmp, "--device", CLI_DEVICE]
+    print(f"[cli] (e) scripts/parity_eval.sh through lc2is_tpu_torch.cli.evaluate: "
+          f"{' '.join(argv)}", flush=True)
+    parity = evaluate_cli.main(argv)
+    print(f"[cli] (e) base_with_text (f32, batch {BATCH}): {parity}", flush=True)
+    if not all(np.isfinite(parity[k]) for k in ("eval_mIOU_label", "eval_mIOU_gt",
+                                               "eval_mIOU_dataset")):
+        raise AssertionError(f"parity_eval.sh path: {parity}")
+
+
+def check_cli(smi, train_counts, step_ms):
+    """Phase 15: the port's CLI on the card, in a temporary directory."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lc2is_cli_")
+    try:
+        t0 = time.time()
+        ckdir = cli_train(smi, tmp, train_counts, step_ms)
+        t1 = time.time()
+        cli_resume(tmp, ckdir)
+        gc.collect()
+        torch.cuda.empty_cache()  # the card's memory for the subprocess of (c)
+        t2 = time.time()
+        cli_preempt(tmp)
+        t3 = time.time()
+        native = cli_evaluate(smi, tmp, ckdir)
+        t4 = time.time()
+        cli_paths(tmp, native)
+        print(f"[cli] seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {t3 - t2:.1f}, "
+              f"(d) {t4 - t3:.1f}, (e) {time.time() - t4:.1f}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3464,6 +3797,7 @@ def main() -> int:
     ftn, counts["fused_window_block"] = phase("12", check_ftn, smi)
     ftn_train, counts["fused_window_block_bwd"] = phase("13", check_ftn_train, smi)
     evals = phase("14", check_eval, smi, state, sweep_launches)
+    phase("15", check_cli, smi, train_counts, step_ms)
     print(f"[time] all phases: {time.time() - t0:.1f} s", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,

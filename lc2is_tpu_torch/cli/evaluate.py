@@ -1,0 +1,63 @@
+"""Evaluation CLI, counterpart of ``lc2is_tpu/cli/evaluate.py`` (the working
+version of the reference's ``evaluate.py``; canonical config
+``evaluate.sh:1-23``: img 512, label 128, batch 16, seed 1024)::
+
+    python -m lc2is_tpu_torch.cli.evaluate --name RUN --checkpoint step-400.pt ...
+
+The JAX CLI's argv; ``--device cpu`` runs on the CPU.  ``--checkpoint``
+takes a reference ``.pt`` or a native ``.pth``; ``--resume`` without it
+evaluates the run's latest native checkpoint.  ``--gt_metrics`` adds the
+GT-resolution mIoU (``metrics/gt.py``), ``--sliding`` runs the multi-scale
+sliding evaluation (``engine/sliding.py``) in place of the plain one.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+from lc2is_tpu_torch.cli.common import build_loaders, build_model, load_weights, parse_args
+from lc2is_tpu_torch.engine.engine import Engine
+from lc2is_tpu_torch.engine.sliding import evaluate_sliding
+from lc2is_tpu_torch.metrics.gt import segmentation_metrics
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    np.random.seed(args.seed)
+
+    _, eval_loader, class_names = build_loaders(args)
+    model = build_model(args, class_names)
+    compute_metrics = None
+    if args.gt_metrics:
+        compute_metrics = functools.partial(segmentation_metrics, bucket=args.gt_bucket,
+                                            device=args.device)
+    engine = Engine(
+        name=args.name,
+        model=model,
+        params=load_weights(args.checkpoint, model) if args.checkpoint else None,
+        device=args.device,
+        fp16=args.fp16,
+        eval_loader=eval_loader,
+        out_dir=args.out_dir,
+        logger=args.logger,
+        seed=args.seed,
+        keep_eval_outputs=args.gt_metrics,
+        compute_metrics=compute_metrics,
+    )
+    if args.resume and not args.checkpoint:
+        print(f"[evaluate] resumed at step {engine.resume()}", flush=True)
+    if args.sliding:
+        metrics = evaluate_sliding(engine.model, eval_loader,
+                                   scales=[float(s) for s in args.scales.split(",")],
+                                   crop=args.crop, stride=args.stride,
+                                   num_classes=engine.num_classes)
+    else:
+        metrics = engine.evaluate()
+    print(metrics)
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

@@ -20,12 +20,20 @@ four rules, and nothing else changes:
 Load the result with ``module.load_state_dict(..., strict=True)`` so every
 parameter is covered both ways.  Buffers are not parameters: the prompt
 tower's ``texts`` is rebuilt from ``ops/bpe.tokenize``.
+
+The reference ``.pt`` names are those the JAX package's export writes
+(``torch_import.params_to_state_dict`` :93-110, the names its import reads
+back): every ``name_<digit>`` of the flax path split at its last underscore
+(``linear_stage.2``, ``trans_0_layers.1``), ``sr_reduce`` flattened into its
+layer, ``self_`` kept.  :func:`reference_key` and :func:`port_key` map a name
+between the two, through the flax path (:func:`flax_path` inverts
+:func:`torch_key`).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Mapping, Tuple
+from typing import Dict, Iterable, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +61,78 @@ def torch_key(path: Tuple[str, ...]) -> str:
         else:
             out.append(seg)
     return ".".join(out)
+
+
+def flax_path(key: str) -> Tuple[str, ...]:
+    """The port's state_dict key -> the flax params path (inverse of
+    :func:`torch_key`)."""
+    segs, out, i = key.split("."), [], 0
+    while i < len(segs):
+        seg = segs[i]
+        if seg == "trans" and i + 3 < len(segs) and segs[i + 2] == "layers":
+            out.append(f"trans_{segs[i + 1]}_layers_{segs[i + 3]}")
+            i += 4
+        elif i + 1 < len(segs) and segs[i + 1].isdigit():
+            out.append(f"{seg}_{segs[i + 1]}")
+            i += 2
+        else:
+            out.append("self_" if seg == "self" else seg)
+            i += 1
+    return tuple(out)
+
+
+def reference_key(key: str) -> str:
+    """The port's key -> the name the JAX package's export writes."""
+    out = []
+    for seg in flax_path(key):
+        if seg == "sr_reduce":
+            continue
+        m = re.fullmatch(r"(.*)_(\d+)", seg)
+        out.append(f"{m.group(1)}.{m.group(2)}" if m else seg)
+    return ".".join(out)
+
+
+_SR_PARAM = re.compile(r"(^|.*\.)(sr|norm)\.(weight|bias)$")
+
+
+def port_key(key: str, sr_prefixes: frozenset = frozenset()) -> str:
+    """A reference name -> the port's key, as the JAX package's import reads
+    it (``torch_import.state_dict_to_params``: a digit segment joins the one
+    before it; the ``sr`` / ``norm`` of a layer in ``sr_prefixes`` move into
+    ``sr_reduce``)."""
+    m = _SR_PARAM.fullmatch(key)
+    if m and m.group(1) in sr_prefixes:
+        key = f"{m.group(1)}sr_reduce.{m.group(2)}.{m.group(3)}"
+    path = []
+    for seg in key.split("."):
+        if seg.isdigit() and path:
+            path[-1] = f"{path[-1]}_{seg}"
+        else:
+            path.append(seg)
+    return torch_key(tuple(path))
+
+
+def from_reference_names(state_dict: Mapping[str, torch.Tensor],
+                         keys: Optional[Iterable[str]] = None) -> Dict[str, torch.Tensor]:
+    """A state_dict under the reference names -> the port's keys (buffers the
+    JAX import skips, ``num_batches_tracked`` and ``position_ids``, dropped).
+
+    A layer's ``sr`` and ``norm`` read two ways: an SR layer's reduction
+    (``sr_reduce``) or a module's own (``RepeatTransformer``'s).  Given the
+    model's ``keys``, each name takes the reading the model has; without
+    them, the JAX import's rule: every layer with an ``sr.weight`` is an SR
+    layer (which misreads ``RepeatTransformer``, as the JAX import does)."""
+    sd = {k: v for k, v in state_dict.items()
+          if not k.endswith(("num_batches_tracked", "position_ids"))}
+    srp = frozenset(k[:-len("sr.weight")] for k in sd if k.endswith("sr.weight"))
+    if keys is None:
+        return {port_key(k, srp): v for k, v in sd.items()}
+    keys = set(keys)
+    out = {}
+    for k, v in sd.items():
+        nested = port_key(k, srp)
+        out[nested if nested in keys else port_key(k)] = v
+    return out
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], object]]:

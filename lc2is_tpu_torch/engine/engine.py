@@ -20,21 +20,30 @@ per-image mIoU, its confusion counts and the f32 logits; :func:`evaluate`
 runs it over batches as the JAX loaders give them and reduces as the JAX
 engine does.
 
-The ``Engine`` class around them (hooks, resume, checkpoints) is not ported
-yet (ROADMAP.md §1).
+:class:`Engine` is the JAX ``Engine`` (:55-550) around them: the same
+constructor, step count, hook cadences, logging, checkpoints and resume, and
+checkpoint-and-stop on SIGTERM and SIGUSR1, on one device (the card unless
+the caller names another) in place of a mesh.
 """
 
 from __future__ import annotations
 
 import inspect
-from typing import Callable, Dict, Iterable, Optional
+import os
+import signal
+import time
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from lc2is_tpu_torch.engine.optim import Optimizer
+from lc2is_tpu_torch.engine import checkpoint as ckpt
+from lc2is_tpu_torch.engine.loggers import make_logger
+from lc2is_tpu_torch.engine.optim import Optimizer, make_optimizer
 from lc2is_tpu_torch.metrics.miou import batch_confusion, dataset_miou, per_image_miou
+from lc2is_tpu_torch.models.zoo import _model_device
+from lc2is_tpu_torch.nn.init import init_parameters_
 from lc2is_tpu_torch.nn.losses import auxiliary_loss, cross_entropy
 from lc2is_tpu_torch.ops.fused_ce import upsampled_cross_entropy
 from lc2is_tpu_torch.ops.resize import resize
@@ -61,25 +70,37 @@ def _fused_or_plain_ce(score_map: torch.Tensor, labels: torch.Tensor) -> torch.T
 
 def train_step(model: nn.Module, optimizer: Optimizer, inputs: Dict[str, torch.Tensor],
                labels: torch.Tensor, aux_weight: float = 0.4,
-               generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+               generator: Optional[torch.Generator] = None,
+               criterion: Optional[Callable] = None, aux_criterion: Optional[Callable] = None,
+               grad_norm: bool = False) -> Dict[str, torch.Tensor]:
     """One optimizer step on one batch; returns the detached losses
     (``train_loss``, and ``train_aux_loss`` already times ``aux_weight``).
     ``generator`` draws the drop-path and dropout masks.  Frozen parameters
     are the optimizer's business (:func:`~lc2is_tpu_torch.engine.optim.make_optimizer`
-    sets ``requires_grad_(False)`` on them)."""
+    sets ``requires_grad_(False)`` on them).  A ``criterion`` (and
+    ``aux_criterion``) replaces the default losses and takes the model's
+    ``outputs`` as they come (``engine.py:296-299``); ``grad_norm`` adds
+    ``train_grad_norm``, the global norm of the trainable gradients before
+    the optimizer clips them (``engine.py:305-308``)."""
     model.train()
     out = _normalize_output(model(inputs, generator=generator))
-    if getattr(model, "return_score_map", None) is not None:
+    if criterion is None and aux_criterion is None \
+            and getattr(model, "return_score_map", None) is not None:
         losses = {"train_loss": _fused_or_plain_ce(out["outputs"], labels)}
         if "low_score_map" in out:
             losses["train_aux_loss"] = _fused_or_plain_ce(out["low_score_map"],
                                                           labels) * aux_weight
     else:
-        losses = {"train_loss": cross_entropy(out["outputs"], labels)}
+        losses = {"train_loss": (criterion or cross_entropy)(out["outputs"], labels)}
         if "low_score_map" in out:
-            losses["train_aux_loss"] = auxiliary_loss(out["low_score_map"], labels) * aux_weight
+            losses["train_aux_loss"] = (aux_criterion or auxiliary_loss)(
+                out["low_score_map"], labels) * aux_weight
     optimizer.zero_grad()
     sum(losses.values()).backward()
+    if grad_norm:
+        grads = [p.grad.float() for p in optimizer.params if p.grad is not None]
+        losses["train_grad_norm"] = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     optimizer.step()
     return {k: v.detach() for k, v in losses.items()}
 
@@ -163,3 +184,320 @@ def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
         kept = {k: v for k, v in kept.items() if k in params}
     metrics = compute_metrics(**kept)
     return {**eval_metrics, **{"eval_" + k: v for k, v in metrics.items()}}
+
+
+class Engine:
+    """Train and evaluate one model, the JAX ``Engine``'s surface
+    (``engine.py:55-160``) with ``mesh`` replaced by ``device``:
+
+    - ``params``: a state_dict of the port's keys to load (strict); without
+      one, every parameter is drawn by :func:`~lc2is_tpu_torch.nn.init.init_parameters_`
+      from a generator seeded with ``seed`` (where JAX calls ``model.init``);
+    - the step count is ``max(steps_in_epoch · max_epoch, max_steps)``, or
+      exactly ``max_steps`` with ``exact_steps`` (``:117-125``); evaluation,
+      logging and saving every ``eval_step`` / ``log_step`` / ``save_step``
+      steps, by default 10 epochs, 1 epoch and 10 epochs;
+    - ``fp16``: floating inputs rounded to bf16 before the model (``_cast``,
+      ``:224-230``); the model's own compute dtype is the caller's;
+    - a model with ``return_score_map`` False trains with the flag set for
+      the step (the low-res maps into the fused upsample-CE, as JAX's clone,
+      ``:246-253``) and evaluates with its ×4 head;
+    - the dropout and drop-path masks come from a generator seeded with
+      ``seed``, not saved in checkpoints (JAX rebuilds its key from ``seed``);
+    - ``watch_grads`` logs ``train_grad_norm``; ``debug_nans`` raises
+      ``FloatingPointError`` on a non-finite loss; SIGTERM and SIGUSR1 during
+      :meth:`train` checkpoint and stop at the next step boundary.
+    """
+
+    def __init__(
+        self,
+        name: str,
+        model: nn.Module,
+        params: Optional[Mapping[str, torch.Tensor]] = None,
+        optimizer: Optional[Optimizer] = None,
+        criterion: Optional[Callable] = None,
+        lr_scheduler: Optional[str] = None,
+        device="cuda",
+        fp16: bool = False,
+        aux_criterion: Optional[Callable] = None,
+        aux_weight: float = 0.4,
+        train_loader=None,
+        eval_loader=None,
+        compute_metrics: Optional[Callable] = None,
+        max_epoch: int = 1,
+        max_steps: Optional[int] = None,
+        exact_steps: bool = False,
+        eval_step: Optional[int] = None,
+        log_step: Optional[int] = None,
+        save_step: Optional[int] = None,
+        out_dir: str = "./",
+        logger: str = "csv",
+        logger_args: Optional[Dict] = None,
+        lr: float = 1e-5,
+        weight_decay: float = 0.0,
+        frozen_prefixes: Sequence[str] = (),
+        num_classes: int = 151,
+        seed: int = 1024,
+        keep_eval_outputs: bool = False,
+        debug_nans: bool = False,
+        checkpoint_on_preemption: bool = True,
+        watch_grads: bool = False,
+        progress: bool = True,
+    ) -> None:
+        self.name = name
+        self.device = _model_device(device)
+        self.model = model.to(self.device)
+        self.fp16 = fp16
+        self.criterion, self.aux_criterion = criterion, aux_criterion
+        self.aux_weight = aux_weight
+        self.train_loader, self.eval_loader = train_loader, eval_loader
+        self.compute_metrics = compute_metrics
+        self.num_classes = num_classes
+        self.keep_eval_outputs = keep_eval_outputs
+        self.debug_nans = debug_nans
+        self.checkpoint_on_preemption = checkpoint_on_preemption
+        self.watch_grads = watch_grads
+        self.progress = progress
+        self.seed = seed
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        self.steps_in_epoch = len(train_loader) if train_loader is not None else 0
+        if max_steps is not None and exact_steps:
+            self.train_steps = max_steps
+        elif max_steps is not None:  # the reference's quirk (engine.py:38-42)
+            self.train_steps = max(self.steps_in_epoch * max_epoch, max_steps)
+        else:
+            self.train_steps = self.steps_in_epoch * max_epoch
+        self.eval_step = self.steps_in_epoch * 10 if eval_step is None else eval_step
+        self.log_step = self.steps_in_epoch if log_step is None else log_step
+        self.save_step = self.steps_in_epoch * 10 if save_step is None else save_step
+        self.out_dir = os.path.join(out_dir, name)
+        self.logger = make_logger(logger, self.out_dir, logger_args)
+
+        if params is None:
+            init_parameters_(self.model, torch.Generator(device=self.device).manual_seed(seed))
+        else:
+            self.model.load_state_dict(params, strict=True)
+        self.optimizer = optimizer if optimizer is not None else make_optimizer(
+            self.model, lr=lr, weight_decay=weight_decay, schedule=lr_scheduler or "constant",
+            total_steps=max(self.train_steps, 1), frozen_prefixes=frozen_prefixes)
+
+        self.train_step_count = 0
+        self.eval_metrics: Dict = {}
+        self.all_train_metrics: Dict[str, List[float]] = {}
+        self._preempted = False
+        self._skip_batches = 0
+        # host seconds of the last train(): in steps, waiting on the loader
+        self.step_seconds = self.loader_wait_seconds = 0.0
+        self.train_images = 0
+
+    # ------------------------------------------------------------------
+    def _make_bar(self, total: int, desc: str, leave: bool = True):
+        """A tqdm bar (``engine.py:53,138``); None when off or tqdm is absent."""
+        if not self.progress:
+            return None
+        try:
+            from tqdm import tqdm
+        except ImportError:
+            return None
+        return tqdm(total=total, desc=desc, leave=leave, dynamic_ncols=True)
+
+    def _batch(self, data):
+        """(inputs on the device, floating ones in bf16 under ``fp16``;
+        int64 labels on the device; metas)."""
+        inputs = dict(data[0]) if isinstance(data, tuple) else dict(data)
+        metas = data[1] if isinstance(data, tuple) and len(data) > 1 else None
+        labels = on_device(inputs.pop("label"), self.device)
+        inputs = {k: on_device(v, self.device) for k, v in inputs.items() if k != "size"}
+        if self.fp16:
+            inputs = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
+                      for k, v in inputs.items()}
+        return inputs, labels, metas
+
+    def _step(self, inputs, labels) -> Dict[str, torch.Tensor]:
+        fused_head = (self.criterion is None and self.aux_criterion is None
+                      and getattr(self.model, "return_score_map", None) is False)
+        if fused_head:
+            self.model.return_score_map = True
+        try:
+            return train_step(self.model, self.optimizer, inputs, labels, self.aux_weight,
+                              self.generator, self.criterion, self.aux_criterion,
+                              grad_norm=self.watch_grads)
+        finally:
+            if fused_head:
+                self.model.return_score_map = False
+
+    # ------------------------------------------------------------------
+    def train(self):
+        """Train to ``train_steps`` (or a preemption signal); returns (the last
+        log and eval metrics, the checkpoint directory of the last save)."""
+        self.logger.init()
+        self.stop_train = self._preempted = False
+        metrics, save_path = {}, None
+        self.step_seconds = self.loader_wait_seconds = 0.0
+        self.train_images = 0
+        self._train_bar = self._make_bar(self.train_steps, "Training")
+        previous = {}
+        if self.checkpoint_on_preemption:
+            def handler(signum, frame):
+                self._preempted = True
+
+            for sig in (signal.SIGTERM, signal.SIGUSR1):
+                try:
+                    previous[sig] = signal.signal(sig, handler)
+                except ValueError:  # not the main thread: no handler, as in JAX
+                    pass
+        t0 = time.time()
+        try:
+            while not self.stop_train:
+                metrics, save_path = self.train_loop()
+        finally:
+            for sig, h in previous.items():
+                signal.signal(sig, h)
+            if self._train_bar is not None:
+                self._train_bar.close()
+        self.logger.finish()
+        dt = time.time() - t0
+        busy = self.step_seconds + self.loader_wait_seconds
+        print(f"[engine] trained {self.train_step_count} steps in {dt:.1f}s "
+              f"({self.train_step_count / max(dt, 1e-9):.2f} steps/s); steps "
+              f"{self.step_seconds:.2f}s ({self.train_images / max(self.step_seconds, 1e-9):.2f}"
+              f" img/s), waiting on the loader {self.loader_wait_seconds:.2f}s "
+              f"({100.0 * self.loader_wait_seconds / max(busy, 1e-9):.1f}%)")
+        return metrics, save_path
+
+    def train_loop(self):
+        """One pass over the train loader, or fewer steps at a stop."""
+        batches = iter(self.train_loader)
+        try:
+            return self._train_batches(batches)
+        finally:
+            if hasattr(batches, "close"):  # stops a prefetching loader's producer
+                batches.close()
+
+    def _train_batches(self, batches):
+        log_metrics, eval_metrics, save_path = {}, {}, None
+        while True:
+            t_wait = time.perf_counter()
+            data = next(batches, None)
+            if data is None:
+                break
+            if self._skip_batches:  # resumed inside an epoch: its first batches are done
+                self._skip_batches -= 1
+                continue
+            t_step = time.perf_counter()
+            self.loader_wait_seconds += t_step - t_wait
+            self.train_step_count += 1
+            inputs, labels, _ = self._batch(data)
+            losses = {k: float(v) for k, v in self._step(inputs, labels).items()}
+            self.step_seconds += time.perf_counter() - t_step
+            self.train_images += int(labels.shape[0])
+            if self._train_bar is not None:
+                self._train_bar.update(1)
+            if self.debug_nans and not all(np.isfinite(v) for v in losses.values()):
+                raise FloatingPointError(f"non-finite loss at step {self.train_step_count}: "
+                                         f"{losses}")
+            for k, v in losses.items():
+                self.all_train_metrics.setdefault(k, []).append(v)
+
+            eval_metrics = self.should_eval()
+            log_metrics = self.should_log()
+            save_path = self.should_save()
+            if self._preempted:
+                save_path = self.save()
+                print(f"[engine] preemption signal: checkpointed at step "
+                      f"{self.train_step_count}", flush=True)
+                self.stop_train = True
+                break
+            if self.should_stop():
+                self.stop_train = True
+                break
+        return {**log_metrics, **eval_metrics}, save_path
+
+    # ------------------------------------------------------------------
+    def evaluate(self) -> Dict[str, float]:
+        """:func:`evaluate` over the eval loader (``engine.py:398-476``)."""
+        self.eval_metrics = evaluate(self.model, self._eval_batches(), self.aux_weight,
+                                     self.num_classes, self.keep_eval_outputs,
+                                     self.compute_metrics)
+        return self.eval_metrics
+
+    def _eval_batches(self):
+        bar = self._make_bar(len(self.eval_loader), "Evaluation", leave=False)
+        try:
+            for data in self.eval_loader:
+                inputs, labels, metas = self._batch(data)
+                if bar is not None:
+                    bar.update(1)
+                yield dict(inputs, label=labels), metas
+        finally:
+            if bar is not None:
+                bar.close()
+
+    # ------------------------------------------------------------------
+    def log(self) -> Dict:
+        train_epoch = round(self.train_step_count / max(self.steps_in_epoch, 1), 4)
+        train_metrics = {k: float(np.mean(v)) for k, v in self.all_train_metrics.items()}
+        metrics = {"train_step": self.train_step_count, "train_epoch": train_epoch,
+                   **train_metrics, **self.eval_metrics}
+        self.logger.log(metrics)
+        print(f"[engine] step {self.train_step_count}: "
+              + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                          for k, v in metrics.items()), flush=True)
+        return metrics
+
+    def save(self) -> str:
+        """The model and optimizer state at this step, natively; returns the
+        checkpoint directory."""
+        checkpoints_dir = os.path.join(self.out_dir, "checkpoints")
+        ckpt.save_checkpoint(checkpoints_dir, dict(model=self.model.state_dict(),
+                                                   optimizer=self.optimizer.state_dict(),
+                                                   step=self.train_step_count),
+                             self.train_step_count)
+        return checkpoints_dir
+
+    def save_reference_pt(self, path: Optional[str] = None) -> str:
+        """The parameters as a reference ``.pt`` (``step-{N}.pt`` by default)."""
+        checkpoints_dir = os.path.join(self.out_dir, "checkpoints")
+        os.makedirs(checkpoints_dir, exist_ok=True)
+        path = path or os.path.join(checkpoints_dir, f"step-{self.train_step_count}.pt")
+        ckpt.export_reference_pt(self.model, path)
+        return path
+
+    def resume(self, fname: Optional[str] = None) -> int:
+        """Model, optimizer and step from the latest (or the given) native
+        checkpoint; returns the step (0 where there is none).  The train
+        loader goes on from that step's epoch and batch."""
+        fname = fname or ckpt.latest_checkpoint(os.path.join(self.out_dir, "checkpoints"))
+        if fname is None:
+            return 0
+        state, _ = ckpt.load_checkpoint(fname)
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.train_step_count = int(state["step"])
+        if self.train_loader is not None and self.steps_in_epoch:
+            if hasattr(self.train_loader, "set_epoch"):
+                self.train_loader.set_epoch(self.train_step_count // self.steps_in_epoch)
+            self._skip_batches = self.train_step_count % self.steps_in_epoch
+        return self.train_step_count
+
+    # --- hooks (engine.py:531-550) -----------------------------------------
+    def should_eval(self):
+        if self.eval_loader is not None and self.train_step_count % max(self.eval_step, 1) == 0:
+            return self.evaluate()
+        return {}
+
+    def should_log(self):
+        if self.train_step_count % max(self.log_step, 1) == 0:
+            m = self.log()
+            self.all_train_metrics = {}
+            return m
+        return {}
+
+    def should_save(self):
+        if self.train_step_count % max(self.save_step, 1) == 0:
+            return self.save()
+        return None
+
+    def should_stop(self) -> bool:
+        return self.train_step_count % max(self.train_steps, 1) == 0

@@ -64,6 +64,16 @@ class Optimizer:
         self.adamw = torch.optim.AdamW(self.params, lr=schedule(0), betas=(0.9, 0.999),
                                        eps=1e-8, weight_decay=weight_decay)
 
+    def state_dict(self) -> Dict:
+        """The AdamW moments and step counts, the count of updates the
+        schedule reads, and the clip (a native checkpoint's ``optimizer``)."""
+        return dict(count=self.count, grad_clip=self.grad_clip, adamw=self.adamw.state_dict())
+
+    def load_state_dict(self, state: Dict) -> None:
+        self.count = int(state["count"])
+        self.grad_clip = state["grad_clip"]
+        self.adamw.load_state_dict(state["adamw"])
+
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 

@@ -225,7 +225,7 @@ class BaseModelWithText(_ClipBase):
 
     ``class_prototypes`` is a parameter: ``prototypes`` (151, C), the
     reference's ``ade20k_prototypes.pt``, fills it; otherwise it comes from a
-    state dict or ``core/convert.seeded_init_``."""
+    state dict, ``core/convert.seeded_init_`` or ``nn/init.init_parameters_``."""
 
     def __init__(self, patch_size: int = 16, in_size: int = 224, out_size: int = 224,
                  dropout: float = 0.0, num_layers: int = 1,
@@ -238,6 +238,7 @@ class BaseModelWithText(_ClipBase):
         text_dim = self.text_encoder.hidden_size
         vis_dim = self.vision_encoder.hidden_size
         self.class_prototypes = _param(ADE20K_NUM_CLASSES, text_dim, device=device)
+        self.prototypes_given = prototypes is not None  # nn/init.py keeps them
         if prototypes is not None:
             with torch.no_grad():
                 self.class_prototypes.copy_(torch.as_tensor(np.asarray(prototypes, np.float32)))

@@ -183,3 +183,19 @@ def tokenize(texts: Union[str, Sequence[str]], context_length: int = 77,
             ids = ids[: context_length - 1] + [EOT]
         result[i, : len(ids)] = ids
     return result
+
+
+def tokenize_batch_padded(texts: Sequence[str], bpe_path: Optional[str] = None,
+                          max_length: int = 77):
+    """HF ``CLIPTokenizerFast(..., padding=True)`` contract
+    (``lc2is_tpu/ops/bpe.py:228-241``): pad to the longest sequence; returns
+    (input_ids, attention_mask), (N, L) int64."""
+    tok = get_tokenizer(bpe_path)
+    seqs = [[SOT] + tok.encode(t)[: max_length - 2] + [EOT] for t in texts]
+    ln = max(len(s) for s in seqs)
+    ids = np.zeros((len(seqs), ln), dtype=np.int64)
+    mask = np.zeros((len(seqs), ln), dtype=np.int64)
+    for i, s in enumerate(seqs):
+        ids[i, : len(s)] = s
+        mask[i, : len(s)] = 1
+    return ids, mask

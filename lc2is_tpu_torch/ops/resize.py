@@ -1,13 +1,18 @@
-"""Torch-semantics bilinear and bicubic resize as two matrix products,
-nearest as an index gather, and the channels-last token-grid resize.
+"""Bilinear and bicubic resize as two matrix products, nearest as an index
+gather, and the channels-last token-grid resize, in torch's or PIL's
+semantics.
 
-Counterpart of the ``semantics="torch"`` path of ``lc2is_tpu/ops/resize.py``
-(``_torch_resize_matrix`` :49-78, ``_nearest_indices`` :198, ``resize``
-:225, ``resize_tokens`` :287):
+Counterpart of ``lc2is_tpu/ops/resize.py`` (``_torch_resize_matrix`` :49-78,
+``_pil_resize_matrix`` :80-123, ``_nearest_indices`` :199-216, ``resize``
+:225, ``resize_tokens`` :287).  ``semantics="torch"``:
 ``F.interpolate(mode="bilinear" | "bicubic", align_corners=False)`` without
-antialias (bicubic: a = -0.75, clamped taps), written as an [out, in] weight
-matrix per axis (rows then columns).  Plain PyTorch: the JAX package computes
-it outside any Pallas kernel.  In bf16
+antialias (bicubic: a = -0.75, clamped taps); nearest ``floor(i · in/out)``.
+``semantics="pil"``: ``PIL.Image.resize``, always antialiased (bicubic a =
+-0.5, bilinear, lanczos, box; the support widened by the downscale factor,
+each row's weights normalised); nearest ``floor((i + 0.5) · in/out)``.  Each
+is an [out, in] weight matrix per axis (rows then columns), built in float64
+on the host.  Plain PyTorch: the JAX package computes it outside any Pallas
+kernel.  In bf16
 each pass accumulates in f32 and rounds to bf16, as ``resize.py:275-279``
 does; f32 runs in full f32.
 
@@ -28,9 +33,8 @@ import torch
 from lc2is_tpu_torch.ops.upsample import upsample_tokens
 
 
-def _cubic(x: np.ndarray) -> np.ndarray:
-    """torch's cubic convolution kernel (a = -0.75)."""
-    a = -0.75
+def _cubic(x: np.ndarray, a: float = -0.75) -> np.ndarray:
+    """The cubic convolution kernel: torch's a = -0.75, PIL's -0.5."""
     ax = np.abs(x)
     return np.where(ax <= 1.0, (a + 2.0) * ax ** 3 - (a + 3.0) * ax ** 2 + 1.0,
                     np.where(ax < 2.0, a * ax ** 3 - 5.0 * a * ax ** 2 + 8.0 * a * ax - 4.0 * a,
@@ -56,6 +60,37 @@ def _resize_matrix(in_size: int, out_size: int, scale: Optional[float],
     return m.astype(np.float32)
 
 
+def _pil_filter(method: str):
+    """(filter, support) of PIL's resampling filters."""
+    if method == "bicubic":
+        return (lambda x: _cubic(x, -0.5)), 2.0
+    if method == "bilinear":
+        return (lambda x: np.clip(1.0 - np.abs(x), 0.0, None)), 1.0
+    if method == "lanczos":
+        return (lambda x: np.where(np.abs(x) < 3.0, np.sinc(x) * np.sinc(x / 3.0), 0.0)), 3.0
+    if method == "box":
+        return (lambda x: np.where(np.abs(x) <= 0.5, 1.0, 0.0)), 0.5
+    raise ValueError(f"no PIL filter {method!r}")
+
+
+@functools.lru_cache(maxsize=64)
+def _pil_matrix(in_size: int, out_size: int, method: str) -> np.ndarray:
+    """[out, in] matrix of ``PIL.Image.resize`` (antialiased)."""
+    filt, support = _pil_filter(method)
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    sup = support * filterscale
+    m = np.zeros((out_size, in_size), dtype=np.float64)
+    for i in range(out_size):
+        center = (i + 0.5) * scale
+        lo = max(int(center - sup + 0.5), 0)
+        hi = min(int(center + sup + 0.5), in_size)
+        w = filt((np.arange(lo, hi, dtype=np.float64) + 0.5 - center) / filterscale)
+        tot = w.sum()
+        m[i, lo:hi] = w / tot if tot != 0 else w
+    return m.astype(np.float32)
+
+
 @functools.lru_cache(maxsize=64)
 def resize_taps(in_size: int, out_size: int, scale: Optional[float],
                 method: str) -> Tuple[np.ndarray, np.ndarray]:
@@ -75,21 +110,31 @@ def resize_taps(in_size: int, out_size: int, scale: Optional[float],
 
 
 @functools.lru_cache(maxsize=64)
-def _nearest_indices(in_size: int, out_size: int, scale: Optional[float]) -> np.ndarray:
-    """torch ``mode="nearest"`` source indices, ``floor(i · in/out)`` (or
-    ``floor(i · scale)``), clipped to the input."""
+def _nearest_indices(in_size: int, out_size: int, scale: Optional[float],
+                     semantics: str = "torch") -> np.ndarray:
+    """Nearest source indices, clipped to the input: torch ``mode="nearest"``
+    ``floor(i · s)``, PIL's NEAREST ``floor((i + 0.5) · s)``, s = in/out (or
+    ``scale``)."""
     s = scale if scale is not None else in_size / out_size
-    idx = np.floor(np.arange(out_size, dtype=np.float64) * s)
+    i = np.arange(out_size, dtype=np.float64)
+    if semantics == "torch":
+        idx = np.floor(i * s)
+    elif semantics == "pil":
+        idx = np.floor((i + 0.5) * s)
+    else:
+        raise ValueError(semantics)
     return np.clip(idx.astype(np.int64), 0, in_size - 1)
 
 
 def resize(x: torch.Tensor, size=None, scale_factor: Optional[float] = None,
-           method: str = "bilinear") -> torch.Tensor:
-    """Resize the last two axes of ``x`` (torch bilinear, bicubic or nearest
-    semantics).  Output size follows torch's ``floor(in * scale_factor)`` rule."""
-    if method not in ("bilinear", "bicubic", "nearest"):
-        raise ValueError(f"only bilinear, bicubic and nearest (torch semantics) are ported, got "
-                         f"{method}; PIL's methods wait for the port of data/preprocess.py")
+           method: str = "bilinear", semantics: str = "torch") -> torch.Tensor:
+    """Resize the last two axes of ``x``: ``method`` bilinear, bicubic or
+    nearest, and with ``semantics="pil"`` also lanczos and box.  Output size
+    follows torch's ``floor(in * scale_factor)`` rule."""
+    torch_methods = ("bilinear", "bicubic", "nearest")
+    if semantics not in ("torch", "pil") or (semantics == "torch"
+                                             and method not in torch_methods):
+        raise ValueError(f"resize: method {method!r} with semantics {semantics!r}")
     in_h, in_w = int(x.shape[-2]), int(x.shape[-1])
     if size is not None:
         out_h, out_w = (size, size) if isinstance(size, int) else map(int, size)
@@ -98,12 +143,17 @@ def resize(x: torch.Tensor, size=None, scale_factor: Optional[float] = None,
         out_h, out_w = int(math.floor(in_h * scale_factor)), int(math.floor(in_w * scale_factor))
         scale = 1.0 / scale_factor
     if method == "nearest":
-        ih = torch.from_numpy(_nearest_indices(in_h, out_h, scale)).to(x.device)
-        iw = torch.from_numpy(_nearest_indices(in_w, out_w, scale)).to(x.device)
+        ih = torch.from_numpy(_nearest_indices(in_h, out_h, scale, semantics)).to(x.device)
+        iw = torch.from_numpy(_nearest_indices(in_w, out_w, scale, semantics)).to(x.device)
         return x.index_select(-2, ih).index_select(-1, iw)
     wdt = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
-    wh = torch.from_numpy(_resize_matrix(in_h, out_h, scale, method)).to(x.device, wdt)
-    ww = torch.from_numpy(_resize_matrix(in_w, out_w, scale, method)).to(x.device, wdt)
+    if semantics == "pil":
+        mh, mw = _pil_matrix(in_h, out_h, method), _pil_matrix(in_w, out_w, method)
+    else:
+        mh = _resize_matrix(in_h, out_h, scale, method)
+        mw = _resize_matrix(in_w, out_w, scale, method)
+    wh = torch.from_numpy(mh).to(x.device, wdt)
+    ww = torch.from_numpy(mw).to(x.device, wdt)
     xc = x.to(wdt)
     y = torch.einsum("oh,...hw->...ow", wh, xc)  # bf16: f32 accumulate, bf16 out
     y = torch.einsum("pw,...ow->...op", ww, y)

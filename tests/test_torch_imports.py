@@ -1,5 +1,6 @@
-"""lc2is_tpu_torch imports neither jax nor lc2is_tpu, and its device dispatch has exactly
-two branches."""
+"""lc2is_tpu_torch imports neither jax nor lc2is_tpu (every module, the CLI's
+among them), its CLI starts, and its device dispatch has exactly two
+branches."""
 
 import subprocess
 import sys
@@ -18,9 +19,16 @@ import lc2is_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(lc2is_tpu_torch.__path__, "lc2is_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
-assert len(mods) >= 18, mods
+assert len(mods) >= 30, mods
 new = {"lc2is_tpu_torch.nn.clip", "lc2is_tpu_torch.ops.flash_attention",  # the v1 slice
-       "lc2is_tpu_torch.ops.window_attention"}  # row 8, the windowed swin route
+       "lc2is_tpu_torch.ops.window_attention",  # row 8, the windowed swin route
+       "lc2is_tpu_torch.nn.init", "lc2is_tpu_torch.engine.checkpoint",  # the CLI slice
+       "lc2is_tpu_torch.engine.loggers", "lc2is_tpu_torch.engine.profiler",
+       "lc2is_tpu_torch.data.ade20k", "lc2is_tpu_torch.data.transforms",
+       "lc2is_tpu_torch.data.collators", "lc2is_tpu_torch.data.loader",
+       "lc2is_tpu_torch.data.preprocess", "lc2is_tpu_torch.cli.common",
+       "lc2is_tpu_torch.cli.train", "lc2is_tpu_torch.cli.evaluate",
+       "lc2is_tpu_torch.cli.prepare_data"}
 assert new <= set(mods), sorted(new - set(mods))
 from lc2is_tpu_torch.models import zoo
 v4 = {"BaseSelfA", "BaseCrossA", "PromptSelfA", "PromptCrossA", "PromptAuxSelfA"}
@@ -37,6 +45,20 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("cli", ["train", "evaluate", "prepare_data"])
+def test_cli_help(cli):
+    """``python -m lc2is_tpu_torch.cli.<cli> --help`` starts without jax."""
+    code = (f"import runpy, sys; sys.argv = ['{cli}', '--help']\n"
+            f"try:\n    runpy.run_module('lc2is_tpu_torch.cli.{cli}', run_name='__main__')\n"
+            "except SystemExit as e:\n    assert e.code == 0, e.code\n"
+            "assert 'jax' not in sys.modules\n"
+            "assert not [m for m in sys.modules if m.split('.')[0] == 'lc2is_tpu']\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "usage:" in out.stdout
 
 
 def test_dispatch_branches():

@@ -51,8 +51,12 @@ def test_nearest_size_matches_jax(size):
 
 
 def test_other_methods_raise():
-    with pytest.raises(ValueError, match="data/preprocess.py"):
+    """PIL's filters exist only in PIL's semantics (``tests/test_torch_data.py``
+    holds them to PIL); torch's semantics and unknown semantics raise."""
+    with pytest.raises(ValueError, match="'lanczos' with semantics 'torch'"):
         resize(torch.zeros(1, 1, 4, 4), size=(8, 8), method="lanczos")
+    with pytest.raises(ValueError, match="semantics 'cv2'"):
+        resize(torch.zeros(1, 1, 4, 4), size=(8, 8), method="bilinear", semantics="cv2")
 
 
 @pytest.fixture(scope="module")
