@@ -68,7 +68,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    shapes, the upsample adjoint at the FTN decoders' shapes, each tagged
    with its launches per step of each FTN model (in the dtype that step runs
    it in), their kernel / plain / bound times summed per step of each, and
-   the launches so summed held to phase 13's counts;
+   the launches so summed held to phase 13's counts; the f32 bodies of
+   fused_attn_block_bwd, swin_window_block_bwd and fused_window_block_bwd
+   (3xTF32) also within F32X3_GRAD_REL on every gradient, with the plain
+   version run with TF32 products as a control that must fail it (both
+   errors printed), and their f32 times summed per batch-8 step; then, in
+   f32 under the same rules, every backward of phase 6c's batch-16 flagship
+   step at its shapes (the fused CE at 128² labels: the low-res map's, ratio
+   4), tagged with that step's launches, which must sum to phase 6c's counts,
+   and rows 3 and 7 summed per batch-16 step;
 3w. window attention (TPU row 8, on no model's path): window_attention
    against its plain version at swin-small's four stage shapes of a 512²
    batch-16 forward (N 5776 / 1600 / 400 / 144 windows of 49 tokens, C 96 to
@@ -108,7 +116,13 @@ Phases, in order; any failure raises and the script exits non-zero:
        parameters after AdamW; the frozen tower unchanged bit for bit);
    (b) bf16, batch 8, 512², drop path 0.1 from a seeded generator: two
        warm-up steps, the launch counts of one step asserted, six timed steps
-       (step ms, img/s), finite losses, trainable parameters changed.
+       (step ms, img/s), finite losses, trainable parameters changed;
+   (c) f32, batch 16, 512², 128² labels, decoder dropout 0, as
+       scripts/all_args.sh trains it: two warm-up steps, six timed (step ms,
+       img/s, peak memory), the launch counts of one step asserted, and a
+       torch.profiler table of one more step, from which rows 3 and 7's
+       device time a step is read (their autograd nodes,
+       _FusedAttnBlockBackward and _SwinWindowBlockBackward).
 7. the v1 CLIP family (ViT-B/16 at 512², the 12-layer CLIP text tower),
    weights from a numpy seed, ids from ops/bpe.tokenize on class-name
    prompts padded to 77, attention_mask = ids != 0:
@@ -344,6 +358,13 @@ TRAIN_BATCH = 8
 TRAIN_LR = 1e-5
 # backward kernel against autograd through its plain version: ‖Δ‖ / ‖ref‖
 GRAD_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the f32 bodies of the two training backwards (TPU rows 3, 7 and 10: every
+# product in 3xTF32 on the tensor cores) are also held to ‖Δ‖ / ‖ref‖ <=
+# F32X3_GRAD_REL on every gradient: GRAD_BOUNDS' f32 rule would pass TF32
+# products too.  Their plain versions run with TF32 products are the control
+# that must fail it
+F32X3_GRAD_REL = 1e-5
+F32X3_BACKWARDS = ("fused_attn_block_bwd", "swin_window_block_bwd", "fused_window_block_bwd")
 # the upsample kernels (rows 4 and 5) against their plain versions, which
 # round where the reference rounds and sum in the kernels' order: bf16 equal
 # on at least UPSAMPLE_BF16_EQUAL of the elements and within one bf16 step on
@@ -1383,14 +1404,15 @@ def check_window_attention(smi):
     return stats
 
 
-def backward_cases(rs, dt):
+def backward_cases(rs, dt, b=TRAIN_BATCH, label=IMG):
     """(kernel name, shape label, launches per training step, kernel call,
     (kernel-path fn, plain fn, args, g) for the gradient check, work (bytes,
     ops), the one PyTorch call of the same function or None, the plain
     adjoint or None, {FTN model: launches per bf16 batch-8 step of it in this
-    dtype}) at every shape of the 512² / batch-8 training steps of the
-    flagship and of the FTN models (phase 13).  Row 10, the window blocks of
-    swin-base stage 3 (C 512, the JAX package's windowed backward), reports
+    dtype}) at every shape of the 512² / batch-``b`` training steps, labels
+    ``label``², of the flagship and of the FTN models (phase 13).  Row 10,
+    the window blocks of swin-base stage 3 (C 512, the JAX package's
+    windowed backward), reports
     as ``fused_window_block_bwd``, its launches per DenseCLIPFTN step.  The
     plain time is autograd's backward through the plain version; for the
     fused CE, whose one kernel computes the loss and the gradient, it is the
@@ -1408,7 +1430,6 @@ def backward_cases(rs, dt):
                                               upsample_tokens_adjoint_plain,
                                               upsample_tokens_plain)
 
-    b = TRAIN_BATCH
     g = IMG // 4
     cases = []
 
@@ -1513,11 +1534,15 @@ def backward_cases(rs, dt):
                 g_.view(b, 2 * h, 2 * h, c_).permute(0, 3, 1, 2), [2 * h, 2 * h], [b, c_, h, h],
                 False, None, None),
             lambda g_=gr, h=grid: upsample_tokens_adjoint_plain(g_, (h, h), 2), on_ftn))
-    for h, r in [(g, 4), (g // 4, 16)]:
+    # the score map and the low-res map; at ratio 1 the loss is a plain CE
+    for h, r in [(g, label // g), (g // 4, 4 * label // g)]:
+        if r == 1:
+            continue
         x = rand(rs, b, N_CLASSES, h, h, dtype=dt)
-        y = seeded_labels(SEED + r, b, IMG, IMG)
+        y = seeded_labels(SEED + r, b, label, label)
         cases.append((
-            "upsampled_cross_entropy", f"({b},{N_CLASSES},{h},{h}) r{r}, labels ({b},{IMG},{IMG})",
+            "upsampled_cross_entropy",
+            f"({b},{N_CLASSES},{h},{h}) r{r}, labels ({b},{label},{label})",
             1, lambda x_=x, y_=y, r_=r: fused_ce_fwd(x_, y_, r_),
             (lambda a, y_=y, r_=r: upsampled_cross_entropy(a, y_, r_),
              lambda a, y_=y, r_=r: upsampled_cross_entropy_plain(a, y_, r_), [x], None),
@@ -1646,15 +1671,28 @@ def check_flash_backward(stats):
 
 
 def check_backward_kernels():
-    """Phase 3b.  Returns per-kernel stats for the JSON line."""
-    stats, ftn_stats = {}, {}
-    for dt in (torch.bfloat16, torch.float32):
+    """Phase 3b: bf16 and f32 at the batch-8 steps' shapes, then f32 at the
+    shapes of phase 6c's batch-16 flagship step (128² labels), whose launches
+    they are tagged with and must sum to.  Returns per-kernel stats for the
+    JSON line."""
+    stats, ftn_stats, f32_sums = {}, {}, {}
+    for dt, batch, labels in ((torch.bfloat16, TRAIN_BATCH, IMG),
+                              (torch.float32, TRAIN_BATCH, IMG),
+                              (torch.float32, F32_STEP_BATCH, F32_STEP_LABEL)):
         bound = GRAD_BOUNDS[dt]
-        print(f"\n[backward] {dt}: bound ‖kernel - plain‖ / ‖plain‖ <= {bound} over every "
-              f"gradient", flush=True)
+        step6c = batch == F32_STEP_BATCH
+        print(f"\n[backward] {dt}, batch {batch}, {labels}² labels"
+              f"{' (phase 6c: the flagship step only)' if step6c else ''}: bound "
+              f"‖kernel - plain‖ / ‖plain‖ <= {bound} over every gradient", flush=True)
         rs = np.random.RandomState(SEED + 3)
+        launches = {}
         for (name, label, count, kern, (kfn, pfn, args, g), work, library,
-             adjoint_plain, on_ftn) in backward_cases(rs, dt):
+             adjoint_plain, on_ftn) in backward_cases(rs, dt, batch, labels):
+            if step6c:
+                if not count or name not in BACKWARD_KERNELS:
+                    continue
+                on_ftn = {}  # the FTN sums are per bf16 batch-8 step
+                launches[name] = launches.get(name, 0) + count
             ka = [a.detach().clone().requires_grad_() for a in args]
             pa = [a.detach().clone().requires_grad_() for a in args]
             got = torch.autograd.grad(kfn(*ka), ka, g)
@@ -1670,6 +1708,21 @@ def check_backward_kernels():
                       for a, b_ in zip(got, want))
             mx = max((a.float() - b_.float()).abs().max().item() for a, b_ in zip(got, want))
             finite = all(bool(torch.isfinite(a).all()) for a in got)
+            x3_rule = dt == torch.float32 and name in F32X3_BACKWARDS
+            if x3_rule:  # the 3xTF32 rule and its control, the plain version in TF32
+                ta = [a.detach().clone().requires_grad_() for a in args]
+                tf32 = plain_tf32(lambda: torch.autograd.grad(pfn(*ta), ta, g))
+                c_rel = max(((a.float() - b_.float()).norm()
+                             / b_.float().norm().clamp_min(1e-30)).item()
+                            for a, b_ in zip(tf32, want))
+                print(f"    3xTF32 rule ‖Δ‖/‖plain‖ <= {F32X3_GRAD_REL} on every gradient: "
+                      f"kernel {rel:.3e}; control, the plain version with TF32 products "
+                      f"{c_rel:.3e}: {'fails, as it must' if c_rel > F32X3_GRAD_REL else 'passes'}",
+                      flush=True)
+                if c_rel <= F32X3_GRAD_REL:
+                    raise AssertionError(f"{name} {label}: the 3xTF32 rule passes its TF32 "
+                                         f"control ({c_rel:.3e})")
+                del ta, tf32
             k_ms = time_ms(kern, reps=5, warmup=1)
             p_ms = time_ms(lambda: torch.autograd.grad(out_p, pa, g, retain_graph=True),
                            reps=5, warmup=1)
@@ -1679,7 +1732,7 @@ def check_backward_kernels():
                 p_ms = time_ms(adjoint_plain, reps=5, warmup=1)
             lib_ms = time_ms(library, reps=5, warmup=1) if library else None
             b_ms, by = least_time(*work)
-            ok = rel <= bound and finite
+            ok = rel <= bound and finite and (not x3_rule or rel <= F32X3_GRAD_REL)
             lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
             if adjoint_plain is not None:
                 ok, _, msg = upsample_bits(got[0], want[0])
@@ -1706,6 +1759,10 @@ def check_backward_kernels():
                       f"{'passes' if c_ok else 'fails, as it must'}", flush=True)
                 if c_ok:
                     raise AssertionError(f"{name} {label}: the bit rule passes its control")
+            if x3_rule and count:  # f32 per flagship step (row 10: per FTN step)
+                f = f32_sums.setdefault((name, batch), [0, 0.0, 0.0, 0.0])
+                for i, v in enumerate((count, count * k_ms, count * p_ms, count * b_ms)):
+                    f[i] += v
             st = stats.setdefault(name, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
                                              library_ms=None, by={}))
             st["max_abs_err"] = max(st["max_abs_err"], mx)
@@ -1725,6 +1782,15 @@ def check_backward_kernels():
             del got, want, out_p, ka, pa
             control = None
         torch.cuda.empty_cache()
+        want_launches = {k: v for k, v in EXPECTED_F32_STEP_LAUNCHES.items()
+                         if k in BACKWARD_KERNELS}
+        if step6c and launches != want_launches:
+            raise AssertionError(f"phase 3b's f32 batch-{batch} shapes give launches "
+                                 f"{launches}, phase 6c counts {want_launches}")
+    for (name, batch), (n, k_ms, p_ms, b_ms) in f32_sums.items():
+        per = "DenseCLIPFTN step" if name == "fused_window_block_bwd" else "flagship step"
+        print(f"[backward] f32 (3xTF32) {name}: {n} launches a batch-{batch} {per}: "
+              f"kernel {k_ms:.2f} ms, plain {p_ms:.2f}, bound {b_ms:.3f}", flush=True)
     report_ftn_backward(ftn_stats)
     check_flash_backward(stats)
     return stats
@@ -2109,6 +2175,73 @@ def check_train_f32(state, name="PromptAuxCrossA", label="train"):
     compare_f32_steps(state, name, label, cpu, opt_c, gpu, opt_g, {"pixel_values": x})
 
 
+# the flagship's f32 training step as scripts/all_args.sh runs it (phase 6c):
+# 512² images, 128² labels, batch 16, FP16=False, dropout 0
+F32_STEP_BATCH = 16
+F32_STEP_LABEL = IMG // 4
+# its launches: at 128² labels the score map's loss is a plain CE (ratio 1,
+# engine.py's _fused_or_plain_ce) and only the low-res map's (ratio 4) runs
+# the fused CE
+EXPECTED_F32_STEP_LAUNCHES = dict(EXPECTED_TRAIN_LAUNCHES, upsampled_cross_entropy=1)
+
+
+def check_train_f32_step(smi, state, name="PromptAuxCrossA", label="train"):
+    """Phase 6c: the flagship's f32 training step at batch 16 (512², 128²
+    labels, decoder dropout 0, the swin's default drop path), as
+    scripts/all_args.sh trains it: 2 warm-up steps and 6 timed ones (host
+    clock to a synchronize), img/s, peak memory, the launch counts of one
+    step (every f32 backward through its kernel), and a torch.profiler table
+    of one more step with rows 3 and 7's device time read from it.  Returns
+    the median step ms."""
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    model, opt = train_models(state, name)
+    batch = F32_STEP_BATCH
+    x = rand(np.random.RandomState(SEED + 60), batch, 3, IMG, IMG)
+    y = seeded_labels(SEED + 61, batch, F32_STEP_LABEL, F32_STEP_LABEL)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    counters = launch_counters()
+    for _ in range(2):
+        train_step(model, opt, {"pixel_values": x}, y, generator=gen)
+    torch.cuda.synchronize()
+    times = []
+    for i in range(6):
+        if i == 0:
+            for f in counters.values():
+                f.launches = 0
+        t0 = time.perf_counter()
+        out = train_step(model, opt, {"pixel_values": x}, y, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = {k: f.launches for k, f in counters.items() if f.launches}
+    peak = torch.cuda.max_memory_allocated()
+    ms = statistics.median(times)
+    losses = {k: round(v.item(), 5) for k, v in out.items()}
+    print(f"[{label}] (c) {name} f32 b{batch} {IMG}², {F32_STEP_LABEL}² labels, decoder "
+          f"dropout 0 (scripts/all_args.sh): losses {losses}; launches over one step "
+          f"{counts}", flush=True)
+    if counts != EXPECTED_F32_STEP_LAUNCHES or not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"f32 step launch counts {counts} != "
+                             f"{EXPECTED_F32_STEP_LAUNCHES} or a non-finite loss")
+    print(f"[{label}] (c) {name} f32 b{batch} step (host clock to synchronize): "
+          f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = "
+          f"{batch * 1e3 / ms:.2f} img/s, peak device memory {peak / 2 ** 30:.2f} GiB on {smi}",
+          flush=True)
+    table = profile_step(lambda: train_step(model, opt, {"pixel_values": x}, y, generator=gen),
+                         f"one {name} f32 b{batch} step")
+    rows = {e.key: e for e in table
+            if e.key in ("_FusedAttnBlockBackward", "_SwinWindowBlockBackward")}
+    if len(rows) != 2:
+        raise AssertionError(f"the profile has rows 3 and 7's autograd nodes {sorted(rows)}")
+    print(f"[{label}] (c) a step's rows 3 and 7 in the profile (device time of their autograd "
+          f"nodes: the kernel and its zeroed gradients): "
+          + ", ".join(f"{k} {device_us(e) / 1e3:.2f} ms ({e.count} calls)"
+                      for k, e in sorted(rows.items())), flush=True)
+    return ms
+
+
 def prompt_decoder_relu_inputs(model):
     """{layer: its ``linear1`` output, the relu's input, in the last forward}
     for the layers of the model's prompt decoder (none without one)."""
@@ -2429,7 +2562,8 @@ def check_v4_train(smi):
 
 
 def profile_step(step, label, rows=40):
-    """torch.profiler over one step: device time by kernel and idle share."""
+    """torch.profiler over one step: device time by kernel and idle share.
+    Returns the profile's key averages."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2446,10 +2580,17 @@ def profile_step(step, label, rows=40):
             busy += b - end
             end = b
     span = spans[-1][1] - spans[0][0] if spans else 0.0
-    table = prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows)
+    averages = prof.key_averages()
+    table = averages.table(sort_by="cuda_time_total", row_limit=rows)
     print(f"[profile] {label}: {len(events)} device kernels, busy {busy / 1e3:.2f} ms "
           f"in a {span / 1e3:.2f} ms first-to-last span (idle {100 * (1 - busy / span):.1f} %)")
     print(table, flush=True)
+    return averages
+
+
+def device_us(event):
+    """A profiler average's device time in µs (its "CUDA total")."""
+    return getattr(event, "device_time_total", None) or event.cuda_time_total
 
 
 def v1_text(n, device):
@@ -3787,6 +3928,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("6a", check_train_f32, state)
     train_counts, step_ms = phase("6b", check_train_bf16, smi, state)
+    f32_step_ms = phase("6c", check_train_f32_step, smi, state)
     counts.update({k: v for k, v in train_counts.items() if k in BACKWARD_KERNELS})
     v1 = phase("7", check_v1, smi)
     counts["flash_attention"] = v1["BaseModelWithText"][0]["flash_attention"]
@@ -3833,7 +3975,7 @@ def main() -> int:
           f"exists; max_abs_err of "
           f"a mask kernel: the largest top-2 "
           f"score gap at a pixel where it differs from its plain version. Training step "
-          f"{step_ms:.2f} ms; v1 training step {v1_step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
+          f"{step_ms:.2f} ms; f32 b{F32_STEP_BATCH} training step {f32_step_ms:.2f} ms; v1 training step {v1_step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
           f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms; v4 bf16 b{BATCH} mask "
           f"forwards { {k: round(ms, 2) for k, ms in v4.items()} } ms; v4 bf16 b{TRAIN_BATCH} "
           f"training steps { {k: round(ms, 2) for k, ms in v4_step_ms.items()} } ms; FTN bf16 "

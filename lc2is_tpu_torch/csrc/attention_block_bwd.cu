@@ -28,9 +28,22 @@
 //      log-sum-exp in both;
 //   6. dWq = dQᵀ·x, dbq = Σ dQ, dx = dQ·Wq + ds.
 //
-// f32 body: csrc/gemm.cuh's CUDA-core products (weight gradients split over
-// blocks with f32 atomics) and 64 x 64 f32 tile products in shared memory,
-// f32 intermediates (and f32 copies of x, k, v) in the workspace.
+// f32 body: every product on the tensor cores in 3xTF32 (each product three
+// TF32 mma.sync products, f32-accurate; no rounding below f32 anywhere),
+// f32 intermediates in the workspace.  The six C x C products are
+// csrc/gemm_f32x3.cuh: q and s as the forward's (A · Wᵀ), dO and dx as
+// dY · W (W read N-contiguous), dWo and dWq as dYᵀ · X (both operands
+// staged as they lie, K = B·P split over blocks with f32 atomics).  The
+// recompute's attention core is the forward's (csrc/attn_core_f32.cuh, key
+// ranges merged), which also writes each row's log-sum-exp, with each
+// 8-key group's P · V summed fresh (kFresh) so that O does not drift.  The backward
+// core follows the bf16 body's dataflow (delta first; a dq kernel and a
+// dk/dv kernel of 4 warps, each warp's own 16 rows in registers, 64-row
+// tiles of the other operands through a two-stage cp.async ring), with every
+// product three TF32 products: p and ds split into hi/lo halves where a C
+// fragment becomes the next product's A fragment; each streamed tile's
+// sums into fresh accumulators, added to the running sums in f32.  dbo sums
+// in the post-LN pass, dbq in the dq kernel.
 //
 // bf16 body: every product on the tensor cores (mma.sync m16n8k16, f32
 // accumulators), rounding where _bwd_kernel rounds (:290-358) and keeping
@@ -63,379 +76,527 @@
 #include <type_traits>
 
 #include "attn_block_fwd.cuh"
-#include "gemm.cuh"
+#include "attn_core_f32.cuh"
 
 namespace lc2 {
 namespace {
 
 // ===========================================================================
-// f32 body: CUDA cores, f32 intermediates in the workspace
+// shared by both bodies
 // ===========================================================================
-
-// copy of an operand into the workspace
-__global__ void __launch_bounds__(256) to_f32_kernel(const float* __restrict__ in,
-                                                     float* __restrict__ out, long long n) {
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n; i += (long long)gridDim.x * 256)
-    out[i] = in[i];
-}
 
 inline int elementwise_blocks(long long n) {
   const long long want = (n + 255) / 256;
   return (int)(want < 132LL * 16 ? (want > 0 ? want : 1) : 132LL * 16);
 }
 
-template <int DH>
-struct Tiles {
-  static constexpr int kLD = DH + 1, kLP = 65, NJ = DH / 16;
-};
-
-// Q tile rows [p0, p0 + 64) of head h, zero past P: dst[64][LD]
-template <int DH>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, long long row0, int rows,
-                                          int C, int h) {
-  constexpr int LD = Tiles<DH>::kLD;
-  for (int idx = threadIdx.x; idx < 64 * DH; idx += 256) {
-    const int t = idx / DH, d = idx - t * DH;
-    dst[t * LD + d] = t < rows ? src[(row0 + t) * C + h * DH + d] : 0.0f;
-  }
-}
-
-// 2. O and the log-sum-exp; grid (P tiles, heads, B)
-template <int DH>
+// Post-LN backward from s = x + proj (f32) in place: s becomes ds (f32: dx's
+// residual term), in the bf16 body also dsb = ds rounded to bf16 (the
+// operand of dWo and dO; null in the f32 body), and dln_w, dln_b and dbo =
+// Σ ds summed per block; a warp per row (grid-stride), lane owning columns
+// lane + 32i (CPL = C / 32 of them, in registers); g in T.
+template <typename T, int CPL>
 __global__ void __launch_bounds__(256)
-attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ att, float* __restrict__ lse,
-                int P, int L, int C) {
-  constexpr int LD = Tiles<DH>::kLD, LP = Tiles<DH>::kLP, NJ = Tiles<DH>::NJ;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = qs + 64 * LD;
-  float* vs = ks + 64 * LD;
-  float* ps = vs + 64 * LD;  // [64][LP]
-  float* mrow = ps + 64 * LP;  // [64] running max
-  float* lrow = mrow + 64;     // [64] running sum
-  float* crow = lrow + 64;     // [64] rescale of this tile
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y, p0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, tx = tid & 15, ty = tid >> 4;
-  load_tile<DH>(qs, q, (long long)b * P + p0, min(64, P - p0), C, h);
-  if (tid < 64) {
-    mrow[tid] = -CUDART_INF_F;
-    lrow[tid] = 0.0f;
-  }
-  float o[4][NJ];
-  zero(o);
-  for (int j0 = 0; j0 < L; j0 += 64) {
-    __syncthreads();
-    load_tile<DH>(ks, k, (long long)b * L + j0, min(64, L - j0), C, h);
-    load_tile<DH>(vs, v, (long long)b * L + j0, min(64, L - j0), C, h);
-    __syncthreads();
-    float s[4][4];
-    zero(s);
-    tile_mm<4, 4>(s, qs, LD, 1, ks, LD, 1, DH);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        ps[(ty + 16 * i) * LP + c] = j0 + c < L ? s[i][j] : -CUDART_INF_F;
-      }
-    __syncthreads();
-    for (int r = warp; r < 64; r += 8) {
-      const float a0 = ps[r * LP + lane], a1 = ps[r * LP + lane + 32];
-      const float m_old = mrow[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(a0, a1)));
-      const float e0 = __expf(a0 - m_new), e1 = __expf(a1 - m_new);
-      const float corr = __expf(m_old - m_new);  // 0 on the first tile
-      const float sum = warp_sum(e0 + e1);
-      ps[r * LP + lane] = e0;
-      ps[r * LP + lane + 32] = e1;
-      __syncwarp();
-      if (lane == 0) {
-        lrow[r] = lrow[r] * corr + sum;
-        mrow[r] = m_new;
-        crow[r] = corr;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) o[i][j] *= crow[ty + 16 * i];
-    tile_mm<4, NJ>(o, ps, LP, 1, vs, 1, LD, 64);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (p0 + r >= P) continue;
-    const float inv = 1.0f / lrow[r];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const float val = o[i][j] * inv;
-      att[((long long)b * P + p0 + r) * C + h * DH + tx + 16 * j] = val;
-    }
-    if (tx == 0) lse[((long long)b * heads + h) * P + p0 + r] = mrow[r] + __logf(lrow[r]);
-  }
-}
-
-// 3. post-LN backward from s = x + proj (f32, in place: s becomes ds); warp
-// per row (grid-stride), dln_w / dln_b partials per block in shared memory
-__global__ void __launch_bounds__(256)
-post_ln_bwd_kernel(float* __restrict__ s, const float* __restrict__ g, const float* __restrict__ lnw,
-                   float* __restrict__ dlnw, float* __restrict__ dlnb, long long rows, int C,
-                   float eps) {
-  extern __shared__ float red[];  // [2][C]
+post_ln_bwd(float* __restrict__ s, const T* __restrict__ g, const float* __restrict__ lnw,
+            bf16* __restrict__ dsb, float* __restrict__ dlnw, float* __restrict__ dlnb,
+            float* __restrict__ dbo, long long rows, float eps) {
+  constexpr int C = 32 * CPL;
+  __shared__ float red[3 * C];
   const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x; c < 2 * C; c += 256) red[c] = 0.0f;
-  __syncthreads();
+  for (int c = threadIdx.x; c < 3 * C; c += 256) red[c] = 0.0f;
+  float pw[CPL], pb[CPL], po[CPL], w[CPL];
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    pw[i] = pb[i] = po[i] = 0.0f;
+    w[i] = lnw[lane + 32 * i];
+  }
   for (long long m = blockIdx.x * 8LL + (threadIdx.x >> 5); m < rows; m += gridDim.x * 8LL) {
     float* sr = s + m * C;
-    const float* gr = g + m * C;
+    float sv[CPL], dy[CPL];
     float a = 0.0f;
-    for (int c = lane; c < C; c += 32) a += sr[c];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      sv[i] = sr[lane + 32 * i];
+      dy[i] = to_f(g[m * C + lane + 32 * i]);
+      a += sv[i];
+    }
     const float mu = warp_sum(a) / C;
     float q = 0.0f;
-    for (int c = lane; c < C; c += 32) q += (sr[c] - mu) * (sr[c] - mu);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) q += (sv[i] - mu) * (sv[i] - mu);
     const float rs = rsqrtf(warp_sum(q) / C + eps);
     float s1 = 0.0f, s2 = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float sh = (sr[c] - mu) * rs, dy = gr[c], dsh = dy * lnw[c];
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      sv[i] = (sv[i] - mu) * rs;  // ŝ
+      const float dsh = dy[i] * w[i];
       s1 += dsh;
-      s2 += dsh * sh;
-      atomicAdd(red + c, dy * sh);
-      atomicAdd(red + C + c, dy);
+      s2 += dsh * sv[i];
+      pw[i] += dy[i] * sv[i];
+      pb[i] += dy[i];
     }
     s1 = warp_sum(s1) / C;
     s2 = warp_sum(s2) / C;
-    for (int c = lane; c < C; c += 32) {
-      const float sh = (sr[c] - mu) * rs, dsh = gr[c] * lnw[c];
-      sr[c] = rs * (dsh - s1 - sh * s2);
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) {
+      const float ds = rs * (dy[i] * w[i] - s1 - sv[i] * s2);
+      po[i] += ds;
+      sr[lane + 32 * i] = ds;
+      if (dsb) dsb[m * C + lane + 32 * i] = __float2bfloat16(ds);
     }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < CPL; ++i) {
+    atomicAdd(red + lane + 32 * i, pw[i]);
+    atomicAdd(red + C + lane + 32 * i, pb[i]);
+    atomicAdd(red + 2 * C + lane + 32 * i, po[i]);
   }
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += 256) {
     atomicAdd(dlnw + c, red[c]);
     atomicAdd(dlnb + c, red[C + c]);
+    atomicAdd(dbo + c, red[2 * C + c]);
   }
 }
 
-// D[b][h][p] = Σ_d dO·O over head h's columns
-__global__ void __launch_bounds__(256)
-attn_delta_kernel(const float* __restrict__ dO, const float* __restrict__ O,
-                  float* __restrict__ D, long long rows, int C, int heads) {
-  const int dh = C / heads;
-  const long long n = rows * heads;
-  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < n; i += (long long)gridDim.x * 256) {
-    const long long m = i / heads;  // row b·P + p
-    const int h = (int)(i - m * heads);
-    float a = 0.0f;
-    for (int d = 0; d < dh; ++d) a += dO[m * C + h * dh + d] * O[m * C + h * dh + d];
-    D[i] = a;  // (b·P + p)·heads + h
+template <typename T>
+cudaError_t post_ln(float* sd, const T* g, const float* lnw, bf16* dsb, float* dlnw, float* dlnb,
+                    float* dbo, long long rows, int C, float eps, cudaStream_t s) {
+  const long long want = (rows + 7) / 8;
+  const int blocks = (int)(want < 4 * 132 ? want : 4 * 132);
+  switch (C) {
+    case 64: post_ln_bwd<T, 2><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
+    case 128: post_ln_bwd<T, 4><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
+    case 256: post_ln_bwd<T, 8><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
+    case 512: post_ln_bwd<T, 16><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
+    default: return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
 }
 
-// 5a. dQ; grid (P tiles, heads, B)
+// ===========================================================================
+// f32 body: 3xTF32 on the tensor cores, f32 intermediates in the workspace
+// ===========================================================================
+
+constexpr int kX3Rows = 64;     // query (dq) or key (dk, dv) rows a block owns: 4 warps x 16
+constexpr int kX3Cols = 64;     // rows of a streamed tile
+constexpr int kX3Threads = 128;
+
+// Shared memory of the two f32 attention kernels: a two-stage ring, each
+// stage two streamed 64-row tiles at row stride DH + 4 floats (a lane's
+// 4-byte loads of rows 2t and 2t + 1, column g, fall in distinct banks) and
+// the streamed rows' lse and delta (dk/dv kernel); then the dq kernel's
+// column sums (4 warps x DH) or the dk/dv kernel's running sums (DH floats a
+// thread, thread-major so that a warp's accesses are conflict-free).
 template <int DH>
-__global__ void __launch_bounds__(256)
-attn_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, const float* __restrict__ dO,
-               const float* __restrict__ lse, const float* __restrict__ D,
-               float* __restrict__ dq, int P, int L, int C) {
-  constexpr int LD = Tiles<DH>::kLD, LP = Tiles<DH>::kLP, NJ = Tiles<DH>::NJ;
+struct X3Layout {
+  static constexpr int kLd = DH + 4;
+  static constexpr int kTile = kX3Cols * kLd;
+  static constexpr int kStage = 2 * kTile + 2 * kX3Cols;
+  static constexpr size_t kDqBytes = sizeof(float) * (2 * kStage + 4 * DH);
+  static constexpr size_t kKvBytes = sizeof(float) * (2 * kStage + kX3Threads * DH);
+};
+
+// Rows r0 .. r0 + 63 of head h's DH columns of a (n, C) f32 matrix (src at
+// the image's row 0 and the head's column 0) into a tile at row stride
+// DH + 4, zeros past row n; cp.async by the block's 128 threads.
+template <int DH>
+__device__ __forceinline__ void x3_load_rows(const float* __restrict__ src, int r0, int n, int C,
+                                             float* dst) {
+  constexpr int kChunks = DH / 4, LD = X3Layout<DH>::kLd;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < kX3Cols * kChunks; idx += kX3Threads) {
+    const int r = idx / kChunks, c = (idx - r * kChunks) * 4;
+    const bool full = r0 + r < n;
+    mma::cp_async16(dst + r * LD + c, full ? src + (size_t)(r0 + r) * C + c : src, full);
+  }
+}
+
+// A warp's own 16 rows r0 .. r0 + 15 (zero past n) as the raw A fragments of
+// a product over DH: f[kc][0] row r0 + g, f[kc][1] row r0 + g + 8, columns
+// 8kc + 2t and 2t + 1 (the GEMM's k order); split where they are used.
+template <int DH>
+__device__ __forceinline__ void x3_own_rows(const float* __restrict__ src, int r0, int n, int C,
+                                            int lane, float2 (&f)[DH / 8][2]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    const float* p = src + (size_t)row * C + 2 * t;
+#pragma unroll
+    for (int kc = 0; kc < DH / 8; ++kc)
+      f[kc][r] = row < n ? *reinterpret_cast<const float2*>(p + 8 * kc) : make_float2(0.0f, 0.0f);
+  }
+}
+
+// s[j] += A(16 rows) · X[row0 + 8j + g]ᵀ and d[j] += B(16 rows) · Y[...]ᵀ over
+// DH, j = 0, 1: the scores of 16 streamed rows (X, Y tiles) against the
+// warp's own A and B fragments, in 3xTF32.
+template <int DH>
+__device__ __forceinline__ void x3_scores(const float2 (&a)[DH / 8][2], const float2 (&bb)[DH / 8][2],
+                                          const float* xs, const float* ys, int row0, int lane,
+                                          float (&s)[2][4], float (&d)[2][4]) {
+  constexpr int LD = X3Layout<DH>::kLd;
+  const int o = (row0 + (lane >> 2)) * LD + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = d[j][e] = 0.0f;
+#pragma unroll
+  for (int kc = 0; kc < DH / 8; ++kc) {
+    gemm32::mma_x3_bt<2, LD>(s, gemm32::split_a(a[kc][0], a[kc][1]), xs + o + 8 * kc);
+    gemm32::mma_x3_bt<2, LD>(d, gemm32::split_a(bb[kc][0], bb[kc][1]), ys + o + 8 * kc);
+  }
+}
+
+// acc += C · Z[row0 .. row0 + 7] over those 8 streamed rows, C a 16 x 8 C
+// fragment (gemm32::split_c), over Z's DH columns in groups of G tiles.
+template <int DH, int G>
+__device__ __forceinline__ void x3_accumulate(float (&acc)[DH / 8 / G][G][4], const float (&c)[4],
+                                              const float* zs, int row0, int lane) {
+  constexpr int LD = X3Layout<DH>::kLd;
+  const gemm32::Split<4> af = gemm32::split_c(c);
+  const float* z = zs + (row0 + 2 * (lane & 3)) * LD + (lane >> 2);
+#pragma unroll
+  for (int jg = 0; jg < DH / 8 / G; ++jg) gemm32::mma_x3_bn<G, LD>(acc[jg], af, z + 8 * G * jg);
+}
+
+// dq = Σ_keys ds · k with p = 2^(q·kᵀ·log2 e − lse) and ds = p ∘ (dO · vᵀ −
+// delta), every product in 3xTF32; grid (P tiles, heads, B).  Warp w owns
+// query rows 16w .. 16w + 15 of the block's 64 (their q and dO fragments in
+// registers); 64-key K and V tiles stream through a two-stage cp.async ring,
+// 16 keys at a time.  Each key tile's dq sums into fresh accumulators, added
+// to the running sums in f32 (the GEMM's accuracy measure).  Writes dq and
+// adds the block's column sums of it into dbq.
+template <int DH>
+__global__ void __launch_bounds__(kX3Threads, 2)
+attn_dq_x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           const float* __restrict__ dO, const float* __restrict__ lse,
+           const float* __restrict__ delta, float* __restrict__ dq, float* __restrict__ dbq,
+           int P, int L, int C) {
+  using Lay = X3Layout<DH>;
+  constexpr int KC = DH / 8, NO = DH / 8, G = NO < 4 ? NO : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* os = qs + 64 * LD;
-  float* ks = os + 64 * LD;
-  float* vs = ks + 64 * LD;
-  float* ds = vs + 64 * LD;  // [64][LP]
-  float* lr = ds + 64 * LP;  // [64]
-  float* dr = lr + 64;       // [64]
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y, p0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int rows = min(64, P - p0);
-  load_tile<DH>(qs, q, (long long)b * P + p0, rows, C, h);
-  load_tile<DH>(os, dO, (long long)b * P + p0, rows, C, h);
-  if (tid < 64) {
-    lr[tid] = tid < rows ? lse[((long long)b * heads + h) * P + p0 + tid] : 0.0f;
-    dr[tid] = tid < rows ? D[((long long)b * P + p0 + tid) * heads + h] : 0.0f;
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* red = ring + 2 * Lay::kStage;  // [4 warps][DH]
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y, p0 = blockIdx.x * kX3Rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_tiles = (L + kX3Cols - 1) / kX3Cols;
+  const float* kb = k + (size_t)b * L * C + h * DH;
+  const float* vb = v + (size_t)b * L * C + h * DH;
+  auto issue = [&](int i) {  // key tile i into stage i % 2, one group
+    if (i < n_tiles) {
+      float* ks = ring + (i & 1) * Lay::kStage;
+      x3_load_rows<DH>(kb, i * kX3Cols, L, C, ks);
+      x3_load_rows<DH>(vb, i * kX3Cols, L, C, ks + Lay::kTile);
+    }
+    mma::cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = p0 + 16 * warp;
+  const bool live = r0 < P;
+  float2 qa[KC][2], ga[KC][2];
+  x3_own_rows<DH>(q + (size_t)b * P * C + h * DH, r0, P, C, lane, qa);
+  x3_own_rows<DH>(dO + (size_t)b * P * C + h * DH, r0, P, C, lane, ga);
+  const size_t stat0 = ((size_t)b * heads + h) * P;
+  float lse2[2], dl[2];  // rows g and g + 8: lse (log2 units; −∞ past P) and delta
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    lse2[r] = row < P ? lse[stat0 + row] : -INFINITY;
+    dl[r] = row < P ? delta[stat0 + row] : 0.0f;
   }
-  float acc[4][NJ];
-  zero(acc);
-  for (int j0 = 0; j0 < L; j0 += 64) {
-    __syncthreads();
-    load_tile<DH>(ks, k, (long long)b * L + j0, min(64, L - j0), C, h);
-    load_tile<DH>(vs, v, (long long)b * L + j0, min(64, L - j0), C, h);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    tile_mm<4, 4>(s, qs, LD, 1, ks, LD, 1, DH);
-    tile_mm<4, 4>(dp, os, LD, 1, vs, LD, 1, DH);
+  float acc[NO / G][G][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int jg = 0; jg < NO / G; ++jg)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p = (r < rows && j0 + c < L) ? __expf(s[i][j] - lr[r]) : 0.0f;
-        ds[r * LP + c] = p * (dp[i][j] - dr[r]);
+    for (int j = 0; j < G; ++j) acc[jg][j][0] = acc[jg][j][1] = acc[jg][j][2] = acc[jg][j][3] = 0.0f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile i is in place; every warp is done with tile i - 1
+    issue(i + 1);     // into tile i - 1's stage
+    if (!live) continue;
+    const float* ks = ring + (i & 1) * Lay::kStage;
+    const float* vs = ks + Lay::kTile;
+    const int key0 = i * kX3Cols;
+    float part[NO / G][G][4];  // this tile's dq
+#pragma unroll
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        part[jg][j][0] = part[jg][j][1] = part[jg][j][2] = part[jg][j][3] = 0.0f;
+#pragma unroll
+    for (int c16 = 0; c16 < kX3Cols / 16; ++c16) {
+      if (key0 + 16 * c16 >= L) break;  // warp-uniform
+      float s[2][4], dp[2][4];  // q · kᵀ and dO · vᵀ over keys 16c .. 16c + 15
+      x3_scores<DH>(qa, ga, ks, vs, 16 * c16, lane, s, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool on = key0 + 16 * c16 + 8 * j + 2 * t + (e & 1) < L && lse2[r] != -INFINITY;
+          const float p = on ? mma::exp2_approx(fmaf(s[j][e], mma::kLog2e, -lse2[r])) : 0.0f;
+          dp[j][e] = on ? p * (dp[j][e] - dl[r]) : 0.0f;  // ds
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) x3_accumulate<DH, G>(part, dp[j], ks, 16 * c16 + 8 * j, lane);
+    }
+#pragma unroll
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jg][j][e] += part[jg][j][e];
+  }
+  // dbq: the column sums of the block's dq rows (0 past P), per warp over its
+  // 16 rows (lanes of one column differ in g), then over the 4 warps in shared
+  // memory, one atomic a column
+#pragma unroll
+  for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float cs = acc[jg][j][e] + acc[jg][j][2 + e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) cs += __shfl_xor_sync(0xffffffffu, cs, o);
+        if (lane < 4) red[warp * DH + 8 * (G * jg + j) + 2 * t + e] = cs;
       }
-    __syncthreads();
-    tile_mm<4, NJ>(acc, ds, LP, 1, ks, 1, LD, 64);
-  }
+  __syncthreads();
+  if (threadIdx.x < DH)
+    atomicAdd(dbq + h * DH + threadIdx.x, red[threadIdx.x] + red[DH + threadIdx.x] +
+                                              red[2 * DH + threadIdx.x] + red[3 * DH + threadIdx.x]);
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= rows) continue;
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= P) continue;
+    float* dst = dq + ((size_t)b * P + row) * C + h * DH + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) dq[((long long)b * P + p0 + r) * C + h * DH + tx + 16 * j] = acc[i][j];
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * (G * jg + j)) =
+            make_float2(acc[jg][j][2 * r], acc[jg][j][2 * r + 1]);
   }
 }
 
-// 5b. dK, dV; grid (L tiles, heads, B); rows of the tiles are keys
+// dk = Σ_queries dsᵀ · q and dv = Σ_queries pᵀ · dO, every product in 3xTF32;
+// grid (L tiles, heads, B).  Warp w owns key rows 16w .. 16w + 15 (their k
+// and v fragments in registers) and computes sᵀ = k · qᵀ and (dO · vᵀ)ᵀ =
+// v · dOᵀ for them over streamed 64-query tiles of q and dO (with their lse
+// and delta), 16 queries at a time.  Each query tile sums into fresh
+// accumulators, added in f32 to running sums a thread keeps in shared
+// memory.  Each block owns its keys' sums: no atomics.
 template <int DH>
-__global__ void __launch_bounds__(256)
-attn_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dO,
-                 const float* __restrict__ lse, const float* __restrict__ D,
-                 float* __restrict__ dk, float* __restrict__ dv, int P, int L, int C) {
-  constexpr int LD = Tiles<DH>::kLD, LP = Tiles<DH>::kLP, NJ = Tiles<DH>::NJ;
+__global__ void __launch_bounds__(kX3Threads, 2)
+attn_dkdv_x3(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, const float* __restrict__ dO,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             float* __restrict__ dk, float* __restrict__ dv, int P, int L, int C) {
+  using Lay = X3Layout<DH>;
+  constexpr int KC = DH / 8, NO = DH / 8, G = NO < 4 ? NO : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = ks + 64 * LD;
-  float* qs = vs + 64 * LD;
-  float* os = qs + 64 * LD;
-  float* pt = os + 64 * LD;   // [64 keys][LP] P
-  float* dst = pt + 64 * LP;  // [64 keys][LP] dS
-  float* lr = dst + 64 * LP;  // [64]
-  float* dr = lr + 64;        // [64]
-  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y, j0 = blockIdx.x * 64;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int keys = min(64, L - j0);
-  load_tile<DH>(ks, k, (long long)b * L + j0, keys, C, h);
-  load_tile<DH>(vs, v, (long long)b * L + j0, keys, C, h);
-  float dka[4][NJ], dva[4][NJ];
-  zero(dka);
-  zero(dva);
-  for (int p0 = 0; p0 < P; p0 += 64) {
-    const int rows = min(64, P - p0);
-    __syncthreads();
-    load_tile<DH>(qs, q, (long long)b * P + p0, rows, C, h);
-    load_tile<DH>(os, dO, (long long)b * P + p0, rows, C, h);
-    if (tid < 64) {
-      lr[tid] = tid < rows ? lse[((long long)b * heads + h) * P + p0 + tid] : 0.0f;
-      dr[tid] = tid < rows ? D[((long long)b * P + p0 + tid) * heads + h] : 0.0f;
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  // this thread's DH running sums, element e at sums[e · 128]: dv's DH / 2, then dk's
+  float* sums = ring + 2 * Lay::kStage + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, heads = gridDim.y, k0 = blockIdx.x * kX3Rows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_tiles = (P + kX3Cols - 1) / kX3Cols;
+  const size_t stat0 = ((size_t)b * heads + h) * P;
+  const float* qb = q + (size_t)b * P * C + h * DH;
+  const float* gb = dO + (size_t)b * P * C + h * DH;
+  auto issue = [&](int i) {  // query tile i, its lse and delta (0 past P), into stage i % 2
+    if (i < n_tiles) {
+      float* qs = ring + (i & 1) * Lay::kStage;
+      const int q0 = i * kX3Cols;
+      x3_load_rows<DH>(qb, q0, P, C, qs);
+      x3_load_rows<DH>(gb, q0, P, C, qs + Lay::kTile);
+      const int c = threadIdx.x & (kX3Cols - 1);
+      const bool in = q0 + c < P;
+      const float* src = threadIdx.x < kX3Cols ? lse : delta;
+      mma::cp_async4(qs + 2 * Lay::kTile + threadIdx.x, in ? src + stat0 + q0 + c : src, in);
     }
-    __syncthreads();
-    float st[4][4], dpt[4][4];  // (key ty + 16i, query tx + 16j)
-    zero(st);
-    zero(dpt);
-    tile_mm<4, 4>(st, ks, LD, 1, qs, LD, 1, DH);
-    tile_mm<4, 4>(dpt, vs, LD, 1, os, LD, 1, DH);
+    mma::cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = k0 + 16 * warp;
+  const bool live = r0 < L;
+  const bool keep[2] = {r0 + g < L, r0 + g + 8 < L};
+  float2 ka[KC][2], va[KC][2];
+  x3_own_rows<DH>(k + (size_t)b * L * C + h * DH, r0, L, C, lane, ka);
+  x3_own_rows<DH>(v + (size_t)b * L * C + h * DH, r0, L, C, lane, va);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int e = 0; e < DH; ++e) sums[e * kX3Threads] = 0.0f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile i is in place; every warp is done with tile i - 1
+    issue(i + 1);
+    if (!live) continue;
+    const float* qs = ring + (i & 1) * Lay::kStage;
+    const float* gs = qs + Lay::kTile;
+    const float* st = gs + Lay::kTile;  // lse [64], then delta [64]
+    const int q0 = i * kX3Cols;
+    float pdv[NO / G][G][4], pdk[NO / G][G][4];  // this tile's sums
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float p = (r < keys && c < rows) ? __expf(st[i][j] - lr[c]) : 0.0f;
-        pt[r * LP + c] = p;
-        dst[r * LP + c] = p * (dpt[i][j] - dr[c]);
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pdv[jg][j][e] = pdk[jg][j][e] = 0.0f;
+#pragma unroll
+    for (int c16 = 0; c16 < kX3Cols / 16; ++c16) {
+      if (q0 + 16 * c16 >= P) break;  // warp-uniform
+      float s[2][4], dp[2][4];  // sᵀ = k · qᵀ, (dO · vᵀ)ᵀ; queries 16c .. 16c + 15
+      x3_scores<DH>(ka, va, qs, gs, 16 * c16, lane, s, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 16 * c16 + 8 * j + 2 * t + (e & 1);
+          const bool on = keep[e >> 1] && q0 + col < P;
+          const float p = on ? mma::exp2_approx(fmaf(s[j][e], mma::kLog2e, -st[col])) : 0.0f;
+          dp[j][e] = on ? p * (dp[j][e] - st[kX3Cols + col]) : 0.0f;  // dsᵀ
+          s[j][e] = p;                                                  // pᵀ
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        x3_accumulate<DH, G>(pdv, s[j], gs, 16 * c16 + 8 * j, lane);   // dv += pᵀ · dO
+        x3_accumulate<DH, G>(pdk, dp[j], qs, 16 * c16 + 8 * j, lane);  // dk += dsᵀ · q
       }
-    __syncthreads();
-    tile_mm<4, NJ>(dva, pt, LP, 1, os, 1, LD, 64);
-    tile_mm<4, NJ>(dka, dst, LP, 1, qs, 1, LD, 64);
+    }
+#pragma unroll
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * (G * jg + j) + e;
+          sums[x * kX3Threads] += pdv[jg][j][e];
+          sums[(DH / 2 + x) * kX3Threads] += pdk[jg][j][e];
+        }
   }
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= keys) continue;
+  for (int r = 0; r < 2; ++r) {
+    if (!keep[r]) continue;
+    const size_t o = ((size_t)b * L + r0 + g + 8 * r) * C + h * DH + 2 * t;
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const long long o = ((long long)b * L + j0 + r) * C + h * DH + tx + 16 * j;
-      dk[o] = dka[i][j];
-      dv[o] = dva[i][j];
+    for (int n = 0; n < NO; ++n) {
+      const int x = 4 * n + 2 * r;
+      *reinterpret_cast<float2*>(dv + o + 8 * n) =
+          make_float2(sums[x * kX3Threads], sums[(x + 1) * kX3Threads]);
+      *reinterpret_cast<float2*>(dk + o + 8 * n) =
+          make_float2(sums[(DH / 2 + x) * kX3Threads], sums[(DH / 2 + x + 1) * kX3Threads]);
+    }
+  }
+}
+
+// delta[b][h][p] = Σ_d dO · O over head h's columns (f32); a warp per row,
+// 4 columns a lane, the dh / 4 lanes of a head summed by shuffles.
+__global__ void __launch_bounds__(256)
+attn_delta_f32(const float* __restrict__ dO, const float* __restrict__ O, float* __restrict__ D,
+               long long rows, int P, int C, int heads) {
+  const int lane = threadIdx.x & 31, dh = C / heads, span = dh / 4;
+  for (long long m = blockIdx.x * 8LL + (threadIdx.x >> 5); m < rows; m += gridDim.x * 8LL) {
+    const long long b = m / P, p = m - b * P;
+    for (int c0 = 0; c0 < C; c0 += 128) {
+      const int c = c0 + 4 * lane;
+      float a = 0.0f;
+      if (c < C) {
+        const float4 x = *reinterpret_cast<const float4*>(dO + m * C + c);
+        const float4 y = *reinterpret_cast<const float4*>(O + m * C + c);
+        a = x.x * y.x + x.y * y.y + x.z * y.z + x.w * y.w;
+      }
+      for (int o = 1; o < span; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (c < C && lane % span == 0) D[(b * heads + c / dh) * P + p] = a;
     }
   }
 }
 
 template <int DH>
-cudaError_t attn_core(const float* q, const float* k, const float* v, float* att, float* lse,
-                      const float* dO, const float* D, float* dq, float* dk, float* dv, int B,
-                      int P, int L, int C, int heads, int phase, cudaStream_t s) {
-  constexpr int LD = Tiles<DH>::kLD, LP = Tiles<DH>::kLP;
-  if (phase == 0) {
-    const size_t smem = sizeof(float) * (3 * 64 * LD + 64 * LP + 3 * 64);
-    LC2_TRY(allow_smem(attn_fwd_kernel<DH>, smem));
-    attn_fwd_kernel<DH><<<dim3((P + 63) / 64, heads, B), 256, smem, s>>>(q, k, v, att, lse, P, L,
-                                                                        C);
-    return cudaGetLastError();
-  }
-  const size_t smem_dq = sizeof(float) * (4 * 64 * LD + 64 * LP + 2 * 64);
-  LC2_TRY(allow_smem(attn_dq_kernel<DH>, smem_dq));
-  attn_dq_kernel<DH><<<dim3((P + 63) / 64, heads, B), 256, smem_dq, s>>>(q, k, v, dO, lse, D, dq,
-                                                                        P, L, C);
+cudaError_t attn_bwd_kernels_x3(const float* q, const float* k, const float* v, const float* lse,
+                                const float* dO, const float* D, float* dq, float* dbq, float* dk,
+                                float* dv, int B, int P, int L, int C, int heads,
+                                cudaStream_t s) {
+  constexpr size_t smem_dq = X3Layout<DH>::kDqBytes;
+  LC2_TRY(allow_smem(attn_dq_x3<DH>, smem_dq));
+  attn_dq_x3<DH><<<dim3((P + kX3Rows - 1) / kX3Rows, heads, B), kX3Threads, smem_dq, s>>>(
+      q, k, v, dO, lse, D, dq, dbq, P, L, C);
   LC2_TRY(cudaGetLastError());
-  const size_t smem_kv = sizeof(float) * (4 * 64 * LD + 2 * 64 * LP + 2 * 64);
-  LC2_TRY(allow_smem(attn_dkdv_kernel<DH>, smem_kv));
-  attn_dkdv_kernel<DH><<<dim3((L + 63) / 64, heads, B), 256, smem_kv, s>>>(
+  constexpr size_t smem_kv = X3Layout<DH>::kKvBytes;
+  LC2_TRY(allow_smem(attn_dkdv_x3<DH>, smem_kv));
+  attn_dkdv_x3<DH><<<dim3((L + kX3Rows - 1) / kX3Rows, heads, B), kX3Threads, smem_kv, s>>>(
       q, k, v, dO, lse, D, dk, dv, P, L, C);
   return cudaGetLastError();
 }
 
-cudaError_t attn_core_dh(int dh, const float* q, const float* k, const float* v, float* att,
-                         float* lse, const float* dO, const float* D, float* dq, float* dk,
-                         float* dv, int B, int P, int L, int C, int heads, int phase,
-                         cudaStream_t s) {
-  switch (dh) {
-    case 16: return attn_core<16>(q, k, v, att, lse, dO, D, dq, dk, dv, B, P, L, C, heads, phase, s);
-    case 32: return attn_core<32>(q, k, v, att, lse, dO, D, dq, dk, dv, B, P, L, C, heads, phase, s);
-    case 64: return attn_core<64>(q, k, v, att, lse, dO, D, dq, dk, dv, B, P, L, C, heads, phase, s);
-    default: return cudaErrorInvalidValue;
+// The workspace of the f32 body, in floats, carved in this order.
+struct F32Workspace {
+  float *q, *att, *sd, *dO, *lse, *D, *part;
+  F32Workspace(float* ws, long long BP, int C, long long stats) {
+    const long long PC = BP * C;
+    q = ws;            // [BP][C]
+    att = q + PC;      // [BP][C]  the head outputs, then dq
+    sd = att + PC;     // [BP][C]  s, then ds
+    dO = sd + PC;      // [BP][C]
+    lse = dO + PC;     // [B][heads][P], log2 units
+    D = lse + stats;   // [B][heads][P]
+    part = D + stats;  // the recompute's key-range partials (CorePlan)
   }
-}
+  static long long floats(int B, int P, int L, int C, int heads) {
+    const long long BP = (long long)B * P;
+    return 4 * BP * C + 2 * BP * heads + CorePlan(B, P, L, heads).partial_floats(B, P, C, heads);
+  }
+};
 
 cudaError_t attn_bwd_f32(const float* x, const float* k, const float* v, const float* g,
                          const float* wq, const float* bq, const float* wo, const float* bo,
                          const float* lnw, float* dx, float* dk, float* dv, float* dwq, float* dbq,
                          float* dwo, float* dbo, float* dlnw, float* dlnb, float* ws, int B, int P,
                          int L, int C, int heads, float eps, cudaStream_t s) {
-  const long long BP = (long long)B * P, BL = (long long)B * L, PC = BP * C, LC = BL * C;
-  const int bp = (int)BP, dh = C / heads;
-  float* xf = ws;           // [BP][C]
-  float* kf = xf + PC;      // [BL][C]
-  float* vf = kf + LC;      // [BL][C]
-  float* q = vf + LC;       // [BP][C]
-  float* att = q + PC;      // [BP][C]
-  float* sd = att + PC;     // [BP][C]  s, then ds
-  float* dO = sd + PC;      // [BP][C]
-  float* dq = dO + PC;      // [BP][C]
-  float* lse = dq + PC;     // [B][heads][P]
-  float* D = lse + BP * heads;  // [B·P][heads]
-  to_f32_kernel<<<elementwise_blocks(PC), 256, 0, s>>>(x, xf, PC);
-  LC2_TRY(cudaGetLastError());
-  to_f32_kernel<<<elementwise_blocks(LC), 256, 0, s>>>(k, kf, LC);
-  LC2_TRY(cudaGetLastError());
-  to_f32_kernel<<<elementwise_blocks(LC), 256, 0, s>>>(v, vf, LC);
-  LC2_TRY(cudaGetLastError());
-  LC2_TRY(gemm(bp, C, C, Mat{xf, C, 1}, Mat{wq, 1, C}, q, C, bq, nullptr, 0, s));
-  LC2_TRY(attn_core_dh(dh, q, kf, vf, att, lse, nullptr, nullptr, nullptr, nullptr, nullptr, B,
-                       P, L, C, heads, 0, s));
-  LC2_TRY(gemm(bp, C, C, Mat{att, C, 1}, Mat{wo, 1, C}, sd, C, bo, xf, 0, s));
+  using gemm32::Epilogue;
+  const long long BP = (long long)B * P;
+  const int bp = (int)BP;
+  const F32Workspace w(ws, BP, C, BP * heads);
+  // the forward: q, the head outputs and lse (attn_core_f32.cuh), s (f32)
+  LC2_TRY(gemm32::gemm(bp, C, C, x, C, wq, C, Epilogue{bq, nullptr, w.q, C}, s));
+  switch (C / heads) {
+    case 16: LC2_TRY((attn_core_launch<16, true>(w.q, k, v, w.att, w.lse, w.part, B, P, L, C, heads, s))); break;
+    case 32: LC2_TRY((attn_core_launch<32, true>(w.q, k, v, w.att, w.lse, w.part, B, P, L, C, heads, s))); break;
+    case 64: LC2_TRY((attn_core_launch<64, true>(w.q, k, v, w.att, w.lse, w.part, B, P, L, C, heads, s))); break;
+    default: return cudaErrorInvalidValue;
+  }
+  LC2_TRY(gemm32::gemm(bp, C, C, w.att, C, wo, C, Epilogue{bo, x, w.sd, C}, s));
+  LC2_TRY(post_ln<float>(w.sd, g, lnw, nullptr, dlnw, dlnb, dbo, BP, C, eps, s));
+  // dWo += dsᵀ · att; dO = ds · Wo
+  LC2_TRY((gemm32::product<true, true>(C, C, bp, w.sd, C, w.att, C,
+                                       Epilogue{nullptr, nullptr, dwo, C, true}, s)));
+  LC2_TRY((gemm32::product<false, true>(bp, C, C, w.sd, C, wo, C,
+                                        Epilogue{nullptr, nullptr, w.dO, C}, s)));
   {
     const long long want = (BP + 7) / 8;
-    const int blocks = (int)(want < 4 * 132 ? want : 4 * 132);
-    post_ln_bwd_kernel<<<blocks, 256, sizeof(float) * 2 * C, s>>>(sd, g, lnw, dlnw, dlnb, BP, C,
-                                                                  eps);
+    attn_delta_f32<<<(int)(want < 8 * 132 ? want : 8 * 132), 256, 0, s>>>(w.dO, w.att, w.D, BP,
+                                                                           P, C, heads);
     LC2_TRY(cudaGetLastError());
   }
-  LC2_TRY(gemm_acc(C, C, bp, Mat{sd, 1, C}, Mat{att, C, 1}, dwo, C, s));
-  LC2_TRY(colsum(bp, C, sd, C, dbo, s));
-  LC2_TRY(gemm(bp, C, C, Mat{sd, C, 1}, Mat{wo, C, 1}, dO, C, nullptr, nullptr, 0, s));
-  attn_delta_kernel<<<elementwise_blocks(BP * heads), 256, 0, s>>>(dO, att, D, BP, C, heads);
-  LC2_TRY(cudaGetLastError());
-  LC2_TRY(attn_core_dh(dh, q, kf, vf, att, lse, dO, D, dq, dk, dv, B, P, L, C, heads, 1, s));
-  LC2_TRY(gemm_acc(C, C, bp, Mat{dq, 1, C}, Mat{xf, C, 1}, dwq, C, s));
-  LC2_TRY(colsum(bp, C, dq, C, dbq, s));
-  return gemm(bp, C, C, Mat{dq, C, 1}, Mat{wq, C, 1}, dx, C, nullptr, sd, 0, s);
+  float* dq = w.att;  // the head outputs are read for the last time above
+  switch (C / heads) {
+    case 16: LC2_TRY(attn_bwd_kernels_x3<16>(w.q, k, v, w.lse, w.dO, w.D, dq, dbq, dk, dv, B, P, L, C, heads, s)); break;
+    case 32: LC2_TRY(attn_bwd_kernels_x3<32>(w.q, k, v, w.lse, w.dO, w.D, dq, dbq, dk, dv, B, P, L, C, heads, s)); break;
+    case 64: LC2_TRY(attn_bwd_kernels_x3<64>(w.q, k, v, w.lse, w.dO, w.D, dq, dbq, dk, dv, B, P, L, C, heads, s)); break;
+    default: return cudaErrorInvalidValue;
+  }
+  // dWq += dqᵀ · x; dx = dq · Wq + ds
+  LC2_TRY((gemm32::product<true, true>(C, C, bp, dq, C, x, C,
+                                       Epilogue{nullptr, nullptr, dwq, C, true}, s)));
+  return gemm32::product<false, true>(bp, C, C, dq, C, wq, C, Epilogue{nullptr, w.sd, dx, C}, s);
 }
 
 // ===========================================================================
@@ -655,75 +816,6 @@ attn_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16
   }
 }
 
-// Post-LN backward from s = x + proj (f32) in place: s becomes ds (f32: dx's
-// residual term), dsb = ds rounded to bf16 (the operand of dWo and dO), and
-// dln_w, dln_b and dbo = Σ ds summed per block; a warp per row (grid-stride),
-// lane owning columns lane + 32i (CPL = C / 32 of them, in registers).
-template <int CPL>
-__global__ void __launch_bounds__(256)
-post_ln_bwd_bf16(float* __restrict__ s, const bf16* __restrict__ g, const float* __restrict__ lnw,
-                 bf16* __restrict__ dsb, float* __restrict__ dlnw, float* __restrict__ dlnb,
-                 float* __restrict__ dbo, long long rows, float eps) {
-  constexpr int C = 32 * CPL;
-  __shared__ float red[3 * C];
-  const int lane = threadIdx.x & 31;
-  for (int c = threadIdx.x; c < 3 * C; c += 256) red[c] = 0.0f;
-  float pw[CPL], pb[CPL], po[CPL], w[CPL];
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    pw[i] = pb[i] = po[i] = 0.0f;
-    w[i] = lnw[lane + 32 * i];
-  }
-  for (long long m = blockIdx.x * 8LL + (threadIdx.x >> 5); m < rows; m += gridDim.x * 8LL) {
-    float* sr = s + m * C;
-    float sv[CPL], dy[CPL];
-    float a = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      sv[i] = sr[lane + 32 * i];
-      dy[i] = __bfloat162float(g[m * C + lane + 32 * i]);
-      a += sv[i];
-    }
-    const float mu = warp_sum(a) / C;
-    float q = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) q += (sv[i] - mu) * (sv[i] - mu);
-    const float rs = rsqrtf(warp_sum(q) / C + eps);
-    float s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      sv[i] = (sv[i] - mu) * rs;  // ŝ
-      const float dsh = dy[i] * w[i];
-      s1 += dsh;
-      s2 += dsh * sv[i];
-      pw[i] += dy[i] * sv[i];
-      pb[i] += dy[i];
-    }
-    s1 = warp_sum(s1) / C;
-    s2 = warp_sum(s2) / C;
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      const float ds = rs * (dy[i] * w[i] - s1 - sv[i] * s2);
-      po[i] += ds;
-      sr[lane + 32 * i] = ds;
-      dsb[m * C + lane + 32 * i] = __float2bfloat16(ds);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < CPL; ++i) {
-    atomicAdd(red + lane + 32 * i, pw[i]);
-    atomicAdd(red + C + lane + 32 * i, pb[i]);
-    atomicAdd(red + 2 * C + lane + 32 * i, po[i]);
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += 256) {
-    atomicAdd(dlnw + c, red[c]);
-    atomicAdd(dlnb + c, red[C + c]);
-    atomicAdd(dbo + c, red[2 * C + c]);
-  }
-}
-
 // delta[b][h][p] = Σ_d dO · O over head h's columns (bf16 in, f32 sum); a
 // warp per row, 8 columns a lane, the dh / 8 lanes of a head summed by
 // shuffles.
@@ -792,21 +884,6 @@ cudaError_t attn_bwd_kernels_bf16_dh(const bf16* q, const bf16* k, const bf16* v
   }
 }
 
-cudaError_t post_ln_bf16(float* sd, const bf16* g, const float* lnw, bf16* dsb, float* dlnw,
-                         float* dlnb, float* dbo, long long rows, int C, float eps,
-                         cudaStream_t s) {
-  const long long want = (rows + 7) / 8;
-  const int blocks = (int)(want < 4 * 132 ? want : 4 * 132);
-  switch (C) {
-    case 64: post_ln_bwd_bf16<2><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
-    case 128: post_ln_bwd_bf16<4><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
-    case 256: post_ln_bwd_bf16<8><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
-    case 512: post_ln_bwd_bf16<16><<<blocks, 256, 0, s>>>(sd, g, lnw, dsb, dlnw, dlnb, dbo, rows, eps); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
 // The workspace of the bf16 body, in bytes, carved in this order.
 struct Bf16Workspace {
   bf16 *wqb, *wob, *q, *att, *dsb, *datt;
@@ -843,7 +920,7 @@ cudaError_t attn_bwd_bf16(const bf16* x, const bf16* k, const bf16* v, const bf1
   // the forward: q, att, lse and s (f32)
   LC2_TRY(attn_block_fwd_bf16(x, k, v, w.wqb, bq, w.wob, bo, w.q, w.att, w.lse, w.sd, B, P, L, C,
                               heads, s));
-  LC2_TRY(post_ln_bf16(w.sd, g, lnw, w.dsb, dlnw, dlnb, dbo, BP, C, eps, s));
+  LC2_TRY(post_ln<bf16>(w.sd, g, lnw, w.dsb, dlnw, dlnb, dbo, BP, C, eps, s));
   // dWo += round(ds)ᵀ · att; dO = round(round(ds) · Wo)
   LC2_TRY((gemm16::gemm<true, true>(C, C, bp, w.dsb, C, w.att, C,
                                     Epilogue{nullptr, nullptr, nullptr, dwo, nullptr, C, true}, s)));
@@ -871,8 +948,7 @@ cudaError_t attn_bwd_bf16(const bf16* x, const bf16* k, const bf16* v, const bf1
 
 // Workspace floats the f32 body needs (the wrapper allocates them).
 extern "C" long long lc2_attn_block_bwd_workspace(int B, int P, int L, int C, int heads) {
-  const long long BP = (long long)B * P;
-  return 6 * BP * C + 2LL * B * L * C + 2 * BP * heads;
+  return lc2::F32Workspace::floats(B, P, L, C, heads);
 }
 
 // Workspace floats the bf16 body needs.

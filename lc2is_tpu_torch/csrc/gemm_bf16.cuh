@@ -3,8 +3,8 @@
 // csrc/attention_block_bwd.cu; the swin backward; the feed-forward,
 // csrc/fused_mlp.cu): C = A · B with bf16 operands and f32 accumulators,
 // mma.sync m16n8k16 (mma_bf16.cuh), written by hand for sm_90a.
-// csrc/gemm_f32x3.cuh is the f32 bodies' tensor-core product (rows 1 and
-// 2); csrc/gemm.cuh the f32 CUDA-core product of the backwards' f32 bodies.
+// csrc/gemm_f32x3.cuh is the f32 bodies' tensor-core product (3xTF32, the
+// same operand forms).
 //
 // Operands are row-major bf16 matrices in device memory, each in one of two
 // orientations, chosen at compile time:

@@ -1,6 +1,7 @@
 // An f32 matrix product on the tensor cores for the port's f32 bodies (the
-// feed-forward, csrc/fused_mlp.cu, and the decoder attention block's
-// projections, csrc/attention_block.cu): C = A · B with f32 operands and f32
+// feed-forward, csrc/fused_mlp.cu; the decoder attention block's forward and
+// backward, csrc/attention_block.cu and csrc/attention_block_bwd.cu; the swin
+// backward, csrc/swin_window_bwd.cu): C = A · B with f32 operands and f32
 // accumulators, each product split into three TF32 products (3xTF32, the
 // scheme of CUTLASS's OpMultiplyAddFastF32), written by hand for sm_90a.
 //
@@ -15,38 +16,51 @@
 // products) against 67 TFLOP/s for f32 on the CUDA cores.
 // scripts/gemm_f32x3_sweep.cu times it against the variants named below.
 //
-// Operands: A (M x K) row-major, element (m, k) at a[m · lda + k]; B (K x N)
-// read from a torch-layout weight W (N, K), element (k, n) at b[n · ldb + k].
-// Both are K-contiguous, K a multiple of 4, rows 16-byte aligned (the loads
-// are 16-byte cp.async); M and N may be ragged (rows past them load as
-// zeros), N a multiple of 8.
+// Operands, each in one of two orientations chosen at compile time (the
+// forms of gemm_bf16.cuh):
+// - A (M x K): kAT false, element (m, k) at a[m · lda + k] (K contiguous);
+//   kAT true, at a[k · lda + m] (M contiguous: a weight gradient's dYᵀ);
+// - B (K x N): kBT false, element (k, n) at b[n · ldb + k] (a torch-layout
+//   weight W (N, K) read as Wᵀ); kBT true, at b[k · ldb + n] (N contiguous:
+//   dY · W, or a weight gradient's X).
+// The contiguous dimension is a multiple of 4 with 16-byte aligned rows
+// (the loads are 16-byte cp.async), N a multiple of 8; the other dimension
+// may be ragged: rows past it load as zeros.
 //
 // Design: a block computes a BM x BN tile of C with 2 x 2 warps, each a
 // BM/2 x BN/2 warp tile of 16 x 8 products.  K advances in 32-wide slices
 // through a 3-stage cp.async ring in shared memory (slice t + 2 issued
-// before slice t is computed, one barrier a slice), rows at a stride of 40
-// floats, so the 8-byte fragment loads of a half-warp (rows g, columns 2t,
-// 2t + 1) fall in distinct banks.  Within each 8-wide k-step the k index of
-// the mma is permuted (its k = t and t + 4 are the slice's columns 2t and
-// 2t + 1, the same for A and B, which leaves the sum unchanged), so a
-// fragment pair is one 8-byte load.  Each fragment is split right after its
-// load, and the three terms are issued term by term over the warp tile, so
-// that consecutive products go to different accumulators.  (Splitting each
-// slice once a block in shared memory instead costs a second barrier a slice
-// and twice the fragment loads, and ran slower.)  The tensor
-// cores' f32 accumulation truncates, so a long chain of products into one
-// accumulator drifts (1.5e-5 to 2.0e-5 of max |C| at K 2048): each slice
-// sums into fresh accumulators, added to the running sums in f32 (round to
-// nearest), which keeps K 2048 near 4.5e-7 for about 9 % of the rate.  Two
-// tile shapes: 128 x 64 (64 x 32 a warp, two blocks an SM) where they give
-// about a wave of blocks, else 64 x 64 (32 x 32 a warp, three an SM), which
-// gives the prompt decoders' 2,416 x 512 products 304 blocks, not 76.  At
-// 45-54 TFLOP/s of f32-accurate products it runs level with cuBLAS's f32
-// SGEMM; this loop issues TF32 mma.sync products at 140-165 TFLOP/s (its
-// rate with no split at all), and wgmma (495 dense) is the way past it.
+// before slice t is computed, one barrier a slice).  Within each 8-wide
+// k-step the k index of the mma is permuted (its k = t and t + 4 are the
+// slice's columns 2t and 2t + 1, the same for A and B, which leaves the sum
+// unchanged).  A K-contiguous slice holds its rows at a stride of 40 floats,
+// so the 8-byte fragment loads of a half-warp (rows g, columns 2t, 2t + 1)
+// fall in distinct banks and a fragment pair is one load.  A transposed
+// slice is staged as it lies, kBK rows of BM (or BN) + 4 floats: lane (g, t)
+// reads its k 2t and 2t + 1 elements of column g with 4-byte loads at word
+// 8t + g (mod 32), distinct banks, so no transpose pass is needed.  Each
+// fragment is split right after its load, and the three terms are issued
+// term by term over the warp tile, so that consecutive products go to
+// different accumulators.  (Splitting each slice once a block in shared
+// memory instead costs a second barrier a slice and twice the fragment
+// loads, and ran slower.)  The tensor cores' f32 accumulation truncates,
+// so a long chain of products into one accumulator drifts (1.5e-5 to
+// 2.0e-5 of max |C| at K 2048): each slice sums into fresh accumulators,
+// added to the running sums in f32 (round to nearest), which keeps K 2048
+// near 4.5e-7 for about 9 % of the rate.  Two tile shapes: 128 x 64 (64 x
+// 32 a warp, two blocks an SM) where they give about a wave of blocks, else
+// 64 x 64 (32 x 32 a warp, three an SM), which gives the prompt decoders'
+// 2,416 x 512 products 304 blocks, not 76.  At 45-54 TFLOP/s of
+// f32-accurate products it runs level with cuBLAS's f32 SGEMM; this loop
+// issues TF32 mma.sync products at 140-165 TFLOP/s (its rate with no split
+// at all), and wgmma (495 dense) is the way past it.
 // Epilogue, from the accumulators straight to device memory: + bias[n],
 // + an f32 addend (m, n), with kAct the pre-activation stored and then an
-// activation (activation.cuh) applied; f32 out.
+// activation (activation.cuh) applied; f32 out.  Or, for a weight gradient
+// whose K (the tokens) is long and whose output is small, K is split over
+// blockIdx.z and each block adds its partial into the f32 output with
+// atomics (64 x 64 tiles; the sum's order, and its last bits, vary from run
+// to run).  colsum beside it sums a bias gradient's columns.
 #pragma once
 
 #include "activation.cuh"
@@ -64,6 +78,9 @@ struct Epilogue {
   const float* add;   // (M, N) at row stride ldc, added after the bias
   float* out;         // (M, N) at row stride ldc
   long long ldc;
+  // add the product into out (zeroed by the caller) with atomics, K split
+  // over blocks; bias and add are not read
+  bool atomic = false;
   // read only by gemm<kAct = true>: the act::Act applied last, and where
   // the value before it goes (or null)
   int act = -1;
@@ -159,39 +176,94 @@ __device__ __forceinline__ void mma_x3(float (&acc)[MI][NI][4], const Split<4> (
     for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], a[i].hi, b[j].hi[0], b[j].hi[1]);
 }
 
-// Rows [r0, r0 + ROWS) x k-slice [k0, k0 + kBK) of a K-contiguous operand
-// into a slice at row stride kLd, by NT threads; zeros past `rows` and kend.
-template <int ROWS, int NT>
+// acc[j] += a · B for NI 8-column tiles of B over one 8-wide k step, B read
+// from a tile in shared memory at row stride LD, for attention cores whose
+// own rows are the A fragment:
+// - mma_x3_bt: B (k, n) = X[n][k] (X's rows K-contiguous, as Kᵀ in Q · Kᵀ);
+//   x at the lane's row g, column k0 + 2t; tile j at rows 8j (8-byte loads);
+// - mma_x3_bn: B (k, n) = Z[k][n] (Z's rows N-contiguous, as V in P · V);
+//   z at the lane's row k0 + 2t, column g; tile j at columns 8j (4-byte
+//   loads of rows 2t and 2t + 1).
+template <int NI, int LD>
+__device__ __forceinline__ void mma_x3_bt(float (&acc)[NI][4], const Split<4>& a, const float* x) {
+  Split<2> b[NI];
+#pragma unroll
+  for (int j = 0; j < NI; ++j) b[j] = split_b(*reinterpret_cast<const float2*>(x + 8 * j * LD));
+  mma_x3_row<NI>(acc, a, b);
+}
+
+template <int NI, int LD>
+__device__ __forceinline__ void mma_x3_bn(float (&acc)[NI][4], const Split<4>& a, const float* z) {
+  Split<2> b[NI];
+#pragma unroll
+  for (int j = 0; j < NI; ++j) b[j] = split_b(make_float2(z[8 * j], z[LD + 8 * j]));
+  mma_x3_row<NI>(acc, a, b);
+}
+
+// The A fragment of a product over 8 k from a 16 x 8 C fragment c (rows g,
+// g + 8; columns 2t, 2t + 1), in the k order above: k t <- column 2t, k
+// t + 4 <- column 2t + 1.
+__device__ __forceinline__ Split<4> split_c(const float (&c)[4]) {
+  return split_a(make_float2(c[0], c[1]), make_float2(c[2], c[3]));
+}
+
+// Elements of one stage's A or B slice in shared memory.
+template <bool kT, int kRows>
+struct Slice {
+  // kT false: kRows rows of kBK (+8) floats; true: kBK rows of kRows (+4)
+  static constexpr int kStride = kT ? kRows + 4 : kLd;
+  static constexpr int kElems = kT ? kBK * kStride : kRows * kStride;
+};
+
+// Rows [r0, r0 + ROWS) x k-slice [k0, k0 + kBK) of an operand into a slice,
+// by NT threads: kT false reads ROWS rows of kBK contiguous floats, kT true
+// kBK rows of ROWS contiguous floats.  Zeros past `rows` and past kend.
+template <bool kT, int ROWS, int NT>
 __device__ __forceinline__ void load_slice(const float* __restrict__ src, long long ld, int r0,
                                            int rows, int k0, int kend, float* dst) {
-  constexpr int kChunks = kBK / 4;
+  constexpr int LD = Slice<kT, ROWS>::kStride;
+  if constexpr (!kT) {
+    constexpr int kChunks = kBK / 4;
 #pragma unroll
-  for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += NT) {
-    const int r = idx / kChunks, c = (idx - r * kChunks) * 4;
-    const bool full = r0 + r < rows && k0 + c < kend;
-    mma::cp_async16(dst + r * kLd + c, full ? src + (r0 + r) * ld + k0 + c : src, full);
+    for (int idx = threadIdx.x; idx < ROWS * kChunks; idx += NT) {
+      const int r = idx / kChunks, c = (idx - r * kChunks) * 4;
+      const bool full = r0 + r < rows && k0 + c < kend;
+      mma::cp_async16(dst + r * LD + c, full ? src + (r0 + r) * ld + k0 + c : src, full);
+    }
+  } else {
+    constexpr int kChunks = ROWS / 4;
+#pragma unroll
+    for (int idx = threadIdx.x; idx < kBK * kChunks; idx += NT) {
+      const int kk = idx / kChunks, c = (idx - kk * kChunks) * 4;
+      const bool full = k0 + kk < kend && r0 + c < rows;
+      mma::cp_async16(dst + kk * LD + c, full ? src + (k0 + kk) * ld + r0 + c : src, full);
+    }
   }
 }
 
-template <int BM, int BN, bool kAct>
+template <int BM, int BN, bool kAT, bool kBT, bool kAct>
 __global__ void __launch_bounds__(128)
 gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long lda,
-                  const float* __restrict__ b, long long ldb, Epilogue ep) {
+                  const float* __restrict__ b, long long ldb, Epilogue ep, int kchunk) {
   constexpr int kThreads = 128;  // 2 x 2 warps
   constexpr int TM = BM / 2, TN = BN / 2, MI = TM / 16, NI = TN / 8;
-  constexpr int kStage = (BM + BN) * kLd;
+  using SA = Slice<kAT, BM>;
+  using SB = Slice<kBT, BN>;
+  constexpr int kStage = SA::kElems + SB::kElems, LA = SA::kStride, LB = SB::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ring = reinterpret_cast<float*>(smem_raw);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = (warp >> 1) * TM, wn = (warp & 1) * TN;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int n_slices = (K + kBK - 1) / kBK;
+  const int kbeg = blockIdx.z * kchunk, kend = min(K, kbeg + kchunk);
+  const int n_slices = (kend - kbeg + kBK - 1) / kBK;
 
   auto issue = [&](int s) {  // slice s into stage s % kStages, one group
     if (s < n_slices) {
       float* st = ring + (s % kStages) * kStage;
-      load_slice<BM, kThreads>(a, lda, m0, M, s * kBK, K, st);
-      load_slice<BN, kThreads>(b, ldb, n0, N, s * kBK, K, st + BM * kLd);
+      const int k0 = kbeg + s * kBK;
+      load_slice<kAT, BM, kThreads>(a, lda, m0, M, k0, kend, st);
+      load_slice<kBT, BN, kThreads>(b, ldb, n0, N, k0, kend, st + SA::kElems);
     }
     mma::cp_async_commit();
   };
@@ -209,8 +281,11 @@ gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long ld
     mma::cp_async_wait<kStages - 2>();  // slice s has landed (this thread's copies)
     __syncthreads();  // ... every thread's; and every warp is done with slice s - 1
     issue(s + kStages - 1);  // into slice s - 1's stage
-    const float* as = ring + (s % kStages) * kStage + (wm + g) * kLd + 2 * t;
-    const float* bs = ring + (s % kStages) * kStage + (BM + wn + g) * kLd + 2 * t;
+    // this lane's first element of the warp tile: row (or column) g, k 2t
+    const float* as = ring + (s % kStages) * kStage +
+                      (kAT ? 2 * t * LA + wm + g : (wm + g) * LA + 2 * t);
+    const float* bs = ring + (s % kStages) * kStage + SA::kElems +
+                      (kBT ? 2 * t * LB + wn + g : (wn + g) * LB + 2 * t);
     float part[MI][NI][4];  // this slice's sums
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -222,12 +297,24 @@ gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long ld
       Split<4> af[MI];
       Split<2> bf[NI];
 #pragma unroll
-      for (int j = 0; j < NI; ++j)
-        bf[j] = split_b(*reinterpret_cast<const float2*>(bs + 8 * j * kLd + kk));
+      for (int j = 0; j < NI; ++j) {
+        if constexpr (kBT) {
+          const float* p = bs + kk * LB + 8 * j;
+          bf[j] = split_b(make_float2(p[0], p[LB]));
+        } else {
+          bf[j] = split_b(*reinterpret_cast<const float2*>(bs + 8 * j * LB + kk));
+        }
+      }
 #pragma unroll
-      for (int i = 0; i < MI; ++i)
-        af[i] = split_a(*reinterpret_cast<const float2*>(as + 16 * i * kLd + kk),
-                        *reinterpret_cast<const float2*>(as + (16 * i + 8) * kLd + kk));
+      for (int i = 0; i < MI; ++i) {
+        if constexpr (kAT) {
+          const float* p = as + kk * LA + 16 * i;
+          af[i] = split_a(make_float2(p[0], p[LA]), make_float2(p[8], p[LA + 8]));
+        } else {
+          af[i] = split_a(*reinterpret_cast<const float2*>(as + 16 * i * LA + kk),
+                          *reinterpret_cast<const float2*>(as + (16 * i + 8) * LA + kk));
+        }
+      }
       mma_x3(part, af, bf);
     }
 #pragma unroll
@@ -252,6 +339,11 @@ gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long ld
         if (n >= N) continue;  // N is a multiple of 8: n + 1 < N too
         float v0 = acc[i][j][2 * r], v1 = acc[i][j][2 * r + 1];
         const long long o = m * ep.ldc + n;
+        if (ep.atomic) {
+          atomicAdd(ep.out + o, v0);
+          atomicAdd(ep.out + o + 1, v1);
+          continue;
+        }
         if (ep.bias) {
           v0 += ep.bias[n];
           v1 += ep.bias[n + 1];
@@ -271,28 +363,73 @@ gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long ld
     }
 }
 
-template <int BM, int BN, bool kAct>
+template <int BM, int BN, bool kAT, bool kBT, bool kAct>
 cudaError_t launch(int M, int N, int K, const float* a, long long lda, const float* b,
-                   long long ldb, const Epilogue& ep, cudaStream_t s) {
-  constexpr size_t smem = sizeof(float) * kStages * (BM + BN) * kLd;
-  auto kernel = gemm_f32x3_kernel<BM, BN, kAct>;
+                   long long ldb, const Epilogue& ep, int splits, cudaStream_t s) {
+  constexpr size_t smem =
+      sizeof(float) * kStages * (Slice<kAT, BM>::kElems + Slice<kBT, BN>::kElems);
+  auto kernel = gemm_f32x3_kernel<BM, BN, kAT, kBT, kAct>;
   LC2_TRY(allow_smem(kernel, smem));
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  kernel<<<grid, 128, smem, s>>>(M, N, K, a, lda, b, ldb, ep);
+  const int kchunk = ((K + splits - 1) / splits + kBK - 1) / kBK * kBK;
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, (K + kchunk - 1) / kchunk);
+  kernel<<<grid, 128, smem, s>>>(M, N, K, a, lda, b, ldb, ep, kchunk);
   return cudaGetLastError();
 }
 
-// C = A · B (+ the epilogue's terms) over M x N, K.  kAct: the epilogue
-// applies ep.act (and writes ep.out_pre); a separate instantiation, so the
-// other products compile without it.
+// C = A · B (+ the epilogue's terms) over M x N, K, the operands in the
+// orientations kAT, kBT (above).  With ep.atomic the product is added into
+// ep.out (zeroed by the caller), K split over blocks so that about four
+// blocks an SM run even when the output has a handful of tiles.  kAct: the
+// epilogue applies ep.act (and writes ep.out_pre); a separate instantiation,
+// so the other products compile without it.
+template <bool kAT, bool kBT, bool kAct = false>
+cudaError_t product(int M, int N, int K, const float* a, long long lda, const float* b,
+                    long long ldb, const Epilogue& ep, cudaStream_t s) {
+  // the contiguous dimension of each operand: a multiple of 4
+  if (M < 1 || N < 1 || K < 1 || N % 8 || (kAT ? M % 4 : K % 4) || (!kBT && K % 4) ||
+      lda % 4 || ldb % 4 || ep.ldc % 2)
+    return cudaErrorInvalidValue;
+  if (ep.atomic) {
+    const long long tiles = (long long)((M + 63) / 64) * ((N + 63) / 64);
+    const long long want = (4 * 132 + tiles - 1) / tiles, most = (K + 255) / 256;
+    const int splits = (int)(want < most ? want : most);
+    return launch<64, 64, kAT, kBT, kAct>(M, N, K, a, lda, b, ldb, ep, splits, s);
+  }
+  if ((long long)((M + 127) / 128) * ((N + 63) / 64) >= 240)  // about a wave, 2 blocks an SM
+    return launch<128, 64, kAT, kBT, kAct>(M, N, K, a, lda, b, ldb, ep, 1, s);
+  return launch<64, 64, kAT, kBT, kAct>(M, N, K, a, lda, b, ldb, ep, 1, s);
+}
+
+// C = A · Wᵀ (+ the epilogue's terms): A (M, K) and the torch-layout W (N, K),
+// both K-contiguous.
 template <bool kAct = false>
 cudaError_t gemm(int M, int N, int K, const float* a, long long lda, const float* b,
                  long long ldb, const Epilogue& ep, cudaStream_t s) {
-  if (M < 1 || N < 1 || K < 1 || N % 8 || K % 4 || lda % 4 || ldb % 4 || ep.ldc % 2)
-    return cudaErrorInvalidValue;
-  if ((long long)((M + 127) / 128) * ((N + 63) / 64) >= 240)  // about a wave, 2 blocks an SM
-    return launch<128, 64, kAct>(M, N, K, a, lda, b, ldb, ep, s);
-  return launch<64, 64, kAct>(M, N, K, a, lda, b, ldb, ep, s);
+  return product<false, false, kAct>(M, N, K, a, lda, b, ldb, ep, s);
+}
+
+// out[n] += Σ_m a[m·lda + n] (out zeroed by the caller): a bias gradient,
+// summed in f32.  Threads take consecutive columns; a block sums a chunk of
+// rows and adds its partial with one atomic a column.
+template <typename T>
+__global__ void __launch_bounds__(256)
+colsum_kernel(int M, int N, const T* __restrict__ a, long long lda, float* __restrict__ out,
+              int rows) {
+  const int m0 = blockIdx.y * rows, m1 = min(M, m0 + rows);
+  const int n = blockIdx.x * 256 + threadIdx.x;
+  if (n >= N) return;
+  float s = 0.0f;
+  for (int m = m0; m < m1; ++m) s += to_f(a[m * lda + n]);
+  atomicAdd(out + n, s);
+}
+
+template <typename T>
+cudaError_t colsum(int M, int N, const T* a, long long lda, float* out, cudaStream_t s) {
+  const int cols = (N + 255) / 256;
+  const int chunks = max(1, min((M + 63) / 64, 4 * 132 / cols));
+  const int rows = (M + chunks - 1) / chunks;
+  colsum_kernel<T><<<dim3(cols, (M + rows - 1) / rows), 256, 0, s>>>(M, N, a, lda, out, rows);
+  return cudaGetLastError();
 }
 
 }  // namespace gemm32

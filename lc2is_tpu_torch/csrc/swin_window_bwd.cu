@@ -41,8 +41,13 @@
 // and a second pass for simplicity; their order varies from run to run
 // within f32 rounding.  The 1/√dh fold into the q rows is the wrapper's.
 //
-// f32 body: every product on the CUDA cores (gemm.cuh), f32 intermediates
-// (M·(11C + 2) floats of workspace).
+// f32 body: every product on the tensor cores in 3xTF32, f32-accurate, f32
+// intermediates (M·(10C + 2) floats of workspace; dLN reuses dA's slot).
+// Phases 2, 4 and 5 run on csrc/gemm_f32x3.cuh (qkv as LN · Wqkvᵀ, dA and
+// dLN as dY · W with W read N-contiguous, the weight gradients as dYᵀ · X
+// with both operands staged as they lie and K split over blocks with f32
+// atomics), phase 3 on swin_attn_bwd_x3 (below), the bf16 body's plan with
+// every product three TF32 products and no rounding below f32.
 //
 // bf16 body: the dataflow of _canvas_bwd_kernel, rounded where it rounds, so
 // that every product takes bf16 operands on the tensor cores (mma.sync
@@ -63,8 +68,8 @@
 #include <algorithm>
 
 #include "attn_tiles.cuh"
-#include "gemm.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_f32x3.cuh"
 
 namespace lc2 {
 namespace {
@@ -129,189 +134,342 @@ ln_gather_kernel(const T* __restrict__ x, const T* __restrict__ g, const float* 
   }
 }
 
-// 3. attention core forward recompute + backward; block = (window group,
-// head, image), 256 threads; win² <= 64 tokens padded to 64.
-template <int DH>
-struct AttnSmem {
-  static constexpr int kLD = DH + 1;
-  static constexpr int kLP = 65;
-  static constexpr size_t kBytes = sizeof(float) * (4 * 64 * kLD + 3 * 64 * kLP + 64) +
-                                   sizeof(int) * 64;
-};
+// 3. attention core of the f32 body on the tensor cores, every product in
+// 3xTF32 (gemm_f32x3.cuh: each operand split into TF32 hi and lo halves,
+// lo·hi' + hi·lo' + hi·hi' on mma.sync.m16n8k8, f32-accurate).  The plan of
+// the bf16 body's swin_attn_bwd_mma: block (group of windows, head), 4 warps;
+// each window is a 64-row tile whose rows past win² load as zeros, its q, k,
+// v and dA head tiles (f32 at row stride DH + 4, so a lane's 4-byte loads of
+// rows 2t and 2t + 1, column g, fall in distinct banks) through a two-stage
+// cp.async ring with the window's region labels.  Per window, warp w first
+// owns query rows 16w .. 16w + 15: S = q·kᵀ (q carries 1/√dh) + bias − 100
+// across regions, keys past win² dropped; P = softmax (max subtracted, one
+// reciprocal of the sum); O = P·v → att; dP = dA·vᵀ; dS = P∘(dP −
+// rowsum(P∘dP)), summed into the lane's dbias registers; dQ = dS·k; P and dS
+// go to shared memory (f32, row stride 68).  A C fragment becomes the next
+// product's A fragment with the mma's k order permuted (k t <- key 2t, k
+// t + 4 <- key 2t + 1), and is split there.  Then warp w owns key rows
+// 16w .. 16w + 15: dV = Pᵀ·dA and dK = dSᵀ·q, the transposed A fragments
+// read as they lie (4-byte loads).  The bias stays in registers (the lane's
+// 32 elements of its rows), dbias is added once per block.
+constexpr int kX3Threads = 128;        // 4 warps, 16 rows each of a window's 64-row tile
+constexpr int kX3Rows = 64;            // win² <= 64 tokens, padded
+constexpr int kX3Ldp = kX3Rows + 4;    // the P and dS tiles' row stride (floats)
 
 template <int DH>
-__global__ void __launch_bounds__(256)
-swin_attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ dA,
-                     const float* __restrict__ bias, float* __restrict__ att,
-                     float* __restrict__ dqkv, float* __restrict__ dbias, Canvas cv, int wpb) {
-  constexpr int LD = AttnSmem<DH>::kLD, LP = AttnSmem<DH>::kLP, NJ = DH / 16;
+struct X3CoreLayout {
+  static constexpr int kLd = DH + 4;
+  static constexpr int kTile = kX3Rows * kLd;
+  static constexpr int kStage = 4 * kTile + kX3Rows;  // q, k, v, dA; the labels (ints)
+  static constexpr size_t kBytes = sizeof(float) * (2 * kX3Rows * kX3Ldp + 2 * kStage);
+};
+
+// rows 0 .. 63 of a window's head columns (src at its token 0 and the head's
+// column 0, row stride ld) into a tile at stride DH + 4, zeros past n
+template <int DH>
+__device__ __forceinline__ void x3_window_rows(const float* __restrict__ src, int n, long long ld,
+                                               float* dst) {
+  constexpr int kChunks = DH / 4, LD = X3CoreLayout<DH>::kLd;
+#pragma unroll
+  for (int idx = threadIdx.x; idx < kX3Rows * kChunks; idx += kX3Threads) {
+    const int r = idx / kChunks, c = (idx - r * kChunks) * 4;
+    const bool full = r < n;
+    mma::cp_async16(dst + r * LD + c, full ? src + r * ld + c : src, full);
+  }
+}
+
+// acc += A · Z for one 8-row k step of a tile Z (z at the lane's row 2t of
+// the step, column g), over Z's DH columns in groups of G tiles
+template <int DH, int G>
+__device__ __forceinline__ void x3_rows_n(float (&acc)[DH / 8 / G][G][4],
+                                          const gemm32::Split<4>& af, const float* z) {
+#pragma unroll
+  for (int jg = 0; jg < DH / 8 / G; ++jg)
+    gemm32::mma_x3_bn<G, X3CoreLayout<DH>::kLd>(acc[jg], af, z + 8 * G * jg);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kX3Threads, 2)
+swin_attn_bwd_x3(const float* __restrict__ qkv, const float* __restrict__ dA,
+                 const float* __restrict__ bias, float* __restrict__ att,
+                 float* __restrict__ dqkv, float* __restrict__ dbias, Canvas cv, int nwin,
+                 int wpb) {
+  using L = X3CoreLayout<DH>;
+  constexpr int LD = L::kLd, KC = DH / 8, NO = DH / 8, G = NO < 4 ? NO : 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);  // [64][LD]
-  float* ks = qs + 64 * LD;
-  float* vs = ks + 64 * LD;
-  float* os = vs + 64 * LD;   // dA head slice (gradient of the head outputs)
-  float* ps = os + 64 * LD;   // [64][LP] P, f32
-  float* pr = ps + 64 * LP;   // [64][LP] P rounded to T (the forward's PV operand)
-  float* dps = pr + 64 * LP;  // [64][LP] dP, then dS
-  float* dsum = dps + 64 * LP;  // [64] rowsum(P∘dP)
-  int* lab = reinterpret_cast<int*>(dsum + 64);  // [64] shift region
+  float* ps = reinterpret_cast<float*>(smem_raw);  // [64][kX3Ldp] P
+  float* dss = ps + kX3Rows * kX3Ldp;              // [64][kX3Ldp] dS
+  float* ring = dss + kX3Rows * kX3Ldp;
 
   const int C = cv.C, C3 = 3 * C, win = cv.win, N = win * win, nW = cv.n_win();
   const int Hp = cv.nwh * win, Wp = cv.nww * win;
-  const int hd = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, tx = tid & 15, ty = tid >> 4;
+  const int hd = blockIdx.y, w0 = blockIdx.x * wpb, nw = min(wpb, nwin - w0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp;
+  const bool rows = r0 < N;  // warp-uniform: the warp's 16 rows hold a token
+
+  auto issue = [&](int i) {  // window i of the block into stage i % 2
+    if (i < nw) {
+      float* qs = ring + (i & 1) * L::kStage;
+      const long long tok0 = (long long)(w0 + i) * N;
+      const float* src = qkv + tok0 * C3 + hd * DH;
+      x3_window_rows<DH>(src, N, C3, qs);
+      x3_window_rows<DH>(src + C, N, C3, qs + L::kTile);
+      x3_window_rows<DH>(src + 2 * C, N, C3, qs + 2 * L::kTile);
+      x3_window_rows<DH>(dA + tok0 * C + hd * DH, N, C, qs + 3 * L::kTile);
+      // the labels: plain stores, published by the barrier before window i
+      int* lab = reinterpret_cast<int*>(qs + 4 * L::kTile);
+      if (tid < kX3Rows) {
+        int l = 0;
+        if (cv.shift > 0 && tid < N) {
+          const int w = (w0 + i) % nW, wi = w / cv.nww, wj = w - wi * cv.nww;
+          const int R = wi * win + tid / win, Cc = wj * win + tid % win;
+          l = ((R >= Hp - win) + (R >= Hp - cv.shift)) * 3 + (Cc >= Wp - win) +
+              (Cc >= Wp - cv.shift);
+        }
+        lab[tid] = l;
+      }
+    }
+    mma::cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+  // the lane's bias elements: rows r0 + g (+ 8), keys 8(4jg + j) + 2t (+ 1); 0 past N
   const float* bh = bias + (size_t)hd * N * N;
-  float dbacc[4][4];
-  zero(dbacc);
-
-  const int w_end = min(nW, (blockIdx.x + 1) * wpb);
-  for (int w = blockIdx.x * wpb; w < w_end; ++w) {
-    const long long tok0 = ((long long)b * nW + w) * N;
-    __syncthreads();  // the previous window's tiles consumed
-    for (int idx = tid; idx < 64 * DH; idx += 256) {
-      const int t = idx / DH, d = idx - t * DH;
-      float q = 0.0f, k = 0.0f, v = 0.0f, o = 0.0f;
-      if (t < N) {
-        const float* row = qkv + (tok0 + t) * C3 + hd * DH + d;
-        q = row[0];
-        k = row[C];
-        v = row[2 * C];
-        o = dA[(tok0 + t) * C + hd * DH + d];
-      }
-      qs[t * LD + d] = q;
-      ks[t * LD + d] = k;
-      vs[t * LD + d] = v;
-      os[t * LD + d] = o;
-    }
-    if (tid < 64) {
-      int l = 0;
-      if (cv.shift > 0 && tid < N) {
-        const int wi = w / cv.nww, wj = w - wi * cv.nww;
-        const int R = wi * win + tid / win, Cc = wj * win + tid % win;
-        l = ((R >= Hp - win) + (R >= Hp - cv.shift)) * 3 + (Cc >= Wp - win) +
-            (Cc >= Wp - cv.shift);
-      }
-      lab[tid] = l;
-    }
-    __syncthreads();
-
-    {  // S = q·kᵀ + bias + region mask (q carries 1/√dh)
-      float s[4][4];
-      zero(s);
-      tile_mm<4, 4>(s, qs, LD, 1, ks, LD, 1, DH);
+  float bz[2][4][4], dbacc[2][4][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int jg = 0; jg < 2; ++jg)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, c = tx + 16 * j;
-          float v = -CUDART_INF_F;
-          if (r < N && c < N) v = s[i][j] + bh[r * N + c] - (lab[r] != lab[c] ? 100.0f : 0.0f);
-          ps[r * LP + c] = v;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + 8 * (e >> 1), key = 8 * (4 * jg + j) + 2 * t + (e & 1);
+        bz[jg][j][e] = row < N && key < N ? bh[row * N + key] : 0.0f;
+        dbacc[jg][j][e] = 0.0f;
+      }
+
+  for (int i = 0; i < nw; ++i) {
+    mma::cp_async_wait<1>();
+    __syncthreads();  // window i's tiles and labels are in place
+    const float* qs = ring + (i & 1) * L::kStage;
+    const float* ks = qs + L::kTile;
+    const float* vs = ks + L::kTile;
+    const float* das = vs + L::kTile;
+    const int* lab = reinterpret_cast<const int*>(das + L::kTile);
+    const long long tok0 = (long long)(w0 + i) * N;
+
+    // ---- query rows r0 .. r0 + 15 ----
+    if (rows) {
+      float p[2][4][4];  // S, then P: key group 4jg + j
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) p[jg][j][0] = p[jg][j][1] = p[jg][j][2] = p[jg][j][3] = 0.0f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        const float* qr = qs + (r0 + g) * LD + 8 * kc + 2 * t;
+        const gemm32::Split<4> af =
+            gemm32::split_a(*reinterpret_cast<const float2*>(qr),
+                            *reinterpret_cast<const float2*>(qr + 8 * LD));
+#pragma unroll
+        for (int jg = 0; jg < 2; ++jg)
+          gemm32::mma_x3_bt<4, LD>(p[jg], af, ks + (32 * jg + g) * LD + 8 * kc + 2 * t);
+      }
+      // logits, then P = softmax over the keys below N (rows past N: P = 0)
+      float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lt = lab[r0 + g + 8 * r];
+#pragma unroll
+        for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = 8 * (4 * jg + j) + 2 * t + e;
+              float v = -INFINITY;
+              if (key < N) {
+                v = p[jg][j][2 * r + e] + bz[jg][j][2 * r + e];
+                if (lab[key] != lt) v -= 100.0f;
+              }
+              p[jg][j][2 * r + e] = v;
+              mx[r] = fmaxf(mx[r], v);
+            }
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[jg][j][e] = mma::exp2_approx((p[jg][j][e] - mx[e >> 1]) * mma::kLog2e);
+            l[e >> 1] += p[jg][j][e];
+          }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        l[r] = r0 + g + 8 * r < N ? 1.0f / l[r] : 0.0f;
+      }
+      // P to shared memory (the dV operand); O = P · v → att
+      float o[NO / G][G][4];
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+        for (int j = 0; j < G; ++j) o[jg][j][0] = o[jg][j][1] = o[jg][j][2] = o[jg][j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float* pk = p[kk >> 2][kk & 3];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pk[e] *= l[e >> 1];
+        float* prow = ps + (r0 + g) * kX3Ldp + 8 * kk + 2 * t;
+        *reinterpret_cast<float2*>(prow) = make_float2(pk[0], pk[1]);
+        *reinterpret_cast<float2*>(prow + 8 * kX3Ldp) = make_float2(pk[2], pk[3]);
+        if (8 * kk >= N) continue;
+        x3_rows_n<DH, G>(o, gemm32::split_c(p[kk >> 2][kk & 3]), vs + (8 * kk + 2 * t) * LD + g);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        if (row >= N) continue;
+        float* dst = att + (tok0 + row) * C + hd * DH + 2 * t;
+#pragma unroll
+        for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * (G * jg + j)) =
+                make_float2(o[jg][j][2 * r], o[jg][j][2 * r + 1]);
+      }
+      // dP = dA · vᵀ, then dS = P∘(dP − rowsum(P∘dP)) in place
+      float dp[2][4][4];
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[jg][j][0] = dp[jg][j][1] = dp[jg][j][2] = dp[jg][j][3] = 0.0f;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        const float* ar = das + (r0 + g) * LD + 8 * kc + 2 * t;
+        const gemm32::Split<4> af =
+            gemm32::split_a(*reinterpret_cast<const float2*>(ar),
+                            *reinterpret_cast<const float2*>(ar + 8 * LD));
+#pragma unroll
+        for (int jg = 0; jg < 2; ++jg)
+          gemm32::mma_x3_bt<4, LD>(dp[jg], af, vs + (32 * jg + g) * LD + 8 * kc + 2 * t);
+      }
+      float dsum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dsum[e >> 1] += p[jg][j][e] * dp[jg][j][e];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 1);
+        dsum[r] += __shfl_xor_sync(0xffffffffu, dsum[r], 2);
+      }
+      // dS to shared memory (the dK operand); dQ = dS · k
+      float dq[NO / G][G][4];
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+        for (int j = 0; j < G; ++j) dq[jg][j][0] = dq[jg][j][1] = dq[jg][j][2] = dq[jg][j][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        float* dk = dp[kk >> 2][kk & 3];
+        const float* pk = p[kk >> 2][kk & 3];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dk[e] = pk[e] * (dk[e] - dsum[e >> 1]);
+          dbacc[kk >> 2][kk & 3][e] += dk[e];
         }
-    }
-    __syncthreads();
-    for (int r = warp; r < 64; r += 8) {  // max-subtracted softmax, as the forward
-      float p0 = 0.0f, p1 = 0.0f;
-      if (r < N) {
-        const float a0 = ps[r * LP + lane], a1 = ps[r * LP + lane + 32];
-        const float mx = warp_max(fmaxf(a0, a1));
-        const float e0 = __expf(a0 - mx), e1 = __expf(a1 - mx);
-        const float inv = 1.0f / warp_sum(e0 + e1);
-        p0 = e0 * inv;
-        p1 = e1 * inv;
+        float* drow = dss + (r0 + g) * kX3Ldp + 8 * kk + 2 * t;
+        *reinterpret_cast<float2*>(drow) = make_float2(dk[0], dk[1]);
+        *reinterpret_cast<float2*>(drow + 8 * kX3Ldp) = make_float2(dk[2], dk[3]);
+        if (8 * kk >= N) continue;
+        x3_rows_n<DH, G>(dq, gemm32::split_c(dp[kk >> 2][kk & 3]), ks + (8 * kk + 2 * t) * LD + g);
       }
-      ps[r * LP + lane] = p0;
-      ps[r * LP + lane + 32] = p1;
-      pr[r * LP + lane] = p0;
-      pr[r * LP + lane + 32] = p1;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        if (row >= N) continue;
+        float* dst = dqkv + (tok0 + row) * C3 + hd * DH + 2 * t;
+#pragma unroll
+        for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * (G * jg + j)) =
+                make_float2(dq[jg][j][2 * r], dq[jg][j][2 * r + 1]);
+      }
+    } else {
+      // rows past every token: zero P and dS rows (the dK / dV products sum
+      // over all 64 query rows)
+      for (int idx = lane; idx < 16 * kX3Rows; idx += 32) {
+        const int r = r0 + idx / kX3Rows, c = idx % kX3Rows;
+        ps[r * kX3Ldp + c] = 0.0f;
+        dss[r * kX3Ldp + c] = 0.0f;
+      }
     }
-    __syncthreads();
+    __syncthreads();  // P, dS of every query row
 
-    float dp[4][4];
-    {  // O = round(P)·v (head outputs for dWo), dP = dA·vᵀ
-      float o[4][NJ];
-      zero(o);
-      tile_mm<4, NJ>(o, pr, LP, 1, vs, 1, LD, 64);
+    // ---- key rows r0 .. r0 + 15: dV = Pᵀ · dA, dK = dSᵀ · q ----
+    if (rows) {
+      float dv[NO / G][G][4], dk[NO / G][G][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= N) continue;
+      for (int jg = 0; jg < NO / G; ++jg)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float v = o[i][j];
-          att[(tok0 + r) * C + hd * DH + tx + 16 * j] = v;
-        }
+        for (int j = 0; j < G; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dv[jg][j][e] = dk[jg][j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        if (8 * kk >= N) break;
+        // A (key r0 + g (+ 8), query 8kk + 2t (+ 1)) read from P and dS as they lie
+        const float* pa = ps + (8 * kk + 2 * t) * kX3Ldp + r0 + g;
+        const float* sa = dss + (8 * kk + 2 * t) * kX3Ldp + r0 + g;
+        const gemm32::Split<4> pf = gemm32::split_a(make_float2(pa[0], pa[kX3Ldp]),
+                                                    make_float2(pa[8], pa[kX3Ldp + 8]));
+        const gemm32::Split<4> sf = gemm32::split_a(make_float2(sa[0], sa[kX3Ldp]),
+                                                    make_float2(sa[8], sa[kX3Ldp + 8]));
+        x3_rows_n<DH, G>(dv, pf, das + (8 * kk + 2 * t) * LD + g);
+        x3_rows_n<DH, G>(dk, sf, qs + (8 * kk + 2 * t) * LD + g);
       }
-      zero(dp);
-      tile_mm<4, 4>(dp, os, LD, 1, vs, LD, 1, DH);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        if (row >= N) continue;
+        float* dst = dqkv + (tok0 + row) * C3 + C + hd * DH + 2 * t;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dps[(ty + 16 * i) * LP + tx + 16 * j] = dp[i][j];
-    }
-    __syncthreads();
-    for (int r = warp; r < 64; r += 8) {
-      const float d = warp_sum(ps[r * LP + lane] * dps[r * LP + lane] +
-                               ps[r * LP + lane + 32] * dps[r * LP + lane + 32]);
-      if (lane == 0) dsum[r] = d;
-    }
-    __syncthreads();
+        for (int jg = 0; jg < NO / G; ++jg)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // dS = P∘(dP − rowsum(P∘dP)); the mask is constant
-        const int r = ty + 16 * i, c = tx + 16 * j;
-        const float ds = ps[r * LP + c] * (dp[i][j] - dsum[r]);
-        dbacc[i][j] += ds;
-        dps[r * LP + c] = ds;
-      }
-    __syncthreads();
-
-    float* dq_row = dqkv + tok0 * C3 + hd * DH;
-    {  // dV = round(P)ᵀ·dA
-      float a[4][NJ];
-      zero(a);
-      tile_mm<4, NJ>(a, pr, 1, LP, os, 1, LD, 64);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= N) continue;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dq_row[r * C3 + 2 * C + tx + 16 * j] = a[i][j];
+          for (int j = 0; j < G; ++j) {
+            const int col = 8 * (G * jg + j);
+            *reinterpret_cast<float2*>(dst + col) = make_float2(dk[jg][j][2 * r], dk[jg][j][2 * r + 1]);
+            *reinterpret_cast<float2*>(dst + C + col) =
+                make_float2(dv[jg][j][2 * r], dv[jg][j][2 * r + 1]);
+          }
       }
     }
-    {  // dQ = dS·k
-      float a[4][NJ];
-      zero(a);
-      tile_mm<4, NJ>(a, dps, LP, 1, ks, 1, LD, 64);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= N) continue;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dq_row[r * C3 + tx + 16 * j] = a[i][j];
-      }
-    }
-    {  // dK = dSᵀ·q
-      float a[4][NJ];
-      zero(a);
-      tile_mm<4, NJ>(a, dps, 1, LP, qs, 1, LD, 64);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= N) continue;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) dq_row[r * C3 + C + tx + 16 * j] = a[i][j];
-      }
-    }
+    __syncthreads();  // every warp is done with stage i % 2 and the P, dS tiles
+    issue(i + 2);
   }
+  mma::cp_async_wait<0>();
+  // dbias: the block's sum over its windows, one atomic an element
+  if (rows) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int jg = 0; jg < 2; ++jg)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      if (r < N && c < N) atomicAdd(dbias + (size_t)hd * N * N + r * N + c, dbacc[i][j]);
-    }
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = r0 + g + 8 * (e >> 1), key = 8 * (4 * jg + j) + 2 * t + (e & 1);
+          if (row < N && key < N)
+            atomicAdd(dbias + (size_t)hd * N * N + row * N + key, dbacc[jg][j][e]);
+        }
+  }
 }
 
 // 5. LN backward + scatter to the canvas; warp per token (grid-stride), the
@@ -358,16 +516,39 @@ ln_bwd_scatter_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 template <int DH>
-cudaError_t attn_core(const float* qkv, const float* dA, const float* bias, float* att,
-                      float* dqkv, float* dbias, Canvas cv, int B, int heads, cudaStream_t s) {
-  const size_t smem = AttnSmem<DH>::kBytes;
-  LC2_TRY(allow_smem(swin_attn_bwd_kernel<DH>, smem));
-  const int nW = cv.nwh * cv.nww;
-  const int wpb = max(1, nW * heads * B / (4 * 132));  // about four blocks per SM
-  const dim3 grid((nW + wpb - 1) / wpb, heads, B);
-  swin_attn_bwd_kernel<DH><<<grid, 256, smem, s>>>(qkv, dA, bias, att, dqkv, dbias, cv, wpb);
+cudaError_t attn_core_x3(const float* qkv, const float* dA, const float* bias, float* att,
+                         float* dqkv, float* dbias, Canvas cv, int B, int heads, cudaStream_t s) {
+  constexpr size_t smem = X3CoreLayout<DH>::kBytes;
+  LC2_TRY(allow_smem(swin_attn_bwd_x3<DH>, smem));
+  const int nwin = B * cv.nwh * cv.nww;
+  // about four waves of two blocks an SM: enough windows a block to share
+  // its bias load and its dbias atomics
+  const long long units = (long long)nwin * heads;
+  const int wpb = (int)std::max(1LL, (units + 8 * 132 - 1) / (8 * 132));
+  const dim3 grid((nwin + wpb - 1) / wpb, heads);
+  swin_attn_bwd_x3<DH><<<grid, kX3Threads, smem, s>>>(qkv, dA, bias, att, dqkv, dbias, cv, nwin,
+                                                       wpb);
   return cudaGetLastError();
 }
+
+// The workspace of the f32 body, carved in this order: LN(x), the gathered
+// output gradient, qkv, dA (reused for dLN once the attention core has read
+// it), the head outputs and dqkv, then the mean and rstd.
+struct F32Ws {
+  float *hn, *gw, *qkv, *dA, *att, *dqkv, *mean, *rstd;
+  F32Ws(float* ws, long long M, int C) {
+    const long long MC = M * C;
+    hn = ws;             // [M][C]
+    gw = hn + MC;        // [M][C]
+    qkv = gw + MC;       // [M][3C]
+    dA = qkv + 3 * MC;   // [M][C]  dA, then dLN
+    att = dA + MC;       // [M][C]
+    dqkv = att + MC;     // [M][3C]
+    mean = dqkv + 3 * MC;  // [M]
+    rstd = mean + M;     // [M]
+  }
+  static long long floats(long long M, int C) { return M * (10LL * C + 2); }
+};
 
 cudaError_t swin_bwd_f32(const float* x, const float* g, const float* lnw, const float* lnb,
                          const float* wqkv, const float* bqkv, const float* wo,
@@ -375,40 +556,40 @@ cudaError_t swin_bwd_f32(const float* x, const float* g, const float* lnw, const
                          float* dbqkv, float* dwo, float* dbo, float* dbias, float* ws, int B,
                          int H, int W, int C, int heads, int win, int shift, int residual,
                          float eps, cudaStream_t s) {
+  using gemm32::Epilogue;
   const Canvas cv{H, W, C, win, shift, (H + win - 1) / win, (W + win - 1) / win};
   const long long M = (long long)B * cv.nwh * cv.nww * win * win;
-  const long long MC = M * C;
-  float* hn = ws;            // [M][C]  LN(x), window order
-  float* gw = hn + MC;       // [M][C]  output gradient, window order
-  float* qkv = gw + MC;      // [M][3C]
-  float* dA = qkv + 3 * MC;  // [M][C]  gradient of the head outputs
-  float* att = dA + MC;      // [M][C]  head outputs
-  float* dqkv = att + MC;    // [M][3C]
-  float* dhn = dqkv + 3 * MC;  // [M][C]
-  float* mean = dhn + MC;    // [M]
-  float* rstd = mean + M;    // [M]
-  const int mi = (int)M;
-
-  ln_gather_kernel<float><<<(unsigned)((M + 7) / 8), 256, 0, s>>>(x, g, lnw, lnb, hn, gw, mean,
-                                                                 rstd, M, cv, eps);
+  const int mi = (int)M, C3 = 3 * C;
+  const F32Ws w(ws, M, C);
+  ln_gather_kernel<float><<<(unsigned)((M + 7) / 8), 256, 0, s>>>(x, g, lnw, lnb, w.hn, w.gw,
+                                                                 w.mean, w.rstd, M, cv, eps);
   LC2_TRY(cudaGetLastError());
-  LC2_TRY(gemm(mi, 3 * C, C, Mat{hn, C, 1}, Mat{wqkv, 1, C}, qkv, 3 * C, bqkv, nullptr, 0, s));
-  LC2_TRY(gemm(mi, C, C, Mat{gw, C, 1}, Mat{wo, C, 1}, dA, C, nullptr, nullptr, 0, s));
+  // qkv = LN · Wqkvᵀ + bqkv; dA = g · Wo
+  LC2_TRY(gemm32::gemm(mi, C3, C, w.hn, C, wqkv, C, Epilogue{bqkv, nullptr, w.qkv, C3}, s));
+  LC2_TRY((gemm32::product<false, true>(mi, C, C, w.gw, C, wo, C,
+                                        Epilogue{nullptr, nullptr, w.dA, C}, s)));
   switch (C / heads) {
-    case 16: LC2_TRY(attn_core<16>(qkv, dA, bias, att, dqkv, dbias, cv, B, heads, s)); break;
-    case 32: LC2_TRY(attn_core<32>(qkv, dA, bias, att, dqkv, dbias, cv, B, heads, s)); break;
-    case 64: LC2_TRY(attn_core<64>(qkv, dA, bias, att, dqkv, dbias, cv, B, heads, s)); break;
+    case 16: LC2_TRY(attn_core_x3<16>(w.qkv, w.dA, bias, w.att, w.dqkv, dbias, cv, B, heads, s)); break;
+    case 32: LC2_TRY(attn_core_x3<32>(w.qkv, w.dA, bias, w.att, w.dqkv, dbias, cv, B, heads, s)); break;
+    case 64: LC2_TRY(attn_core_x3<64>(w.qkv, w.dA, bias, w.att, w.dqkv, dbias, cv, B, heads, s)); break;
     default: return cudaErrorInvalidValue;
   }
-  LC2_TRY(gemm_acc(C, C, mi, Mat{gw, 1, C}, Mat{att, C, 1}, dwo, C, s));
-  LC2_TRY(colsum(mi, C, gw, C, dbo, s));
-  LC2_TRY(gemm_acc(3 * C, C, mi, Mat{dqkv, 1, 3 * C}, Mat{hn, C, 1}, dwqkv, C, s));
-  LC2_TRY(colsum(mi, 3 * C, dqkv, 3 * C, dbqkv, s));
-  LC2_TRY(gemm(mi, C, 3 * C, Mat{dqkv, 3 * C, 1}, Mat{wqkv, C, 1}, dhn, C, nullptr, nullptr, 0, s));
+  // dWo += gᵀ · att, dbo = Σ g; dWqkv += dqkvᵀ · LN, dbqkv = Σ dqkv (split-K
+  // f32 atomics)
+  LC2_TRY((gemm32::product<true, true>(C, C, mi, w.gw, C, w.att, C,
+                                       Epilogue{nullptr, nullptr, dwo, C, true}, s)));
+  LC2_TRY(gemm32::colsum(mi, C, w.gw, C, dbo, s));
+  LC2_TRY((gemm32::product<true, true>(C3, C, mi, w.dqkv, C3, w.hn, C,
+                                       Epilogue{nullptr, nullptr, dwqkv, C, true}, s)));
+  LC2_TRY(gemm32::colsum(mi, C3, w.dqkv, C3, dbqkv, s));
+  // dLN = dqkv · Wqkv, into dA's slot
+  float* dhn = w.dA;
+  LC2_TRY((gemm32::product<false, true>(mi, C, C3, w.dqkv, C3, wqkv, C,
+                                        Epilogue{nullptr, nullptr, dhn, C}, s)));
   const long long want = (M + 7) / 8;
   const int blocks = (int)(want < 4 * 132 ? want : 4 * 132);
   ln_bwd_scatter_kernel<float><<<blocks, 256, sizeof(float) * 2 * C, s>>>(
-      x, g, dhn, mean, rstd, lnw, dx, dlnw, dlnb, M, cv, residual);
+      x, g, dhn, w.mean, w.rstd, lnw, dx, dlnw, dlnb, M, cv, residual);
   return cudaGetLastError();
 }
 
@@ -758,27 +939,6 @@ cudaError_t attn_core_bf16(const bf16* qkv, const bf16* dA, const float* bias, b
   return cudaGetLastError();
 }
 
-// out[n] += Σ_m a[m·lda + n] over bf16 rows, summed in f32 (out zeroed by
-// the caller): a bias gradient, as colsum in gemm.cuh.
-__global__ void __launch_bounds__(256)
-colsum_bf16_kernel(int M, int N, const bf16* __restrict__ a, long long lda,
-                   float* __restrict__ out, int rows) {
-  const int m0 = blockIdx.y * rows, m1 = min(M, m0 + rows);
-  const int n = blockIdx.x * 256 + threadIdx.x;
-  if (n >= N) return;
-  float s = 0.0f;
-  for (int m = m0; m < m1; ++m) s += __bfloat162float(a[m * lda + n]);
-  atomicAdd(out + n, s);
-}
-
-cudaError_t colsum_bf16(int M, int N, const bf16* a, long long lda, float* out, cudaStream_t s) {
-  const int cols = (N + 255) / 256;
-  const int chunks = max(1, min((M + 63) / 64, 4 * 132 / cols));
-  const int rows = (M + chunks - 1) / chunks;
-  colsum_bf16_kernel<<<dim3(cols, (M + rows - 1) / rows), 256, 0, s>>>(M, N, a, lda, out, rows);
-  return cudaGetLastError();
-}
-
 // The workspace of the bf16 body, carved in this order: bf16 LN(x), the
 // gathered output gradient, qkv, dA (reused for dLN once the attention core
 // has read it), the head outputs and dqkv, then the f32 mean and rstd.
@@ -833,11 +993,11 @@ cudaError_t swin_bwd_bf16(const bf16* x, const bf16* g, const float* lnw, const 
   LC2_TRY((gemm16::gemm<true, true>(C, C, mi, w.gw, C, w.att, C,
                                     Epilogue{nullptr, nullptr, nullptr, dwo, nullptr, C, true},
                                     s)));
-  LC2_TRY(colsum_bf16(mi, C, w.gw, C, dbo, s));
+  LC2_TRY(gemm32::colsum(mi, C, w.gw, C, dbo, s));
   LC2_TRY((gemm16::gemm<true, true>(C3, C, mi, w.dqkv, C3, w.hn, C,
                                     Epilogue{nullptr, nullptr, nullptr, dwqkv, nullptr, C, true},
                                     s)));
-  LC2_TRY(colsum_bf16(mi, C3, w.dqkv, C3, dbqkv, s));
+  LC2_TRY(gemm32::colsum(mi, C3, w.dqkv, C3, dbqkv, s));
   // dLN = round(dqkv · Wqkv), into dA's slot
   bf16* dhn = w.dA;
   LC2_TRY((gemm16::gemm<false, true>(mi, C, C3, w.dqkv, C3, wqkv, C,
@@ -856,7 +1016,7 @@ cudaError_t swin_bwd_bf16(const bf16* x, const bf16* g, const float* lnw, const 
 // Workspace floats the f32 body needs (the wrapper allocates them).
 extern "C" long long lc2_swin_window_bwd_workspace(int B, int H, int W, int C, int win) {
   const long long M = (long long)B * ((H + win - 1) / win) * ((W + win - 1) / win) * win * win;
-  return M * (11LL * C + 2);
+  return lc2::F32Ws::floats(M, C);
 }
 
 // Workspace floats the bf16 body needs.
@@ -871,16 +1031,17 @@ extern "C" long long lc2_swin_window_bwd_workspace_bf16(int B, int H, int W, int
 // values the forward kernel used.  dlnw, dlnb, dwqkv, dbqkv, dwo, dbo, dbias
 // f32 of the same shapes, ZEROED by the caller (the kernels accumulate into
 // them).  ws: the dtype's workspace floats (lc2_swin_window_bwd_workspace,
-// _bf16).  win <= 8, 0 <= shift < win, C / heads in {16, 32, 64}; bf16: C a
-// multiple of 32, 16-byte aligned operands.  f32 runs the CUDA-core body,
-// bf16 the tensor-core one.
+// _bf16).  win <= 8, 0 <= shift < win, C / heads in {16, 32, 64}, C a
+// multiple of 32, 16-byte aligned operands.  Both bodies run every product
+// on the tensor cores: bf16 on mma.sync m16n8k16, f32 in 3xTF32.
 extern "C" int lc2_swin_window_bwd(int dtype, const void* x, const void* g, const void* lnw,
                                    const void* lnb, const void* wqkv, const void* bqkv,
                                    const void* wo, const void* bias, void* dx, void* dlnw,
                                    void* dlnb, void* dwqkv, void* dbqkv, void* dwo, void* dbo,
                                    void* dbias, void* ws, int B, int H, int W, int C, int heads,
                                    int win, int shift, int residual, float eps, void* stream) {
-  if (win < 1 || win * win > 64 || shift < 0 || shift >= win || heads < 1 || C % heads)
+  if (win < 1 || win * win > 64 || shift < 0 || shift >= win || heads < 1 || C % heads ||
+      C % 32)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
@@ -891,7 +1052,6 @@ extern "C" int lc2_swin_window_bwd(int dtype, const void* x, const void* g, cons
                              o(dbias), o(ws), B, H, W, C, heads, win, shift, residual, eps, s);
   if (dtype == lc2::kBF16) {
     using bf = __nv_bfloat16;
-    if (C % 32) return cudaErrorInvalidValue;
     auto t = [](const void* p) { return static_cast<const bf*>(p); };
     return lc2::swin_bwd_bf16(t(x), t(g), f(lnw), f(lnb), t(wqkv), f(bqkv), t(wo), f(bias),
                               static_cast<bf*>(dx), o(dlnw), o(dlnb), o(dwqkv), o(dbqkv), o(dwo),

@@ -24,7 +24,9 @@ K/V projections, so autograd carries dK and dV back through them.  On a CPU
 tensor autograd runs through the plain version.  In bf16 the backward's
 products run on the tensor cores with bf16 intermediates where the TPU
 kernel rounds (its workspace: ``lc2_attn_block_bwd_workspace_bf16``); in f32
-on the CUDA cores (``lc2_attn_block_bwd_workspace``).
+on the tensor cores in 3xTF32, f32-accurate (the GEMM of
+``csrc/gemm_f32x3.cuh``, the forward's attention core for the recompute and
+a dq and a dk/dv kernel; ``lc2_attn_block_bwd_workspace``).
 
 Int8 serving (the JAX entry's ``quant=True``, ``attention_block.py:38-96,190-205``):
 :func:`fused_attn_block_q` quantises the folded q weights (1/√dh folded in

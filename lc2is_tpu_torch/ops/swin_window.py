@@ -152,9 +152,9 @@ def swin_window_block_bwd(x, g, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_he
     wqkv_s, bqkv_s, wo, bo, bias), given g = d loss / d out; ``wqkv_s`` and
     ``bqkv_s`` carry the 1/√dh fold (:func:`fold_q_scale`).  x and g are CUDA
     tensors of the compute dtype; dx comes back in it, the rest in f32.  The
-    forward is recomputed inside (``csrc/swin_window_bwd.cu``: in f32 on the
-    CUDA cores, in bf16 on the tensor cores with bf16 intermediates where
-    ``swin_canvas.py::_canvas_bwd_kernel`` rounds)."""
+    forward is recomputed inside (``csrc/swin_window_bwd.cu``, every product
+    on the tensor cores: in f32 in 3xTF32, f32-accurate, in bf16 with bf16
+    intermediates where ``swin_canvas.py::_canvas_bwd_kernel`` rounds)."""
     b, h, w, c = x.shape
     _check(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shift)
     _build.check_operands(x.device, g=(g, tuple(x.shape)))

@@ -24,14 +24,18 @@ forward and a batch-8 step's forward, and its adjoint
 only), with the f32 bodies as controls, and the f32 bodies of rows 1 and 2
 (rows ``1f``, ``2f``) at the shapes the served bf16 forwards run them in f32
 (the FTN and DenseClip prompt decoders, the v1 decoders), each beside its
-plain version's time and its error over max |plain|:
+plain version's time and its error over max |plain|, and the f32 bodies of
+rows 3, 7 and 10 (rows ``3f``, ``7f``; ``10f`` comes with 7f) at a batch-8
+step's shapes, each beside autograd's backward through its plain version
+and its worst ‖Δ‖/‖plain‖ over the gradients, and the plain version's with
+TF32 products:
 CUDA-event medians of a call, and the device time of its kernels
 (torch.profiler; the event time also holds the wrapper's host work when the
 kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
 bias and region mask as its additive mask (``scaled_dot_product_attention``,
 a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,1f,2,2f,2q,3,4,5,6,7,8,9,12,13,17]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,1f,2,2f,2q,3,3f,4,5,6,7,7f,8,9,12,13,17]
 
 ROOT is a checkout of this repository (default: the one holding this
 script); only the sources of those kernels are built (``fused_mlp*.cu``,
@@ -230,7 +234,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--rows", default="1,1f,2,2f,2q,3,4,5,6,7,8,9,12,13,17")
+    ap.add_argument("--rows", default="1,1f,2,2f,2q,3,3f,4,5,6,7,7f,8,9,12,13,17")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
@@ -511,6 +515,74 @@ def main() -> int:
                        dt, ms, n, 1.5 * ops, swin_bwd, note)
             del a, a8, g8
             torch.cuda.empty_cache()
+
+    # rows 3f, 7f and 10f: the f32 bodies of the two training backwards at a
+    # batch-8 step's shapes (row 3's six decoder shapes; row 7 at swin-small
+    # stages 1-3, row 10 at swin-base stage 3, (8, 32², 512) h16, both
+    # shifts, without the residual as the drop-path blocks run): CUDA-event
+    # time, device time by kernel, autograd's backward through the plain
+    # version, and the worst ‖Δ‖/‖plain‖ over the gradients beside the plain
+    # version's with TF32 products (chip_smoke.py's F32X3_GRAD_REL rule, 1e-5,
+    # and its control)
+    def grad_rels(kern, plain, args, g):
+        ka = [t.detach().clone().requires_grad_() for t in args]
+        pa = [t.detach().clone().requires_grad_() for t in args]
+        got = torch.autograd.grad(kern(*ka), ka, g)
+        out_p = plain(*pa)
+        want = torch.autograd.grad(out_p, pa, g, retain_graph=True)
+        p_ms = time_ms(lambda: torch.autograd.grad(out_p, pa, g, retain_graph=True), reps=5,
+                       warmup=1)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ta = [t.detach().clone().requires_grad_() for t in args]
+            ctl = torch.autograd.grad(plain(*ta), ta, g)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+        def worst(xs):
+            return max(((x.float() - y.float()).norm() / y.float().norm().clamp_min(1e-30)
+                        ).item() for x, y in zip(xs, want))
+
+        return f" rel {worst(got):.2e}, TF32 plain {worst(ctl):.2e}; plain {p_ms:.3f} ms"
+
+    for p, l, n in ATTN_SHAPES if "3f" in rows else ():
+        b, dt = 8, torch.float32
+        a = attn_args(rs, b, p, l, dt)
+        g = rand(rs, b, p, 512, dtype=dt)
+        wq_s, bq_s = ab.fold_q_scale(a[3], a[4], 8)
+
+        def bwd(a=a, g=g, wq_s=wq_s, bq_s=bq_s):
+            return ab.fused_attn_block_bwd(a[0], a[1], a[2], g, wq_s, bq_s, *a[5:], 8)
+
+        with torch.no_grad():
+            ms = time_ms(bwd)
+        note = grad_rels(lambda *t: ab.fused_attn_block(*t, 8),
+                         lambda *t: ab.fused_attn_block_plain(*t, 8), a, g)
+        report("3f", f"({b},{p},512) L{l} h8", dt, ms, n,
+               3 * (4 * b * p * 512 * 512 + 4 * b * p * l * 512), bwd, note, split=True)
+        del a, g
+        torch.cuda.empty_cache()
+    stages_f = [(grid, c, heads, n, "7f") for grid, c, heads, n in SWIN_STAGES[:3]]
+    for grid, c, heads, n, row in stages_f + [(32, 512, 16, 9, "10f")] if "7f" in rows else ():
+        dt = torch.float32
+        a = swin_args(rs, 8, grid, c, heads, dt)
+        g = rand(rs, 8, grid, grid, c, dtype=dt)
+        wq_s, bq_s = sw.fold_q_scale(a[3], a[4], heads)
+        tok = 8 * (-(-grid // 7) * 7) ** 2
+        for shift in (0, 3):
+            kw = dict(num_heads=heads, win=7, shift=shift, residual=False)
+
+            def swin_bwd(a=a, g=g, wq_s=wq_s, bq_s=bq_s, kw=kw):
+                return sw.swin_window_block_bwd(a[0], g, a[1], a[2], wq_s, bq_s, *a[5:], **kw)
+
+            with torch.no_grad():
+                ms = time_ms(swin_bwd, reps=5)
+            note = grad_rels(lambda *t, kw=kw: sw.swin_window_block(*t, **kw),
+                             lambda *t, kw=kw: sw.swin_window_block_plain(*t, **kw), a, g)
+            report(row, f"(8,{grid},{grid},{c}) h{heads} shift{shift}", dt, ms, n,
+                   3 * (4 * tok * c * c + 2 * tok * 49 * c), swin_bwd, note, split=True)
+        del a, g
+        torch.cuda.empty_cache()
 
     # row 9: bf16 at every shape with the plain version's time and the
     # device time by kernel (the token-major plan's steps; its two GEMMs

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Time the flagship's bf16 served-mask forward, the two bf16 training steps
-and the served bf16 forwards of ``PromptFTNv1`` and ``PromptFTNv2`` of two
-checkouts of this repository on one NVIDIA GPU, in turns, each through that
-checkout's own ``chip_smoke.py`` phase functions (4m: the batch-16 512²
-masks forward, 6b: the flagship's batch-8 step, 11b: ``BaseCrossA``'s
-batch-8 step, 12: ``check_ftn_model``, whose (b) half serves three batch-16
-512² batches and profiles one ``PromptFTNv2`` forward; host clock to a
-synchronize, medians of 3 and 6 runs), so that a change's end-to-end times
-stand beside its parent's from the same card:
+"""Time the flagship's bf16 served-mask forward, the two bf16 training steps,
+the served bf16 forwards of ``PromptFTNv1`` and ``PromptFTNv2`` and the
+flagship's f32 batch-16 training step of two checkouts of this repository on
+one NVIDIA GPU, in turns, each through that checkout's own ``chip_smoke.py``
+phase functions (4m: the batch-16 512² masks forward, 6b: the flagship's
+batch-8 step, 11b: ``BaseCrossA``'s batch-8 step, 12: ``check_ftn_model``,
+whose (b) half serves three batch-16 512² batches and profiles one
+``PromptFTNv2`` forward; host clock to a synchronize, medians of 3 and 6
+runs) but the f32 step, which both run through phase 6c's function
+(``check_train_f32_step``) of the checkout holding this script on their own
+package (an older ``chip_smoke.py`` may lack the phase), so that a change's
+end-to-end times stand beside its parent's from the same card:
 
     python3 scripts/torch_steps_ab.py PARENT CHANGE [--pairs 3] [--log DIR]
         [--metrics step_ms,...]   # a subset of METRICS; all by default
@@ -24,13 +27,15 @@ runs and medians for both.  Fails without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import statistics
 import subprocess
 import sys
 from pathlib import Path
 
-METRICS = ("masks_ms", "step_ms", "basecrossa_ms", "PromptFTNv1_ms", "PromptFTNv2_ms")
+METRICS = ("masks_ms", "step_ms", "basecrossa_ms", "PromptFTNv1_ms", "PromptFTNv2_ms",
+           "f32_step_ms")
 FTN_TIMED = ("PromptFTNv1", "PromptFTNv2")
 
 
@@ -55,6 +60,14 @@ def one(root: Path, metrics) -> None:
         torch.cuda.empty_cache()
     if "step_ms" in metrics:
         out["step_ms"] = cs.check_train_bf16(smi, state)[1]
+    if "f32_step_ms" in metrics:
+        # phase 6c of the chip_smoke.py beside this script, on ROOT's package
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke_6c", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+        here = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(here)
+        out["f32_step_ms"] = here.check_train_f32_step(smi, state)
+        torch.cuda.empty_cache()
     del state
     torch.cuda.empty_cache()
     if "basecrossa_ms" in metrics:

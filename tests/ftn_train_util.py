@@ -51,9 +51,13 @@ elements, 6.1e-4, and 2 of 2048 bias elements, 9.8e-4; norm up to 6.3e-4),
 two of its four input gradients up to 3.5e-4 of theirs (185 of 524,288;
 norm up to 3.7e-4), and every other gradient none (norm up to 4.0e-4).
 
-The four models' JAX steps and ``FTNDecoderV2``'s ``jax.vjp`` are traced in
-turn and compiled together on a thread pool (XLA's compile releases the
-GIL)."""
+The tests live in one file a model (``tests/test_torch_ftn_train_*.py``:
+``denseclipftn``, ``promptftnv1``, ``baseftn``, ``promptftnv2`` and
+``decoder_v2``), so that the test runner can spread them over its workers;
+this module holds what they share, their step tests among it, and each file
+compiles its own JAX computations once, in a module fixture
+(:func:`step_fixtures`, :func:`compiled_runs`)."""
+
 
 import copy
 from concurrent.futures import ThreadPoolExecutor
@@ -82,9 +86,7 @@ from lc2is_tpu_torch.engine.engine import train_step
 from lc2is_tpu_torch.engine.optim import make_optimizer
 from lc2is_tpu_torch.models import zoo
 from lc2is_tpu_torch.models.zoo import without_dropout
-from lc2is_tpu_torch.nn import decoders
 from lc2is_tpu_torch.nn.layers import TransformerDecoderLayer, TransformerEncoderLayer
-from lc2is_tpu_torch.nn.losses import cross_entropy
 
 LR = 1e-3
 CLASSES = ("wall", "sky", "tree")
@@ -230,22 +232,21 @@ def _lower_decoder_v2():
     return jax.jit(vjp).lower(*args), dict(args=args, visual=visual, cot=cot, params=params)
 
 
-@pytest.fixture(scope="module")
-def jax_runs():
-    """name -> (the compiled JAX computation, its case): the four models'
-    steps and ``FTNDecoderV2``'s vjp, traced in turn and compiled together."""
-    lowered = {name: _lower_model(name) for name in sorted(RUNS)}
-    lowered["FTNDecoderV2"] = _lower_decoder_v2()
+def compiled_runs(names):
+    """name -> (the compiled JAX computation, its case) for the models of
+    ``RUNS`` named (their steps) and "FTNDecoderV2" (its vjp), traced in
+    turn and compiled together on a thread pool (XLA's compile releases the
+    GIL)."""
+    lowered = {name: _lower_decoder_v2() if name == "FTNDecoderV2" else _lower_model(name)
+               for name in names}
     with ThreadPoolExecutor(len(lowered)) as pool:
         compiled = dict(zip(lowered, pool.map(lambda lc: lc[0].compile(), lowered.values())))
     return {name: (compiled[name], case) for name, (_, case) in lowered.items()}
 
 
-@pytest.fixture(scope="module", params=sorted(RUNS))
-def step_run(request, jax_runs):
+def step_of(name, jax_runs):
     """One JAX step and one port step of a model from the same numpy
     parameters and batch, the modules of ``RUNS`` replaced on both sides."""
-    name = request.param
     compiled, case = jax_runs.pop(name)
     frozen, outs, replaced = case["frozen"], case["outs"], RUNS[name][1]
     loss, grads, new = _finish_jax_step(compiled, case["args"], frozen)
@@ -259,6 +260,21 @@ def step_run(request, jax_runs):
     return dict(name=name, frozen=frozen, port=port, before=before, losses=losses, loss=loss,
                 grads=grads, new=new, relu_fed=_relu_fed(port),
                 replaced={n for cls in replaced for n in PORT_NAMES[cls]})
+
+
+def step_fixtures(name):
+    """A model file's module fixtures: ``jax_runs`` (the model's JAX step,
+    compiled once) and ``step_run`` (:func:`step_of`, parametrized by the
+    model's name)."""
+    @pytest.fixture(scope="module")
+    def jax_runs():
+        return compiled_runs([name])
+
+    @pytest.fixture(scope="module", params=[name])
+    def step_run(request, jax_runs):
+        return step_of(request.param, jax_runs)
+
+    return jax_runs, step_run
 
 
 def _relu_fed(module):
@@ -341,28 +357,6 @@ def test_ftn_params_after_one_adamw_step(step_run):
     assert n >= 2
 
 
-def test_ftn_decoder_v2_gradients_match_jax(jax_runs):
-    """``FTNDecoderV2`` at its fixed grids (512² input), batch 1: the
-    gradients of every parameter and of the four pyramid inputs under one
-    cotangent, the port in training mode with its dropouts zeroed (the
-    unfused layers) against ``jax.vjp`` of the deterministic module."""
-    compiled, case = jax_runs.pop("FTNDecoderV2")
-    want_p, want_v = compiled(*case["args"])
-    port = without_dropout(load_jax_params(decoders.FTNDecoderV2(), case["params"])).train()
-    xs = [t(v).requires_grad_() for v in case["visual"]]
-    port(xs, torch.Generator().manual_seed(0)).backward(t(case["cot"]))
-    want, relu_fed = params_to_state_dict(want_p), _relu_fed(port)
-    assert set(want) == {n for n, _ in port.named_parameters()}
-    assert len(relu_fed) == 2 * 6, relu_fed  # the 1 + 2 + 3 layers of its RepeatTransformers
-    for name, p in port.named_parameters():
-        w = want[name].numpy()
-        _grad_close(p.grad.numpy(), w, name, w, name in relu_fed)
-    for i, (x, w) in enumerate(zip(xs, want_v)):
-        # a switched unit moves its token's input row
-        w = np.asarray(w)
-        _grad_close(x.grad.numpy(), w, f"input {i}", w, True)
-
-
 @pytest.fixture(scope="module")
 def seeded():
     """name -> (a seeded port model, its 64² inputs and labels), each model
@@ -379,8 +373,7 @@ def seeded():
     return get
 
 
-@pytest.mark.parametrize("name", ["DenseCLIPFTN", "PromptFTNv1"])
-def test_ftn_forward_follows_its_generator(seeded, name):
+def check_forward_follows_its_generator(seeded, name):
     """In training mode (drop path 0.1; ``PromptFTNv1``'s decoders' dropout
     0.1) the same generator seed gives the same map, another seed another;
     in eval mode the generator draws nothing."""
@@ -394,30 +387,3 @@ def test_ftn_forward_follows_its_generator(seeded, name):
         none_e, e = model(pin, generator=torch.Generator().manual_seed(5))
     assert torch.equal(a, b) and not torch.equal(a, c) and not torch.equal(a, d)
     assert none_d is None and none_e is None and torch.equal(d, e)
-
-
-def test_ftn_step_with_dropout_repeats_from_its_seed(seeded):
-    """``PromptFTNv1``'s step with drop path 0.1 and its decoders' dropout
-    0.1 on repeats the loss and the updated parameters bit for bit from the
-    same generator seed."""
-    model, pin, y = seeded("PromptFTNv1")
-    runs = []
-    for _ in range(2):
-        m = copy.deepcopy(model)
-        _, losses = _port_step(m, pin, y, zoo.FROZEN_PREFIXES[KEYS["PromptFTNv1"]],
-                               torch.Generator().manual_seed(1))
-        runs.append((losses["train_loss"].item(), m.state_dict()))
-    (a, sa), (b, sb) = runs
-    assert a == b and np.isfinite(a)
-    assert all(torch.equal(sa[k], sb[k]) for k in sa)
-
-
-def test_labels_of_another_size_raise():
-    """The plain CE needs labels at the map's size in both packages: a
-    (1, 3, 16, 16) map against 8² labels raises, with no resize."""
-    logits = np.random.RandomState(11).randn(1, 3, 16, 16).astype(np.float32)
-    labels = np.zeros((1, 8, 8), np.int32)
-    with pytest.raises((TypeError, ValueError)):
-        jax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels))
-    with pytest.raises(ValueError, match="does not match"):
-        cross_entropy(t(logits), torch.from_numpy(labels).long())
