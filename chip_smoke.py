@@ -12,7 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the decoder attention forward's and backward's (its GEMM, which the
    feed-forward and the swin backward share, and its LayerNorm pass), the
    swin window block's, window attention's, the swin backward's attention
-   core, the mask head's and the fused CE's) on a line;
+   core, the mask head's and the fused CE's; and the swin window block's
+   f32 3xTF32 attention core) on a line;
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
@@ -38,6 +39,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device time of each step of the bf16 window block's token-major plan
    (C > 384, row 9: LayerNorm, QKV GEMM, attention core, out-projection
    GEMM) at swin-base stage 3, both shifts, from one torch.profiler call;
+   the f32 bodies of rows 1, 2, 6 and 9 (3xTF32) also within F32X3_REL of
+   max |plain| at every shape, the plain version run with TF32 products as a
+   control that must fail it;
    and rows 1, 2, 4 and 6 at the 480² crop of the sliding sweep (phase 14):
    each distinct call of the flagship's score-map forward there, recorded by
    hooks, on the inputs it had (bf16 at the sweep's batch, 4, each tagged
@@ -122,7 +126,10 @@ Phases, in order; any failure raises and the script exits non-zero:
        img/s, peak memory), the launch counts of one step asserted, and a
        torch.profiler table of one more step, from which rows 3 and 7's
        device time a step is read (their autograd nodes,
-       _FusedAttnBlockBackward and _SwinWindowBlockBackward).
+       _FusedAttnBlockBackward and _SwinWindowBlockBackward), and row 6's
+       forward device time (the swin window block's f32 kernels, by name:
+       the token-major plan's LayerNorm pass and the three kernels after
+       it, or an older checkout's swin_window_kernel).
 7. the v1 CLIP family (ViT-B/16 at 512², the 12-layer CLIP text tower),
    weights from a numpy seed, ids from ops/bpe.tokenize on class-name
    prompts padded to 77, attention_mask = ids != 0:
@@ -272,13 +279,13 @@ BOUNDS = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (5e-2, 2e-2)}
 # about 0.05 over 1025 unit-normal keys, so BOUNDS' bf16 atol alone would pass
 # a kernel that dropped a 64-key tile (about 1e-2 off)
 FLASH_REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
-# the f32 bodies of the feed-forward and the decoder attention block (3xTF32
-# on the tensor cores) are also held to |Δ| <= F32X3_REL·max|ref|: BOUNDS' f32
-# rule would pass TF32 products (about 5e-4 relative) too.  Their plain
-# versions run with TF32 products (torch.backends.cuda.matmul.allow_tf32) are
-# the control that must fail it
+# the f32 bodies of the feed-forward, the decoder attention block and the
+# swin window block (rows 6 and 9; 3xTF32 on the tensor cores) are also held
+# to |Δ| <= F32X3_REL·max|ref|: BOUNDS' f32 rule would pass TF32 products
+# (about 5e-4 relative) too.  Their plain versions run with TF32 products
+# (torch.backends.cuda.matmul.allow_tf32) are the control that must fail it
 F32X3_REL = 1e-5
-F32X3_KERNELS = ("fused_mlp", "fused_attn_block")
+F32X3_KERNELS = ("fused_mlp", "fused_attn_block", "swin_window_block", "fused_window_block")
 # the f32 slice on the card against its plain run on the CPU (cosine scores)
 SLICE_F32_MAX_ABS = 1e-2
 SLICE_F32_ARGMAX_AGREE = 0.99
@@ -2229,17 +2236,46 @@ def check_train_f32_step(smi, state, name="PromptAuxCrossA", label="train"):
           f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = "
           f"{batch * 1e3 / ms:.2f} img/s, peak device memory {peak / 2 ** 30:.2f} GiB on {smi}",
           flush=True)
+    events = []
     table = profile_step(lambda: train_step(model, opt, {"pixel_values": x}, y, generator=gen),
-                         f"one {name} f32 b{batch} step")
+                         f"one {name} f32 b{batch} step", events=events)
     rows = {e.key: e for e in table
             if e.key in ("_FusedAttnBlockBackward", "_SwinWindowBlockBackward")}
     if len(rows) != 2:
         raise AssertionError(f"the profile has rows 3 and 7's autograd nodes {sorted(rows)}")
+    fwd_ms, fwd_calls = swin_forward_device_ms(events)
     print(f"[{label}] (c) a step's rows 3 and 7 in the profile (device time of their autograd "
           f"nodes: the kernel and its zeroed gradients): "
           + ", ".join(f"{k} {device_us(e) / 1e3:.2f} ms ({e.count} calls)"
-                      for k, e in sorted(rows.items())), flush=True)
+                      for k, e in sorted(rows.items()))
+          + f"; row 6's forward (the swin window block's f32 kernels) {fwd_ms:.2f} ms "
+          f"({fwd_calls} calls)", flush=True)
+    if fwd_calls != EXPECTED_F32_STEP_LAUNCHES["swin_window_block"]:
+        raise AssertionError(f"the profile has {fwd_calls} f32 swin window block forwards")
     return ms
+
+
+def swin_forward_device_ms(events):
+    """(device ms, calls) of the f32 swin window block forwards among a
+    profile's device events: each call of the token-major plan is its
+    LayerNorm pass (swin_ln_f32_kernel) and the three kernels after it on
+    the stream (the QKV GEMM, swin_core_x3, the out-projection GEMM); an
+    older checkout's CUDA-core body is one swin_window_kernel."""
+    events = sorted(events, key=lambda e: e.time_range.start)
+    total, calls = 0.0, 0
+    for i, e in enumerate(events):
+        if "swin_window_kernel" in e.name:
+            plan = [e]
+        elif "swin_ln_f32_kernel" in e.name:
+            plan = events[i:i + 4]
+            if len(plan) != 4 or "swin_core_x3" not in plan[2].name:
+                raise AssertionError(f"the kernels after a swin_ln_f32_kernel: "
+                                     f"{[k.name for k in plan]}")
+        else:
+            continue
+        total += sum(k.time_range.end - k.time_range.start for k in plan) / 1e3
+        calls += 1
+    return total, calls
 
 
 def prompt_decoder_relu_inputs(model):
@@ -2561,16 +2597,19 @@ def check_v4_train(smi):
     return counts, step_ms
 
 
-def profile_step(step, label, rows=40):
+def profile_step(step, label, rows=40, events=None):
     """torch.profiler over one step: device time by kernel and idle share.
-    Returns the profile's key averages."""
+    Returns the profile's key averages (and adds its device events to the
+    list ``events``, where given)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if events is not None:
+        events.extend(device)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -2582,7 +2621,7 @@ def profile_step(step, label, rows=40):
     span = spans[-1][1] - spans[0][0] if spans else 0.0
     averages = prof.key_averages()
     table = averages.table(sort_by="cuda_time_total", row_limit=rows)
-    print(f"[profile] {label}: {len(events)} device kernels, busy {busy / 1e3:.2f} ms "
+    print(f"[profile] {label}: {len(device)} device kernels, busy {busy / 1e3:.2f} ms "
           f"in a {span / 1e3:.2f} ms first-to-last span (idle {100 * (1 - busy / span):.1f} %)")
     print(table, flush=True)
     return averages
@@ -2899,16 +2938,18 @@ def check_v1_train(smi):
     return result
 
 
-# the kernels of the bf16 tensor-core bodies: flash (rows 15, 16), the
+# the kernels of the tensor-core bodies (bf16 but one): flash (rows 15, 16), the
 # decoder attention forward and backward (rows 2, 3: the attention cores,
 # the GEMM, which the feed-forward (row 1) and the swin backward share, and
-# the LayerNorm pass of rows 1 and 2), the swin window block (rows 6, 9),
-# window attention (row 8), the swin backward's attention core (rows 7,
-# 10), and the int8 row's s8 GEMM and row pass (rows 2q, 17)
+# the LayerNorm pass of rows 1 and 2), the swin window block (rows 6, 9;
+# and its f32 body's 3xTF32 attention core), window attention (row 8), the
+# swin backward's attention core (rows 7, 10), and the int8 row's s8 GEMM and
+# row pass (rows 2q, 17)
 MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
                "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "layer_norm_rows",
-               "swin_mma_kernel", "swin_core_mma", "window_attention_mma", "swin_attn_bwd_mma",
-               "gemm_s8_kernel", "quant_rows_kernel", "head_kernel", "fused_ce_kernel")
+               "swin_mma_kernel", "swin_core_mma", "swin_core_x3", "window_attention_mma",
+               "swin_attn_bwd_mma", "gemm_s8_kernel", "quant_rows_kernel", "head_kernel",
+               "fused_ce_kernel")
 
 
 def mma_registers(log):
@@ -2931,9 +2972,9 @@ def mma_registers(log):
         spill = info.split("bytes spill stores")[0].split(",")[-1].strip()
         if f"{name}<{targs}> {regs}/{spill}" not in out:
             out.append(f"{name}<{targs}> {regs}/{spill}")
-    return ("bf16 tensor-core bodies' kernels, registers a thread / spill-store bytes: "
+    return ("tensor-core bodies' kernels, registers a thread / spill-store bytes: "
             + ", ".join(out) if out else
-            "bf16 tensor-core bodies' kernels: no ptxas report (library found already built)")
+            "tensor-core bodies' kernels: no ptxas report (library found already built)")
 
 
 # the FTN family (phase 12): swin-base, decoder 512, 151 classes; per model,

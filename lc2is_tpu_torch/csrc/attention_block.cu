@@ -359,17 +359,19 @@ cudaError_t attn_block_f32(const AttnArgs& a, int C, void* ws, cudaStream_t st) 
   float* q = static_cast<float*>(ws);
   float* s = q + (long long)rows * C;
   float* part = s + (long long)rows * C;
-  LC2_TRY(gemm32::gemm(rows, C, C, f(a.x), C, f(a.wq), C, Epilogue{f(a.bq), nullptr, q, C}, st));
+  LC2_TRY((gemm32::gemm<false, true>(rows, C, C, f(a.x), C, f(a.wq), C,
+                                     Epilogue{f(a.bq), nullptr, q, C}, st)));
   switch (C / a.heads) {
-    case 16: LC2_TRY(attn_core_launch<16>(q, f(a.k), f(a.v), q, nullptr, part, a.B, a.P, a.L,
-                                          C, a.heads, st)); break;
-    case 32: LC2_TRY(attn_core_launch<32>(q, f(a.k), f(a.v), q, nullptr, part, a.B, a.P, a.L,
-                                          C, a.heads, st)); break;
-    case 64: LC2_TRY(attn_core_launch<64>(q, f(a.k), f(a.v), q, nullptr, part, a.B, a.P, a.L,
-                                          C, a.heads, st)); break;
+    case 16: LC2_TRY((attn_core_launch<16, false, true>(q, f(a.k), f(a.v), q, nullptr, part, a.B,
+                                                        a.P, a.L, C, a.heads, st))); break;
+    case 32: LC2_TRY((attn_core_launch<32, false, true>(q, f(a.k), f(a.v), q, nullptr, part, a.B,
+                                                        a.P, a.L, C, a.heads, st))); break;
+    case 64: LC2_TRY((attn_core_launch<64, false, true>(q, f(a.k), f(a.v), q, nullptr, part, a.B,
+                                                        a.P, a.L, C, a.heads, st))); break;
     default: return cudaErrorInvalidValue;
   }
-  LC2_TRY(gemm32::gemm(rows, C, C, q, C, f(a.wo), C, Epilogue{f(a.bo), f(a.x), s, C}, st));
+  LC2_TRY((gemm32::gemm<false, true>(rows, C, C, q, C, f(a.wo), C,
+                                     Epilogue{f(a.bo), f(a.x), s, C}, st)));
   return ln::layer_norm(s, f(a.lnw), f(a.lnb), static_cast<float*>(a.out), rows, C, a.eps, st);
 }
 

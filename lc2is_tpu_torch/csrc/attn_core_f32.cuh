@@ -99,8 +99,9 @@ struct CorePlan {
 // to nearest), for the backward's recompute; otherwise the products add
 // into O on the tensor cores, whose truncating adds drift over a long key
 // range (~8e-6 of max |O| over 1024 keys, ~2e-6 of the backward's
-// gradients), ~15 % faster.
-template <int DH, bool kFresh>
+// gradients), ~15 % faster.  kNearest (the forward): every mma's products
+// are added in f32, round to nearest (gemm_f32x3.cuh), so neither drifts.
+template <int DH, bool kFresh, bool kNearest>
 __global__ void __launch_bounds__(32 * kF32MaxWarps, 1)
 attn_core_f32(const float* q, const float* __restrict__ k, const float* __restrict__ v,
               float* att, float* __restrict__ lse, float* __restrict__ part_o,
@@ -195,7 +196,7 @@ attn_core_f32(const float* q, const float* __restrict__ k, const float* __restri
           const uint2 l = *reinterpret_cast<const uint2*>(lo + kofs + o);
           kf[j] = gemm32::Split<2>{{h.x, h.y}, {l.x, l.y}};
         }
-        gemm32::mma_x3_row<4>(s[jg], qf[kc], kf);
+        gemm32::mma_x3_row<4, kNearest>(s[jg], qf[kc], kf);
       }
     // the online softmax: a row lives in the 4 lanes of a quad
     const int key0 = (t0 + i) * kF32Keys;
@@ -261,13 +262,13 @@ attn_core_f32(const float* q, const float* __restrict__ k, const float* __restri
           float part[G][4];
 #pragma unroll
           for (int j = 0; j < G; ++j) part[j][0] = part[j][1] = part[j][2] = part[j][3] = 0.0f;
-          gemm32::mma_x3_row<G>(part, pf, vf);
+          gemm32::mma_x3_row<G, kNearest>(part, pf, vf);
 #pragma unroll
           for (int j = 0; j < G; ++j)
 #pragma unroll
             for (int e = 0; e < 4; ++e) o[jg][j][e] += part[j][e];
         } else {
-          gemm32::mma_x3_row<G>(o[jg], pf, vf);
+          gemm32::mma_x3_row<G, kNearest>(o[jg], pf, vf);
         }
       }
     }
@@ -333,15 +334,16 @@ attn_merge_f32(const float* __restrict__ part_o, const float2* __restrict__ part
 
 // The head outputs over q (att may be q), and each row's log-sum-exp in
 // log2 units where lse is not null; part: CorePlan's partial_floats.
-template <int DH, bool kFresh = false>
+template <int DH, bool kFresh = false, bool kNearest = false>
 cudaError_t attn_core_launch(const float* q, const float* k, const float* v, float* att,
                              float* lse, float* part, int B, int P, int L, int C, int heads,
                              cudaStream_t st) {
   const CorePlan plan(B, P, L, heads);
   constexpr size_t smem = CoreLayout<DH>::kBytes;
-  LC2_TRY(allow_smem(attn_core_f32<DH, kFresh>, smem));
+  LC2_TRY(allow_smem(attn_core_f32<DH, kFresh, kNearest>, smem));
   float2* part_ml = reinterpret_cast<float2*>(part + (size_t)plan.splits * B * heads * P * DH);
-  attn_core_f32<DH, kFresh><<<dim3(plan.q_tiles * plan.splits, heads, B), 32 * plan.warps, smem, st>>>(
+  attn_core_f32<DH, kFresh, kNearest><<<dim3(plan.q_tiles * plan.splits, heads, B), 32 * plan.warps,
+                                        smem, st>>>(
       q, k, v, att, lse, part, part_ml, P, L, C, plan.splits, plan.tiles_per_split);
   LC2_TRY(cudaGetLastError());
   if (plan.splits == 1) return cudaSuccess;

@@ -87,10 +87,11 @@ cudaError_t fused_mlp_f32(const float* x, const float* lnw, const float* lnb, co
   Epilogue up{b1, nullptr, u, F};
   up.act = act;
   up.out_pre = upre;
-  LC2_TRY(gemm32::gemm<true>(n_tok, F, C, h, C, w1, C, up, st));
+  LC2_TRY((gemm32::gemm<true, true>(n_tok, F, C, h, C, w1, C, up, st)));
   const float* add = residual ? x : nullptr;
-  if (pre) return gemm32::gemm(n_tok, C, F, u, F, w2, F, Epilogue{b2, add, out, C}, st);
-  LC2_TRY(gemm32::gemm(n_tok, C, F, u, F, w2, F, Epilogue{b2, add, rest, C}, st));
+  if (pre)
+    return gemm32::gemm<false, true>(n_tok, C, F, u, F, w2, F, Epilogue{b2, add, out, C}, st);
+  LC2_TRY((gemm32::gemm<false, true>(n_tok, C, F, u, F, w2, F, Epilogue{b2, add, rest, C}, st)));
   return ln::layer_norm(rest, lnw, lnb, out, n_tok, C, eps, st);
 }
 

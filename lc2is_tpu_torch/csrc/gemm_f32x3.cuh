@@ -47,10 +47,17 @@
 // so a long chain of products into one accumulator drifts (1.5e-5 to
 // 2.0e-5 of max |C| at K 2048): each slice sums into fresh accumulators,
 // added to the running sums in f32 (round to nearest), which keeps K 2048
-// near 4.5e-7 for about 9 % of the rate.  Two tile shapes: 128 x 64 (64 x
-// 32 a warp, two blocks an SM) where they give about a wave of blocks, else
-// 64 x 64 (32 x 32 a warp, three an SM), which gives the prompt decoders'
-// 2,416 x 512 products 304 blocks, not 76.  At 45-54 TFLOP/s of
+// near 4.5e-7 for about 9 % of the rate.  The forward bodies' products go
+// further (kNearest): every mma sums into zero accumulators, added in f32
+// round to nearest.  Even a slice's chain of 12 truncating adds biases a
+// sum toward zero, and over the forward's blocks that bias moved a
+// downstream relu unit's sign against the f32 references; per mma it
+// halves the swin window block's f32 error (6.5e-7 to 3.4e-7 of max
+// |plain|).  The backward bodies keep the slices: their gradients are held
+// norm-relative, and the adds cost their products ~30 %.  Two tile shapes:
+// 128 x 64 (64 x 32 a warp, two blocks an SM) where they give about a wave
+// of blocks, else 64 x 64 (32 x 32 a warp, three an SM), which gives the
+// prompt decoders' 2,416 x 512 products 304 blocks, not 76.  At 45-54 TFLOP/s of
 // f32-accurate products it runs level with cuBLAS's f32 SGEMM; this loop
 // issues TF32 mma.sync products at 140-165 TFLOP/s (its rate with no split
 // at all), and wgmma (495 dense) is the way past it.
@@ -106,16 +113,29 @@ __device__ __forceinline__ void split(float a, uint32_t& hi, uint32_t& lo) {
   lo = tf32_rna(a - __uint_as_float(hi));
 }
 
-// c += a · b (16x8 TF32 times 8x8 TF32, f32 accumulate).  Fragments (g =
-// lane / 4, t = lane % 4): A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4);
-// B (k t, n g), (k t + 4, n g); C (g, 2t), (g, 2t + 1), (g + 8, 2t),
-// (g + 8, 2t + 1).
+// c += a · b (16x8 TF32 times 8x8 TF32, f32 accumulate): the mma adds into
+// c (truncating), or with kNearest sums the products into zero accumulators
+// that are added to c in f32, round to nearest.  Fragments (g = lane / 4, t
+// = lane % 4): A (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B (k t, n
+// g), (k t + 4, n g); C (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1).
+template <bool kNearest>
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (kNearest) {
+    float d[4];
+    const float z = 0.0f;
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(z));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], d[e]);
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // A split fragment: the hi and lo halves of 4 (A) or 2 (B) values.
@@ -146,34 +166,34 @@ __device__ __forceinline__ Split<2> split_b(float2 w) {
 
 // acc[j] += a · b[j] to f32 accuracy for one 16-row A fragment, term by
 // term (lo·hi, hi·lo, hi·hi) over the NI tiles.
-template <int NI>
+template <int NI, bool kNearest = false>
 __device__ __forceinline__ void mma_x3_row(float (&acc)[NI][4], const Split<4>& a,
                                            const Split<2> (&b)[NI]) {
 #pragma unroll
-  for (int j = 0; j < NI; ++j) mma_tf32(acc[j], a.lo, b[j].hi[0], b[j].hi[1]);
+  for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[j], a.lo, b[j].hi[0], b[j].hi[1]);
 #pragma unroll
-  for (int j = 0; j < NI; ++j) mma_tf32(acc[j], a.hi, b[j].lo[0], b[j].lo[1]);
+  for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[j], a.hi, b[j].lo[0], b[j].lo[1]);
 #pragma unroll
-  for (int j = 0; j < NI; ++j) mma_tf32(acc[j], a.hi, b[j].hi[0], b[j].hi[1]);
+  for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[j], a.hi, b[j].hi[0], b[j].hi[1]);
 }
 
 // acc[i][j] += a[i] · b[j] to f32 accuracy, term by term (lo·hi, hi·lo,
 // hi·hi) over the whole tile so that consecutive products are independent.
-template <int MI, int NI>
+template <int MI, int NI, bool kNearest>
 __device__ __forceinline__ void mma_x3(float (&acc)[MI][NI][4], const Split<4> (&a)[MI],
                                        const Split<2> (&b)[NI]) {
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], a[i].lo, b[j].hi[0], b[j].hi[1]);
+    for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[i][j], a[i].lo, b[j].hi[0], b[j].hi[1]);
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], a[i].hi, b[j].lo[0], b[j].lo[1]);
+    for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[i][j], a[i].hi, b[j].lo[0], b[j].lo[1]);
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < NI; ++j) mma_tf32(acc[i][j], a[i].hi, b[j].hi[0], b[j].hi[1]);
+    for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[i][j], a[i].hi, b[j].hi[0], b[j].hi[1]);
 }
 
 // acc[j] += a · B for NI 8-column tiles of B over one 8-wide k step, B read
@@ -241,7 +261,7 @@ __device__ __forceinline__ void load_slice(const float* __restrict__ src, long l
   }
 }
 
-template <int BM, int BN, bool kAT, bool kBT, bool kAct>
+template <int BM, int BN, bool kAT, bool kBT, bool kAct, bool kNearest>
 __global__ void __launch_bounds__(128)
 gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long lda,
                   const float* __restrict__ b, long long ldb, Epilogue ep, int kchunk) {
@@ -315,7 +335,7 @@ gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long ld
                           *reinterpret_cast<const float2*>(as + (16 * i + 8) * LA + kk));
         }
       }
-      mma_x3(part, af, bf);
+      mma_x3<MI, NI, kNearest>(part, af, bf);
     }
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -363,12 +383,12 @@ gemm_f32x3_kernel(int M, int N, int K, const float* __restrict__ a, long long ld
     }
 }
 
-template <int BM, int BN, bool kAT, bool kBT, bool kAct>
+template <int BM, int BN, bool kAT, bool kBT, bool kAct, bool kNearest>
 cudaError_t launch(int M, int N, int K, const float* a, long long lda, const float* b,
                    long long ldb, const Epilogue& ep, int splits, cudaStream_t s) {
   constexpr size_t smem =
       sizeof(float) * kStages * (Slice<kAT, BM>::kElems + Slice<kBT, BN>::kElems);
-  auto kernel = gemm_f32x3_kernel<BM, BN, kAT, kBT, kAct>;
+  auto kernel = gemm_f32x3_kernel<BM, BN, kAT, kBT, kAct, kNearest>;
   LC2_TRY(allow_smem(kernel, smem));
   const int kchunk = ((K + splits - 1) / splits + kBK - 1) / kBK * kBK;
   const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, (K + kchunk - 1) / kchunk);
@@ -381,8 +401,9 @@ cudaError_t launch(int M, int N, int K, const float* a, long long lda, const flo
 // ep.out (zeroed by the caller), K split over blocks so that about four
 // blocks an SM run even when the output has a handful of tiles.  kAct: the
 // epilogue applies ep.act (and writes ep.out_pre); a separate instantiation,
-// so the other products compile without it.
-template <bool kAT, bool kBT, bool kAct = false>
+// so the other products compile without it.  kNearest: every mma's products
+// added in f32, round to nearest (the forward bodies' products, above).
+template <bool kAT, bool kBT, bool kAct = false, bool kNearest = false>
 cudaError_t product(int M, int N, int K, const float* a, long long lda, const float* b,
                     long long ldb, const Epilogue& ep, cudaStream_t s) {
   // the contiguous dimension of each operand: a multiple of 4
@@ -393,19 +414,19 @@ cudaError_t product(int M, int N, int K, const float* a, long long lda, const fl
     const long long tiles = (long long)((M + 63) / 64) * ((N + 63) / 64);
     const long long want = (4 * 132 + tiles - 1) / tiles, most = (K + 255) / 256;
     const int splits = (int)(want < most ? want : most);
-    return launch<64, 64, kAT, kBT, kAct>(M, N, K, a, lda, b, ldb, ep, splits, s);
+    return launch<64, 64, kAT, kBT, kAct, kNearest>(M, N, K, a, lda, b, ldb, ep, splits, s);
   }
   if ((long long)((M + 127) / 128) * ((N + 63) / 64) >= 240)  // about a wave, 2 blocks an SM
-    return launch<128, 64, kAT, kBT, kAct>(M, N, K, a, lda, b, ldb, ep, 1, s);
-  return launch<64, 64, kAT, kBT, kAct>(M, N, K, a, lda, b, ldb, ep, 1, s);
+    return launch<128, 64, kAT, kBT, kAct, kNearest>(M, N, K, a, lda, b, ldb, ep, 1, s);
+  return launch<64, 64, kAT, kBT, kAct, kNearest>(M, N, K, a, lda, b, ldb, ep, 1, s);
 }
 
 // C = A · Wᵀ (+ the epilogue's terms): A (M, K) and the torch-layout W (N, K),
 // both K-contiguous.
-template <bool kAct = false>
+template <bool kAct = false, bool kNearest = false>
 cudaError_t gemm(int M, int N, int K, const float* a, long long lda, const float* b,
                  long long ldb, const Epilogue& ep, cudaStream_t s) {
-  return product<false, false, kAct>(M, N, K, a, lda, b, ldb, ep, s);
+  return product<false, false, kAct, kNearest>(M, N, K, a, lda, b, ldb, ep, s);
 }
 
 // out[n] += Σ_m a[m·lda + n] (out zeroed by the caller): a bias gradient,

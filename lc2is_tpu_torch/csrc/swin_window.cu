@@ -11,7 +11,7 @@
 // lc2is_tpu/ops/swin_canvas.py::_canvas_kernel (:224, entry swin_canvas_block
 // :974; stages 1-3) and lc2is_tpu/ops/window_attention.py::_block_kernel
 // (:386, entry fused_window_block :645; C > 384).  The f32 and int8 bodies
-// serve every stage with no C gate; the bf16 float body takes two plans,
+// serve every stage with no C gate; the bf16 float block takes two plans,
 // split at the JAX package's gate (C 384).
 //
 // What bounds it on the card: arithmetic.  Per token it does 3C² (QKV) + C²
@@ -31,12 +31,12 @@
 // real token is fully masked, so this changes nothing but the rounding.  The
 // TPU's head-pair MXU packing is not carried over.
 //
-// f32 and int8 blocks (swin_window_kernel): one block per window, on the CUDA
-// cores.  Per window:
+// int8 block (swin_window_kernel, lc2_swin_window_q): one block per window,
+// on the CUDA cores.  Per window:
 //   1. LayerNorm statistics per token in f32 (two-pass);
 //   2. per head: q/k/v (49 x dh each) by a tiled product whose A tiles are
-//      LayerNorm'd on the fly from the canvas, so no C-wide LN copy has to
-//      fit in shared memory;
+//      LayerNorm'd and quantised on the fly from the canvas, so no C-wide LN
+//      copy has to fit in shared memory;
 //   3. per head, softmax(q·kᵀ + relative-position bias + region mask) · v;
 //   4. the head outputs (49 x C) stay in shared memory and the
 //      out-projection, + bo and the residual run per 128-column chunk.
@@ -95,7 +95,29 @@
 // The products run at the GEMM's rate over M = B·H·W rows, and each weight
 // matrix is read once a 128-row tile instead of once a window.
 //
-// lc2_swin_window_q is the int8 serving variant of the same kernel, the
+// f32 float block, every C (TPU rows 6 and 9; launch_f32_plan): the same
+// token-major plan with every product on the tensor cores in 3xTF32
+// (gemm_f32x3.cuh: each operand split into TF32 hi and lo halves, lo·hi' +
+// hi·lo' + hi·hi' on mma.sync m16n8k8, f32-accurate) and nothing rounded
+// below f32, through lc2_swin_window_workspace_f32 (4·B·H·W·C floats):
+//   1. swin_ln_f32_kernel: the LayerNorm of the real tokens, a warp a row,
+//      two-pass f32 statistics, into a (B·H·W, C) f32 buffer;
+//   2. q|k|v = LN · Wqkvᵀ + bqkv on gemm32::gemm into a (B·H·W, 3C) buffer;
+//   3. swin_core_x3: grid (window group, head), a warp per 16 of a window's
+//      64 rows, each window's q, k and v head slices gathered as
+//      swin_core_mma gathers them (f32, through a 2-stage cp.async ring),
+//      k and v split into hi and lo once a window in shared memory, S = q·kᵀ
+//      + bias − 100 across regions (keys past win² dropped), the
+//      max-subtracted softmax in f32, O = e·v · (1 / Σ e) (the tiles and
+//      fragment orders of the forward half of swin_window_bwd.cu's
+//      swin_attn_bwd_x3); each product sums 32-wide k-slices apart, and
+//      every mma's products are added in f32 (round to nearest), as in the
+//      GEMM, so that the tensor cores' truncating adds do not drift; the
+//      head outputs of real tokens into step 1's buffer;
+//   4. out = head outputs · Woᵀ + bo [+ x] on gemm32::gemm, x the epilogue's
+//      f32 addend.
+//
+// The int8 block, lc2_swin_window_q, is the serving variant: the
 // quant=True branch of window_attention.py::_block_kernel (:414-418,
 // :468-476, forward only): the LN output, in f32 and re-zeroed at pad tokens,
 // is quantised per token for an int8 packed QKV product, and the head
@@ -112,6 +134,7 @@
 #include "attn_tiles.cuh"
 #include "common.cuh"
 #include "gemm_bf16.cuh"
+#include "gemm_f32x3.cuh"
 
 namespace lc2 {
 namespace {
@@ -133,24 +156,22 @@ struct Layout {
       kTileRows * kLD > 3 * kNP * kLDH ? kTileRows * kLD : 3 * kNP * kLDH;
 };
 
-// LayerNorm of one value with the int8 variant's fixed rounding: the same
+// LayerNorm of one value with the int8 block's fixed rounding: the same
 // value wherever it is evaluated (the row max and the A tile)
 __device__ __forceinline__ float ln_value(float x, float mu, float rs, float w, float b) {
   return __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(x, mu), rs), w), b);
 }
 
-// TW = T: the float block; TW = int8_t: the int8 variant (wqkvs, wos: the
-// f32 scales of the weight codes, unused by the float block)
-template <typename T, typename TW, int DH>
+// The int8 block: wqkv, wo int8 codes, wqkvs, wos their f32 scales
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads, 1)
 swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
-                   const T* __restrict__ lnb, const TW* __restrict__ wqkv,
+                   const T* __restrict__ lnb, const int8_t* __restrict__ wqkv,
                    const float* __restrict__ wqkvs, const T* __restrict__ bqkv,
-                   const TW* __restrict__ wo, const float* __restrict__ wos,
+                   const int8_t* __restrict__ wo, const float* __restrict__ wos,
                    const T* __restrict__ bo, const float* __restrict__ bias,
                    T* __restrict__ out, int H, int W, int C, int heads, int win,
                    int shift, int nww, int residual, float eps) {
-  constexpr bool kQ = sizeof(TW) == 1;
   using Lay = Layout<DH>;
   const int N = win * win;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -164,8 +185,8 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
   float* ps = tiles + Lay::kRegion;                   // [8 warps][kNP] probabilities
   float* mean = ps + 8 * kNP;                         // [kNP]
   float* rstd = mean + kNP;                           // [kNP]
-  float* qsc = rstd + kNP;                            // [kNP] int8: LN-output row scales
-  float* osc = qsc + kNP;                             // [kNP] int8: head-output row scales
+  float* qsc = rstd + kNP;                            // [kNP] LN-output row scales
+  float* osc = qsc + kNP;                             // [kNP] head-output row scales
   int* tok = reinterpret_cast<int*>(osc + kNP);       // [kNP] canvas pixel, -1 = HF pad
   int* lab = tok + kNP;                               // [kNP] shift region
 
@@ -209,13 +230,11 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         q += d * d;
       }
       rs = rsqrtf(warp_sum(q) / C + eps);
-      if (kQ) {
-        float m = 0.0f;
-        for (int c = lane; c < C; c += 32)
-          m = fmaxf(m, fabsf(ln_value(to_f(xr[c]), mu, rs, to_f(lnw[c]), to_f(lnb[c]))));
-        m = warp_max(m);
-        if (lane == 0) qsc[t] = quant_scale(m);
-      }
+      float m = 0.0f;
+      for (int c = lane; c < C; c += 32)
+        m = fmaxf(m, fabsf(ln_value(to_f(xr[c]), mu, rs, to_f(lnw[c]), to_f(lnb[c]))));
+      m = warp_max(m);
+      if (lane == 0) qsc[t] = quant_scale(m);
     }
     if (lane == 0) {
       mean[t] = mu;
@@ -238,14 +257,11 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         float a = 0.0f;
         if (m < N) {
           const int pix = tok[m];
-          if (pix >= 0 && kQ)
+          if (pix >= 0)
             a = static_cast<float>(quant_code(
                 ln_value(to_f(xb[(size_t)pix * C + c]), mean[m], rstd[m], to_f(lnw[c]),
                          to_f(lnb[c])),
                 qsc[m]));
-          else if (pix >= 0)
-            a = round_t<T>((to_f(xb[(size_t)pix * C + c]) - mean[m]) * rstd[m] * to_f(lnw[c]) +
-                           to_f(lnb[c]));
         }
         at[m * kLD + kk] = a;
       }
@@ -277,8 +293,7 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int m = ty * 4 + i;
-        dst[m * Lay::kLDH + d] =
-            round_t<T>(kQ ? dequant(acc[i][j], qsc[m], wqkvs[wrow], bb) : acc[i][j] + bb);
+        dst[m * Lay::kLDH + d] = round_t<T>(dequant(acc[i][j], qsc[m], wqkvs[wrow], bb));
       }
     }
     __syncthreads();
@@ -315,16 +330,15 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
     }
   }
 
-  if (kQ) {  // the head outputs' row scales and codes, in place
-    __syncthreads();
-    for (int t = warp; t < N; t += 8) {
-      float m = 0.0f;
-      for (int c = lane; c < C; c += 32) m = fmaxf(m, fabsf(as[t * C + c]));
-      const float s = quant_scale(warp_max(m));
-      for (int c = lane; c < C; c += 32)
-        as[t * C + c] = static_cast<float>(quant_code(as[t * C + c], s));
-      if (lane == 0) osc[t] = s;
-    }
+  // the head outputs' row scales and codes, in place
+  __syncthreads();
+  for (int t = warp; t < N; t += 8) {
+    float m = 0.0f;
+    for (int c = lane; c < C; c += 32) m = fmaxf(m, fabsf(as[t * C + c]));
+    const float s = quant_scale(warp_max(m));
+    for (int c = lane; c < C; c += 32)
+      as[t * C + c] = static_cast<float>(quant_code(as[t * C + c], s));
+    if (lane == 0) osc[t] = s;
   }
 
   // ---- out-projection + bo + residual, 128 columns at a time ----
@@ -365,13 +379,8 @@ swin_window_kernel(const T* __restrict__ x, const T* __restrict__ lnw,
         const int c = n0 + lane + 32 * j;
         if (c < C) {
           const size_t o = (size_t)pix * C + c;
-          float y;
-          if (kQ) {
-            y = dequant(acc[i][j], osc[m], wos[c], to_f(bo[c]));
-            if (residual) y = __fadd_rn(y, to_f(xb[o]));
-          } else {
-            y = acc[i][j] + to_f(bo[c]) + (residual ? to_f(xb[o]) : 0.0f);
-          }
+          float y = dequant(acc[i][j], osc[m], wos[c], to_f(bo[c]));
+          if (residual) y = __fadd_rn(y, to_f(xb[o]));
           ob[o] = from_f<T>(y);
         }
       }
@@ -390,24 +399,24 @@ struct SwinArgs {
   const void *x, *lnw, *lnb, *wqkv, *wqkvs, *bqkv, *wo, *wos, *bo;
   const float* bias;
   void* out;
-  void* ws;  // bf16 float block above C 384: the token-major plan's workspace
+  void* ws;  // the token-major plans' workspace: f32, and bf16 above C 384
   int B, H, W, C, heads, win, shift, residual;
   float eps;
 };
 
-template <typename T, typename TW, int DH>
-cudaError_t launch(const SwinArgs& a, cudaStream_t stream) {
+template <typename T, int DH>
+cudaError_t launch_q(const SwinArgs& a, cudaStream_t stream) {
   const int nwh = (a.H + a.win - 1) / a.win, nww = (a.W + a.win - 1) / a.win;
   const size_t smem = smem_bytes<DH>(a.win * a.win, a.C);
   if (smem > 232448) return cudaErrorInvalidValue;
-  auto kernel = swin_window_kernel<T, TW, DH>;
+  auto kernel = swin_window_kernel<T, DH>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(nwh * nww, a.B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.x), static_cast<const T*>(a.lnw), static_cast<const T*>(a.lnb),
-      static_cast<const TW*>(a.wqkv), static_cast<const float*>(a.wqkvs),
-      static_cast<const T*>(a.bqkv), static_cast<const TW*>(a.wo),
+      static_cast<const int8_t*>(a.wqkv), static_cast<const float*>(a.wqkvs),
+      static_cast<const T*>(a.bqkv), static_cast<const int8_t*>(a.wo),
       static_cast<const float*>(a.wos), static_cast<const T*>(a.bo), a.bias,
       static_cast<T*>(a.out), a.H, a.W, a.C, a.heads, a.win, a.shift, nww, a.residual, a.eps);
   return cudaGetLastError();
@@ -1138,14 +1147,366 @@ cudaError_t launch_mma(const SwinArgs& a, cudaStream_t stream) {
                               : launch_one_kernel<DH>(a, cv, stream);
 }
 
-// The f32 and int8 blocks run swin_window_kernel; the bf16 float block the
-// tensor-core kernel.
+// ---------------------------------------------------------------------------
+// f32 float block (T = TW = float): the token-major plan in 3xTF32
+// ---------------------------------------------------------------------------
+
+// Step 1: the LayerNorm of every real token, a warp a row, two-pass f32
+// statistics (1 / sqrtf, correctly rounded, not the approximate rsqrtf),
+// into ln (rows in canvas order).  Lane l holds the row's 4-column chunks
+// c = 4 · l + 128 · i (C <= 1024), read once.
+__global__ void __launch_bounds__(kThreads)
+swin_ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ lnw,
+                   const float* __restrict__ lnb, float* __restrict__ ln, long long rows, int C,
+                   float eps) {
+  constexpr int kV = 8;
+  const int lane = threadIdx.x & 31;
+  for (long long r = blockIdx.x * 8LL + (threadIdx.x >> 5); r < rows; r += gridDim.x * 8LL) {
+    const float* xr = x + r * C;
+    float4 v[kV];
+    float s = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = 4 * lane + 128 * i;
+      v[i] = c < C ? *reinterpret_cast<const float4*>(xr + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+      s += (v[i].x + v[i].y) + (v[i].z + v[i].w);
+    }
+    const float mu = warp_sum(s) / C;
+    float q = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kV; ++i)
+      if (4 * lane + 128 * i < C) {
+        const float a = v[i].x - mu, b = v[i].y - mu, c = v[i].z - mu, d = v[i].w - mu;
+        q += (a * a + b * b) + (c * c + d * d);
+      }
+    const float rs = 1.0f / sqrtf(warp_sum(q) / C + eps);
+#pragma unroll
+    for (int i = 0; i < kV; ++i) {
+      const int c = 4 * lane + 128 * i;
+      if (c >= C) continue;
+      const float4 w = *reinterpret_cast<const float4*>(lnw + c);
+      const float4 b = *reinterpret_cast<const float4*>(lnb + c);
+      *reinterpret_cast<float4*>(ln + r * C + c) =
+          make_float4((v[i].x - mu) * rs * w.x + b.x, (v[i].y - mu) * rs * w.y + b.y,
+                      (v[i].z - mu) * rs * w.z + b.z, (v[i].w - mu) * rs * w.w + b.w);
+    }
+  }
+}
+
+// Step 3's shared memory: two stages of one window's q, k and v head slices
+// in f32 (q and k at a row stride of DH + 8, so that a half-warp's 8-byte
+// fragment loads of rows g, columns 2t and 2t + 1, fall in distinct banks; v
+// at DH + 4, so that its 4-byte loads of rows 2t and 2t + 1, column g, do),
+// each with its tokens' canvas pixels and region labels, then the TF32 lo
+// halves of the current window's k and v (their hi halves overwrite the
+// stage in place).
+constexpr int kX3Threads = 128;  // a warp per 16 of a window's kNP rows
+
+template <int DH>
+struct X3Layout {
+  static constexpr int kLdQ = DH + 8, kLdK = DH + 8, kLdV = DH + 4;
+  static constexpr int kQ = kNP * kLdQ, kK = kNP * kLdK, kV = kNP * kLdV;  // floats
+  static constexpr int kStage = kQ + kK + kV + 2 * kNP;  // + pixels and labels (ints)
+  static constexpr size_t kBytes = sizeof(float) * (2 * kStage + kK + kV);
+};
+
+// Step 3: the window attention of one head over a group of windows in
+// 3xTF32: grid (window group, head), `wpb` windows a block, 4 warps.  Each
+// window's q, k and v head slices are gathered from qkv (rows in canvas
+// order, 3C wide) by the token geometry, bqkv's slices at HF pad tokens and
+// zeros past the window, through a 2-stage cp.async ring (window t + 1 loads
+// while window t computes).  Once a window landed, the block splits its k
+// and v into TF32 hi (in place) and lo halves; warp w then owns query rows
+// 16w .. 16w + 15 (rows past win² are computed and dropped), its q split in
+// registers: S = q·kᵀ (q carries 1/√dh), + bias (the lane's elements in
+// registers, loaded once a block) − 100 across regions, keys past win²
+// dropped; e = exp2((S − max) · log2 e), Σ e over the row's quad; O = e·v
+// · (1 / Σ e).  S's C fragment is e·v's A fragment with the mma's k order
+// permuted (k t <- key 2t, k t + 4 <- key 2t + 1), and v's B fragment is read
+// in that order.  Each product sums 32-wide k-slices (of dh, or of the keys)
+// apart, added in f32.  The head outputs of real tokens go to ho, 8 bytes a
+// store.
+template <int DH>
+__global__ void __launch_bounds__(kX3Threads, 2)
+swin_core_x3(const float* __restrict__ qkv, const float* __restrict__ bqkv,
+             const float* __restrict__ bias, float* __restrict__ ho, Canvas cv, int C, int nwin,
+             int wpb) {
+  using L = X3Layout<DH>;
+  constexpr int KC = DH / 8, NO = DH / 8, G = NO < 4 ? NO : 4, kChunks = DH / 4;
+  const int N = cv.win * cv.win, hd = blockIdx.y;
+  const int w0 = blockIdx.x * wpb, nw = min(wpb, nwin - w0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
+  const long long ld3 = 3LL * C;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* lo = ring + 2 * L::kStage;  // [kNP][kLdK] k's lo halves, then [kNP][kLdV] v's
+
+  // window i of the block into stage i % 2 (called by every thread, past a
+  // barrier that freed the stage): its tokens' pixels and labels, then one
+  // cp.async group of its q, k and v rows (empty past the block's windows)
+  auto issue = [&](int i) {
+    if (i < nw) {
+      float* st = ring + (i & 1) * L::kStage;
+      int* tok = reinterpret_cast<int*>(st + L::kQ + L::kK + L::kV);
+      if (tid < kNP) {
+        int lab = 0;
+        tok[tid] = tid < N ? cv.pixel(w0 + i, tid, &lab) : -1;
+        tok[kNP + tid] = lab;
+      }
+      __syncthreads();
+      for (int idx = tid; idx < 3 * kNP * kChunks; idx += kX3Threads) {
+        const int part = idx / (kNP * kChunks), rem = idx - part * kNP * kChunks;
+        const int r = rem / kChunks, c = (rem - r * kChunks) * 4;
+        const int pix = r < N ? tok[r] : -1;
+        const float* src = (pix >= 0 ? qkv + pix * ld3 : bqkv) + part * C + hd * DH + c;
+        float* dst = part == 0   ? st + r * L::kLdQ
+                     : part == 1 ? st + L::kQ + r * L::kLdK
+                                 : st + L::kQ + L::kK + r * L::kLdV;
+        mma::cp_async16(dst + c, src, r < N);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  issue(0);
+  issue(1);
+  // the lane's bias elements: rows r0 + g (+ 8), keys 8(4jg + j) + 2t (+ 1); 0 past N
+  const float* bh = bias + (size_t)hd * N * N;
+  float bz[2][4][4];
+#pragma unroll
+  for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + 8 * (e >> 1), key = 8 * (4 * jg + j) + 2 * t + (e & 1);
+        bz[jg][j][e] = row < N && key < N ? bh[row * N + key] : 0.0f;
+      }
+
+  for (int i = 0; i < nw; ++i) {
+    mma::cp_async_wait<1>();
+    __syncthreads();  // window i's tiles, pixels and labels are in place
+    float* qs = ring + (i & 1) * L::kStage;
+    float* ks = qs + L::kQ;
+    const float* vs = ks + L::kK;
+    const int* tok = reinterpret_cast<const int*>(vs + L::kV);
+    const int* lab = tok + kNP;
+    // k and v (adjacent in the stage, as their lo halves are) split once
+    for (int idx = tid; idx < 2 * kNP * kChunks; idx += kX3Threads) {
+      const int r = idx / kChunks, c = (idx - r * kChunks) * 4;  // rows kNP.. are v's
+      const int o = r < kNP ? r * L::kLdK + c : L::kK + (r - kNP) * L::kLdV + c;
+      const float4 v = *reinterpret_cast<const float4*>(ks + o);
+      uint4 h, l;
+      gemm32::split(v.x, h.x, l.x);
+      gemm32::split(v.y, h.y, l.y);
+      gemm32::split(v.z, h.z, l.z);
+      gemm32::split(v.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(ks + o) = h;
+      *reinterpret_cast<uint4*>(lo + o) = l;
+    }
+    __syncthreads();  // k and v split
+    if (r0 < N) {  // warp-uniform
+      // the warp's q rows g and g + 8, columns 2t, 2t + 1 of each 8-wide step
+      gemm32::Split<4> qf[KC];
+      const float* qr = qs + (r0 + g) * L::kLdQ + 2 * t;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        qf[kc] = gemm32::split_a(*reinterpret_cast<const float2*>(qr + 8 * kc),
+                                 *reinterpret_cast<const float2*>(qr + 8 * L::kLdQ + 8 * kc));
+      // S = q · kᵀ: key group 4jg + j in s[jg][j], dh in 32-wide slices
+      const int kofs = g * L::kLdK + 2 * t;
+      float s[2][4][4];
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[jg][j][0] = s[jg][j][1] = s[jg][j][2] = s[jg][j][3] = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < KC; k0 += 4) {
+        float part[2][4][4];
+#pragma unroll
+        for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            part[jg][j][0] = part[jg][j][1] = part[jg][j][2] = part[jg][j][3] = 0.0f;
+#pragma unroll
+        for (int kc = k0; kc < k0 + 4 && kc < KC; ++kc)
+#pragma unroll
+          for (int jg = 0; jg < 2; ++jg) {
+            gemm32::Split<2> kf[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int o = kofs + 8 * (4 * jg + j) * L::kLdK + 8 * kc;
+              const uint2 h = *reinterpret_cast<const uint2*>(ks + o);
+              const uint2 l = *reinterpret_cast<const uint2*>(lo + o);
+              kf[j] = gemm32::Split<2>{{h.x, h.y}, {l.x, l.y}};
+            }
+            gemm32::mma_x3_row<4, true>(part[jg], qf[kc], kf);
+          }
+#pragma unroll
+        for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[jg][j][e] += part[jg][j][e];
+      }
+      // + bias, −100 across regions, keys past N dropped; the row max
+      float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lt = lab[r0 + g + 8 * r];  // 0 past N: those rows are dropped
+#pragma unroll
+        for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int key = 8 * (4 * jg + j) + 2 * t + e;
+              float v = -INFINITY;
+              if (key < N) {
+                v = s[jg][j][2 * r + e] + bz[jg][j][2 * r + e];
+                if (lab[key] != lt) v -= 100.0f;
+              }
+              s[jg][j][2 * r + e] = v;
+              mx[r] = fmaxf(mx[r], v);
+            }
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      // e = exp(v − max), unnormalised, and its row sum
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[jg][j][e] = mma::exp2_approx((s[jg][j][e] - mx[e >> 1]) * mma::kLog2e);
+            l[e >> 1] += s[jg][j][e];
+          }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      // O = e · v over the key groups below N, in two 32-key slices
+      const int vofs = 2 * t * L::kLdV + g;
+      const float* vh = vs + vofs;
+      const float* vl = lo + L::kK + vofs;
+      float o[NO / G][G][4];
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+        for (int j = 0; j < G; ++j) o[jg][j][0] = o[jg][j][1] = o[jg][j][2] = o[jg][j][3] = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < 8; k0 += 4) {
+        if (8 * k0 >= N) break;  // block-uniform
+        float part[NO / G][G][4];
+#pragma unroll
+        for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            part[jg][j][0] = part[jg][j][1] = part[jg][j][2] = part[jg][j][3] = 0.0f;
+#pragma unroll
+        for (int kk = k0; kk < k0 + 4; ++kk) {
+          if (8 * kk >= N) break;
+          const float* sk = s[kk >> 2][kk & 3];
+          const gemm32::Split<4> pf =
+              gemm32::split_a(make_float2(sk[0], sk[1]), make_float2(sk[2], sk[3]));
+#pragma unroll
+          for (int jg = 0; jg < NO / G; ++jg) {
+            gemm32::Split<2> vf[G];
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+              const int off = 8 * kk * L::kLdV + 8 * (G * jg + j);
+              vf[j] = gemm32::Split<2>{
+                  {__float_as_uint(vh[off]), __float_as_uint(vh[off + L::kLdV])},
+                  {__float_as_uint(vl[off]), __float_as_uint(vl[off + L::kLdV])}};
+            }
+            gemm32::mma_x3_row<G, true>(part[jg], pf, vf);
+          }
+        }
+#pragma unroll
+        for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) o[jg][j][e] += part[jg][j][e];
+      }
+      // the real tokens' rows of ho
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + g + 8 * r;
+        const int pix = row < N ? tok[row] : -1;
+        if (pix < 0) continue;
+        const float inv = 1.0f / l[r];
+        float* dst = ho + (size_t)pix * C + hd * DH + 2 * t;
+#pragma unroll
+        for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+          for (int j = 0; j < G; ++j)
+            *reinterpret_cast<float2*>(dst + 8 * (G * jg + j)) =
+                make_float2(o[jg][j][2 * r] * inv, o[jg][j][2 * r + 1] * inv);
+      }
+    }
+    __syncthreads();  // every warp is done with stage i % 2 and the lo halves
+    issue(i + 2);
+  }
+  mma::cp_async_wait<0>();
+}
+
+// Floats of the f32 plan's workspace: the LN output, later the head outputs
+// (B·H·W·C), and q|k|v (B·H·W·3C).
+long long f32_plan_ws_floats(const SwinArgs& a) { return 4LL * a.B * a.H * a.W * a.C; }
+
+template <int DH>
+cudaError_t launch_f32_plan(const SwinArgs& a, cudaStream_t stream) {
+  if (a.C > 1024 || a.ws == nullptr || a.heads > 65535) return cudaErrorInvalidValue;
+  const long long M = (long long)a.B * a.H * a.W;
+  if (M * 3 * a.C > 0x7fffffffLL) return cudaErrorInvalidValue;  // the GEMMs' int rows
+  const int C = a.C;
+  const Canvas cv{a.H, a.W, a.win, a.shift, (a.H + a.win - 1) / a.win,
+                  (a.W + a.win - 1) / a.win};
+  float* ln = static_cast<float*>(a.ws);  // later the head outputs
+  float* qkv = ln + M * C;
+  const float* x = static_cast<const float*>(a.x);
+  const float* bqkv = static_cast<const float*>(a.bqkv);
+  // 1. LayerNorm
+  const int ln_blocks = (int)std::min<long long>((M + 7) / 8, 132LL * 16);
+  swin_ln_f32_kernel<<<ln_blocks, kThreads, 0, stream>>>(
+      x, static_cast<const float*>(a.lnw), static_cast<const float*>(a.lnb), ln, M, C, a.eps);
+  LC2_TRY(cudaGetLastError());
+  // 2. q|k|v = LN · Wqkvᵀ + bqkv
+  LC2_TRY((gemm32::gemm<false, true>((int)M, 3 * C, C, ln, C,
+                                     static_cast<const float*>(a.wqkv), C,
+                                     gemm32::Epilogue{bqkv, nullptr, qkv, 3LL * C}, stream)));
+  // 3. the gathered window attention, head outputs into ln's buffer; about
+  // four waves of two blocks an SM: enough windows a block to share its bias
+  // load
+  using L = X3Layout<DH>;
+  LC2_TRY(allow_smem(swin_core_x3<DH>, L::kBytes));
+  const int nwin = a.B * cv.nwh * cv.nww;
+  const long long units = (long long)nwin * a.heads;
+  const int wpb = (int)std::max(1LL, (units + 8 * 132 - 1) / (8 * 132));
+  swin_core_x3<DH><<<dim3((nwin + wpb - 1) / wpb, a.heads), kX3Threads, L::kBytes, stream>>>(
+      qkv, bqkv, a.bias, ln, cv, C, nwin, wpb);
+  LC2_TRY(cudaGetLastError());
+  // 4. out = head outputs · Woᵀ + bo [+ x]
+  return gemm32::gemm<false, true>(
+      (int)M, C, C, ln, C, static_cast<const float*>(a.wo), C,
+      gemm32::Epilogue{static_cast<const float*>(a.bo), a.residual ? x : nullptr,
+                       static_cast<float*>(a.out), C},
+      stream);
+}
+
+// The int8 blocks run swin_window_kernel, the float blocks a plan on the
+// tensor cores (bf16: one of two by C; f32: the 3xTF32 token-major plan).
 template <typename T, typename TW, int DH>
 cudaError_t launch_body(const SwinArgs& a, cudaStream_t stream) {
-  if constexpr (std::is_same<T, bf16>::value && std::is_same<TW, bf16>::value)
+  if constexpr (std::is_same<TW, int8_t>::value)
+    return launch_q<T, DH>(a, stream);
+  else if constexpr (std::is_same<T, bf16>::value)
     return launch_mma<DH>(a, stream);
   else
-    return launch<T, TW, DH>(a, stream);
+    return launch_f32_plan<DH>(a, stream);
 }
 
 template <typename T, typename TW>
@@ -1185,10 +1546,10 @@ cudaError_t dispatch(int dtype, const SwinArgs& a, void* stream) {
 // bias (heads, win², win²) f32 in standard token order; residual 0 drops the
 // + x.  win <= 8,
 // 0 <= shift < win, C % 32 == 0, C / heads in {16, 32, 64}.
-// ws: in bf16, lc2_swin_window_workspace_bf16 floats where that is not 0
-// (else null); null in f32.  In bf16 above C 384 the entry launches the
-// token-major plan's four kernels in order on the stream and returns the
-// first error.
+// ws: lc2_swin_window_workspace_f32 floats in f32; in bf16,
+// lc2_swin_window_workspace_bf16 floats where that is not 0 (else null).  In
+// f32, and in bf16 above C 384, the entry launches a token-major plan's four
+// kernels in order on the stream and returns the first error.
 extern "C" int lc2_swin_window(int dtype, const void* x, const void* lnw, const void* lnb,
                                const void* wqkv, const void* bqkv, const void* wo,
                                const void* bo, const void* bias, void* out, void* ws, int B,
@@ -1212,6 +1573,19 @@ extern "C" long long lc2_swin_window_workspace_bf16(int B, int H, int W, int C, 
   const lc2::SwinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, B, H, W, C, heads, win, 0, 1, 0.0f};
   return C > lc2::kOneKernelMaxC ? lc2::token_major_ws_floats(a) : 0;
+}
+
+// Floats of the f32 float block's workspace for these sizes (the token-major
+// plan's at every C); -1 for sizes it does not take.
+extern "C" long long lc2_swin_window_workspace_f32(int B, int H, int W, int C, int heads,
+                                                   int win) {
+  if (heads < 1 || C % heads || win < 1 || win * win > lc2::kNP || C % lc2::kKT || C > 1024)
+    return -1;
+  const int dh = C / heads;
+  if (dh != 16 && dh != 32 && dh != 64) return -1;
+  const lc2::SwinArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                        nullptr, nullptr, nullptr, nullptr, B, H, W, C, heads, win, 0, 1, 0.0f};
+  return lc2::f32_plan_ws_floats(a);
 }
 
 // The int8 variant: wqkv (3C, C) and wo (C, C) int8 codes with f32

@@ -56,6 +56,7 @@ SIGNATURES = {
 # entry points returning a size (floats of scratch a kernel needs)
 SIZE_SIGNATURES = {
     "lc2_swin_window_workspace_bf16": [_I] * 6,
+    "lc2_swin_window_workspace_f32": [_I] * 6,
     "lc2_swin_window_bwd_workspace": [_I] * 5,
     "lc2_swin_window_bwd_workspace_bf16": [_I] * 5,
     "lc2_attn_block_bwd_workspace": [_I] * 5,

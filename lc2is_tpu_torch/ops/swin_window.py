@@ -6,13 +6,14 @@ Counterpart of both ``lc2is_tpu/ops/swin_canvas.py::swin_canvas_block``
 (:974, swin stages 1-3) and ``lc2is_tpu/ops/window_attention.py::
 fused_window_block`` (:645, C > 384), which compute this same function.  On
 a CUDA tensor :func:`swin_window_block` launches ``csrc/swin_window.cu``
-(indices from canvas coordinates, any stage: in f32 one block per window on
-the CUDA cores; in bf16 on the tensor cores, at C <= 384 one kernel with up
-to four windows a block, above it the token-major plan: a LayerNorm pass,
-the QKV product of the real tokens on the tiled GEMM, a window-attention
-core that gathers each window's q, k and v from it, and the out-projection
-GEMM, through the scratch ``lc2_swin_window_workspace_bf16``, all from one
-call of the C entry); on
+(indices from canvas coordinates, any stage, on the tensor cores: in f32 the
+token-major plan at every C, every product in 3xTF32, f32-accurate: a
+LayerNorm pass, the QKV product of the real tokens on the tiled GEMM, a
+window-attention core that gathers each window's q, k and v from it, and the
+out-projection GEMM, through the scratch ``lc2_swin_window_workspace_f32``;
+in bf16 at C <= 384 one kernel with up to four windows a block, above it the
+same plan on the bf16 GEMM through ``lc2_swin_window_workspace_bf16``; each
+plan from one call of the C entry); on
 a CPU tensor it runs :func:`swin_window_block_plain`, HF's pipeline written out:
 LN, zero pad to window multiples (pad AFTER the LN), roll by -shift,
 partition, attention with the relative-position bias and the 9-region
@@ -132,10 +133,10 @@ def _launch_fwd(x, ln_w, ln_b, wqkv_s, bqkv_s, wo, bo, bias, num_heads, win, shi
                                   for t in (ln_w, ln_b, wqkv_s, bqkv_s, wo, bo))
     biasc = bias.float().contiguous()
     out = torch.empty_like(xc)
-    # the bf16 body's token-major plan (C > 384): the biases in f32, the LN
-    # output (then the head outputs) and q|k|v
-    n_ws = _build.size("lc2_swin_window_workspace_bf16", b, h, w, c, num_heads,
-                       win) if dt == torch.bfloat16 else 0
+    # the token-major plans' scratch: the LN output (then the head outputs)
+    # and q|k|v, in f32 at every C, in bf16 above C 384 (with the biases in f32)
+    n_ws = _build.size("lc2_swin_window_workspace_bf16" if dt == torch.bfloat16
+                       else "lc2_swin_window_workspace_f32", b, h, w, c, num_heads, win)
     ws = torch.empty(n_ws, dtype=torch.float32, device=x.device) if n_ws > 0 else None
     _build.launch(
         "lc2_swin_window", xc.device, _build.dtype_code(xc), xc.data_ptr(), lnw.data_ptr(),

@@ -28,14 +28,20 @@ plain version's time and its error over max |plain|, and the f32 bodies of
 rows 3, 7 and 10 (rows ``3f``, ``7f``; ``10f`` comes with 7f) at a batch-8
 step's shapes, each beside autograd's backward through its plain version
 and its worst ‖Δ‖/‖plain‖ over the gradients, and the plain version's with
-TF32 products:
+TF32 products, and the f32 body of the swin window block (rows ``6f``,
+``9f``: swin-small stages 1-3 at a batch-16 forward's 22 launches, summed
+by launches; swin-base stage 3 at its 9 launches a shift of a batch-16 FTN
+forward, and the two stage 4s, one call each), each beside its plain
+version's time, its bound (f32 operations at 165 T/s or bytes at 3.35 TB/s,
+the larger) and its largest |Δ| over max |plain|, and the plain version's
+with TF32 products:
 CUDA-event medians of a call, and the device time of its kernels
 (torch.profiler; the event time also holds the wrapper's host work when the
 kernels are shorter than it).  Row 8 is timed beside one SDPA call with the
 bias and region mask as its additive mask (``scaled_dot_product_attention``,
 a yardstick only).
 
-    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,1f,2,2f,2q,3,3f,4,5,6,7,7f,8,9,12,13,17]
+    python3 scripts/torch_block_ab.py [ROOT] [--tag NAME] [--rows 1,1f,2,2f,2q,3,3f,4,5,6,6f,7,7f,8,9,9f,12,13,17]
 
 ROOT is a checkout of this repository (default: the one holding this
 script); only the sources of those kernels are built (``fused_mlp*.cu``,
@@ -114,6 +120,7 @@ WINDOW_STAGES = [(133, 96, 3, 1), (70, 192, 6, 1), (35, 384, 12, 9), (21, 768, 2
 # launches a forward or a step)
 UPSAMPLE_SHAPES = [(16, 768, 1), (32, 384, 1), (16, 512, 1), (32, 512, 2), (64, 512, 1)]
 HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 165e12  # 3xTF32: a third of the TF32 rate
 
 
 def time_ms(fn, reps=10, warmup=2):
@@ -234,7 +241,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--tag", default="")
-    ap.add_argument("--rows", default="1,1f,2,2f,2q,3,3f,4,5,6,7,7f,8,9,12,13,17")
+    ap.add_argument("--rows", default="1,1f,2,2f,2q,3,3f,4,5,6,6f,7,7f,8,9,9f,12,13,17")
     args = ap.parse_args()
     rows = set(args.rows.split(","))
     if not torch.cuda.is_available():
@@ -471,8 +478,8 @@ def main() -> int:
             del a, g
             torch.cuda.empty_cache()
 
-    # row 6 (stages 1-3), bf16 b16 every shape, f32 at stage 3; rows 7 and
-    # 10 (the swin backward) at b8, bf16 every shape, f32 at stage 3 shifted
+    # row 6 (stages 1-3), bf16 b16 every shape (f32: row 6f); rows 7 and 10
+    # (the swin backward) at b8, bf16 every shape, f32 at stage 3 shifted
     for dt in (torch.bfloat16, torch.float32) if rows & {"6", "7"} else ():
         for s, (grid, c, heads, n) in enumerate(SWIN_STAGES):
             if dt == torch.float32 and s != 2:
@@ -480,14 +487,11 @@ def main() -> int:
             a = swin_args(rs, 16, grid, c, heads, dt)
             tok = 16 * (-(-grid // 7) * 7) ** 2
             ops = 8 * tok * c * c + 4 * tok * 49 * c
-            for shift in (0, 3) if "6" in rows and s < 3 else ():
+            for shift in (0, 3) if "6" in rows and s < 3 and dt == torch.bfloat16 else ():
                 with torch.no_grad():
                     ms = time_ms(lambda: sw.swin_window_block(*a, heads, 7, shift), reps=20)
-                    note = ""
-                    if dt == torch.bfloat16:
-                        d = (sw.swin_window_block(*a, heads, 7, shift).float()
-                             - sw.swin_window_block_plain(*a, heads, 7, shift).float()).abs()
-                        note = f" max|Δ| {d.max().item():.2e}"
+                    note = max_diff(sw.swin_window_block(*a, heads, 7, shift),
+                                    sw.swin_window_block_plain(*a, heads, 7, shift))
                 report("6", f"stage{s + 1} (16,{grid},{grid},{c}) shift{shift}",
                        dt, ms, n, ops, lambda: sw.swin_window_block(*a, heads, 7, shift), note)
             a8 = [a[0][:8].contiguous()] + a[1:]
@@ -584,14 +588,56 @@ def main() -> int:
         del a, g
         torch.cuda.empty_cache()
 
+    # rows 6f and 9f: the f32 body of the swin window block at swin-small
+    # stages 1-3 of a batch-16 forward (22 launches) and at row 9's shapes,
+    # shift 0 and 3: CUDA-event time, device time by kernel, the plain
+    # version's time, the bound (the projections over the real tokens, the
+    # attention over every key of their windows) and the error over max
+    # |plain| beside the plain version's with TF32 products (chip_smoke.py's
+    # F32X3_REL rule, 1e-5, and its control)
+    f32_swin = ([("6f", f"stage{s + 1}", grid, c, heads, n)
+                 for s, (grid, c, heads, n) in enumerate(SWIN_STAGES[:3])] if "6f" in rows
+                else [])
+    f32_swin += ([("9f" if n > 1 else f"9f {name}", name, grid, c, heads, n)
+                  for name, grid, c, heads, n in ROW9_SHAPES] if "9f" in rows else [])
+    f32_sums = {}  # row: [plain ms, bound ms], launch-weighted
+    for row, name, grid, c, heads, n in f32_swin:
+        a = swin_args(rs, 16, grid, c, heads, torch.float32)
+        tok = 16 * grid * grid
+        ops = 8 * tok * c * c + 4 * tok * 49 * c
+        nbytes = 4 * (2 * tok * c + 4 * c * c + heads * 49 * 49)
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+        for shift in (0, 3):
+            def kern(a=a, heads=heads, shift=shift):
+                return sw.swin_window_block(*a, heads, 7, shift)
+
+            def plain(a=a, heads=heads, shift=shift):
+                return sw.swin_window_block_plain(*a, heads, 7, shift)
+
+            with torch.no_grad():
+                ms, p_ms = time_ms(kern, reps=20), time_ms(plain, reps=10)
+                want = plain()
+                note = (rel_diff(kern(), want) + tf32_diff(plain, want)
+                        + f"; plain {p_ms:.3f} ms, bound {bound:.4f} ms")
+                del want
+            report(row, f"{name} (16,{grid},{grid},{c}) h{heads} shift{shift}", torch.float32,
+                   ms, n, ops, kern, note, split=True)
+            acc = f32_sums.setdefault(row, [0.0, 0.0])
+            acc[0] += n * p_ms
+            acc[1] += n * bound
+        del a
+        torch.cuda.empty_cache()
+    for row, (p_ms, b_ms) in f32_sums.items():
+        print(f"[{tag}] total row {row} float32 plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"(launch-weighted)", flush=True)
+
     # row 9: bf16 at every shape with the plain version's time and the
     # device time by kernel (the token-major plan's steps; its two GEMMs
-    # share a name), f32 at swin-base stage 3 (a control); the projections'
-    # operations over the real tokens only
-    for dt in (torch.bfloat16, torch.float32) if "9" in rows else ():
+    # share a name; f32: row 9f); the projections' operations over the real
+    # tokens only
+    if "9" in rows:
+        dt = torch.bfloat16
         for name, grid, c, heads, n in ROW9_SHAPES:
-            if dt == torch.float32 and name != "swin-base3":
-                continue
             a = swin_args(rs, 16, grid, c, heads, dt)
             tok = 16 * grid * grid
             ops = 8 * tok * c * c + 4 * tok * 49 * c
@@ -604,12 +650,11 @@ def main() -> int:
 
                 with torch.no_grad():
                     ms, p_ms = time_ms(kern, reps=20), time_ms(plain, reps=20)
-                    note = f" plain {p_ms:.3f} ms, host enqueue {host_ms(kern):.3f} ms"
-                    if dt == torch.bfloat16:
-                        note += max_diff(kern(), plain())
+                    note = (f" plain {p_ms:.3f} ms, host enqueue {host_ms(kern):.3f} ms"
+                            + max_diff(kern(), plain()))
                 report("9" if n > 1 else f"9 {name}",
                        f"{name} (16,{grid},{grid},{c}) h{heads} shift{shift}", dt, ms, n, ops,
-                       kern, note, split=dt == torch.bfloat16)
+                       kern, note, split=True)
             del a
             torch.cuda.empty_cache()
 

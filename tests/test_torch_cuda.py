@@ -20,10 +20,10 @@ Masks (the argmax head) equal their plain version's except at near-ties, a
 pixel whose two best blended scores are within 1e-5 (f32) or, where each
 side rounds its scores to bf16, two bf16 steps at the largest score (a score
 differs by at most one step, and the blend is convex).
-The f32 bodies of the feed-forward and the decoder attention block (3xTF32
-on the tensor cores) are also held to |Δ| <= 1e-5 · max |ref|, which their
-plain versions run with TF32 products fail: the f32 bound above would pass
-a TF32 product too.
+The f32 bodies of the feed-forward, the decoder attention block and the
+swin window block (3xTF32 on the tensor cores) are also held to |Δ| <= 1e-5
+· max |ref|, which their plain versions run with TF32 products fail: the
+f32 bound above would pass a TF32 product too.
 Int8 kernels: |Δ| <= 1e-3 · max |ref| (f32), 2e-2 · max |ref| (bf16): a code
 that rounds the other way moves an output by one step of its scale.
 The upsample kernels and their adjoint, against the plain forward and the
@@ -113,7 +113,8 @@ def _rand(rs, *shape, scale=1.0, offset=0.0, dtype=torch.float32, device="cuda")
 
 
 def _check(fn, kernel_fn, plain_fn, *args, **kw):
-    """Run the kernel (one launch counted) and its plain version; compare."""
+    """Run the kernel (one launch counted) and its plain version; compare.
+    Returns both outputs."""
     before = fn.launches
     got = kernel_fn(*args, **kw)
     torch.cuda.synchronize()
@@ -122,6 +123,16 @@ def _check(fn, kernel_fn, plain_fn, *args, **kw):
     assert got.shape == want.shape and got.dtype == want.dtype
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **TOL[got.dtype])
+    return got, want
+
+
+def _check_swin(*args, **kw):
+    """_check of swin_window_block; its f32 body (rows 6 and 9, 3xTF32) also
+    under F32X3_REL."""
+    got, want = _check(swin_window_block, swin_window_block, swin_window_block_plain, *args,
+                       **kw)
+    if got.dtype == torch.float32:
+        _f32x3_close(got, want)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -369,6 +380,23 @@ def test_fused_mlp_f32x3(cuda, n_tok, c, f, act, pos, save):
         assert upre is None
 
 
+def test_swin_window_workspace_f32(cuda):
+    """The f32 body's scratch at every C: the LN output (then the head
+    outputs) and q|k|v of the B·H·W real tokens (4·B·H·W·C floats); -1 where
+    the plan does not take the sizes."""
+    from lc2is_tpu_torch.ops import _build
+
+    def size(*a):
+        return _build.size("lc2_swin_window_workspace_f32", *a)
+
+    assert size(16, 128, 128, 96, 3, 7) == 4 * 16 * 128 * 128 * 96
+    assert size(16, 32, 32, 512, 16, 7) == 4 * 16 * 32 * 32 * 512
+    assert size(3, 15, 15, 768, 24, 7) == 4 * 3 * 15 * 15 * 768
+    assert size(1, 7, 7, 1088, 17, 7) == -1  # past C 1024
+    assert size(1, 7, 7, 512, 5, 7) == -1    # dh not 16, 32 or 64
+    assert size(1, 7, 7, 512, 16, 9) == -1   # a window past 64 tokens
+
+
 def test_f32x3_rule_fails_tf32_products(cuda):
     """The control: the plain versions with TF32 products
     (torch.backends.cuda.matmul.allow_tf32) fail F32X3_REL against
@@ -480,8 +508,7 @@ def test_swin_window_block_kernel(cuda, dtype, h, w, c, heads, win, shift):
             _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
             _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
             _rand(rs, heads, win * win, win * win, scale=0.1))
-    _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, win,
-           shift)
+    _check_swin(*args, heads, win, shift)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -498,8 +525,7 @@ def test_swin_window_block_kernel_window_tail(cuda, dtype, c, heads, shift):
             _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
             _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
             _rand(rs, heads, 49, 49, scale=0.1))
-    _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, 7,
-           shift, residual=shift == 0)
+    _check_swin(*args, heads, 7, shift, residual=shift == 0)
 
 
 def _near_tie(dtype, blended):
@@ -1656,7 +1682,7 @@ def test_swin_window_block_kernel_swin_base(cuda, dtype, b, grid, c, heads, shif
             _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
             _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
             _rand(rs, heads, 49, 49, scale=0.1))
-    _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, 7, shift)
+    _check_swin(*args, heads, 7, shift)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1671,8 +1697,7 @@ def test_swin_window_block_token_major_plan(cuda, dtype, b, grid, c, heads, shif
             _rand(rs, c, scale=0.5), _rand(rs, 3 * c, c, scale=c ** -0.5),
             _rand(rs, 3 * c, scale=0.1), _rand(rs, c, c, scale=c ** -0.5), _rand(rs, c, scale=0.1),
             _rand(rs, heads, 49, 49, scale=0.1))
-    _check(swin_window_block, swin_window_block, swin_window_block_plain, *args, heads, 7, shift,
-           residual=shift == 0)
+    _check_swin(*args, heads, 7, shift, residual=shift == 0)
 
 
 def test_swin_window_workspace_bf16(cuda):

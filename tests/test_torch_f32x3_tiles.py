@@ -30,7 +30,8 @@ A TF32 product cannot pass for an f32 one here, whereas the card's f32 gate
 of phase 3 (1e-3 + 1e-3·|ref|) could not tell them apart.
 
 The wrappers' card path, the launch recorded on CPU tensors: the f32 bodies
-get a workspace of their size entry's floats.
+(and the swin window block's, tests/test_torch_swin_f32x3_tiles.py) get a
+workspace of their size entry's floats.
 """
 
 import math
@@ -290,19 +291,20 @@ def test_tf32_rounds_to_nearest_ties_away():
     assert np.abs(hi + lo - a).max() <= 2.0 ** -21 * np.abs(a).max()
 
 
-@pytest.mark.parametrize("op", ["fused_mlp", "fused_attn_block"])
+@pytest.mark.parametrize("op", ["fused_mlp", "fused_attn_block", "swin_window_block"])
 def test_f32_wrappers_hand_over_a_workspace(monkeypatch, op):
     """The card path of each wrapper in f32, its launch replaced by a
     recorder on CPU tensors: the arguments it hands ctypes match the entry
     point's argtypes, and the f32 body gets a workspace of its size entry's
     floats (lc2_*_workspace_f32)."""
-    from lc2is_tpu_torch.ops import attention_block, fused_mlp
+    from lc2is_tpu_torch.ops import attention_block, fused_mlp, swin_window
 
     calls, sizes = [], []
     monkeypatch.setattr(_build, "launch", lambda name, dev, *a: calls.append((name, a)))
     monkeypatch.setattr(_build, "size", lambda name, *a: sizes.append((name, a)) or 64)
     monkeypatch.setattr(_build, "stream_of", lambda t: 0)
-    mod = fused_mlp if op == "fused_mlp" else attention_block
+    mod = {"fused_mlp": fused_mlp, "fused_attn_block": attention_block,
+           "swin_window_block": swin_window}[op]
     monkeypatch.setattr(mod, "use_kernel", lambda t: True)
     rs = np.random.RandomState(0)
     c = 128
@@ -313,6 +315,13 @@ def test_f32_wrappers_hand_over_a_workspace(monkeypatch, op):
         with torch.no_grad():
             fused_mlp.fused_mlp(x, *w, activation="relu", ln_position="post")
         want_size = ("lc2_fused_mlp_workspace_f32", (5, c, 4 * c, 0))
+    elif op == "swin_window_block":  # a 9 x 8 canvas, padded to 14², 4 heads
+        x = torch.from_numpy(rs.randn(2, 9, 8, c).astype(np.float32))
+        w = [torch.from_numpy(rs.randn(*s).astype(np.float32))
+             for s in ((c,), (c,), (3 * c, c), (3 * c,), (c, c), (c,), (4, 49, 49))]
+        with torch.no_grad():
+            swin_window.swin_window_block(x, *w, 4, 7, 3)
+        want_size = ("lc2_swin_window_workspace_f32", (2, 9, 8, c, 4, 7))
     else:
         x, k, v = (torch.from_numpy(rs.randn(2, n, c).astype(np.float32)) for n in (7, 9, 9))
         w = [torch.from_numpy(rs.randn(*s).astype(np.float32))
@@ -328,6 +337,6 @@ def test_f32_wrappers_hand_over_a_workspace(monkeypatch, op):
     for a, t in zip(args, argtypes):
         assert isinstance(a, kinds[t]), (name, a, t)
     assert sizes == [want_size]
-    ws = args[11 if op == "fused_attn_block" else 10]
+    ws = args[11 if op == "fused_attn_block" else 10]  # after the output
     assert isinstance(ws, int) and ws != 0
     assert want_size[0] in _build.SIZE_SIGNATURES
