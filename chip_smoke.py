@@ -12,8 +12,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    the decoder attention forward's and backward's (its GEMM, which the
    feed-forward and the swin backward share, and its LayerNorm pass), the
    swin window block's, window attention's, the swin backward's attention
-   core, the mask head's and the fused CE's; and the swin window block's
-   f32 3xTF32 attention core) on a line;
+   core, the mask head's and the fused CE's; and the f32 3xTF32 kernels of
+   flash and of the swin window block's attention core) on a line;
 3. kernels: each Hopper kernel against its plain PyTorch version on the card,
    at every shape the main paths give it (512², batch 16), bf16 and f32:
    max / mean abs error against the stated bound (masks: equal except at
@@ -39,9 +39,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    the device time of each step of the bf16 window block's token-major plan
    (C > 384, row 9: LayerNorm, QKV GEMM, attention core, out-projection
    GEMM) at swin-base stage 3, both shifts, from one torch.profiler call;
-   the f32 bodies of rows 1, 2, 6 and 9 (3xTF32) also within F32X3_REL of
+   the f32 bodies of rows 1, 2, 6, 9 and 15 (3xTF32) also within F32X3_REL of
    max |plain| at every shape, the plain version run with TF32 products as a
-   control that must fail it;
+   control that must fail it (flash keeps its own controls beside it), and
+   each dtype's flash times summed per BaseModelWithText forward;
    and rows 1, 2, 4 and 6 at the 480² crop of the sliding sweep (phase 14):
    each distinct call of the flagship's score-map forward there, recorded by
    hooks, on the inputs it had (bf16 at the sweep's batch, 4, each tagged
@@ -64,7 +65,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    masked, at D 48 and ragged (77 queries over 1025 keys), with two controls
    that must fail (the kernel over all keys but the last 64; the masked case
    run unmasked) and SDPA's backward timed beside it (TFLOP/s over the five
-   products and the ratio printed); and every backward at the shapes of the
+   products and the ratio printed); its f32 bodies (3xTF32) also within
+   F32X3_GRAD_REL on each of dq, dk and dv, with the plain backward run with
+   TF32 products as a control that must fail it, and each dtype's times
+   summed per v1 training step; and every backward at the shapes of the
    FTN training steps (phase 13): the swin-base window blocks' backwards at
    stages 1-2 (row 7, (8, 128², 128) h4 and (8, 64², 256) h8) and stage 3
    (row 10, reported as fused_window_block_bwd, (8, 32², 512) h16, both
@@ -141,7 +145,10 @@ Phases, in order; any failure raises and the script exits non-zero:
        table of one more forward;
    (b) ContrastiveModel and DenseClip: the same f32 batch-1 check (logits;
        score_map and out) over the 151 class prompts, launch counts, bf16
-       batch 16 timed.
+       batch 16 timed;
+   (f) BaseModelWithText in f32 at batch 16, 512² (scripts/evaluate.sh's
+       configuration, the CLI's default dtype): launch counts of one forward
+       (flash 13, fused_mlp 1), three answered batches timed, peak memory.
 8. v1 training (engine.train_step on BaseModelWithText: plain CE of
    feature_mm on 128² labels, AdamW lr 1e-5, nothing frozen):
    (a) f32, batch 1, 512²: the card's step against the same step on the CPU
@@ -151,7 +158,11 @@ Phases, in order; any failure raises and the script exits non-zero:
        six timed steps (step ms, img/s), a torch.profiler table of one more;
    (c) bf16, dropout 0.1 from a seeded generator: the self-attention on the
        einsum path (flash 12 and 12), finite losses, the same seed repeating
-       the loss bit for bit.
+       the loss bit for bit;
+   (d) f32, batch 16, dropout 0 (the CLI's default dtype): two warm-up
+       steps, the launch counts of one step asserted (flash forward and
+       backward 13 each, fused_mlp 1), six timed steps (step ms, img/s),
+       peak memory.
 10. the other five v4 models (BaseCrossA, BaseSelfA, PromptCrossA,
    PromptSelfA, PromptAuxSelfA) at full width, weights from the numpy seed:
    (a) f32 batch 1, the card against the same model's plain run on the CPU
@@ -279,13 +290,15 @@ BOUNDS = {torch.float32: (1e-3, 1e-3), torch.bfloat16: (5e-2, 2e-2)}
 # about 0.05 over 1025 unit-normal keys, so BOUNDS' bf16 atol alone would pass
 # a kernel that dropped a 64-key tile (about 1e-2 off)
 FLASH_REL = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
-# the f32 bodies of the feed-forward, the decoder attention block and the
-# swin window block (rows 6 and 9; 3xTF32 on the tensor cores) are also held
-# to |Δ| <= F32X3_REL·max|ref|: BOUNDS' f32 rule would pass TF32 products
-# (about 5e-4 relative) too.  Their plain versions run with TF32 products
+# the f32 bodies of the feed-forward, the decoder attention block, the swin
+# window block (rows 6 and 9) and flash attention (row 15; 3xTF32 on the
+# tensor cores) are also held to |Δ| <= F32X3_REL·max|ref|: BOUNDS' and
+# FLASH_REL's f32 rules would pass TF32 products (about 5e-4 relative) too.
+# Their plain versions run with TF32 products
 # (torch.backends.cuda.matmul.allow_tf32) are the control that must fail it
 F32X3_REL = 1e-5
-F32X3_KERNELS = ("fused_mlp", "fused_attn_block", "swin_window_block", "fused_window_block")
+F32X3_KERNELS = ("fused_mlp", "fused_attn_block", "swin_window_block", "fused_window_block",
+                 "flash_attention")
 # the f32 slice on the card against its plain run on the CPU (cosine scores)
 SLICE_F32_MAX_ABS = 1e-2
 SLICE_F32_ARGMAX_AGREE = 0.99
@@ -365,7 +378,7 @@ TRAIN_BATCH = 8
 TRAIN_LR = 1e-5
 # backward kernel against autograd through its plain version: ‖Δ‖ / ‖ref‖
 GRAD_BOUNDS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# the f32 bodies of the two training backwards (TPU rows 3, 7 and 10: every
+# the f32 bodies of the training backwards (TPU rows 3, 7, 10 and 16: every
 # product in 3xTF32 on the tensor cores) are also held to ‖Δ‖ / ‖ref‖ <=
 # F32X3_GRAD_REL on every gradient: GRAD_BOUNDS' f32 rule would pass TF32
 # products too.  Their plain versions run with TF32 products are the control
@@ -1060,10 +1073,15 @@ def compare(c, got, want, dt):
         nan_w = torch.isnan(want)
         same = bool(torch.equal(torch.isnan(got), nan_w))
         d = (got.float() - want.float())[~nan_w].abs()
-        lim = FLASH_REL[dt] * want.float()[~nan_w].abs().max().item()
+        top = want.float()[~nan_w].abs().max().item()
+        lim = FLASH_REL[dt] * top
         ok = same and bool((d <= lim).all()) and bool(torch.isfinite(d).all())
+        x3 = ""
+        if dt == torch.float32 and c["name"] in F32X3_KERNELS:
+            ok = ok and d.max().item() <= F32X3_REL * top
+            x3 = f"; max |Δ| / max |plain| {d.max().item() / top:.2e} (<= {F32X3_REL})"
         return ok, d.max().item(), (f"max {d.max().item():.3e} mean {d.mean().item():.3e} (<= "
-                                    f"{FLASH_REL[dt]}·max|plain| = {lim:.3e}); NaN rows "
+                                    f"{FLASH_REL[dt]}·max|plain| = {lim:.3e}{x3}); NaN rows "
                                     f"{int(nan_w.all(-1).sum())} in the plain output, "
                                     f"{'the same' if same else 'NOT the same'} in the kernel's")
     if c["check"] == "mask":
@@ -1130,10 +1148,12 @@ def run_case(c, dt, stats, ftn_stats=None):
         ok, err, msg = compare(c, got, want, dt)
         k_ms, p_ms = time_ms(c["kern"]), time_ms(c["plain"])
         lib_ms = time_ms(c["library"]) if c["library"] else None
-        ctl = compare(c, c["control"][1](), want, dt) if c["control"] else None
+        ctls = [(c["control"][0], compare(c, c["control"][1](), want, dt))] if c["control"] else []
         if dt == torch.float32 and c["name"] in F32X3_KERNELS:
-            c["control"] = ("the plain version with TF32 products", None)
-            ctl = compare(c, plain_tf32(c["plain"]), want, dt)
+            # flash keeps its own controls beside this one; the others' stands alone
+            tf32 = compare(c, plain_tf32(c["plain"]), want, dt)
+            ctls = (ctls if c["check"] == "flash" else []) + [
+                ("the plain version with TF32 products", tf32)]
     b_ms, by = least_time(*c["work"])
     lib = f" one-call {lib_ms:8.3f}" if lib_ms is not None else ""
     if c["name"] == "flash_attention":  # its rate and its ratio to SDPA
@@ -1160,12 +1180,12 @@ def run_case(c, dt, stats, ftn_stats=None):
     if not ok:
         raise AssertionError(f"{c['name']} {c['label']} {dt}: kernel disagrees with its "
                              f"plain version: {msg}")
-    if ctl is not None:
-        print(f"    control, {c['control'][0]}: {ctl[2]}: "
+    for what, ctl in ctls:
+        print(f"    control, {what}: {ctl[2]}: "
               f"{'passes' if ctl[0] else 'fails, as it must'}", flush=True)
         if ctl[0]:
             raise AssertionError(f"{c['name']} {c['label']}: the check passes its "
-                                 f"control, {c['control'][0]}")
+                                 f"control, {what}")
     s = stats.setdefault(c["name"], dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                          bound_ms=0.0, library_ms=None, by={}))
     s["max_abs_err"] = max(s["max_abs_err"], err)
@@ -1223,18 +1243,21 @@ def check_kernels(smi, state):
         cases = kernel_cases(rs, dt) + crop_cases(state, dt)
         walls = []
         print(f"  ({len(cases)} cases, inputs made in {time.time() - t0:.1f} s)", flush=True)
-        sums = {}  # name: [kernel, plain, bound] ms summed as the launches, this dtype
+        # name: [kernel, plain, bound, one call or None] ms summed as the launches, this dtype
+        sums = {}
         for c in cases:
             t0 = time.time()
-            k_ms, p_ms, _, b_ms = run_case(c, dt, stats, ftn_stats)
+            k_ms, p_ms, lib_ms, b_ms = run_case(c, dt, stats, ftn_stats)
             walls.append((time.time() - t0, f"{c['name']} {c['label']}"))
             if c["count"] is not None:
                 n = c["count"] or 1
-                acc = sums.setdefault(c["name"], [0.0, 0.0, 0.0])
+                acc = sums.setdefault(c["name"], [0.0, 0.0, 0.0, 0.0])
                 for i, v in enumerate((k_ms, p_ms, b_ms)):
                     acc[i] += n * v
+                acc[3] = None if lib_ms is None or acc[3] is None else acc[3] + n * lib_ms
         print(f"  {dt} per forward of each kernel's path (launches x ms; count-0 rows one "
               f"call): " + "; ".join(f"{k} kernel {v[0]:.3f} plain {v[1]:.3f} bound {v[2]:.3f}"
+                                     + ("" if v[3] is None else f" one-call {v[3]:.3f}")
                                      for k, v in sums.items()), flush=True)
         del cases
         torch.cuda.empty_cache()
@@ -1594,10 +1617,12 @@ def flash_backward_cases(rs, dt):
 def check_flash_backward(stats):
     """Phase 3b, flash: flash_attention_bwd (the dq and the dk/dv kernels)
     against flash_attention_backward_plain on the kernel forward's output and
-    lse, ‖Δ‖/‖ref‖ of each of dq, dk, dv within GRAD_BOUNDS; two controls must
-    fail the same gate: the kernel over all keys but the last 64 (its dk and
-    dv zero there), and the masked case run unmasked.  Times: CUDA events,
-    the kernel, the plain version and SDPA's backward (one call)."""
+    lse, ‖Δ‖/‖ref‖ of each of dq, dk, dv within GRAD_BOUNDS (f32, the 3xTF32
+    bodies: also within F32X3_GRAD_REL, the plain backward with TF32
+    products failing it); two controls must fail the same gate: the kernel
+    over all keys but the last 64 (its dk and dv zero there), and the masked
+    case run unmasked.  Times: CUDA events, the kernel, the plain version and
+    SDPA's backward (one call), each dtype's summed per v1 training step."""
     import torch.nn.functional as F
 
     from lc2is_tpu_torch.ops.flash_attention import (flash_attention,
@@ -1613,6 +1638,7 @@ def check_flash_backward(stats):
         print(f"\n[backward] flash, {dt}: bound ‖kernel - plain‖ / ‖plain‖ <= {bound} over "
               f"dq, dk, dv", flush=True)
         rs = np.random.RandomState(SEED + 4)
+        step = [0.0, 0.0, 0.0, 0.0]  # kernel, plain, SDPA's backward, bound: per v1 step
         for label, count, (q, k, v, g, mask), control in flash_backward_cases(rs, dt):
             with torch.no_grad():
                 out, lse = flash_attention(q, k, v, mask, with_stats=True)
@@ -1629,6 +1655,17 @@ def check_flash_backward(stats):
                 rel = rel_of(got, want)
                 mx = max((a.float() - b_.float()).abs().max().item() for a, b_ in zip(got, want))
                 ok = rel <= bound and all(bool(torch.isfinite(a).all()) for a in got)
+                if dt == torch.float32:  # the 3xTF32 rule; its control, the plain version in TF32
+                    ok = ok and rel <= F32X3_GRAD_REL
+                    c_rel = rel_of(plain_tf32(plain), want)
+                    print(f"    3xTF32 rule ‖Δ‖/‖plain‖ <= {F32X3_GRAD_REL} on each of dq, dk, "
+                          f"dv: kernel {rel:.3e}; control, the plain version with TF32 products "
+                          f"{c_rel:.3e}: "
+                          f"{'fails, as it must' if c_rel > F32X3_GRAD_REL else 'passes'}",
+                          flush=True)
+                    if c_rel <= F32X3_GRAD_REL:
+                        raise AssertionError(f"flash_attention_bwd {label}: the 3xTF32 rule "
+                                             f"passes its TF32 control ({c_rel:.3e})")
                 if control == "short":
                     what = "the kernel over all keys but the last 64"
                     dq, dk, dv = flash_attention_bwd(q, k[:, :, :-64].contiguous(),
@@ -1667,6 +1704,9 @@ def check_flash_backward(stats):
             st = stats.setdefault("flash_attention_bwd", dict(
                 max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0, by={}))
             st["max_abs_err"] = max(st["max_abs_err"], mx)
+            if count is not None:
+                for i, t_ in enumerate((k_ms, p_ms, lib_ms, b_ms)):
+                    step[i] += count * t_
             if dt == torch.bfloat16 and count is not None:  # per phase-8b step
                 st["ms"] += count * k_ms
                 st["plain_ms"] += count * p_ms
@@ -1674,6 +1714,9 @@ def check_flash_backward(stats):
                 st["library_ms"] += count * lib_ms
                 st["by"][by] = st["by"].get(by, 0.0) + count * b_ms
             del got, want, out, lse, leaves, o
+        print(f"  flash_attention_bwd {dt} per v1 training step (launches x ms): kernel "
+              f"{step[0]:.3f} plain {step[1]:.3f} SDPA's backward {step[2]:.3f} bound "
+              f"{step[3]:.3f}", flush=True)
         torch.cuda.empty_cache()
 
 
@@ -1891,7 +1934,7 @@ def launch_counters():
                                     window_attention)}
 
 
-def serve_batches(model, batches, extra, counters, expected, label, smi):
+def serve_batches(model, batches, extra, counters, expected, label, smi, what="bf16"):
     """Answer ``batches[1:]`` (with the other inputs ``extra``) after a
     warm-up on ``batches[0]``, the launch counters set to 0 just before the
     first timed batch and read just after it; assert the counts.  Returns
@@ -1914,7 +1957,7 @@ def serve_batches(model, batches, extra, counters, expected, label, smi):
     if counts != expected:
         raise AssertionError(f"{label}: launch counts {counts} != {expected}")
     ms = statistics.median(times)
-    print(f"[{label}] bf16 b{BATCH} {IMG}² forward (host clock to synchronize): "
+    print(f"[{label}] {what} b{BATCH} {IMG}² forward (host clock to synchronize): "
           f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = "
           f"{BATCH * 1e3 / ms:.1f} img/s on {smi}", flush=True)
     return first, ms, counts
@@ -2736,6 +2779,7 @@ def check_v1(smi):
             if name == "BaseModelWithText":
                 profile_step(lambda: gpu16({"pixel_values": batches[1], **text}),
                              f"one bf16 b{BATCH} {name} forward", rows=25)
+                check_v1_f32_batch(smi, gpu32, [b.float() for b in batches], text, counters)
             ref = gpu32({"pixel_values": batches[1].float(), **text})
             for key, o, r in zip(names, first, ref):
                 if key is None:
@@ -2753,6 +2797,23 @@ def check_v1(smi):
         del gpu32, gpu16, first, ref
         torch.cuda.empty_cache()
     return results
+
+
+def check_v1_f32_batch(smi, model, batches, text, counters):
+    """Phase 7f: the f32 BaseModelWithText at batch 16, 512², as
+    scripts/evaluate.sh evaluates it (the CLI's default dtype): the launch
+    counts of one forward (flash 13, its f32 body; fused_mlp 1), three
+    answered batches timed after a warm-up, finite outputs, peak memory."""
+    name = "BaseModelWithText"
+    torch.cuda.reset_peak_memory_stats()
+    first, ms, _ = serve_batches(model, batches, text, counters, EXPECTED_V1_LAUNCHES[name],
+                                 f"v1 (f) {name}", smi, what="f32")
+    peak = torch.cuda.max_memory_allocated()
+    if not all(o is None or bool(torch.isfinite(o).all()) for o in first):
+        raise AssertionError(f"v1 {name} f32 b{BATCH}: non-finite output")
+    print(f"[v1 (f) {name}] f32 b{BATCH} {IMG}² forward median {ms:.2f} ms, peak device "
+          f"memory {peak / 2 ** 30:.2f} GiB on {smi}", flush=True)
+    return ms
 
 
 def v1_train_models(state, **kw):
@@ -2830,8 +2891,8 @@ def check_v1_train_f32(state):
         raise AssertionError("v1 f32 training step on the card disagrees with the CPU run")
 
 
-def v1_train_batch():
-    x = rand(np.random.RandomState(SEED + 62), BATCH, 3, IMG, IMG, dtype=torch.bfloat16)
+def v1_train_batch(dtype=torch.bfloat16):
+    x = rand(np.random.RandomState(SEED + 62), BATCH, 3, IMG, IMG, dtype=dtype)
     y = seeded_labels(SEED + 63, BATCH, V1_OUT, V1_OUT)
     return {"pixel_values": x, **v1_text(BATCH, "cuda")}, y
 
@@ -2845,14 +2906,18 @@ def step_counts(counters, step):
     return out, {name: f.launches for name, f in counters.items() if f.launches}
 
 
-def check_v1_train_bf16(smi, state):
+def check_v1_train_step(smi, state, dtype=torch.bfloat16):
     """Phase 8b: the bf16 batch-16 BaseModelWithText step at dropout 0: two
-    warm-up steps, six timed, the launch counts of the first timed step, a
-    profile of one more.  Returns (the counts, median step ms)."""
+    warm-up steps, six timed, the launch counts of the first timed step, the
+    peak memory, a profile of one more.  Phase 8d: the same in f32 (the CLI's
+    default dtype; its flash bodies 3xTF32), without the profile.  Returns
+    (the counts, median step ms)."""
     from lc2is_tpu_torch.engine.engine import train_step
 
-    model, opt = v1_train_models(state, dtype=torch.bfloat16)
-    inputs, y = v1_train_batch()
+    what, part = ("bf16", "b") if dtype == torch.bfloat16 else ("f32", "d")
+    torch.cuda.reset_peak_memory_stats()
+    model, opt = v1_train_models(state, dtype=dtype)
+    inputs, y = v1_train_batch(dtype)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     counters = launch_counters()
     for _ in range(2):  # warm-up
@@ -2868,9 +2933,9 @@ def check_v1_train_bf16(smi, state):
             torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(out["train_loss"].item())
-    print(f"\n[v1 train] (b) bf16 b{BATCH} {IMG}², labels {V1_OUT}², dropout 0: losses per step "
-          f"{[round(v, 5) for v in losses]}")
-    print(f"[v1 train] (b) launches over one step: {counts} (expected "
+    print(f"\n[v1 train] ({part}) {what} b{BATCH} {IMG}², labels {V1_OUT}², dropout 0: losses "
+          f"per step {[round(v, 5) for v in losses]}")
+    print(f"[v1 train] ({part}) launches over one step: {counts} (expected "
           f"{EXPECTED_V1_TRAIN_LAUNCHES})")
     if counts != EXPECTED_V1_TRAIN_LAUNCHES:
         raise AssertionError(f"v1 training launch counts {counts} != {EXPECTED_V1_TRAIN_LAUNCHES}")
@@ -2882,10 +2947,12 @@ def check_v1_train_bf16(smi, state):
     if stuck:
         raise AssertionError(f"v1 parameters not updated after 8 steps: {stuck[:5]}")
     ms = statistics.median(times)
-    print(f"[v1 train] (b) bf16 b{BATCH} {IMG}² step (host clock to synchronize): "
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[v1 train] ({part}) {what} b{BATCH} {IMG}² step (host clock to synchronize): "
           f"{[round(t, 2) for t in times]} ms, median {ms:.2f} ms = {BATCH * 1e3 / ms:.2f} "
-          f"img/s on {smi}", flush=True)
-    profile_step(lambda: train_step(model, opt, inputs, y), f"one bf16 b{BATCH} v1 step")
+          f"img/s, peak device memory {peak / 2 ** 30:.2f} GiB on {smi}", flush=True)
+    if dtype == torch.bfloat16:
+        profile_step(lambda: train_step(model, opt, inputs, y), f"one bf16 b{BATCH} v1 step")
     return counts, ms
 
 
@@ -2925,27 +2992,32 @@ def check_v1_train_dropout(state):
 
 
 def check_v1_train(smi):
-    """Phase 8: v1 training.  Returns (launch counts of one 8b step, its ms)."""
+    """Phase 8: v1 training.  Returns (launch counts of one 8b step, its ms,
+    the f32 step's ms, 8d)."""
     from lc2is_tpu_torch.core.convert import seeded_init_
     from lc2is_tpu_torch.models.zoo import BaseModelWithText
 
     state = seeded_init_(BaseModelWithText(in_size=IMG, out_size=V1_OUT, device="cpu"),
                          SEED).state_dict()
     check_v1_train_f32(state)
-    result = check_v1_train_bf16(smi, state)
+    result = check_v1_train_step(smi, state)
     torch.cuda.empty_cache()
     check_v1_train_dropout(state)
-    return result
+    torch.cuda.empty_cache()
+    _, f32_ms = check_v1_train_step(smi, state, torch.float32)
+    torch.cuda.empty_cache()
+    return result + (f32_ms,)
 
 
-# the kernels of the tensor-core bodies (bf16 but one): flash (rows 15, 16), the
-# decoder attention forward and backward (rows 2, 3: the attention cores,
-# the GEMM, which the feed-forward (row 1) and the swin backward share, and
-# the LayerNorm pass of rows 1 and 2), the swin window block (rows 6, 9;
-# and its f32 body's 3xTF32 attention core), window attention (row 8), the
-# swin backward's attention core (rows 7, 10), and the int8 row's s8 GEMM and
-# row pass (rows 2q, 17)
-MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "attn_fwd_mma",
+# the kernels of the tensor-core bodies (bf16 but four): flash (rows 15, 16;
+# and their f32 bodies' 3xTF32 kernels), the decoder attention forward and
+# backward (rows 2, 3: the attention cores, the GEMM, which the feed-forward
+# (row 1) and the swin backward share, and the LayerNorm pass of rows 1 and
+# 2), the swin window block (rows 6, 9; and its f32 body's 3xTF32 attention
+# core), window attention (row 8), the swin backward's attention core (rows
+# 7, 10), and the int8 row's s8 GEMM and row pass (rows 2q, 17)
+MMA_KERNELS = ("flash_mma_kernel", "flash_bwd_dq_mma", "flash_bwd_dkv_mma", "flash_x3_kernel",
+               "flash_bwd_dq_x3", "flash_bwd_dkv_x3", "attn_fwd_mma",
                "attn_dq_mma", "attn_dkdv_mma", "gemm_bf16_kernel", "layer_norm_rows",
                "swin_mma_kernel", "swin_core_mma", "swin_core_x3", "window_attention_mma",
                "swin_attn_bwd_mma", "gemm_s8_kernel", "quant_rows_kernel", "head_kernel",
@@ -3973,7 +4045,7 @@ def main() -> int:
     counts.update({k: v for k, v in train_counts.items() if k in BACKWARD_KERNELS})
     v1 = phase("7", check_v1, smi)
     counts["flash_attention"] = v1["BaseModelWithText"][0]["flash_attention"]
-    v1_train_counts, v1_step_ms = phase("8", check_v1_train, smi)
+    v1_train_counts, v1_step_ms, v1_f32_step_ms = phase("8", check_v1_train, smi)
     counts["flash_attention_bwd"] = v1_train_counts["flash_attention_bwd"]
     v4 = phase("10", check_v4, smi)
     _, v4_step_ms = phase("11", check_v4_train, smi)
@@ -4016,7 +4088,8 @@ def main() -> int:
           f"exists; max_abs_err of "
           f"a mask kernel: the largest top-2 "
           f"score gap at a pixel where it differs from its plain version. Training step "
-          f"{step_ms:.2f} ms; f32 b{F32_STEP_BATCH} training step {f32_step_ms:.2f} ms; v1 training step {v1_step_ms:.2f} ms; v1 bf16 b{BATCH} forwards "
+          f"{step_ms:.2f} ms; f32 b{F32_STEP_BATCH} training step {f32_step_ms:.2f} ms; v1 "
+          f"training step {v1_step_ms:.2f} ms (f32 {v1_f32_step_ms:.2f} ms); v1 bf16 b{BATCH} forwards "
           f"{ {k: round(ms, 2) for k, (_, ms) in v1.items()} } ms; v4 bf16 b{BATCH} mask "
           f"forwards { {k: round(ms, 2) for k, ms in v4.items()} } ms; v4 bf16 b{TRAIN_BATCH} "
           f"training steps { {k: round(ms, 2) for k, ms in v4_step_ms.items()} } ms; FTN bf16 "

@@ -250,18 +250,6 @@ __device__ __forceinline__ void x3_scores(const float2 (&a)[DH / 8][2], const fl
   }
 }
 
-// acc += C · Z[row0 .. row0 + 7] over those 8 streamed rows, C a 16 x 8 C
-// fragment (gemm32::split_c), over Z's DH columns in groups of G tiles.
-template <int DH, int G>
-__device__ __forceinline__ void x3_accumulate(float (&acc)[DH / 8 / G][G][4], const float (&c)[4],
-                                              const float* zs, int row0, int lane) {
-  constexpr int LD = X3Layout<DH>::kLd;
-  const gemm32::Split<4> af = gemm32::split_c(c);
-  const float* z = zs + (row0 + 2 * (lane & 3)) * LD + (lane >> 2);
-#pragma unroll
-  for (int jg = 0; jg < DH / 8 / G; ++jg) gemm32::mma_x3_bn<G, LD>(acc[jg], af, z + 8 * G * jg);
-}
-
 // dq = Σ_keys ds · k with p = 2^(q·kᵀ·log2 e − lse) and ds = p ∘ (dO · vᵀ −
 // delta), every product in 3xTF32; grid (P tiles, heads, B).  Warp w owns
 // query rows 16w .. 16w + 15 of the block's 64 (their q and dO fragments in
@@ -343,7 +331,9 @@ attn_dq_x3(const float* __restrict__ q, const float* __restrict__ k, const float
           dp[j][e] = on ? p * (dp[j][e] - dl[r]) : 0.0f;  // ds
         }
 #pragma unroll
-      for (int j = 0; j < 2; ++j) x3_accumulate<DH, G>(part, dp[j], ks, 16 * c16 + 8 * j, lane);
+      for (int j = 0; j < 2; ++j)  // dq += ds · k
+        gemm32::mma_x3_rows<DH, G, Lay::kLd>(part, dp[j], ks + (16 * c16 + 8 * j) * Lay::kLd,
+                                             lane);
     }
 #pragma unroll
     for (int jg = 0; jg < NO / G; ++jg)
@@ -467,8 +457,9 @@ attn_dkdv_x3(const float* __restrict__ q, const float* __restrict__ k,
         }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        x3_accumulate<DH, G>(pdv, s[j], gs, 16 * c16 + 8 * j, lane);   // dv += pᵀ · dO
-        x3_accumulate<DH, G>(pdk, dp[j], qs, 16 * c16 + 8 * j, lane);  // dk += dsᵀ · q
+        const int row = (16 * c16 + 8 * j) * Lay::kLd;
+        gemm32::mma_x3_rows<DH, G, Lay::kLd>(pdv, s[j], gs + row, lane);   // dv += pᵀ · dO
+        gemm32::mma_x3_rows<DH, G, Lay::kLd>(pdk, dp[j], qs + row, lane);  // dk += dsᵀ · q
       }
     }
 #pragma unroll

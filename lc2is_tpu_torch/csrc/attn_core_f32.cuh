@@ -7,7 +7,9 @@
 // log-sum-exp (lse, log2 units).  The design, described at attn_core_f32
 // below: a block owns one (image, head, key range) and up to
 // 160 query rows, K/V tiles split once a block in shared memory, the key
-// ranges merged by attn_merge_f32.
+// ranges merged by attn_merge_f32.  Its stage layout and split (CoreLayout,
+// split_stage) also serve flash attention's f32 forward
+// (csrc/flash_attention.cu).
 #pragma once
 
 #include <math.h>

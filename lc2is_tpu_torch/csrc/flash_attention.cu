@@ -10,6 +10,9 @@
 // operations per byte, above the H100's ~295 line, so the (Lq, Lk) logits
 // must never reach device memory and the products belong on the tensor cores.
 //
+// In f32 the products run in 3xTF32 (three TF32 products each, ~165 TFLOP/s
+// of f32-accurate products at most on the H100), so the same holds.
+//
 // Design: the TPU's sequential KV grid axis becomes a loop inside the block.
 // One block owns one (b · h, query tile), from a one-dimensional grid (so
 // B·H is not capped at gridDim.y's 65535); each warp owns 16 of the query
@@ -46,66 +49,50 @@
 //   nothing, and a warp whose rows lie past Lq no product at all.  The
 //   output is staged through the warp's own q rows and written in 16-byte
 //   stores.  The running max is kept in log2 units; lse = m · ln 2 + log l.
-// - f32: both products on the CUDA cores in full f32 (no TF32); a lane owns
-//   4 query rows x 8 key columns of a score tile and 4 rows x D/8 columns of
-//   the accumulator, held in registers.
+// - f32 (flash_x3_kernel): both products on the tensor cores in 3xTF32
+//   (gemm_f32x3.cuh: each operand split into TF32 halves hi + lo, each
+//   product lo·hi' + hi·lo' + hi·hi', three mma.sync m16n8k8), f32-accurate,
+//   on the plan of the decoder attention's f32 core (attn_core_f32.cuh,
+//   whose stage layout and split it shares): up to 128 query rows and 8
+//   warps a block, one block an SM; each warp keeps its own q rows in
+//   registers (their split halves up to DP 64, above that their values,
+//   split at each use); 64-key K and V tiles arrive through a two-stage
+//   cp.async ring (zeros past Lk and past D), and each landed tile is split
+//   once a block in shared memory (hi over the tile, lo into one lo stage;
+//   two barriers a tile), so that no warp splits a K or V value again.
+//   S = Q · Kᵀ stays in registers; the online softmax runs there in f32 in
+//   log2 units, the scale and log2 e folded into one FMA before exp2; S's C
+//   fragment is P · V's A fragment with the mma's k order permuted, split
+//   in registers, and V's B fragment is read in that order.  Every mma's
+//   products are summed into zero accumulators and added in f32, round to
+//   nearest: the tensor cores' own adds truncate, and a chain over 1025
+//   keys drifts.  The hi·hi term of each product runs as two m16n8k4 mmas
+//   (gemm32::mma_x3_row_k4hi), so that each of the tensor cores' internal
+//   sums, which drop the low bits of its smaller products, holds 4
+//   products, not 8: on an H100 that cuts the outputs' mean drift toward
+//   zero by a quarter (3.6e-9 to 2.8e-9 of max |out| at (16, 12, 1025, 64))
+//   for ~10 % of the time.  With 8-product sums one relu unit of
+//   PromptFTNv2's prompt decoder, fed through FTNDecoderV2's flash calls and
+//   lying within f32 noise of zero, fell on the other side from the CPU's
+//   in chip_smoke.py's phase 13a; with 4 it did not, a fact of that seed
+//   and not a margin (PERF.md §6).  32 keys with no kept key take no S
+//   product, 8 with none no P · V, a tile with none nothing.
 // Masked keys take a bias of −∞ in effect.  A row with no kept key keeps
 // m = −∞ and l = 0 (no exp(−∞ − (−∞))), so its output is 0 · (1/0) = NaN and
 // its lse −∞, as torch's softmax gives; the TPU kernel's −1e30 bias would
 // instead return the mean of v over the block-padded keys.
 #include <math.h>
 
+#include "attn_core_f32.cuh"
 #include "attn_tiles.cuh"
 #include "flash_common.cuh"
 
 namespace lc2 {
 namespace {
 
-using flash::align128;
-using flash::kept_keys;
-using flash::load_tile;
 using mma::fwd_tile;
-constexpr int kBQ = flash::kRows;  // f32: query rows per block, 4 warps x 16
-constexpr int kBK = flash::kRows;  // keys per tile
-constexpr int kThreads = flash::kThreads;
 
 using bf16 = __nv_bfloat16;
-
-// One key tile's online-softmax update of a lane's 4 rows.  s holds the raw
-// q · k products of its keys lx + 8j; on return s holds p = exp(s · scale −
-// m_new) (0 at dropped keys), (m, l) are updated and alpha = exp(m_old −
-// m_new) is what the row's accumulator must be scaled by.  The 8 lanes of a
-// row (same lane / 8) reduce with shuffles.  While a row has no kept key,
-// m_new = −∞: p = 0 and alpha = 0 (l and the accumulator stay 0) instead of
-// exp(−∞ − (−∞)) = NaN.
-__device__ __forceinline__ void online_softmax(float (&s)[4][8], const bool (&keep)[8],
-                                               float scale, float (&m)[4], float (&l)[4],
-                                               float (&alpha)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[i][j] = keep[j] ? s[i][j] * scale : -INFINITY;
-      mx = fmaxf(mx, s[i][j]);
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float m_new = fmaxf(m[i], mx);
-    const float base = m_new == -INFINITY ? 0.0f : m_new;
-    float sum = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[i][j] = expf(s[i][j] - base);
-      sum += s[i][j];
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    alpha[i] = expf(m[i] - base);
-    l[i] = l[i] * alpha[i] + sum;
-    m[i] = m_new;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, fragments in registers)
@@ -235,125 +222,219 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: 3xTF32 on the tensor cores (mma.sync m16n8k8, gemm_f32x3.cuh)
 // ---------------------------------------------------------------------------
 
+constexpr int kX3Warps = 8;  // query rows a block: at most 8 warps x 16
+
+// Shared memory: two ring stages of a 64-key K and V tile (attn_core_f32.cuh's
+// CoreLayout: K at row stride DP + 8, V at DP + 4) and one stage of the lo
+// halves of the tile being computed: 206 KB at DP 128, 107 KB at DP 64.
 template <int DP>
-struct FmaLayout {
-  static constexpr int kLdQ = DP + 1;   // odd strides: a lane's rows fall in distinct banks
-  static constexpr int kLdV = DP;
-  static constexpr int kLdP = kBK + 1;
-  static constexpr size_t kOffK = align128(sizeof(float) * kBQ * kLdQ);
-  static constexpr size_t kOffV = kOffK + align128(sizeof(float) * kBK * kLdQ);
-  static constexpr size_t kOffP = kOffV + align128(sizeof(float) * kBK * kLdV);
-  static constexpr size_t kBytes = kOffP + sizeof(float) * kBQ * kLdP;
-};
+constexpr size_t x3_smem() { return sizeof(float) * 3 * CoreLayout<DP>::kStage; }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                 float* __restrict__ out, float* __restrict__ lse, int heads, int lq, int lk,
-                 int d, float scale) {
-  using L = FmaLayout<DP>;
-  constexpr int NC = DP / 8;  // accumulator columns a lane owns: lx + 8c
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* ks = reinterpret_cast<float*>(smem_raw + L::kOffK);
-  float* vs = reinterpret_cast<float*>(smem_raw + L::kOffV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, ly = lane >> 3, lx = lane & 7;
-  float* pw = reinterpret_cast<float*>(smem_raw + L::kOffP) + warp * 16 * L::kLdP;
-  const float* qw = qs + (warp * 16 + 4 * ly) * L::kLdQ;
-
-  int bh, q0;
-  flash::block_tile((lq + kBQ - 1) / kBQ, bh, q0);
+__global__ void __launch_bounds__(32 * kX3Warps, 1)
+flash_x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                float* __restrict__ out, float* __restrict__ lse, int heads, int lq, int lk,
+                int d, float scale) {
+  using Lay = CoreLayout<DP>;
+  constexpr int KC = DP / 8, NO = DP / 8, G = NO % 4 == 0 ? 4 : 2;
+  // q's split halves in registers up to DP 64; above, its values, split at each use
+  constexpr bool kQSplit = DP <= 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* lo = ring + 2 * Lay::kStage;
+  const int nthreads = blockDim.x, rows = nthreads / 2;  // 16 query rows a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_qt = (lq + rows - 1) / rows;
+  const int bh = blockIdx.x / n_qt, p0 = (blockIdx.x - bh * n_qt) * rows + 16 * warp;
   const float* kb = k + (size_t)bh * lk * d;
   const float* vb = v + (size_t)bh * lk * d;
   const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
+  const int n_tiles = (lk + kF32Keys - 1) / kF32Keys;
+  auto issue = [&](int i) {  // K and V tile i into ring stage i % 2, one group
+    if (i < n_tiles) {
+      float* st = ring + (i & 1) * Lay::kStage;
+      flash::load_rows_f32<DP, Lay::kLdK>(kb, i * kF32Keys, kF32Keys, lk, d, st, nthreads);
+      flash::load_rows_f32<DP, Lay::kLdV>(vb, i * kF32Keys, kF32Keys, lk, d,
+                                          st + kF32Keys * Lay::kLdK, nthreads);
+    }
+    mma::cp_async_commit();
+  };
+  issue(0);
 
-  load_tile<float, DP, L::kLdQ>(q + (size_t)bh * lq * d, q0, lq, d, qs);
-  float acc[4][NC], m[4], l[4], alpha[4];
+  // the warp's q rows g and g + 8, columns 2t, 2t + 1 of each 8-wide step
+  const bool live = p0 < lq;
+  gemm32::Split<4> qf[kQSplit ? KC : 1];
+  float2 qv[kQSplit ? 1 : KC][2];
+  {
+    const float* qr = q + ((size_t)bh * lq + p0 + g) * d;
+    const bool in0 = p0 + g < lq, in8 = p0 + g + 8 < lq;
+    const float2 zero = make_float2(0.0f, 0.0f);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
+    for (int kc = 0; kc < KC; ++kc) {
+      const float2 a = in0 ? flash::load_pair(qr, 8 * kc + 2 * t, d) : zero;
+      const float2 b = in8 ? flash::load_pair(qr + 8 * (size_t)d, 8 * kc + 2 * t, d) : zero;
+      if constexpr (kQSplit) {
+        qf[kc] = gemm32::split_a(a, b);
+      } else {
+        qv[kc][0] = a;
+        qv[kc][1] = b;
+      }
+    }
   }
-  const int n_tiles = (lk + kBK - 1) / kBK;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // q written / every warp done with the previous k / v tile
-    load_tile<float, DP, L::kLdQ>(kb, k0, lk, d, ks);
-    load_tile<float, DP, L::kLdV>(vb, k0, lk, d, vs);
+  auto q_of = [&](int kc) -> gemm32::Split<4> {
+    if constexpr (kQSplit) return qf[kc];
+    else return gemm32::split_a(qv[kc][0], qv[kc][1]);
+  };
+  float o[NO / G][G][4];  // head columns 8(G·jg + j) .. + 7
+#pragma unroll
+  for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+    for (int j = 0; j < G; ++j) o[jg][j][0] = o[jg][j][1] = o[jg][j][2] = o[jg][j][3] = 0.0f;
+  // rows g and g + 8: running max (log2 units, scale folded in) and this
+  // lane's share of the running sum (its quad adds up at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  const float sl2 = scale * mma::kLog2e;
+  const int kofs = g * Lay::kLdK + 2 * t;
+  const int vofs = kF32Keys * Lay::kLdK + 2 * t * Lay::kLdV + g;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    mma::cp_async_wait<0>();  // tile i has landed (this thread's copies)
+    // ... every thread's; every warp is done with tile i - 1 and the lo stage
     __syncthreads();
-    float s[4][8];
+    issue(i + 1);  // into tile i - 1's stage
+    float* st = ring + (i & 1) * Lay::kStage;
+    // the mask row is the block's: every warp has the same bits
+    const mma::KeyBits kept = mma::key_bits(mrow, i * kF32Keys, lk, lane);
+    const uint32_t any = kept.any();
+    if (any) split_stage<DP>(st, lo, nthreads);  // hi over the tile, lo into the lo stage
+    __syncthreads();
+    if (!live || !any) continue;  // no kept key: m and l unchanged
+    // S = Q · Kᵀ: 8 groups of 8 keys (key group 4jg + j in s[jg][j]), 4 at a
+    // time; 32 keys with no kept key take no product
+    float s[2][4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int jg = 0; jg < 2; ++jg)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
-#pragma unroll 4
-    for (int dd = 0; dd < DP; ++dd) {
-      float qv[4], kv[8];
+      for (int j = 0; j < 4; ++j) s[jg][j][0] = s[jg][j][1] = s[jg][j][2] = s[jg][j][3] = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qw[i * L::kLdQ + dd];
+    for (int kc = 0; kc < KC; ++kc) {
+      const gemm32::Split<4> a = q_of(kc);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = ks[(lx + 8 * j) * L::kLdQ + dd];
+      for (int jg = 0; jg < 2; ++jg) {
+        if (!((any >> (16 * jg)) & 0xffffu)) continue;
+        gemm32::Split<2> kf[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] += qv[i] * kv[j];
+        for (int j = 0; j < 4; ++j) {
+          const int off = kofs + 8 * (4 * jg + j) * Lay::kLdK + 8 * kc;
+          const uint2 h = *reinterpret_cast<const uint2*>(st + off);
+          const uint2 w = *reinterpret_cast<const uint2*>(lo + off);
+          kf[j] = gemm32::Split<2>{{h.x, h.y}, {w.x, w.y}};
+        }
+        gemm32::mma_x3_row_k4hi<4>(s[jg], a, kf);
+      }
     }
-    bool keep[8];
-    kept_keys(mrow, k0, lk, lx, keep);
-    online_softmax(s, keep, scale, m, l, alpha);
+    // the online softmax: a row lives in the 4 lanes of a quad; a dropped
+    // key (masked, or past Lk) takes −∞
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int jg = 0; jg < 2; ++jg)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) pw[(4 * ly + i) * L::kLdP + lx + 8 * j] = s[i][j];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha[i];
+        for (int e = 0; e < 2; ++e) {
+          float* sj = s[jg][j];
+          if (!((kept.b[e] >> (4 * (4 * jg + j) + t)) & 1u)) sj[e] = sj[2 + e] = -INFINITY;
+          mx[0] = fmaxf(mx[0], sj[e]);
+          mx[1] = fmaxf(mx[1], sj[2 + e]);
+        }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      // the tile holds a kept key: m_new is finite, alpha 0 on a row's first
+      const float m_new = fmaxf(m[r], mx[r] * sl2);
+      const float alpha = mma::exp2_approx(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          o[jg][j][2 * r] *= alpha;
+          o[jg][j][2 * r + 1] *= alpha;
+        }
     }
-    __syncwarp();
-    const int n_keys = min(kBK, lk - k0);  // p = 0 past Lk
-    for (int kk = 0; kk < n_keys; ++kk) {
-      float pv[4], vv[NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = pw[(4 * ly + i) * L::kLdP + kk];
+    for (int jg = 0; jg < 2; ++jg)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = vs[kk * L::kLdV + lx + 8 * c];
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int e = 0; e < 4; ++e) {
+          // one FMA with scale · log2 e folded in, then exp2; −∞ gives p = 0
+          float& p = s[jg][j][e];
+          p = mma::exp2_approx(fmaf(p, sl2, -m[e >> 1]));
+          l[e >> 1] += p;
+        }
+    // O += P · V: key group kk of S is the A fragment (k t <- key 2t, k t + 4
+    // <- key 2t + 1); 8 keys with no kept key (p = 0) take no product
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] += pv[i] * vv[c];
+    for (int kk = 0; kk < 8; ++kk) {
+      if (!((any >> (4 * kk)) & 0xfu)) continue;
+      const float* sk = s[kk >> 2][kk & 3];
+      const gemm32::Split<4> pf =
+          gemm32::split_a(make_float2(sk[0], sk[1]), make_float2(sk[2], sk[3]));
+      const float* vr = st + vofs + 8 * kk * Lay::kLdV;
+      const float* vl = lo + vofs + 8 * kk * Lay::kLdV;
+#pragma unroll
+      for (int jg = 0; jg < NO / G; ++jg) {
+        gemm32::Split<2> vf[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const int col = 8 * (G * jg + j);
+          vf[j] = gemm32::Split<2>{{__float_as_uint(vr[col]), __float_as_uint(vr[Lay::kLdV + col])},
+                                   {__float_as_uint(vl[col]), __float_as_uint(vl[Lay::kLdV + col])}};
+        }
+        gemm32::mma_x3_row_k4hi<G>(o[jg], pf, vf);
+      }
     }
-    __syncwarp();
   }
-
+  if (!live) return;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + warp * 16 + 4 * ly + i;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = p0 + g + 8 * r;
     if (row >= lq) continue;
-    const float inv = 1.0f / l[i];  // l = 0 (no kept key): 0 · ∞ = NaN
-    float* orow = out + ((size_t)bh * lq + row) * d;
+    const float inv = 1.0f / l[r];  // l = 0 (no kept key): 0 · ∞ = NaN
+    float* dst = out + ((size_t)bh * lq + row) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (lx + 8 * c < d) orow[lx + 8 * c] = acc[i][c] * inv;
-    if (lse != nullptr && lx == 0) lse[(size_t)bh * lq + row] = m[i] + logf(l[i]);
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        flash::store_pair(dst, 8 * (G * jg + j) + 2 * t, d, o[jg][j][2 * r] * inv,
+                          o[jg][j][2 * r + 1] * inv);
+    if (lse != nullptr && t == 0) lse[(size_t)bh * lq + row] = m[r] * mma::kLn2 + logf(l[r]);
   }
 }
 
-template <typename T, typename K>
-cudaError_t launch_kernel(K kernel, size_t smem, const void* q, const void* k, const void* v,
-                          const void* mask, void* out, void* lse, int bh, int heads, int lq,
-                          int lk, int d, float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(((lq + kBQ - 1) / kBQ) * bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), static_cast<float*>(lse), heads,
-      lq, lk, d, scale);
+template <int DP>
+cudaError_t launch_x3(const void* q, const void* k, const void* v, const void* mask, void* out,
+                      void* lse, int bh, int heads, int lq, int lk, int d, float scale,
+                      cudaStream_t stream) {
+  constexpr size_t smem = x3_smem<DP>();
+  LC2_TRY(allow_smem(flash_x3_kernel<DP>, smem));
+  const int groups = (lq + 15) / 16, warps = groups < kX3Warps ? groups : kX3Warps;
+  flash_x3_kernel<DP><<<((lq + 16 * warps - 1) / (16 * warps)) * bh, 32 * warps, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse),
+      heads, lq, lk, d, scale);
   return cudaGetLastError();
 }
 
@@ -364,8 +445,7 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, con
   if (dtype == kBF16)
     return launch_mma<DP>(q, k, v, mask, out, lse, bh, heads, lq, lk, d, scale, stream);
   if (dtype == kF32)
-    return launch_kernel<float>(flash_fma_kernel<DP>, FmaLayout<DP>::kBytes, q, k, v, mask, out,
-                                lse, bh, heads, lq, lk, d, scale, stream);
+    return launch_x3<DP>(q, k, v, mask, out, lse, bh, heads, lq, lk, d, scale, stream);
   return cudaErrorInvalidValue;
 }
 

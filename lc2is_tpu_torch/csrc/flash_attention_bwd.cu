@@ -48,9 +48,23 @@
 //   takes no product.  A dq warp whose rows lie past Lq, or a dk/dv warp
 //   whose 16 keys are all past Lk or masked, runs no product (its dk and dv
 //   are 0).
-// - f32: the products on the CUDA cores in full f32 (no TF32); a lane owns 4
-//   rows x 8 columns of a score tile and 4 rows x DP/8 columns of each
-//   accumulator, in registers.
+// - f32 (flash_bwd_dq_x3, flash_bwd_dkv_x3): every product on the tensor
+//   cores in 3xTF32 (gemm_f32x3.cuh: each operand split into TF32 halves hi
+//   + lo, each product lo·hi' + hi·lo' + hi·hi', three mma.sync m16n8k8),
+//   f32-accurate, on the plan of the decoder attention backward's f32 core
+//   (attention_block_bwd.cu's attn_dq_x3, attn_dkdv_x3): 64 own rows and 4
+//   warps a block, two blocks an SM up to DP 64; the warp's own pair sits in
+//   registers as unsplit A fragments, split at each use (above DP 64 dO's,
+//   or v's, rows are read from shared memory instead, and the streamed
+//   tiles hold 32 rows, so that registers and shared memory hold out); the
+//   other pair streams through a two-stage cp.async ring, zeros past the
+//   sequence and past D.  p and ds are C fragments in registers, split into
+//   the A fragments of the next products (their k order permuted); the
+//   streamed tile enters every product as B straight from shared memory.
+//   Each streamed tile's products onto dq (or dk and dv) are summed into
+//   fresh accumulators and added to the running sums in f32, so that the
+//   tensor cores' truncating adds do not drift over 1025 rows; the dk/dv
+//   kernel keeps its running sums in shared memory.
 // Head dims: any d from 1 to 128 (DP = d rounded up to 16, zero-filled
 // columns; flash_common.cuh, mma_bf16.cuh).  Ragged Lq and Lk and the
 // key-padding mask are masked in the loaders and in p.
@@ -63,37 +77,17 @@
 
 #include "attn_tiles.cuh"
 #include "flash_common.cuh"
+#include "gemm_f32x3.cuh"
 
 namespace lc2 {
 namespace {
 
-using flash::align128;
-using flash::kept_keys;
-using flash::load_tile;
 using mma::own_fragments;
 using mma::own_row;
 using mma::pb_mma;
 using mma::two_products_mma;
-constexpr int kB = flash::kRows;  // rows of every tile
-constexpr int kThreads = flash::kThreads;
 
 using bf16 = __nv_bfloat16;
-
-// p and ds of one (query, key) pair; live: the key is kept and the query's
-// row is not fully masked (lse > −∞) and lies inside Lq.
-__device__ __forceinline__ void p_ds(float s, float dp, float lse, float delta, bool live,
-                                     float scale, float& p, float& ds) {
-  p = live ? expf(s * scale - lse) : 0.0f;
-  ds = live ? p * (dp - delta) : 0.0f;
-}
-
-// The lse and delta of query row `row` (lse −∞, delta 0 past Lq).
-__device__ __forceinline__ void row_stats(const float* __restrict__ lse,
-                                          const float* __restrict__ delta, size_t base, int row,
-                                          int lq, float& l, float& dl) {
-  l = row < lq ? lse[base + row] : -INFINITY;
-  dl = row < lq ? delta[base + row] : 0.0f;
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores (mma.sync m16n8k16, fragments in registers)
@@ -352,247 +346,372 @@ flash_bwd_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: 3xTF32 on the tensor cores (mma.sync m16n8k8, gemm_f32x3.cuh)
 // ---------------------------------------------------------------------------
 
+constexpr int kX3Rows = 64;  // own rows a block: 4 warps x 16
+constexpr int kX3Threads = 128;
+
+// Shared memory of the two f32 kernels: a two-stage ring, each stage two
+// streamed tiles of kCols rows at row stride DP + 4 floats (a lane's 4-byte
+// loads of rows 2t and 2t + 1, column g, fall in distinct banks) and the
+// streamed rows' lse and delta (dk/dv kernel); above DP 64, the block's
+// second own operand (dO or v: 64 rows at stride DP + 8, whose 8-byte
+// fragment loads fall in distinct banks), which the registers no longer
+// hold; then the dk/dv kernel's running sums (DP floats a thread,
+// thread-major so that a warp's accesses are conflict-free).  Above DP 64 a
+// streamed tile holds 32 rows, so that the dk/dv kernel fits (168 KB at DP
+// 128; 103 KB at DP 64, two blocks an SM).
 template <int DP>
-struct FmaLayout {
-  static constexpr int kLd = DP + 1;   // odd strides: a lane's rows fall in distinct banks
-  static constexpr int kLdP = kB + 1;
-  static constexpr size_t kTile = align128(sizeof(float) * kB * kLd);
-  static constexpr size_t kOffP = 4 * kTile;
-  static constexpr size_t kOffDS = kOffP + align128(sizeof(float) * kB * kLdP);
-  static constexpr size_t kOffStats = kOffDS + align128(sizeof(float) * kB * kLdP);
-  static constexpr size_t kBytes = kOffStats + 2 * sizeof(float) * kB;
+struct X3Layout {
+  static constexpr bool kShared = DP > 64;
+  static constexpr int kCols = kShared ? 32 : 64;
+  static constexpr int kLd = DP + 4, kLdOwn = DP + 8;
+  static constexpr int kTile = kCols * kLd;
+  static constexpr int kStage = 2 * kTile + 2 * kCols;
+  static constexpr int kOwn = kShared ? kX3Rows * kLdOwn : 0;
+  static constexpr size_t kDqBytes = sizeof(float) * (2 * kStage + kOwn);
+  static constexpr size_t kKvBytes = sizeof(float) * (2 * kStage + kOwn + kX3Threads * DP);
 };
 
-// s[i][j] = a_i · b_j and t[i][j] = c_i · e_j over DP columns, for the lane's
-// rows i of a and c (at ar, cr: 4 consecutive rows) and columns j = lx + 8j
-// of b and e (64-row tiles); all at stride L::kLd.
+// A warp's own 16 rows r0 .. r0 + 15 of a (n, d) matrix (zeros past row n
+// and column d) as the raw A fragments of a product over DP: f[kc][0] row
+// r0 + g, f[kc][1] row r0 + g + 8, columns 8kc + 2t and 2t + 1 (the GEMM's k
+// order); split where they are used.
 template <int DP>
-__device__ __forceinline__ void two_products(const float* ar, const float* b, const float* cr,
-                                             const float* e, int lx, float (&s)[4][8],
-                                             float (&t)[4][8]) {
-  constexpr int LD = FmaLayout<DP>::kLd;
+__device__ __forceinline__ void x3_own_rows(const float* __restrict__ src, int r0, int n, int d,
+                                            int lane, float2 (&f)[DP / 8][2]) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    const float* p = src + (size_t)row * d;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[i][j] = t[i][j] = 0.0f;
-#pragma unroll 2
-  for (int dd = 0; dd < DP; ++dd) {
-    float av[4], cv[4], bv[8], ev[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = ar[i * LD + dd];
-      cv[i] = cr[i * LD + dd];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      bv[j] = b[(lx + 8 * j) * LD + dd];
-      ev[j] = e[(lx + 8 * j) * LD + dd];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[i][j] += av[i] * bv[j];
-        t[i][j] += cv[i] * ev[j];
-      }
+    for (int kc = 0; kc < DP / 8; ++kc)
+      f[kc][r] = row < n ? flash::load_pair(p, 8 * kc + 2 * t, d) : make_float2(0.0f, 0.0f);
   }
 }
 
+// The block's own 64 rows r0 .. r0 + 63 of a (n, d) matrix into shared
+// memory at row stride DP + 8, zeros past row n and column d (published by
+// the caller's barrier).
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_fma(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                 const float* __restrict__ g, const float* __restrict__ lse,
-                 const float* __restrict__ delta, float* __restrict__ dq, int heads, int lq,
-                 int lk, int d, float scale) {
-  using L = FmaLayout<DP>;
-  constexpr int NC = DP / 8;  // accumulator columns a lane owns: lx + 8c
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* qs = reinterpret_cast<float*>(smem_raw);
-  float* gs = reinterpret_cast<float*>(smem_raw + L::kTile);
-  float* ks = reinterpret_cast<float*>(smem_raw + 2 * L::kTile);
-  float* vs = reinterpret_cast<float*>(smem_raw + 3 * L::kTile);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, ly = lane >> 3, lx = lane & 7;
-  float* dsw = reinterpret_cast<float*>(smem_raw + L::kOffDS) + warp * 16 * L::kLdP;
-  const int wr = warp * 16 + 4 * ly;  // the lane's first row in the tile
+__device__ __forceinline__ void x3_own_tile(const float* __restrict__ src, int r0, int n, int d,
+                                            float* dst) {
+  constexpr int LD = X3Layout<DP>::kLdOwn;
+  for (int idx = threadIdx.x; idx < kX3Rows * DP; idx += kX3Threads) {
+    const int r = idx / DP, c = idx - r * DP;
+    dst[r * LD + c] = r0 + r < n && c < d ? src[(size_t)(r0 + r) * d + c] : 0.0f;
+  }
+}
 
+// s[j] = A(16 own rows) · X[row0 + 8j + g]ᵀ and dp[j] = B(16 own rows) ·
+// Y[...]ᵀ over DP, j = 0, 1: the scores of 16 streamed rows (X, Y tiles)
+// against the warp's own operands, in 3xTF32.  A from registers; B from
+// registers, or above DP 64 from the warp's 16 rows bw of the own tile.
+template <int DP>
+__device__ __forceinline__ void x3_scores(const float2 (&a)[DP / 8][2],
+                                          const float2 (&b)[X3Layout<DP>::kShared ? 1 : DP / 8][2],
+                                          const float* bw, const float* xs, const float* ys,
+                                          int row0, int lane, float (&s)[2][4], float (&dp)[2][4]) {
+  using Lay = X3Layout<DP>;
+  constexpr int LD = Lay::kLd;
+  const int g = lane >> 2, t = lane & 3;
+  const int o = (row0 + g) * LD + 2 * t;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+  for (int kc = 0; kc < DP / 8; ++kc) {
+    gemm32::mma_x3_bt<2, LD>(s, gemm32::split_a(a[kc][0], a[kc][1]), xs + o + 8 * kc);
+    gemm32::Split<4> bf;
+    if constexpr (Lay::kShared) {
+      const float* p = bw + g * Lay::kLdOwn + 8 * kc + 2 * t;
+      bf = gemm32::split_a(*reinterpret_cast<const float2*>(p),
+                           *reinterpret_cast<const float2*>(p + 8 * Lay::kLdOwn));
+    } else {
+      bf = gemm32::split_a(b[kc][0], b[kc][1]);
+    }
+    gemm32::mma_x3_bt<2, LD>(dp, bf, ys + o + 8 * kc);
+  }
+}
+
+// dq = scale · Σ_keys ds · k with p = 2^(q·kᵀ·scale·log2 e − lse·log2 e) and
+// ds = p ∘ (dO · vᵀ − delta), every product in 3xTF32.  One block a (b · h,
+// 64-query tile); warp w owns query rows 16w .. 16w + 15 (their q and dO
+// fragments in registers; dO's in shared memory above DP 64); K and V tiles
+// stream through a two-stage cp.async ring, 16 keys at a time.  Each key
+// tile's dq sums into fresh accumulators, added to the running sums in f32.
+// 16 keys with no kept key take no product, a tile with none nothing.
+template <int DP>
+__global__ void __launch_bounds__(kX3Threads, 2)
+flash_bwd_dq_x3(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                const float* __restrict__ dout, const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dq, int heads, int lq,
+                int lk, int d, float scale) {
+  using Lay = X3Layout<DP>;
+  constexpr int KC = DP / 8, NO = DP / 8, G = NO % 4 == 0 ? 4 : 2, CL = Lay::kCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* own = ring + 2 * Lay::kStage;  // dO's 64 rows above DP 64
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   int bh, q0;
-  flash::block_tile((lq + kB - 1) / kB, bh, q0);
+  flash::block_tile<kX3Rows>((lq + kX3Rows - 1) / kX3Rows, bh, q0);
   const size_t rows = (size_t)bh * lq;
+  const float* kb = k + (size_t)bh * lk * d;
+  const float* vb = v + (size_t)bh * lk * d;
   const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
-  load_tile<float, DP, L::kLd>(q + rows * d, q0, lq, d, qs);
-  load_tile<float, DP, L::kLd>(g + rows * d, q0, lq, d, gs);
-  float l_r[4], d_r[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    row_stats(lse, delta, rows, q0 + wr + i, lq, l_r[i], d_r[i]);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.0f;
-  }
-  const int n_tiles = (lk + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kB;
-    __syncthreads();
-    load_tile<float, DP, L::kLd>(k + (size_t)bh * lk * d, k0, lk, d, ks);
-    load_tile<float, DP, L::kLd>(v + (size_t)bh * lk * d, k0, lk, d, vs);
-    __syncthreads();
-    float s[4][8], dp[4][8];
-    two_products<DP>(qs + wr * L::kLd, ks, gs + wr * L::kLd, vs, lx, s, dp);
-    bool keep[8];
-    kept_keys(mrow, k0, lk, lx, keep);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float p, ds;
-        p_ds(s[i][j], dp[i][j], l_r[i], d_r[i], keep[j] && l_r[i] != -INFINITY, scale, p, ds);
-        dsw[(4 * ly + i) * L::kLdP + lx + 8 * j] = ds;
-      }
-    __syncwarp();
-    const int n_keys = min(kB, lk - k0);  // ds = 0 past Lk
-    for (int kk = 0; kk < n_keys; ++kk) {
-      float dsv[4], kv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dsw[(4 * ly + i) * L::kLdP + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) kv[c] = ks[kk * L::kLd + lx + 8 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] += dsv[i] * kv[c];
+  const int n_tiles = (lk + CL - 1) / CL;
+  auto issue = [&](int i) {  // K and V tile i into stage i % 2, one group
+    if (i < n_tiles) {
+      float* ks = ring + (i & 1) * Lay::kStage;
+      flash::load_rows_f32<DP, Lay::kLd>(kb, i * CL, CL, lk, d, ks, kX3Threads);
+      flash::load_rows_f32<DP, Lay::kLd>(vb, i * CL, CL, lk, d, ks + Lay::kTile, kX3Threads);
     }
-    __syncwarp();
+    mma::cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = q0 + 16 * warp;
+  const bool live = r0 < lq;
+  float2 qa[KC][2], ga[Lay::kShared ? 1 : KC][2];
+  x3_own_rows<DP>(q + rows * d, r0, lq, d, lane, qa);
+  if constexpr (Lay::kShared)
+    x3_own_tile<DP>(dout + rows * d, q0, lq, d, own);
+  else
+    x3_own_rows<DP>(dout + rows * d, r0, lq, d, lane, ga);
+  const float* gw = own + 16 * warp * Lay::kLdOwn;
+  // rows g and g + 8: lse in log2 units (−∞ past Lq or on a fully-masked
+  // row, which then takes p = 0) and delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    lse2[r] = row < lq ? lse[rows + row] * mma::kLog2e : -INFINITY;
+    dl[r] = row < lq ? delta[rows + row] : 0.0f;
   }
+  const float sl2 = scale * mma::kLog2e;
+  float acc[NO / G][G][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + wr + i;
+  for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[jg][j][0] = acc[jg][j][1] = acc[jg][j][2] = acc[jg][j][3] = 0.0f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile i (and the own tile) in place; every warp is done with tile i - 1
+    issue(i + 1);     // into tile i - 1's stage
+    const mma::KeyBits kept = mma::key_bits(mrow, i * CL, lk, lane);  // bits past CL unused
+    const uint32_t any = kept.any() & (CL == 64 ? 0xffffffffu : 0xffffu);
+    if (!live || !any) continue;
+    const float* ks = ring + (i & 1) * Lay::kStage;
+    const float* vs = ks + Lay::kTile;
+    float part[NO / G][G][4];  // this tile's dq
+#pragma unroll
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        part[jg][j][0] = part[jg][j][1] = part[jg][j][2] = part[jg][j][3] = 0.0f;
+#pragma unroll
+    for (int c16 = 0; c16 < CL / 16; ++c16) {
+      if (!((any >> (8 * c16)) & 0xffu)) continue;  // warp-uniform
+      float s[2][4], dp[2][4];  // q · kᵀ and dO · vᵀ over keys 16c .. 16c + 15
+      x3_scores<DP>(qa, ga, gw, ks, vs, 16 * c16, lane, s, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool on = ((kept.b[e & 1] >> (8 * c16 + 4 * j + t)) & 1u) && lse2[r] != -INFINITY;
+          const float p = on ? mma::exp2_approx(fmaf(s[j][e], sl2, -lse2[r])) : 0.0f;
+          dp[j][e] = on ? p * (dp[j][e] - dl[r]) : 0.0f;  // ds
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)  // dq += ds · k
+        gemm32::mma_x3_rows<DP, G, Lay::kLd>(part, dp[j], ks + (16 * c16 + 8 * j) * Lay::kLd,
+                                             lane);
+    }
+#pragma unroll
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[jg][j][e] += part[jg][j][e];
+  }
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
     if (row >= lq) continue;
-    float* out = dq + (rows + row) * d;
+    float* dst = dq + (rows + row) * d;
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      if (lx + 8 * c < d) out[lx + 8 * c] = acc[i][c] * scale;
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+        flash::store_pair(dst, 8 * (G * jg + j) + 2 * t, d, acc[jg][j][2 * r] * scale,
+                          acc[jg][j][2 * r + 1] * scale);
+  }
+}
+
+// dk = scale · Σ_queries dsᵀ · q and dv = Σ_queries pᵀ · dO, every product in
+// 3xTF32.  One block a (b · h, 64-key tile); warp w owns keys 16w .. 16w + 15
+// (their k and v fragments in registers; v's in shared memory above DP 64)
+// and computes sᵀ = k · qᵀ and (dO · vᵀ)ᵀ = v · dOᵀ for them over streamed
+// query tiles of q and dO (with their lse and delta), 16 queries at a time,
+// so that the products onto its dk and dv rows need no transpose of p or ds.
+// Each query tile sums into fresh accumulators, added in f32 to running sums
+// a thread keeps in shared memory.  Each block owns its keys' sums: no
+// atomics.  A warp with no kept key (past Lk, or masked) runs no product and
+// writes zeros.
+template <int DP>
+__global__ void __launch_bounds__(kX3Threads, 2)
+flash_bwd_dkv_x3(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                 const float* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+                 int heads, int lq, int lk, int d, float scale) {
+  using Lay = X3Layout<DP>;
+  constexpr int KC = DP / 8, NO = DP / 8, G = NO % 4 == 0 ? 4 : 2, CL = Lay::kCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  float* own = ring + 2 * Lay::kStage;  // v's 64 rows above DP 64
+  // this thread's DP running sums, element e at sums[e · 128]: dv's DP / 2, then dk's
+  float* sums = own + Lay::kOwn + threadIdx.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  int bh, k0;
+  flash::block_tile<kX3Rows>((lk + kX3Rows - 1) / kX3Rows, bh, k0);
+  const size_t rows = (size_t)bh * lq, krows = (size_t)bh * lk;
+  const float* qb = q + rows * d;
+  const float* gb = dout + rows * d;
+  const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
+  const int n_tiles = (lq + CL - 1) / CL;
+  // query tile i, its lse and delta (zeros past Lq, where the query test
+  // below keeps p = 0), into stage i % 2, one group
+  auto issue = [&](int i) {
+    if (i < n_tiles) {
+      float* qs = ring + (i & 1) * Lay::kStage;
+      const int qr0 = i * CL;
+      flash::load_rows_f32<DP, Lay::kLd>(qb, qr0, CL, lq, d, qs, kX3Threads);
+      flash::load_rows_f32<DP, Lay::kLd>(gb, qr0, CL, lq, d, qs + Lay::kTile, kX3Threads);
+      if (threadIdx.x < 2 * CL) {
+        const int c = threadIdx.x & (CL - 1);
+        const bool in = qr0 + c < lq;
+        const float* src = threadIdx.x < CL ? lse : delta;
+        mma::cp_async4(qs + 2 * Lay::kTile + threadIdx.x, in ? src + rows + qr0 + c : src, in);
+      }
+    }
+    mma::cp_async_commit();
+  };
+  issue(0);
+
+  const int r0 = k0 + 16 * warp;
+  // the lane's keys g and g + 8 of the warp's 16: inside Lk and not masked
+  bool keep[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r0 + g + 8 * r;
+    keep[r] = key < lk && !(mrow != nullptr && mrow[key] != 0);
+  }
+  const bool live = __any_sync(0xffffffffu, keep[0] || keep[1]);
+  float2 ka[KC][2], va[Lay::kShared ? 1 : KC][2];
+  x3_own_rows<DP>(k + krows * d, r0, lk, d, lane, ka);
+  if constexpr (Lay::kShared)
+    x3_own_tile<DP>(v + krows * d, k0, lk, d, own);
+  else
+    x3_own_rows<DP>(v + krows * d, r0, lk, d, lane, va);
+  const float* vw = own + 16 * warp * Lay::kLdOwn;
+#pragma unroll
+  for (int e = 0; e < DP; ++e) sums[e * kX3Threads] = 0.0f;
+  const float sl2 = scale * mma::kLog2e;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    mma::cp_async_wait<0>();
+    __syncthreads();  // tile i (and the own tile) in place; every warp is done with tile i - 1
+    issue(i + 1);
+    if (!live) continue;
+    const float* qs = ring + (i & 1) * Lay::kStage;
+    const float* gs = qs + Lay::kTile;
+    const float* st = gs + Lay::kTile;  // lse [CL], then delta [CL]
+    const int qr0 = i * CL;
+    float pdv[NO / G][G][4], pdk[NO / G][G][4];  // this tile's sums
+#pragma unroll
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pdv[jg][j][e] = pdk[jg][j][e] = 0.0f;
+#pragma unroll
+    for (int c16 = 0; c16 < CL / 16; ++c16) {
+      if (qr0 + 16 * c16 >= lq) break;  // warp-uniform
+      float s[2][4], dp[2][4];  // sᵀ = k · qᵀ, (dO · vᵀ)ᵀ; queries 16c .. 16c + 15
+      x3_scores<DP>(ka, va, vw, qs, gs, 16 * c16, lane, s, dp);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 16 * c16 + 8 * j + 2 * t + (e & 1);
+          const float l = st[col];
+          const bool on = keep[e >> 1] && qr0 + col < lq && l != -INFINITY;
+          const float p = on ? mma::exp2_approx(fmaf(s[j][e], sl2, -l * mma::kLog2e)) : 0.0f;
+          dp[j][e] = on ? p * (dp[j][e] - st[CL + col]) : 0.0f;  // dsᵀ
+          s[j][e] = p;                                          // pᵀ
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int row = (16 * c16 + 8 * j) * Lay::kLd;
+        gemm32::mma_x3_rows<DP, G, Lay::kLd>(pdv, s[j], gs + row, lane);   // dv += pᵀ · dO
+        gemm32::mma_x3_rows<DP, G, Lay::kLd>(pdk, dp[j], qs + row, lane);  // dk += dsᵀ · q
+      }
+    }
+#pragma unroll
+    for (int jg = 0; jg < NO / G; ++jg)
+#pragma unroll
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * (G * jg + j) + e;
+          sums[x * kX3Threads] += pdv[jg][j][e];
+          sums[(DP / 2 + x) * kX3Threads] += pdk[jg][j][e];
+        }
+  }
+  // every key below Lk: a masked key's rows are 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r0 + g + 8 * r;
+    if (key >= lk) continue;
+    float* dvr = dv + (krows + key) * d;
+    float* dkr = dk + (krows + key) * d;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int x = 4 * n + 2 * r;
+      flash::store_pair(dvr, 8 * n + 2 * t, d, sums[x * kX3Threads], sums[(x + 1) * kX3Threads]);
+      flash::store_pair(dkr, 8 * n + 2 * t, d, sums[(DP / 2 + x) * kX3Threads] * scale,
+                        sums[(DP / 2 + x + 1) * kX3Threads] * scale);
+    }
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_fma(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const uint8_t* __restrict__ mask,
-                  const float* __restrict__ g, const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dk,
-                  float* __restrict__ dv, int heads, int lq, int lk, int d, float scale) {
-  using L = FmaLayout<DP>;
-  constexpr int NC = DP / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* ks = reinterpret_cast<float*>(smem_raw);
-  float* vs = reinterpret_cast<float*>(smem_raw + L::kTile);
-  float* qs = reinterpret_cast<float*>(smem_raw + 2 * L::kTile);
-  float* gs = reinterpret_cast<float*>(smem_raw + 3 * L::kTile);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, ly = lane >> 3, lx = lane & 7;
-  float* pw = reinterpret_cast<float*>(smem_raw + L::kOffP) + warp * 16 * L::kLdP;
-  float* dsw = reinterpret_cast<float*>(smem_raw + L::kOffDS) + warp * 16 * L::kLdP;
-  float* lse_s = reinterpret_cast<float*>(smem_raw + L::kOffStats);
-  float* delta_s = lse_s + kB;
-  const int wr = warp * 16 + 4 * ly;
-
-  int bh, k0;
-  flash::block_tile((lk + kB - 1) / kB, bh, k0);
-  const size_t rows = (size_t)bh * lq;
-  const uint8_t* mrow = mask != nullptr ? mask + (size_t)(bh / heads) * lk : nullptr;
-  load_tile<float, DP, L::kLd>(k + (size_t)bh * lk * d, k0, lk, d, ks);
-  load_tile<float, DP, L::kLd>(v + (size_t)bh * lk * d, k0, lk, d, vs);
-  bool keep[4];
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + wr + i;
-    keep[i] = key < lk && !(mrow != nullptr && mrow[key] != 0);
-#pragma unroll
-    for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.0f;
-  }
-  const int n_tiles = (lq + kB - 1) / kB;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int q0 = t * kB;
-    __syncthreads();
-    load_tile<float, DP, L::kLd>(q + rows * d, q0, lq, d, qs);
-    load_tile<float, DP, L::kLd>(g + rows * d, q0, lq, d, gs);
-    if (threadIdx.x < kB) row_stats(lse, delta, rows, q0 + threadIdx.x, lq,
-                                    lse_s[threadIdx.x], delta_s[threadIdx.x]);
-    __syncthreads();
-    float s[4][8], dp[4][8];  // sᵀ (keys x queries) and (dO · vᵀ)ᵀ
-    two_products<DP>(ks + wr * L::kLd, qs, vs + wr * L::kLd, gs, lx, s, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = lx + 8 * j;
-        const float l = lse_s[c];
-        float p, ds;
-        p_ds(s[i][j], dp[i][j], l, delta_s[c], keep[i] && l != -INFINITY, scale, p, ds);
-        pw[(4 * ly + i) * L::kLdP + c] = p;
-        dsw[(4 * ly + i) * L::kLdP + c] = ds;
-      }
-    __syncwarp();
-    const int n_q = min(kB, lq - q0);  // p = ds = 0 past Lq
-    for (int qq = 0; qq < n_q; ++qq) {
-      float pv[4], dsv[4], gv[NC], qv[NC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = pw[(4 * ly + i) * L::kLdP + qq];
-        dsv[i] = dsw[(4 * ly + i) * L::kLdP + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        gv[c] = gs[qq * L::kLd + lx + 8 * c];
-        qv[c] = qs[qq * L::kLd + lx + 8 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          dv_acc[i][c] += pv[i] * gv[c];
-          dk_acc[i][c] += dsv[i] * qv[c];
-        }
-    }
-    __syncwarp();
-  }
-  const size_t krows = (size_t)bh * lk;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + wr + i;
-    if (key >= lk) continue;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (lx + 8 * c >= d) continue;
-      dk[(krows + key) * d + lx + 8 * c] = dk_acc[i][c] * scale;
-      dv[(krows + key) * d + lx + 8 * c] = dv_acc[i][c];
-    }
-  }
-}
-
-template <typename T, typename KQ, typename KKV>
-cudaError_t launch_pair(KQ kq, KKV kkv, size_t smem, const void* q, const void* k,
-                        const void* v, const void* mask, const void* g, const float* lse,
-                        const float* delta, void* dq, void* dk, void* dv, int bh, int heads,
-                        int lq, int lk, int d, float scale, cudaStream_t stream) {
-  cudaError_t err = allow_smem(kq, smem);
-  if (err == cudaSuccess) err = allow_smem(kkv, smem);
-  if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* gt = static_cast<const T*>(g);
+cudaError_t launch_x3_pair(const void* q, const void* k, const void* v, const void* mask,
+                           const void* g, const float* lse, const float* delta, void* dq,
+                           void* dk, void* dv, int bh, int heads, int lq, int lk, int d,
+                           float scale, cudaStream_t stream) {
+  using Lay = X3Layout<DP>;
+  LC2_TRY(allow_smem(flash_bwd_dq_x3<DP>, Lay::kDqBytes));
+  LC2_TRY(allow_smem(flash_bwd_dkv_x3<DP>, Lay::kKvBytes));
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* gt = static_cast<const float*>(g);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
-  kq<<<((lq + kB - 1) / kB) * bh, kThreads, smem, stream>>>(
-      qt, kt, vt, m, gt, lse, delta, static_cast<T*>(dq), heads, lq, lk, d, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  kkv<<<((lk + kB - 1) / kB) * bh, kThreads, smem, stream>>>(
-      qt, kt, vt, m, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), heads, lq, lk, d,
-      scale);
+  flash_bwd_dq_x3<DP><<<((lq + kX3Rows - 1) / kX3Rows) * bh, kX3Threads, Lay::kDqBytes, stream>>>(
+      qt, kt, vt, m, gt, lse, delta, static_cast<float*>(dq), heads, lq, lk, d, scale);
+  LC2_TRY(cudaGetLastError());
+  flash_bwd_dkv_x3<DP><<<((lk + kX3Rows - 1) / kX3Rows) * bh, kX3Threads, Lay::kKvBytes, stream>>>(
+      qt, kt, vt, m, gt, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), heads, lq,
+      lk, d, scale);
   return cudaGetLastError();
 }
 
@@ -629,9 +748,8 @@ cudaError_t launch_d(int dtype, const void* q, const void* k, const void* v, con
     return launch_mma_pair<DP>(q, k, v, mask, g, lse, delta, dq, dk, dv, bh, heads, lq, lk, d,
                                scale, stream);
   if (dtype == kF32)
-    return launch_pair<float>(flash_bwd_dq_fma<DP>, flash_bwd_dkv_fma<DP>,
-                                  FmaLayout<DP>::kBytes, q, k, v, mask, g, lse, delta, dq, dk, dv,
-                                  bh, heads, lq, lk, d, scale, stream);
+    return launch_x3_pair<DP>(q, k, v, mask, g, lse, delta, dq, dk, dv, bh, heads, lq, lk, d,
+                              scale, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -138,6 +138,26 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], 
   }
 }
 
+// c += a · b as two m16n8k4 TF32 products (k t, then k t + 4: the same
+// fragments), each summed into zero accumulators and added to c in f32,
+// round to nearest: each of the tensor cores' internal sums, which drop the
+// bits of its smaller products below its largest one's, holds 4 products,
+// not 8.
+__device__ __forceinline__ void mma_tf32_k4x2(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                              uint32_t b1) {
+  const float z = 0.0f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float d[4];
+    asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, "
+        "{%7, %7, %7, %7};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[2 * h]), "r"(a[2 * h + 1]), "r"(h ? b1 : b0), "f"(z));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[e] = __fadd_rn(c[e], d[e]);
+  }
+}
+
 // A split fragment: the hi and lo halves of 4 (A) or 2 (B) values.
 template <int N>
 struct Split {
@@ -175,6 +195,20 @@ __device__ __forceinline__ void mma_x3_row(float (&acc)[NI][4], const Split<4>& 
   for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[j], a.hi, b[j].lo[0], b[j].lo[1]);
 #pragma unroll
   for (int j = 0; j < NI; ++j) mma_tf32<kNearest>(acc[j], a.hi, b[j].hi[0], b[j].hi[1]);
+}
+
+// mma_x3_row<NI, true> with its hi·hi term, which carries all but ~2^-11 of
+// each product, as two 4-product mmas (mma_tf32_k4x2): flash attention's
+// forward (csrc/flash_attention.cu says why).
+template <int NI>
+__device__ __forceinline__ void mma_x3_row_k4hi(float (&acc)[NI][4], const Split<4>& a,
+                                                const Split<2> (&b)[NI]) {
+#pragma unroll
+  for (int j = 0; j < NI; ++j) mma_tf32<true>(acc[j], a.lo, b[j].hi[0], b[j].hi[1]);
+#pragma unroll
+  for (int j = 0; j < NI; ++j) mma_tf32<true>(acc[j], a.hi, b[j].lo[0], b[j].lo[1]);
+#pragma unroll
+  for (int j = 0; j < NI; ++j) mma_tf32_k4x2(acc[j], a.hi, b[j].hi[0], b[j].hi[1]);
 }
 
 // acc[i][j] += a[i] · b[j] to f32 accuracy, term by term (lo·hi, hi·lo,
@@ -225,6 +259,20 @@ __device__ __forceinline__ void mma_x3_bn(float (&acc)[NI][4], const Split<4>& a
 // t + 4 <- column 2t + 1.
 __device__ __forceinline__ Split<4> split_c(const float (&c)[4]) {
   return split_a(make_float2(c[0], c[1]), make_float2(c[2], c[3]));
+}
+
+// acc += C · Z over 8 rows of Z: c a 16 x 8 C fragment, split into the A
+// fragment of a product over those 8 rows (split_c); z the first of the rows,
+// in a tile at row stride LD, whose DH columns are DH / 8 tiles of 8, G at a
+// time.  The attention backwards' products of p or ds onto a warp's own rows
+// (dq += ds · k, dv += pᵀ · dO, dk += dsᵀ · q).
+template <int DH, int G, int LD>
+__device__ __forceinline__ void mma_x3_rows(float (&acc)[DH / 8 / G][G][4], const float (&c)[4],
+                                            const float* z, int lane) {
+  const Split<4> af = split_c(c);
+  const float* zl = z + 2 * (lane & 3) * LD + (lane >> 2);
+#pragma unroll
+  for (int jg = 0; jg < DH / 8 / G; ++jg) mma_x3_bn<G, LD>(acc[jg], af, zl + 8 * G * jg);
 }
 
 // Elements of one stage's A or B slice in shared memory.

@@ -13,6 +13,9 @@ plain PyTorch with the kernel's arithmetic: logits in f32 scaled by 1/√D,
 softmax statistics in f32, probabilities rounded to v's dtype before the
 value product (``:66-68``), f32 sums, a per-row reciprocal at the end
 (``:78``), and autograd runs through it.  D > 128 raises on the card.
+Both dtypes run on the tensor cores: bf16 as ``mma.sync`` bf16 products,
+f32 as 3xTF32 products (each f32 product three TF32 products of the
+operands' hi and lo halves, f32-accurate), in the forward and the backward.
 
 A fully-masked query row gives NaN (and lse −∞), in the kernel and the plain
 version alike, as the reference's docstring (:21) and torch state.  The

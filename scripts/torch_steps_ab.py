@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Time the flagship's bf16 served-mask forward, the two bf16 training steps,
-the served bf16 forwards of ``PromptFTNv1`` and ``PromptFTNv2`` and the
-flagship's f32 batch-16 training step of two checkouts of this repository on
-one NVIDIA GPU, in turns, each through that checkout's own ``chip_smoke.py``
-phase functions (4m: the batch-16 512² masks forward, 6b: the flagship's
-batch-8 step, 11b: ``BaseCrossA``'s batch-8 step, 12: ``check_ftn_model``,
-whose (b) half serves three batch-16 512² batches and profiles one
-``PromptFTNv2`` forward; host clock to a synchronize, medians of 3 and 6
-runs) but the f32 step, which both run through phase 6c's function
-(``check_train_f32_step``) of the checkout holding this script on their own
-package (an older ``chip_smoke.py`` may lack the phase), so that a change's
-end-to-end times stand beside its parent's from the same card:
+the served bf16 forwards of ``PromptFTNv1`` and ``PromptFTNv2``, the
+flagship's f32 batch-16 training step and the f32 batch-16
+``BaseModelWithText`` forward and training step of two checkouts of this
+repository on one NVIDIA GPU, in turns, each through that checkout's own
+``chip_smoke.py`` phase functions (4m: the batch-16 512² masks forward, 6b:
+the flagship's batch-8 step, 11b: ``BaseCrossA``'s batch-8 step, 12:
+``check_ftn_model``, whose (b) half serves three batch-16 512² batches and
+profiles one ``PromptFTNv2`` forward; host clock to a synchronize, medians of
+3 and 6 runs) but the f32 ones, which both run through the functions of
+phases 6c (``check_train_f32_step``), 7f (``check_v1_f32_batch``) and 8d
+(``check_v1_train_step`` in f32) of the checkout holding this script on
+their own package (an older ``chip_smoke.py`` may lack the phase), so that a
+change's end-to-end times stand beside its parent's from the same card:
 
     python3 scripts/torch_steps_ab.py PARENT CHANGE [--pairs 3] [--log DIR]
         [--metrics step_ms,...]   # a subset of METRICS; all by default
@@ -35,7 +37,7 @@ import sys
 from pathlib import Path
 
 METRICS = ("masks_ms", "step_ms", "basecrossa_ms", "PromptFTNv1_ms", "PromptFTNv2_ms",
-           "f32_step_ms")
+           "f32_step_ms", "v1_f32_fwd_ms", "v1_f32_step_ms")
 FTN_TIMED = ("PromptFTNv1", "PromptFTNv2")
 
 
@@ -52,7 +54,34 @@ def one(root: Path, metrics) -> None:
     torch.backends.cudnn.allow_tf32 = False
     smi = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     out = {}
-    state = cs.seeded_state()
+    # this script's own chip_smoke.py, for the phases an older one may lack
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    if "v1_f32_fwd_ms" in metrics or "v1_f32_step_ms" in metrics:
+        from lc2is_tpu_torch.core.convert import seeded_init_
+        from lc2is_tpu_torch.models.zoo import BaseModelWithText
+
+        v1 = seeded_init_(BaseModelWithText(in_size=here.IMG, out_size=here.V1_OUT,
+                                            device="cpu"), here.SEED).state_dict()
+        if "v1_f32_fwd_ms" in metrics:  # phase 7f
+            model = BaseModelWithText(in_size=here.IMG, out_size=here.V1_OUT)
+            model.load_state_dict(v1, strict=True)
+            batches = [here.rand(np.random.RandomState(here.SEED + 50 + i), here.BATCH, 3,
+                                 here.IMG, here.IMG) for i in range(4)]
+            with torch.no_grad():
+                out["v1_f32_fwd_ms"] = here.check_v1_f32_batch(
+                    smi, model.eval(), batches, here.v1_text(here.BATCH, "cuda"),
+                    here.launch_counters())
+            del model, batches
+            torch.cuda.empty_cache()
+        if "v1_f32_step_ms" in metrics:  # phase 8d
+            out["v1_f32_step_ms"] = here.check_v1_train_step(smi, v1, torch.float32)[1]
+            torch.cuda.empty_cache()
+        del v1
+    flagship = ("masks_ms", "step_ms", "f32_step_ms")
+    state = cs.seeded_state() if any(m in metrics for m in flagship) else None
     if "masks_ms" in metrics:
         cpu_head, x1, _, ts_gpu, batches = cs.check_slice(smi, state)
         out["masks_ms"] = cs.check_masks(smi, state, cpu_head, x1, ts_gpu, batches)[2]
@@ -60,12 +89,7 @@ def one(root: Path, metrics) -> None:
         torch.cuda.empty_cache()
     if "step_ms" in metrics:
         out["step_ms"] = cs.check_train_bf16(smi, state)[1]
-    if "f32_step_ms" in metrics:
-        # phase 6c of the chip_smoke.py beside this script, on ROOT's package
-        spec = importlib.util.spec_from_file_location(
-            "chip_smoke_6c", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-        here = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(here)
+    if "f32_step_ms" in metrics:  # phase 6c of this script's chip_smoke.py, on ROOT's package
         out["f32_step_ms"] = here.check_train_f32_step(smi, state)
         torch.cuda.empty_cache()
     del state

@@ -69,8 +69,9 @@ UPSAMPLE_F32_REL = 1e-6
 # over 1025 unit-normal keys), so TOL's bf16 atol would pass a kernel that
 # dropped a key tile: bf16 flash is held to a share of the largest output
 FLASH_BF16_REL = 2e-2
-# the f32 bodies of rows 1 and 2 (3xTF32) against their plain versions: a
-# share of the largest output, tight enough that a TF32 product fails it
+# the f32 bodies of rows 1, 2, 15 and 16 (3xTF32) against their plain
+# versions: a share of the largest output (the backward: ‖Δ‖/‖plain‖ of each
+# gradient), tight enough that a TF32 product fails it
 F32X3_REL = 1e-5
 
 
@@ -1251,6 +1252,8 @@ def test_flash_attention_kernel(cuda, dtype, lq, lk, d, masked):
     if masked:
         assert nan[0].all() and not nan[1:].any()
     torch.testing.assert_close(got[~nan].float(), want[~nan].float(), **flash_tol(want[~nan]))
+    if dtype == torch.float32 and (~nan).any():  # the 3xTF32 body: f32-accurate
+        _f32x3_close(got[~nan], want[~nan], "flash_attention")
     fin = torch.isfinite(lse_w)
     torch.testing.assert_close(lse[fin], lse_w[fin], **TOL[torch.float32])
 
@@ -1313,6 +1316,8 @@ def test_flash_attention_bwd_kernel(cuda, dtype, lq, lk, d, masked):
         assert a.dtype == b.dtype == dtype and a.shape == b.shape and torch.isfinite(a).all()
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= GRAD_TOL[dtype], (name, rel)
+        if dtype == torch.float32:  # the 3xTF32 bodies: f32-accurate
+            assert rel <= F32X3_REL, (name, rel)
         if masked:
             assert not a[0].any() and not b[0].any(), name
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]

@@ -1,8 +1,10 @@
-"""The arithmetic of the bf16 flash kernels (``lc2is_tpu_torch/csrc/
+"""The arithmetic of the flash kernels (``lc2is_tpu_torch/csrc/
 flash_attention.cu``, ``flash_attention_bwd.cu``), emulated tile by tile on
 the CPU and held against lc2is_tpu's Pallas kernels in interpret mode at the
 same 64 x 64 blocks (as ``tests/test_torch_flash.py`` runs them) and against
-the port's plain versions, on the same numpy-seeded inputs.
+the port's plain versions, on the same numpy-seeded inputs: the bf16 bodies
+as below, the f32 bodies (3xTF32) by the emulation of
+``tests/test_torch_flash_f32x3_tiles.py``, which holds it tighter.
 
 The emulation follows the kernels' tile order and rounding points: 64-key
 tiles in the forward; the running max kept in log2 units with the scale and
@@ -51,7 +53,12 @@ def _round(x, dtype):
 def tiled_forward(q, k, v, mask, dtype):
     """The forward kernel's arithmetic over 64-key tiles: (out in dtype, lse
     f32).  q, k, v f32 (B, H, L, D) holding dtype values; mask (B, Lk) bool
-    or None, True = ignore."""
+    or None, True = ignore.  f32: the 3xTF32 body's emulation."""
+    if dtype == torch.float32:
+        from test_torch_flash_f32x3_tiles import x3_forward  # it imports this module
+        out, lse = x3_forward(*(a.numpy() for a in (q, k, v)),
+                              None if mask is None else mask.numpy())
+        return torch.from_numpy(out), torch.from_numpy(lse)
     b, h, lq, d = q.shape
     sl2 = torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32) * LOG2E
     m = torch.full((b, h, lq), -math.inf)
@@ -74,7 +81,13 @@ def tiled_forward(q, k, v, mask, dtype):
 
 def tiled_backward(q, k, v, mask, out, lse, g, dtype):
     """The backward kernels' arithmetic: dq summed over 64-key tiles, dk and
-    dv over 64-query tiles; (dq, dk, dv) in dtype."""
+    dv over 64-query tiles; (dq, dk, dv) in dtype.  f32: the 3xTF32 bodies'
+    emulation."""
+    if dtype == torch.float32:
+        from test_torch_flash_f32x3_tiles import x3_backward  # it imports this module
+        return tuple(torch.from_numpy(a) for a in x3_backward(
+            *(a.numpy() for a in (q, k, v)), None if mask is None else mask.numpy(),
+            out.float().numpy(), lse.numpy(), g.numpy()))
     d = q.shape[-1]
     scale = 1.0 / math.sqrt(d)
     sl2 = torch.tensor(scale, dtype=torch.float32) * LOG2E

@@ -1,5 +1,15 @@
 """Shared helpers of the ``tests/test_torch_*.py`` parity tests: carry a
-``lc2is_tpu`` params tree into the port and compare outputs as numpy."""
+``lc2is_tpu`` params tree into the port and compare outputs as numpy.
+
+Importing it also gives torch's intra-op thread pool a worker's share of the
+cores when pytest-xdist runs the suite (every worker imports every test
+module while it collects, so one import serves them all): N workers each
+with a thread a core oversubscribe the CPU, and OpenMP's threads spin while
+they wait, which made the port's tests 2.5 times as expensive in all as
+with one thread a worker (six of the heaviest files, six workers on eight
+cores: 3,252 worker-seconds against 1,310)."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -7,6 +17,10 @@ import numpy as np
 import torch
 
 from lc2is_tpu_torch.core.convert import params_to_state_dict
+
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // _WORKERS))
 
 # stated tolerance: f32, per op and per module (tests/test_swin_canvas.py:47-48,
 # tests/test_fused_paths.py:29); the whole slice is held to SLICE_ATOL
