@@ -250,6 +250,33 @@ Phases, in order; any failure raises and the script exits non-zero:
        scripts/parity_eval.sh's flags (parsed from the script; the port's
        module, the synthetic dataset, a reference .pt of nn/init.py's
        weights): finite label, GT and dataset mIoU.
+16. the data axis (lc2is_tpu_torch/core/mesh.py: one process a device, the
+   gradients all-reduced, the masks drawn for the global batch):
+   (a) over NCCL on min(device count, 4) GPUs, the bf16 PromptAuxCrossA at
+       the global batch 8 of phase 6b, 3 steps through train_step on the
+       mesh against 3 without it: on one GPU (a mesh of one device builds no
+       group, and train_step runs the plain step) the first step's losses
+       equal bit for bit and its gradients within 1e-3 norm-relative, every
+       step's losses within 1e-4 relative, the parameters' distance printed
+       beside that of a second plain run (the backwards of rows 3 and 7 add
+       with f32 atomics: the card's step is not bitwise repeatable); on several GPUs
+       the ranks' parameters equal bit for bit; each step's launch counts
+       equal to phase 6b's; both step times (median of 6, host clock after
+       a synchronize);
+   (b) two ranks on cuda:0 over gloo (NCCL refuses two ranks on one GPU):
+       the f32 flagship at a global batch of 2 (1 a rank), drop path 0.1,
+       2 steps against the one-process batch-2 steps (each from rank 0's
+       state) under phase 6a's gates
+       (losses 1e-4 relative, the reduced gradients 1e-3 norm-relative,
+       AdamW within 1e-2 lr), the ranks' parameters equal bit for bit; then
+       evaluate over 4 images (2 a rank) against one process under 14a's
+       rules (the confusion counts equal where no pixel's argmax differs),
+       and dp_sliding_miou over two 640² images against evaluate_sliding in
+       one process, mIoU within 1e-3;
+   (c) where two GPUs are visible: cli.train --dp -1 for 4 steps, then
+       --resume to step 6, every rank's model and optimizer state equal to
+       step-4.pth bit for bit as it starts; on one GPU it prints that it was
+       not run.
 
 Then a JSON line of the kernels (launches over one run of the path that
 uses each: the served-mask forward, the int8 forward, the training step, the
@@ -267,6 +294,7 @@ repository, it fails without printing a result.
 from __future__ import annotations
 
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -3735,9 +3763,9 @@ def cli_train(smi, tmp, expected, step_ms):
     counters, per_step, engines = launch_counters(), [], []
 
     def count_steps(step):
-        def counted(self, inputs, labels):
+        def counted(self, inputs, labels, *rest):
             before = {k: f.launches for k, f in counters.items()}
-            out = step(self, inputs, labels)
+            out = step(self, inputs, labels, *rest)
             per_step.append({k: f.launches - before[k] for k, f in counters.items()
                              if f.launches != before[k]})
             return out
@@ -3988,6 +4016,393 @@ def check_cli(smi, train_counts, step_ms):
         torch.cuda.empty_cache()
 
 
+# phase 16: the data axis (lc2is_tpu_torch/core/mesh.py) on the card: (a) the
+# bf16 flagship step through the mesh path over NCCL on min(device count, 4)
+# GPUs (on one, the mesh builds no group and the step must be the plain one
+# bit for bit); (b) two ranks on cuda:0 over gloo (NCCL refuses two ranks on
+# one GPU): f32 steps, evaluate and dp_sliding_miou against one process;
+# (c) cli.train --dp -1 and --resume where two GPUs are visible
+DP_MAX_GPUS = 4
+DP_STEPS, DP_TIMED_STEPS = 3, 6
+DP_F32_BATCH, DP_F32_STEPS = 2, 2
+DP_EVAL_IMAGES, DP_SLIDE_IMAGES = 4, 2
+DP_TIMEOUT = 600.0
+DP_GLOO_DEVICES = ("cuda:0", "cuda:0")
+DP_CLI_STEPS, DP_CLI_RESUMED_STEPS = 4, 6
+
+
+def flat_params(model):
+    return torch.cat([p.detach().reshape(-1).float() for p in model.parameters()])
+
+
+def ranks_equal(mesh, model):
+    """Every rank's parameters equal rank 0's bit for bit (gathered)."""
+    from lc2is_tpu_torch.core.mesh import all_gather_rows
+
+    parts = all_gather_rows(mesh, flat_params(model).view(torch.int32)[None]).unbind()
+    return all(torch.equal(parts[0], p) for p in parts[1:])
+
+
+def dp_bf16_stepper(mesh, state):
+    """(model, step) of 16a: the bf16 flagship at the global batch TRAIN_BATCH
+    of 6b's inputs (drop path 0.1, the generator seeded SEED), each step
+    through ``train_step`` on this rank's rows of ``mesh`` (None: no mesh)."""
+    from lc2is_tpu_torch.core.mesh import batch_rows, take_rows
+    from lc2is_tpu_torch.engine.engine import train_step
+
+    dev = "cuda" if mesh is None else mesh.device
+    model, opt = train_models(state, dtype=torch.bfloat16, device=dev)
+    x = rand(np.random.RandomState(SEED + 30), TRAIN_BATCH, 3, IMG, IMG, dtype=torch.bfloat16,
+             device=dev)
+    y = seeded_labels(SEED + 31, TRAIN_BATCH, IMG, IMG, device=dev)
+    rows = None if mesh is None else batch_rows(mesh, TRAIN_BATCH)
+    if rows is not None:
+        x, y = take_rows((x, y), rows)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step():
+        return train_step(model, opt, {"pixel_values": x}, y, generator=gen, mesh=mesh, rows=rows)
+    return model, step
+
+
+def recorded_steps(step, n):
+    """(losses, launch counts) of each of ``n`` steps."""
+    counters, losses, counts = launch_counters(), [], []
+    for _ in range(n):
+        for f in counters.values():
+            f.launches = 0
+        out = step()
+        counts.append({k: f.launches for k, f in counters.items() if f.launches})
+        losses.append({k: v.item() for k, v in out.items()})
+    return losses, counts
+
+
+def timed_step(step):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def dp_nccl_rank(mesh, state):
+    """16a on one rank of a mesh of several GPUs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, step = dp_bf16_stepper(mesh, state)
+    losses, counts = recorded_steps(step, DP_STEPS)
+    equal = ranks_equal(mesh, model)
+    times = [timed_step(step) for _ in range(DP_TIMED_STEPS)]
+    return dict(losses=losses, counts=counts, times=times, equal=equal)
+
+
+def param_gap(a, b):
+    """(max |Δ| of two models' parameters, the elements that differ)."""
+    worst, n = 0.0, 0
+    for p, q in zip(a.parameters(), b.parameters()):
+        d = (p.detach() - q.detach()).abs()
+        worst, n = max(worst, d.max().item()), n + int((d != 0).sum())
+    return worst, n
+
+
+def check_dp_nccl(smi, state, expected):
+    """16a.  Returns the world size and both median step times."""
+    from lc2is_tpu_torch.core.mesh import make_mesh, spawn
+
+    n = min(torch.cuda.device_count(), DP_MAX_GPUS)
+    devices = [torch.device("cuda", i) for i in range(n)]
+    if n == 1:  # one process: the mesh path and the plain one (twice), in turns
+        m_model, m_step = dp_bf16_stepper(make_mesh(devices=devices), state)
+        p_model, p_step = dp_bf16_stepper(None, state)
+        q_model, q_step = dp_bf16_stepper(None, state)
+        losses, counts = recorded_steps(m_step, 1)
+        p_losses, _ = recorded_steps(p_step, 1)
+        grad_rel = max(((a.grad - b.grad).norm() / b.grad.norm().clamp_min(1e-30)).item()
+                       for a, b in zip(m_model.parameters(), p_model.parameters())
+                       if b.grad is not None)
+        first = losses[0] == p_losses[0]
+        more, more_counts = recorded_steps(m_step, DP_STEPS - 1)
+        losses, counts = losses + more, counts + more_counts
+        p_losses += recorded_steps(p_step, DP_STEPS - 1)[0]
+        q_losses, _ = recorded_steps(q_step, DP_STEPS)
+        mesh_gap, plain_gap = param_gap(m_model, p_model), param_gap(q_model, p_model)
+        m_times, p_times = [], []
+        for _ in range(DP_TIMED_STEPS):
+            m_times.append(timed_step(m_step))
+            p_times.append(timed_step(p_step))
+        del m_model, p_model, q_model, m_step, p_step, q_step
+        rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(losses, p_losses) for k in b)
+        print(f"[dp] (a) one GPU: the mesh builds no group and train_step runs the plain step. "
+              f"Step 1's losses equal bit for bit: {first}, its gradients worst norm-relative "
+              f"{grad_rel:.3e} (bound {STEP_GRAD_REL}); over {DP_STEPS} steps the losses "
+              f"relative |Δ| {rel:.3e} (bound {STEP_LOSS_RTOL}; bit for bit: "
+              f"{losses == p_losses}); parameters max |Δ| {mesh_gap[0]:.3e} at {mesh_gap[1]} "
+              f"elements, where two plain runs part by {plain_gap[0]:.3e} at {plain_gap[1]} "
+              f"elements (losses bit for bit: {q_losses == p_losses}): the backwards of rows "
+              f"3 and 7 add with f32 atomics, so the card's step is not bitwise repeatable",
+              flush=True)
+        equal = first and grad_rel <= STEP_GRAD_REL and rel <= STEP_LOSS_RTOL
+        what = "step 1 bit for bit in its losses and by 6a's rules after it"
+    else:
+        ranks = spawn(dp_nccl_rank, (state,), data=n, devices=devices, timeout=DP_TIMEOUT)
+        losses, counts, m_times = ranks[0]["losses"], ranks[0]["counts"], ranks[0]["times"]
+        equal = all(r["equal"] for r in ranks)
+        p_model, p_step = dp_bf16_stepper(None, state)
+        p_losses, _ = recorded_steps(p_step, DP_STEPS)
+        p_times = [timed_step(p_step) for _ in range(DP_TIMED_STEPS)]
+        del p_model, p_step
+        what = "the ranks' parameters equal bit for bit"
+    gc.collect()
+    torch.cuda.empty_cache()
+    m_ms, p_ms = statistics.median(m_times), statistics.median(p_times)
+    print(f"[dp] (a) NCCL world {n}: PromptAuxCrossA bf16, global batch {TRAIN_BATCH} "
+          f"({TRAIN_BATCH // n if TRAIN_BATCH % n == 0 else TRAIN_BATCH} a rank), {IMG}², drop "
+          f"path 0.1: losses per step through the mesh {losses}, plain {p_losses}; {what}: "
+          f"{equal}; launches per step {counts} (phase 6b's {expected})", flush=True)
+    print(f"[dp] (a) step, host clock to synchronize, median of {DP_TIMED_STEPS}: mesh path "
+          f"{[round(t, 2) for t in m_times]} ms, median {m_ms:.2f} ms = "
+          f"{TRAIN_BATCH * 1e3 / m_ms:.2f} img/s; plain {[round(t, 2) for t in p_times]} ms, "
+          f"median {p_ms:.2f} ms on {smi}", flush=True)
+    if not equal or any(c != expected for c in counts) or not all(
+            np.isfinite(v) for d in losses for v in d.values()):
+        raise AssertionError(f"16a: world {n} mesh steps: equal {equal}, counts {counts}")
+    return n, m_ms, p_ms
+
+
+def dp_eval_maps(outputs, labels):
+    """The kept outputs' argmax and top-2 gap over max |logit| (16b's
+    ``compute_metrics``; on the card where there is one)."""
+    o = torch.from_numpy(outputs).to("cuda" if torch.cuda.is_available() else "cpu")
+    top2 = o.topk(2, dim=1).values
+    return dict(pred=o.argmax(1).cpu().numpy(),
+                gap=((top2[:, 0] - top2[:, 1]) / o.abs().max()).cpu().numpy())
+
+
+def grad_errors(model, ref, frozen):
+    """(worst norm-relative gradient error, its parameter, max |Δ| of the
+    parameters where |g| >= max(1e-3 max |g|, 1e-6)), 6a's way: a swin key
+    bias's gradient (zero in exact arithmetic) against its block's query
+    bias's norm, its update not compared."""
+    worst, worst_name, worst_param = 0.0, "", 0.0
+    rp = dict(ref.named_parameters())
+    for name, p in model.named_parameters():
+        q = rp[name]
+        if is_frozen(name, frozen) or q.grad is None:
+            continue
+        zero = name.endswith("attention.self.key.bias")
+        norm = (rp[name.replace("key.bias", "query.bias")] if zero else q).grad.norm()
+        rel = ((p.grad - q.grad).norm() / norm.clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_name = rel, name
+        if not zero:
+            sure = q.grad.abs() >= torch.clamp(1e-3 * q.grad.abs().max(), min=1e-6)
+            d = (p.detach() - q.detach())[sure].abs()
+            worst_param = max(worst_param, d.max().item() if d.numel() else 0.0)
+    return worst, worst_name, worst_param
+
+
+def dp_gloo_rank(mesh, state):
+    """16b on one of two ranks on cuda:0.  Rank 0 also runs each piece in
+    one process and returns the comparison; its one-process model starts
+    each training step from rank 0's state, as phase 6a compares one step
+    (in a second step from states a step's f32 noise apart, a relu unit of
+    the decoder switched: 2.0e-3 on its linear1.bias)."""
+    from lc2is_tpu_torch.core.mesh import batch_rows, take_rows
+    from lc2is_tpu_torch.engine.engine import evaluate, train_step
+    from lc2is_tpu_torch.engine.sliding import dp_sliding_miou, evaluate_sliding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    main, out, t0, dev = mesh.is_main, {}, time.time(), mesh.device
+    frozen = frozen_prefixes("PromptAuxCrossA")
+    x = rand(np.random.RandomState(SEED + 160), DP_F32_BATCH, 3, IMG, IMG, device=dev)
+    y = seeded_labels(SEED + 161, DP_F32_BATCH, IMG, IMG, device=dev)
+    rows = batch_rows(mesh, DP_F32_BATCH)
+    xr, yr = take_rows((x, y), rows)
+    model, opt = train_models(state, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if main:
+        ref, ref_opt = train_models(state, device=dev)
+        ref_gen = torch.Generator(device=dev).manual_seed(SEED)
+    steps = []
+    for _ in range(DP_F32_STEPS):
+        if main:  # each step from the same state (one step's noise moves relu units later)
+            ref.load_state_dict(model.state_dict())
+            ref_opt.load_state_dict(copy.deepcopy(opt.state_dict()))  # no shared moments
+        got = train_step(model, opt, {"pixel_values": xr}, yr, generator=gen, mesh=mesh,
+                         rows=rows)
+        if main:
+            want = train_step(ref, ref_opt, {"pixel_values": x}, y, generator=ref_gen)
+            losses = {k: (got[k].item(), want[k].item()) for k in want}
+            steps.append((losses, *grad_errors(model, ref, frozen)))
+    out["steps"], out["equal"] = steps, ranks_equal(mesh, model)
+    out["train_s"] = time.time() - t0
+    del opt, gen, got
+    if main:
+        del ref_opt, ref_gen, want
+    # evaluation: both from the seeded state again, the served head
+    t0 = time.time()
+    pairs = [model] + ([ref] if main else [])
+    for m in pairs:
+        m.load_state_dict(state)
+        m.return_score_map = False
+        m.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    xe = rand(np.random.RandomState(SEED + 170), DP_EVAL_IMAGES, 3, IMG, IMG, device=dev)
+    ye = seeded_labels(SEED + 171, DP_EVAL_IMAGES, IMG, IMG, device=dev)
+    kw = dict(keep_eval_outputs=True, compute_metrics=dp_eval_maps)
+    got = evaluate(model, [dict(pixel_values=xe, label=ye)], mesh=mesh, **kw)
+    if main:
+        out["eval"] = (got, evaluate(ref, [dict(pixel_values=xe, label=ye)], **kw))
+    out["eval_s"] = time.time() - t0
+    # the sliding evaluation of DP_SLIDE_IMAGES images, one a rank
+    t0 = time.time()
+    xs = rand(np.random.RandomState(SEED + 180), DP_SLIDE_IMAGES, 3, SLIDE_BASE, SLIDE_BASE,
+              device=dev)
+    ys = seeded_labels(SEED + 181, DP_SLIDE_IMAGES, SLIDE_BASE, SLIDE_BASE, device=dev)
+    slide = dict(scales=SLIDE_SCALES, crop=SLIDE_CROP, stride=SLIDE_STRIDE)
+    model.eval()
+    with torch.no_grad():
+        ts = model.embed_text()
+        got = dp_sliding_miou(lambda t: model({"pixel_values": t, "text_static": ts})["outputs"],
+                              xs, ys, mesh, num_classes=N_CLASSES, **slide).item()
+    if main:
+        want = evaluate_sliding(ref, [dict(pixel_values=xs, label=ys)], **slide)
+        out["sliding"] = (got, want["eval_mIOU_sliding"])
+    out["sliding_s"] = time.time() - t0
+    return out if main else None
+
+
+def check_dp_gloo(smi, state):
+    """16b: two ranks on cuda:0 over gloo against one process."""
+    from lc2is_tpu_torch.core.mesh import spawn
+
+    t0 = time.time()
+    out = spawn(dp_gloo_rank, (state,), data=2, devices=DP_GLOO_DEVICES, backend="gloo",
+                timeout=DP_TIMEOUT)[0]
+    bad = []
+    for i, (losses, worst, worst_name, worst_param) in enumerate(out["steps"]):
+        rel = {k: abs(g - w) / abs(w) for k, (g, w) in losses.items()}
+        print(f"[dp] (b) gloo, two ranks on cuda:0, PromptAuxCrossA f32 global batch "
+              f"{DP_F32_BATCH} (1 a rank) {IMG}², drop path 0.1, step {i + 1}: losses (two "
+              f"ranks, one process) {losses}, relative |Δ| {rel} (bound {STEP_LOSS_RTOL}); "
+              f"gradients after the reduction: worst norm-relative {worst:.3e} ({worst_name}; "
+              f"bound {STEP_GRAD_REL}); parameters after AdamW max |Δ| {worst_param:.3e} "
+              f"(bound {STEP_PARAM_ATOL:.1e})", flush=True)
+        if max(rel.values()) > STEP_LOSS_RTOL or worst > STEP_GRAD_REL \
+                or worst_param > STEP_PARAM_ATOL:
+            bad.append(f"step {i + 1}")
+    print(f"[dp] (b) the two ranks' parameters equal bit for bit: {out['equal']}", flush=True)
+    if not out["equal"]:
+        bad.append("ranks' parameters")
+    got, want = out["eval"]
+    differ = got["eval_pred"] != want["eval_pred"]
+    gap = float(want["eval_gap"][differ].max()) if differ.any() else 0.0
+    d = {k: abs(got[k] - want[k]) for k in ("eval_mIOU_label", "eval_mIOU_dataset")}
+    rel = {k: abs(got[k] - want[k]) / abs(want[k]) for k in want if k.endswith("loss")}
+    print(f"[dp] (b) evaluate of {DP_EVAL_IMAGES} {IMG}² images (2 a rank), f32: losses "
+          f"relative |Δ| {rel} (bound {EVAL_LOSS_RTOL}); argmax differs at {int(differ.sum())} "
+          f"of {differ.size} pixels (largest top-2 gap there {gap:.3e} x max |logit|, bound "
+          f"{EVAL_NEAR_TIE_REL}); mIoU label {got['eval_mIOU_label']:.6f} vs "
+          f"{want['eval_mIOU_label']:.6f}, dataset {got['eval_mIOU_dataset']:.6f} vs "
+          f"{want['eval_mIOU_dataset']:.6f} (|Δ| bound {EVAL_MIOU_ATOL}; the dataset counts "
+          f"equal where no pixel differs)", flush=True)
+    if max(rel.values()) > EVAL_LOSS_RTOL or gap > EVAL_NEAR_TIE_REL \
+            or max(d.values()) > EVAL_MIOU_ATOL \
+            or (not differ.any() and d["eval_mIOU_dataset"] != 0.0):
+        bad.append("evaluate")
+    g_s, w_s = out["sliding"]
+    print(f"[dp] (b) dp_sliding_miou of {DP_SLIDE_IMAGES} {SLIDE_BASE}² images (one a rank), "
+          f"f32: {g_s:.6f}; evaluate_sliding in one process {w_s:.6f}; |Δ| {abs(g_s - w_s):.3e} "
+          f"(bound {EVAL_MIOU_ATOL})", flush=True)
+    if abs(g_s - w_s) > EVAL_MIOU_ATOL:
+        bad.append("dp_sliding_miou")
+    print(f"[dp] (b) seconds: {time.time() - t0:.1f} in all; on rank 0 training "
+          f"{out['train_s']:.1f}, evaluate {out['eval_s']:.1f}, sliding {out['sliding_s']:.1f}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"16b: two ranks against one process: {bad}")
+
+
+def dp_resumed_rank(mesh, argv, checkpoint):
+    """16c on one rank: ``cli/train.py``'s rank function on ``argv`` (with
+    ``--resume``), the Engine's state checked against ``checkpoint`` as
+    training starts."""
+    from lc2is_tpu_torch.cli import train as train_cli
+    from lc2is_tpu_torch.cli.common import parse_args
+    from lc2is_tpu_torch.engine.engine import Engine
+
+    saved = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    seen, run = {}, Engine.train
+
+    def checked(self):
+        seen.update(start=self.train_step_count,
+                    model=same_state(self.model.state_dict(), saved["model"]),
+                    optimizer=same_state(self.optimizer.state_dict(), saved["optimizer"]))
+        result = run(self)
+        seen["end"] = self.train_step_count
+        return result
+
+    Engine.train = checked  # this rank's own process
+    try:
+        train_cli.train(mesh, parse_args(argv))
+    finally:
+        Engine.train = run
+    return seen
+
+
+def check_dp_cli(smi):
+    """16c: cli.train --dp -1 on every visible GPU (two at least), then
+    --resume; the state bit for bit on every rank as the resumed run starts."""
+    import shutil
+    import tempfile
+
+    from lc2is_tpu_torch.cli import train as train_cli
+    from lc2is_tpu_torch.core.mesh import spawn
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print("[dp] (c) cli.train --dp -1 and --resume across GPUs: needs two GPUs, this host "
+              "has one: not run", flush=True)
+        return
+    tmp = tempfile.mkdtemp(prefix="lc2is_dp_")
+    try:
+        base = cli_args(tmp, "dp") + ["--dp", "-1", "--exact_steps", "--save_step", "2",
+                                      "--eval_step", str(DP_CLI_STEPS), "--log_step", "1"]
+        t0 = time.time()
+        metrics = train_cli.main(base + ["--max_steps", str(DP_CLI_STEPS)])
+        t1 = time.time()
+        ckpt = os.path.join(tmp, "dp", "checkpoints", f"step-{DP_CLI_STEPS}.pth")
+        seen = spawn(dp_resumed_rank, (base + ["--max_steps", str(DP_CLI_RESUMED_STEPS),
+                                               "--resume"], ckpt),
+                     devices=[torch.device("cuda", i) for i in range(n)], timeout=DP_TIMEOUT)
+        print(f"[dp] (c) cli.train --dp -1 on {n} GPUs, global batch {TRAIN_BATCH}: "
+              f"{DP_CLI_STEPS} steps in {t1 - t0:.1f} s, metrics "
+              f"{ {k: round(v, 5) for k, v in metrics.items() if isinstance(v, float)} }; "
+              f"--resume to step {DP_CLI_RESUMED_STEPS} in {time.time() - t1:.1f} s: per rank "
+              f"{seen} on {smi}", flush=True)
+        want = dict(start=DP_CLI_STEPS, model=True, optimizer=True, end=DP_CLI_RESUMED_STEPS)
+        if any(s != want for s in seen) or not all(np.isfinite(
+                [v for v in metrics.values() if isinstance(v, float)])):
+            raise AssertionError(f"16c: resumed state {seen} / metrics {metrics}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_data_parallel(smi, state, train_counts):
+    """Phase 16 (a-c).  Returns (world size of (a), its mesh and plain median
+    step ms)."""
+    t0 = time.time()
+    a = check_dp_nccl(smi, state, train_counts)
+    t1 = time.time()
+    check_dp_gloo(smi, state)
+    t2 = time.time()
+    check_dp_cli(smi)
+    print(f"[dp] seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {time.time() - t2:.1f}",
+          flush=True)
+    return a
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4053,6 +4468,7 @@ def main() -> int:
     ftn_train, counts["fused_window_block_bwd"] = phase("13", check_ftn_train, smi)
     evals = phase("14", check_eval, smi, state, sweep_launches)
     phase("15", check_cli, smi, train_counts, step_ms)
+    dp_world, dp_ms, dp_plain_ms = phase("16", check_data_parallel, smi, state, train_counts)
     print(f"[time] all phases: {time.time() - t0:.1f} s", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -4098,7 +4514,9 @@ def main() -> int:
           f"batch, forward ms, metrics ms, peak GiB) "
           f"{ {k: tuple(round(v, 2) for v in evals[k]) for k in EVAL_MODELS} }, sliding sweep of "
           f"{SLIDE_IMAGES} {SLIDE_BASE}² images (ms, peak GiB) "
-          f"{tuple(round(v, 2) for v in evals['sliding'])} on {smi}")
+          f"{tuple(round(v, 2) for v in evals['sliding'])}; data-parallel bf16 "
+          f"b{TRAIN_BATCH} step over NCCL on {dp_world} GPU(s) {dp_ms:.2f} ms (plain "
+          f"{dp_plain_ms:.2f} ms) on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

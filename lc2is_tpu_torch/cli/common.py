@@ -4,8 +4,12 @@ flag for flag with the JAX CLI's defaults, and the dataset, loader, model and
 weight builders.
 
 ``--device`` names the device (``cuda``, the card, by default; ``cpu`` runs
-on the CPU).  One device runs the program: ``--dp`` takes -1 or 1 and
-``--tp`` 1, and anything else raises.
+on the CPU).  ``--dp`` is the data axis of the mesh (``core/mesh.py``): -1
+every visible GPU, n the first n of them (more than are visible raises); on
+the CPU, n gloo processes (-1: one).  :func:`run` starts one process a
+device (one device: this process, no group), or, under ``torchrun``, joins
+its group.  ``--batch_size`` is the global batch, split over the ranks by
+rows.  ``--tp`` takes 1: tensor parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from lc2is_tpu_torch.core.mesh import TORCHRUN_ENV, Mesh, make_mesh, spawn, visible_devices
 from lc2is_tpu_torch.data.ade20k import ADE20KDataset, SyntheticADE20K
 from lc2is_tpu_torch.data.collators import ADE20KCollator, ADE20KTextCollator
 from lc2is_tpu_torch.data.loader import DataLoader
@@ -76,9 +81,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="log the trainable-grad global norm each step "
                         "(wandb.watch equivalent; on with --logger wandb, "
                         "matching engine.py:52)")
-    # Parallelism: one device (ROADMAP.md §1 item 6 brings DDP)
-    p.add_argument("--dp", type=int, default=-1, help="data-parallel size: -1 or 1 (one device)")
-    p.add_argument("--tp", type=int, default=1, help="model-parallel size: 1")
+    # Mesh: the data axis is one process a device (core/mesh.py)
+    p.add_argument("--dp", type=int, default=-1,
+                   help="data-parallel axis size (-1: all devices; on the CPU, processes)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="model-parallel axis size: 1 (tensor parallelism is not ported)")
     # Sliding-window multi-scale eval (BASELINE config #5)
     p.add_argument("--sliding", action="store_true", help="multi-scale sliding-window eval")
     p.add_argument("--scales", type=str, default="0.75,1.0,1.25")
@@ -93,14 +100,45 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The parsed argv; ``--dp`` other than -1 or 1, or ``--tp`` other than 1,
-    raises: the port runs on one device."""
+    """The parsed argv; ``--dp`` below 1 but -1, or ``--tp`` other than 1,
+    raises."""
     args = build_arg_parser().parse_args(argv)
-    if args.dp not in (-1, 1) or args.tp != 1:
-        raise ValueError(f"--dp {args.dp} --tp {args.tp}: the port runs on one device "
-                         "(--dp -1 or 1, --tp 1); data and model parallelism wait for "
-                         "ROADMAP.md §1 item 6")
+    if args.tp != 1:
+        raise ValueError(f"--tp {args.tp}: tensor parallelism is not ported (ROADMAP.md §1, "
+                         "'Tensor parallelism'); --tp takes 1")
+    if args.dp < 1 and args.dp != -1:
+        raise ValueError(f"--dp {args.dp}: the data axis takes -1 (every device) or a size "
+                         "of at least 1")
     return args
+
+
+def mesh_devices(args) -> list:
+    """The devices of ``args``' mesh: ``--dp`` of the visible GPUs (-1: all;
+    a ``--device`` with an index alone), or ``--dp`` CPU processes (-1:
+    one)."""
+    kind = torch.device(args.device).type
+    if kind == "cpu":
+        return [torch.device("cpu")] * max(args.dp, 1)
+    zoo._model_device(args.device)  # raises without a card
+    if torch.device(args.device).index is not None and args.dp in (-1, 1):
+        return [torch.device(args.device)]  # the one device named
+    devices = visible_devices()
+    if args.dp > len(devices):
+        raise ValueError(f"--dp {args.dp}: {len(devices)} visible GPUs")
+    return devices if args.dp == -1 else devices[:args.dp]
+
+
+def run(args, fn):
+    """``fn(mesh, args)`` on every rank of ``args``' mesh; returns rank 0's
+    result.  Under ``torchrun`` this process is one rank of its group; one
+    device runs in this process; otherwise :func:`~lc2is_tpu_torch.core.mesh.spawn`
+    starts one process a device."""
+    if all(k in os.environ for k in TORCHRUN_ENV):
+        world = int(os.environ["WORLD_SIZE"])
+        devices = ([torch.device("cpu")] * world if torch.device(args.device).type == "cpu"
+                   else [torch.device("cuda", i) for i in range(world)])
+        return fn(make_mesh(args.dp, args.tp, devices), args)
+    return spawn(fn, (args,), data=args.dp, model=args.tp, devices=mesh_devices(args))[0]
 
 
 def build_dataset(args, split: Optional[str] = None):
@@ -131,19 +169,21 @@ class LabelResize:
         return img, lab.astype(np.int64), metas
 
 
-def build_loaders(args) -> Tuple[DataLoader, DataLoader, list]:
+def build_loaders(args, mesh: Optional[Mesh] = None) -> Tuple[DataLoader, DataLoader, list]:
     """(train loader, eval loader, class names).  The v1 CLIP models score
     at ``label_size`` (``model.py:53``), the swin families at ``img_size``
     (``final.py:356``), so the labels come at that size; the v1 models take
-    each image's class names tokenized (``model.py:29-32``)."""
+    each image's class names tokenized (``model.py:29-32``).  Under ``mesh``
+    each loader loads this rank's rows of every global batch."""
     label_target = args.label_size if args.model in V1_MODELS else args.img_size
     synthetic = args.data_name == "synthetic"
     train_ds = LabelResize(build_dataset(args, None if synthetic else "training"), label_target)
     eval_ds = LabelResize(build_dataset(args, None if synthetic else "validation"), label_target)
     coll = ADE20KTextCollator() if args.model in V1_MODELS else ADE20KCollator()
     train = DataLoader(train_ds, args.batch_size, coll, shuffle=True, seed=args.seed,
-                       drop_last=True, num_workers=4)
-    ev = DataLoader(eval_ds, args.batch_size, coll, shuffle=False, drop_last=True, num_workers=4)
+                       drop_last=True, num_workers=4, mesh=mesh)
+    ev = DataLoader(eval_ds, args.batch_size, coll, shuffle=False, drop_last=True, num_workers=4,
+                    mesh=mesh)
     return train, ev, train_ds.class_names
 
 
@@ -167,11 +207,11 @@ def load_prototypes() -> Optional[np.ndarray]:
     return np.asarray(table, np.float32)
 
 
-def build_model(args, class_names):
-    """``zoo.ZOO[args.model]`` on ``args.device``, bf16 compute under
-    ``--fp16``, with the JAX CLI's keyword arguments."""
+def build_model(args, class_names, device=None):
+    """``zoo.ZOO[args.model]`` on ``device`` (by default ``args.device``), bf16
+    compute under ``--fp16``, with the JAX CLI's keyword arguments."""
     dtype = torch.bfloat16 if args.fp16 else torch.float32
-    kw = dict(dtype=dtype, device=args.device)
+    kw = dict(dtype=dtype, device=args.device if device is None else device)
     if args.model in V1_MODELS:
         kw.update(in_size=args.img_size, out_size=args.label_size, dropout=args.dropout)
         if args.model == "base_with_text":

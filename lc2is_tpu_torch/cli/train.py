@@ -7,29 +7,34 @@ reconstruction of the reference's missing ``default.py``, invoked by
 The JAX CLI's argv; ``--device cpu`` runs on the CPU.  ``--checkpoint``
 starts from a native ``.pth`` or a reference ``.pt`` instead of the
 torch-default initialisation; ``--resume`` goes on from the run's latest
-native checkpoint.
+native checkpoint.  ``--dp`` trains data-parallel, one process a device
+(``cli/common.py::run``), the global ``--batch_size`` split over them.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from lc2is_tpu_torch.cli.common import build_loaders, build_model, load_weights, parse_args
+from lc2is_tpu_torch.cli.common import build_loaders, build_model, load_weights, parse_args, run
 from lc2is_tpu_torch.engine.engine import Engine
 from lc2is_tpu_torch.models.zoo import FROZEN_PREFIXES
 
 
 def main(argv=None):
-    args = parse_args(argv)
+    return run(parse_args(argv), train)
+
+
+def train(mesh, args):
+    """Train on this rank of ``mesh``; returns the last metrics."""
     np.random.seed(args.seed)
 
-    train_loader, eval_loader, class_names = build_loaders(args)
-    model = build_model(args, class_names)
+    train_loader, eval_loader, class_names = build_loaders(args, mesh)
+    model = build_model(args, class_names, mesh.device)
     engine = Engine(
         name=args.name,
         model=model,
         params=load_weights(args.checkpoint, model) if args.checkpoint else None,
-        device=args.device,
+        mesh=mesh,
         fp16=args.fp16,
         train_loader=train_loader,
         eval_loader=eval_loader,
@@ -50,9 +55,11 @@ def main(argv=None):
     )
     if args.resume:
         start = engine.resume()
-        print(f"[train] resumed at step {start}", flush=True)
+        if engine.main:
+            print(f"[train] resumed at step {start}", flush=True)
     metrics, _ = engine.train()
-    print(metrics)
+    if engine.main:
+        print(metrics)
     return metrics
 
 

@@ -7,6 +7,12 @@ ready-queue of collated batches hides decoding behind the step on the card.
 The shuffle is seeded by ``seed + epoch``, so the order repeats the JAX
 package's.  Unlike the JAX copy, an exception while loading a batch is raised
 in the consumer, not taken for the end of the epoch.
+
+Under a mesh of more than one rank each global batch is split by rows: the
+order, the batch size and ``len`` stay the global ones, and each rank loads
+and collates only its own contiguous rows of each batch (all of them where
+the batch does not divide by the world size), tagged with those rows
+(``core/mesh.py::tag_rows``).
 """
 
 from __future__ import annotations
@@ -14,9 +20,11 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 import numpy as np
+
+from lc2is_tpu_torch.core.mesh import Mesh, batch_rows, tag_rows
 
 
 class DataLoader:
@@ -30,6 +38,7 @@ class DataLoader:
         drop_last: bool = False,
         num_workers: int = 0,
         prefetch: int = 2,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.dataset = dataset
         self.batch_size = batch_size
@@ -39,6 +48,7 @@ class DataLoader:
         self.drop_last = drop_last
         self.num_workers = num_workers
         self.prefetch = prefetch
+        self.mesh = mesh if mesh is not None and mesh.data > 1 else None
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -72,7 +82,7 @@ class DataLoader:
 
         if self.num_workers <= 0:
             for b in batches:
-                yield self.collate_fn([self.dataset[int(i)] for i in b])
+                yield self._collate(b, [self.dataset[int(i)] for i in self._own(b)])
             return
 
         pool = ThreadPoolExecutor(max_workers=self.num_workers)
@@ -84,8 +94,8 @@ class DataLoader:
                 for b in batches:
                     if stop.is_set():
                         return
-                    items = list(pool.map(lambda i: self.dataset[int(i)], b))
-                    q.put(self.collate_fn(items))
+                    items = list(pool.map(lambda i: self.dataset[int(i)], self._own(b)))
+                    q.put(self._collate(b, items))
             except Exception as e:  # raised again in the consumer
                 q.put(_Failure(e))
             finally:
@@ -109,6 +119,18 @@ class DataLoader:
             except queue.Empty:
                 pass
             pool.shutdown(wait=False)
+
+
+    def _own(self, b: np.ndarray) -> np.ndarray:
+        """This rank's indices of global batch ``b``."""
+        if self.mesh is None:
+            return b
+        r = batch_rows(self.mesh, len(b))
+        return b[r.start:r.stop]
+
+    def _collate(self, b: np.ndarray, items):
+        batch = self.collate_fn(items)
+        return batch if self.mesh is None else tag_rows(batch, batch_rows(self.mesh, len(b)))
 
 
 class _Failure:

@@ -23,7 +23,9 @@ engine does.
 :class:`Engine` is the JAX ``Engine`` (:55-550) around them: the same
 constructor, step count, hook cadences, logging, checkpoints and resume, and
 checkpoint-and-stop on SIGTERM and SIGUSR1, on one device (the card unless
-the caller names another) in place of a mesh.
+the caller names another) or data-parallel over a ``core/mesh.py`` mesh:
+each rank runs its rows of every global batch, the step all-reduces the mean
+of the gradients, and the metrics are reduced over the ranks.
 """
 
 from __future__ import annotations
@@ -38,10 +40,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from lc2is_tpu_torch.core.mesh import (Mesh, RowDraws, Rows, all_gather_objects,
+                                       all_gather_rows, all_reduce_mean_, all_reduce_sum,
+                                       any_rank, barrier, broadcast_object, replicate,
+                                       tag_rows, unpack_batch)
 from lc2is_tpu_torch.engine import checkpoint as ckpt
 from lc2is_tpu_torch.engine.loggers import make_logger
 from lc2is_tpu_torch.engine.optim import Optimizer, make_optimizer
-from lc2is_tpu_torch.metrics.miou import batch_confusion, dataset_miou, per_image_miou
+from lc2is_tpu_torch.metrics.miou import (batch_confusion, dataset_miou, per_image_miou,
+                                          psum_confusion)
 from lc2is_tpu_torch.models.zoo import _model_device
 from lc2is_tpu_torch.nn.init import init_parameters_
 from lc2is_tpu_torch.nn.losses import auxiliary_loss, cross_entropy
@@ -72,7 +79,8 @@ def train_step(model: nn.Module, optimizer: Optimizer, inputs: Dict[str, torch.T
                labels: torch.Tensor, aux_weight: float = 0.4,
                generator: Optional[torch.Generator] = None,
                criterion: Optional[Callable] = None, aux_criterion: Optional[Callable] = None,
-               grad_norm: bool = False) -> Dict[str, torch.Tensor]:
+               grad_norm: bool = False, mesh: Optional[Mesh] = None,
+               rows: Optional[Rows] = None) -> Dict[str, torch.Tensor]:
     """One optimizer step on one batch; returns the detached losses
     (``train_loss``, and ``train_aux_loss`` already times ``aux_weight``).
     ``generator`` draws the drop-path and dropout masks.  Frozen parameters
@@ -81,9 +89,23 @@ def train_step(model: nn.Module, optimizer: Optimizer, inputs: Dict[str, torch.T
     ``aux_criterion``) replaces the default losses and takes the model's
     ``outputs`` as they come (``engine.py:296-299``); ``grad_norm`` adds
     ``train_grad_norm``, the global norm of the trainable gradients before
-    the optimizer clips them (``engine.py:305-308``)."""
+    the optimizer clips them (``engine.py:305-308``).
+
+    Data-parallel (``mesh``, with ``rows`` this rank's rows of the global
+    batch, split over the ranks): the masks are drawn for the global batch
+    (:class:`~lc2is_tpu_torch.core.mesh.RowDraws`; every rank seeds
+    ``generator`` alike), the trainable gradients are replaced by their mean
+    over the ranks before the norm and the optimizer's clip and step, and the
+    losses returned are the ranks' mean.  The default losses are means over
+    equal shards, so the mean of the ranks' means is the global batch's mean
+    and the step is the one-process step on the global batch; a ``criterion``
+    that is no per-sample mean is the caller's business.  Where every rank
+    holds the whole batch (``rows`` not split) the step is the one-process
+    step, with no collective."""
     model.train()
-    out = _normalize_output(model(inputs, generator=generator))
+    split = mesh is not None and rows is not None and rows.split
+    draws = RowDraws(generator, rows) if split and generator is not None else generator
+    out = _normalize_output(model(inputs, generator=draws))
     if criterion is None and aux_criterion is None \
             and getattr(model, "return_score_map", None) is not None:
         losses = {"train_loss": _fused_or_plain_ce(out["outputs"], labels)}
@@ -97,6 +119,11 @@ def train_step(model: nn.Module, optimizer: Optimizer, inputs: Dict[str, torch.T
                 out["low_score_map"], labels) * aux_weight
     optimizer.zero_grad()
     sum(losses.values()).backward()
+    if split:
+        all_reduce_mean_(mesh, [p.grad for p in optimizer.params if p.grad is not None])
+        reduced = torch.stack([v.detach().float() for v in losses.values()])
+        all_reduce_mean_(mesh, [reduced])
+        losses = dict(zip(losses, reduced.unbind()))
     if grad_norm:
         grads = [p.grad.float() for p in optimizer.params if p.grad is not None]
         losses["train_grad_norm"] = torch.linalg.vector_norm(
@@ -138,32 +165,53 @@ def model_device(model: nn.Module) -> torch.device:
 
 def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
              num_classes: int = 151, keep_eval_outputs: bool = False,
-             compute_metrics: Optional[Callable] = None) -> Dict[str, float]:
+             compute_metrics: Optional[Callable] = None,
+             mesh: Optional[Mesh] = None) -> Dict[str, float]:
     """:func:`eval_step` over ``batches`` (each a dict with ``pixel_values``
     and ``label``, or ``(dict, metas)``), on the model's device.  Returns the
-    mean of each loss, ``eval_mIOU_label`` (the per-image mIoU weighted by
-    batch size) and ``eval_mIOU_dataset`` (from the summed confusion counts).
-    With ``keep_eval_outputs`` the logits and labels are kept on the host,
-    with ``gt_list`` and ``sizes`` where every image's metas carry them, and
-    ``compute_metrics(**kept)``'s results are added, prefixed ``eval_``."""
+    mean over batches of each loss, ``eval_mIOU_label`` (the per-image mIoU
+    weighted by batch size) and ``eval_mIOU_dataset`` (from the summed
+    confusion counts).  With ``keep_eval_outputs`` the logits and labels are
+    kept on the host, with ``gt_list`` and ``sizes`` where every image's metas
+    carry them, and ``compute_metrics(**kept)``'s results are added, prefixed
+    ``eval_``.
+
+    Under a ``mesh`` each rank evaluates its rows of every batch (a batch a
+    sharded loader gives, or its own cut of a global one); the per-image mIoU
+    sum, the image count, each loss times this rank's share of its batch's
+    rows and the int64 confusion counts are summed over the ranks (a batch
+    every rank holds whole counts on rank 0 only), and the kept outputs are
+    gathered to rank 0 in the batches' order, where ``compute_metrics`` runs;
+    every rank returns the same metrics."""
     device = model_device(model)
-    all_metrics: Dict[str, list] = {}
-    miou_sum, n_img = 0.0, 0
+    # per-image mIoU sum, images; each loss summed over the batches
+    sums: Dict[str, float] = dict(miou=0.0, images=0.0)
+    n_batches = 0
     cm_total = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     all_outputs, all_labels, gt_list, sizes = [], [], [], []
+    main = mesh is None or mesh.is_main
     for data in batches:
-        inputs = dict(data[0]) if isinstance(data, tuple) else dict(data)
-        metas = data[1] if isinstance(data, tuple) and len(data) > 1 else None
+        inputs, metas, rows = unpack_batch(mesh, data)
         labels = on_device(inputs.pop("label"), device)
         inputs = {k: on_device(v, device) for k, v in inputs.items() if k != "size"}
         losses, miou, cm, logits = eval_step(model, inputs, labels, aux_weight, num_classes)
+        n_batches += 1
         b = int(labels.shape[0])
-        miou_sum += float(miou) * b
-        n_img += b
-        cm_total += cm
-        for k, v in losses.items():
-            all_metrics.setdefault(k, []).append(float(v))
+        counted = rows.split or main  # a batch every rank holds counts once
+        if counted:
+            sums["miou"] += float(miou) * b
+            sums["images"] += b
+            cm_total += cm
+        for k, v in losses.items():  # every rank has every key, in one order
+            sums[k] = sums.get(k, 0.0) + (float(v) * b / rows.total if counted else 0.0)
         if keep_eval_outputs:
+            if rows.split:
+                logits, labels = all_gather_rows(mesh, logits), all_gather_rows(mesh, labels)
+                parts = all_gather_objects(mesh, metas)
+                metas = ([m for part in parts for m in part]
+                         if all(isinstance(part, list) for part in parts) else None)
+            if not main:
+                continue
             all_outputs.append(logits.cpu().numpy())
             all_labels.append(labels.cpu().numpy())
             for m in metas if isinstance(metas, list) else ():
@@ -171,24 +219,37 @@ def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
                     sizes.append(m["size"])
                 if isinstance(m, dict) and "gt" in m:
                     gt_list.append(np.asarray(m["gt"]))
-    eval_metrics = {k: float(np.mean(v)) for k, v in all_metrics.items()}
-    eval_metrics["eval_mIOU_label"] = miou_sum / max(n_img, 1)
+    keys = list(sums)
+    if mesh is not None and mesh.group is not None:
+        total = all_reduce_sum(mesh, torch.tensor([sums[k] for k in keys], dtype=torch.float64,
+                                                  device=device))
+        sums = dict(zip(keys, total.tolist()))
+        psum_confusion(cm_total, mesh)
+    eval_metrics = {k: v / max(n_batches, 1) for k, v in sums.items()
+                    if k not in ("miou", "images")}
+    eval_metrics["eval_mIOU_label"] = sums["miou"] / max(sums["images"], 1)
     eval_metrics["eval_mIOU_dataset"] = float(dataset_miou(cm_total))
-    if compute_metrics is None or not all_outputs:
+    if compute_metrics is None or not keep_eval_outputs:
         return eval_metrics
-    kept = dict(outputs=np.concatenate(all_outputs), labels=np.concatenate(all_labels))
-    if gt_list and sizes and len(gt_list) == len(kept["outputs"]) == len(sizes):
-        kept.update(gt_list=gt_list, sizes=sizes)
-    params = inspect.signature(compute_metrics).parameters
-    if not any(p.kind == p.VAR_KEYWORD for p in params.values()):
-        kept = {k: v for k, v in kept.items() if k in params}
-    metrics = compute_metrics(**kept)
+    metrics = None
+    if main and all_outputs:
+        kept = dict(outputs=np.concatenate(all_outputs), labels=np.concatenate(all_labels))
+        if gt_list and sizes and len(gt_list) == len(kept["outputs"]) == len(sizes):
+            kept.update(gt_list=gt_list, sizes=sizes)
+        params = inspect.signature(compute_metrics).parameters
+        if not any(p.kind == p.VAR_KEYWORD for p in params.values()):
+            kept = {k: v for k, v in kept.items() if k in params}
+        metrics = compute_metrics(**kept)
+    metrics = broadcast_object(mesh, metrics)
+    if metrics is None:
+        return eval_metrics
     return {**eval_metrics, **{"eval_" + k: v for k, v in metrics.items()}}
 
 
 class Engine:
     """Train and evaluate one model, the JAX ``Engine``'s surface
-    (``engine.py:55-160``) with ``mesh`` replaced by ``device``:
+    (``engine.py:55-160``), on ``device`` or, data-parallel, on this rank's
+    device of ``mesh`` (``core/mesh.py``; one process a device):
 
     - ``params``: a state_dict of the port's keys to load (strict); without
       one, every parameter is drawn by :func:`~lc2is_tpu_torch.nn.init.init_parameters_`
@@ -207,6 +268,18 @@ class Engine:
     - ``watch_grads`` logs ``train_grad_norm``; ``debug_nans`` raises
       ``FloatingPointError`` on a non-finite loss; SIGTERM and SIGUSR1 during
       :meth:`train` checkpoint and stop at the next step boundary.
+
+    Under a mesh of more than one rank every process builds the same Engine:
+    the parameters are broadcast from rank 0; each rank steps on its rows of
+    every global batch (a loader built with the mesh loads only those,
+    another one's global batches are cut here), with :func:`train_step`'s
+    all-reduced gradients; logged losses and ``train_grad_norm`` are the
+    global ones, and ``train_images`` and the img/s count global images.
+    Rank 0 alone writes the logs and checkpoints (the others wait for each);
+    every rank resumes from the same file; a preemption signal on any rank
+    stops every rank after the same step.  A model that mixes images across
+    its batch (``mixes_batch``) computes something else on a split batch, and
+    raises here.
     """
 
     def __init__(
@@ -218,6 +291,7 @@ class Engine:
         criterion: Optional[Callable] = None,
         lr_scheduler: Optional[str] = None,
         device="cuda",
+        mesh: Optional[Mesh] = None,
         fp16: bool = False,
         aux_criterion: Optional[Callable] = None,
         aux_weight: float = 0.4,
@@ -245,7 +319,12 @@ class Engine:
         progress: bool = True,
     ) -> None:
         self.name = name
-        self.device = _model_device(device)
+        self.mesh = mesh if mesh is not None and mesh.group is not None else None
+        if self.mesh is not None and getattr(model, "mixes_batch", False):
+            raise ValueError(f"{type(model).__name__} mixes the images of a batch: it has no "
+                             "data-parallel form")
+        self.main = self.mesh is None or self.mesh.is_main
+        self.device = _model_device(device if mesh is None else mesh.device)
         self.model = model.to(self.device)
         self.fp16 = fp16
         self.criterion, self.aux_criterion = criterion, aux_criterion
@@ -257,7 +336,7 @@ class Engine:
         self.debug_nans = debug_nans
         self.checkpoint_on_preemption = checkpoint_on_preemption
         self.watch_grads = watch_grads
-        self.progress = progress
+        self.progress = progress and self.main
         self.seed = seed
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -272,12 +351,13 @@ class Engine:
         self.log_step = self.steps_in_epoch if log_step is None else log_step
         self.save_step = self.steps_in_epoch * 10 if save_step is None else save_step
         self.out_dir = os.path.join(out_dir, name)
-        self.logger = make_logger(logger, self.out_dir, logger_args)
+        self.logger = make_logger(logger if self.main else "null", self.out_dir, logger_args)
 
         if params is None:
             init_parameters_(self.model, torch.Generator(device=self.device).manual_seed(seed))
         else:
             self.model.load_state_dict(params, strict=True)
+        replicate(self.mesh, self.model)
         self.optimizer = optimizer if optimizer is not None else make_optimizer(
             self.model, lr=lr, weight_decay=weight_decay, schedule=lr_scheduler or "constant",
             total_steps=max(self.train_steps, 1), frozen_prefixes=frozen_prefixes)
@@ -304,17 +384,16 @@ class Engine:
 
     def _batch(self, data):
         """(inputs on the device, floating ones in bf16 under ``fp16``;
-        int64 labels on the device; metas)."""
-        inputs = dict(data[0]) if isinstance(data, tuple) else dict(data)
-        metas = data[1] if isinstance(data, tuple) and len(data) > 1 else None
+        int64 labels on the device; metas; this rank's rows of the batch)."""
+        inputs, metas, rows = unpack_batch(self.mesh, data)
         labels = on_device(inputs.pop("label"), self.device)
         inputs = {k: on_device(v, self.device) for k, v in inputs.items() if k != "size"}
         if self.fp16:
             inputs = {k: v.to(torch.bfloat16) if v.is_floating_point() else v
                       for k, v in inputs.items()}
-        return inputs, labels, metas
+        return inputs, labels, metas, rows
 
-    def _step(self, inputs, labels) -> Dict[str, torch.Tensor]:
+    def _step(self, inputs, labels, rows=None) -> Dict[str, torch.Tensor]:
         fused_head = (self.criterion is None and self.aux_criterion is None
                       and getattr(self.model, "return_score_map", None) is False)
         if fused_head:
@@ -322,7 +401,7 @@ class Engine:
         try:
             return train_step(self.model, self.optimizer, inputs, labels, self.aux_weight,
                               self.generator, self.criterion, self.aux_criterion,
-                              grad_norm=self.watch_grads)
+                              grad_norm=self.watch_grads, mesh=self.mesh, rows=rows)
         finally:
             if fused_head:
                 self.model.return_score_map = False
@@ -359,11 +438,13 @@ class Engine:
         self.logger.finish()
         dt = time.time() - t0
         busy = self.step_seconds + self.loader_wait_seconds
-        print(f"[engine] trained {self.train_step_count} steps in {dt:.1f}s "
-              f"({self.train_step_count / max(dt, 1e-9):.2f} steps/s); steps "
-              f"{self.step_seconds:.2f}s ({self.train_images / max(self.step_seconds, 1e-9):.2f}"
-              f" img/s), waiting on the loader {self.loader_wait_seconds:.2f}s "
-              f"({100.0 * self.loader_wait_seconds / max(busy, 1e-9):.1f}%)")
+        if self.main:
+            print(f"[engine] trained {self.train_step_count} steps in {dt:.1f}s "
+                  f"({self.train_step_count / max(dt, 1e-9):.2f} steps/s); steps "
+                  f"{self.step_seconds:.2f}s "
+                  f"({self.train_images / max(self.step_seconds, 1e-9):.2f} img/s), waiting on "
+                  f"the loader {self.loader_wait_seconds:.2f}s "
+                  f"({100.0 * self.loader_wait_seconds / max(busy, 1e-9):.1f}%)")
         return metrics, save_path
 
     def train_loop(self):
@@ -388,10 +469,10 @@ class Engine:
             t_step = time.perf_counter()
             self.loader_wait_seconds += t_step - t_wait
             self.train_step_count += 1
-            inputs, labels, _ = self._batch(data)
-            losses = {k: float(v) for k, v in self._step(inputs, labels).items()}
+            inputs, labels, _, rows = self._batch(data)
+            losses = {k: float(v) for k, v in self._step(inputs, labels, rows).items()}
             self.step_seconds += time.perf_counter() - t_step
-            self.train_images += int(labels.shape[0])
+            self.train_images += rows.total
             if self._train_bar is not None:
                 self._train_bar.update(1)
             if self.debug_nans and not all(np.isfinite(v) for v in losses.values()):
@@ -403,10 +484,12 @@ class Engine:
             eval_metrics = self.should_eval()
             log_metrics = self.should_log()
             save_path = self.should_save()
+            self._preempted = any_rank(self.mesh, self._preempted)
             if self._preempted:
                 save_path = self.save()
-                print(f"[engine] preemption signal: checkpointed at step "
-                      f"{self.train_step_count}", flush=True)
+                if self.main:
+                    print(f"[engine] preemption signal: checkpointed at step "
+                          f"{self.train_step_count}", flush=True)
                 self.stop_train = True
                 break
             if self.should_stop():
@@ -419,17 +502,17 @@ class Engine:
         """:func:`evaluate` over the eval loader (``engine.py:398-476``)."""
         self.eval_metrics = evaluate(self.model, self._eval_batches(), self.aux_weight,
                                      self.num_classes, self.keep_eval_outputs,
-                                     self.compute_metrics)
+                                     self.compute_metrics, self.mesh)
         return self.eval_metrics
 
     def _eval_batches(self):
         bar = self._make_bar(len(self.eval_loader), "Evaluation", leave=False)
         try:
             for data in self.eval_loader:
-                inputs, labels, metas = self._batch(data)
+                inputs, labels, metas, rows = self._batch(data)
                 if bar is not None:
                     bar.update(1)
-                yield dict(inputs, label=labels), metas
+                yield tag_rows((dict(inputs, label=labels), metas), rows)
         finally:
             if bar is not None:
                 bar.close()
@@ -441,19 +524,23 @@ class Engine:
         metrics = {"train_step": self.train_step_count, "train_epoch": train_epoch,
                    **train_metrics, **self.eval_metrics}
         self.logger.log(metrics)
-        print(f"[engine] step {self.train_step_count}: "
-              + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
-                          for k, v in metrics.items()), flush=True)
+        if self.main:
+            print(f"[engine] step {self.train_step_count}: "
+                  + ", ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                              for k, v in metrics.items()), flush=True)
         return metrics
 
     def save(self) -> str:
-        """The model and optimizer state at this step, natively; returns the
-        checkpoint directory."""
+        """The model and optimizer state at this step, natively (rank 0
+        writes, the other ranks wait for it); returns the checkpoint
+        directory."""
         checkpoints_dir = os.path.join(self.out_dir, "checkpoints")
-        ckpt.save_checkpoint(checkpoints_dir, dict(model=self.model.state_dict(),
-                                                   optimizer=self.optimizer.state_dict(),
-                                                   step=self.train_step_count),
-                             self.train_step_count)
+        if self.main:
+            ckpt.save_checkpoint(checkpoints_dir, dict(model=self.model.state_dict(),
+                                                       optimizer=self.optimizer.state_dict(),
+                                                       step=self.train_step_count),
+                                 self.train_step_count)
+        barrier(self.mesh)
         return checkpoints_dir
 
     def save_reference_pt(self, path: Optional[str] = None) -> str:

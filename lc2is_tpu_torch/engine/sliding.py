@@ -11,15 +11,22 @@ flipped images join the same batch.  Each window's logits go to f32 before
 they are added up, the sum is divided by the overlap count, the flipped half
 flipped back and averaged with the other.  The f32 softmax over the classes
 is resized bilinearly back to the base size, and the scales averaged.
+
+Data-parallel (``lc2is_tpu/engine/sliding.py::dp_sliding_miou`` :98-137):
+each rank slides its own rows of the images, and the per-image mIoU sum and
+the image count are summed over the ranks; :func:`evaluate_sliding` runs the
+same way under a mesh.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 import torch
 from torch import nn
 
+from lc2is_tpu_torch.core.mesh import (Mesh, Rows, all_reduce_sum, batch_rows, take_rows,
+                                       unpack_batch)
 from lc2is_tpu_torch.engine.engine import _normalize_output, model_device, on_device
 from lc2is_tpu_torch.metrics.miou import per_image_miou
 from lc2is_tpu_torch.ops.resize import resize
@@ -81,20 +88,53 @@ def compute_dtype(model: nn.Module) -> torch.dtype:
     return torch.float32
 
 
+def _miou_sums(forward, x: torch.Tensor, labels: torch.Tensor, rows: Rows, mesh, scales,
+               crop: int, stride: int, flip: bool, num_classes: int) -> torch.Tensor:
+    """[per-image mIoU sum, images] of this rank's images (zeros on a rank
+    other than 0 where every rank holds the whole batch)."""
+    probs = multi_scale_sliding_eval(forward, x, scales=scales, crop=crop, stride=stride,
+                                     flip=flip)
+    vals = per_image_miou(probs.float(), labels, num_classes=num_classes,
+                          upsample_logits_to_label=False, reduce=False)
+    counted = rows.split or mesh is None or mesh.is_main
+    return torch.stack([vals.sum(), torch.tensor(float(len(vals)), device=vals.device)]) \
+        * float(counted)
+
+
+def dp_sliding_miou(forward: Callable[[torch.Tensor], torch.Tensor], images: torch.Tensor,
+                    labels: torch.Tensor, mesh: Optional[Mesh] = None, num_classes: int = 151,
+                    scales: Sequence[float] = (0.75, 1.0, 1.25), crop: int = 512,
+                    stride: int = 341, flip: bool = True) -> torch.Tensor:
+    """The multi-scale sliding evaluation's mean per-image mIoU over the
+    global ``images`` (B, 3, H, W) and ``labels`` (B, H, W): each rank of
+    ``mesh`` slides its rows (all of them where B does not divide by the
+    world size) with ``forward`` ((N, 3, c, c) -> (N, K, c, c)), and the
+    per-image values' sum and count are summed over the ranks; f32, the
+    same on every rank."""
+    rows = batch_rows(mesh, len(labels))
+    x, y = take_rows((images, labels), rows)
+    s = all_reduce_sum(mesh, _miou_sums(forward, x, y, rows, mesh, scales, crop, stride, flip,
+                                        num_classes).double())
+    return (s[0] / s[1]).float()
+
+
 def evaluate_sliding(model: nn.Module, batches: Iterable,
                      scales: Sequence[float] = (0.75, 1.0, 1.25), crop: int = 512,
-                     stride: int = 341, num_classes: int = 151) -> Dict[str, object]:
+                     stride: int = 341, num_classes: int = 151,
+                     mesh: Optional[Mesh] = None) -> Dict[str, object]:
     """The multi-scale sliding evaluation with flip over ``batches`` (as
     :func:`~lc2is_tpu_torch.engine.engine.evaluate` takes them), on the
     model's device: the pixels cast to the model's compute dtype, the class
     embeddings of a model with ``embed_text`` computed once and passed as
-    ``text_static``, each batch's per-image mIoU of the probabilities against
-    its labels at the base size, weighted by batch size.  Returns
-    ``dict(eval_mIOU_sliding=..., scales=...)``."""
+    ``text_static``, the per-image mIoU of the probabilities against the
+    labels at the base size, averaged over the images.  Under ``mesh`` each
+    rank slides its rows of every batch and the sums are reduced, as
+    :func:`dp_sliding_miou`.  Returns ``dict(eval_mIOU_sliding=...,
+    scales=...)``."""
     scales = tuple(float(s) for s in scales)
     device, dtype = model_device(model), compute_dtype(model)
     model.eval()
-    miou_sum, n = 0.0, 0
+    total = torch.zeros(2, dtype=torch.float64, device=device)
     with torch.no_grad():
         extra = {"text_static": model.embed_text()} if hasattr(model, "embed_text") else {}
 
@@ -102,14 +142,10 @@ def evaluate_sliding(model: nn.Module, batches: Iterable,
             return _normalize_output(model({"pixel_values": t, **extra}))["outputs"]
 
         for data in batches:
-            inputs = dict(data[0]) if isinstance(data, tuple) else dict(data)
+            inputs, _, rows = unpack_batch(mesh, data)
             labels = on_device(inputs.pop("label"), device)
             x = on_device(inputs["pixel_values"], device).to(dtype)
-            probs = multi_scale_sliding_eval(tile_forward, x, scales=scales, crop=crop,
-                                             stride=stride)
-            miou = per_image_miou(probs.float(), labels, num_classes=num_classes,
-                                  upsample_logits_to_label=False)
-            b = int(labels.shape[0])
-            miou_sum += float(miou) * b
-            n += b
-    return dict(eval_mIOU_sliding=miou_sum / max(n, 1), scales=scales)
+            total += _miou_sums(tile_forward, x, labels, rows, mesh, scales, crop, stride, True,
+                                num_classes).double()
+    total = all_reduce_sum(mesh, total).tolist()
+    return dict(eval_mIOU_sliding=total[0] / max(total[1], 1), scales=scales)

@@ -267,6 +267,8 @@ class ContrastiveModel(_ClipBase):
     tokens against the pooled text.  Returns (feature_t (K, E),
     feature_v (B, P, E), logits (B, P, K))."""
 
+    mixes_batch = True  # each image is scored against every image's text
+
     def __init__(self, patch_size: int = 16, in_size: int = 224, out_size: int = 224,
                  embed_dim: int = 512, vision_kwargs: Optional[Dict[str, Any]] = None,
                  text_kwargs: Optional[Dict[str, Any]] = None,
@@ -292,6 +294,8 @@ class DenseClip(_ClipBase):
     the pooled text over the projected image tokens, then a ``norm_first``
     ``vision_decoder`` of the image tokens over the prompted text.  Returns
     (None, score_map (B, K, g, g), out (B, 1 + g², C))."""
+
+    mixes_batch = True  # every image's text prompts every image
 
     def __init__(self, patch_size: int = 16, in_size: int = 224, out_size: int = 224,
                  embed_dim: int = 512, decoder_layers: int = 8, nhead: int = 8,

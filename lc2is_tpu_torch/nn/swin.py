@@ -50,6 +50,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from lc2is_tpu_torch.core.mesh import uniform
 from lc2is_tpu_torch.nn.layers import LayerNorm, Linear, _param, s2d_matmul
 from lc2is_tpu_torch.ops.fused_mlp import fused_mlp
 from lc2is_tpu_torch.ops.quant import fused_mlp_q
@@ -181,9 +182,10 @@ class _Dense(nn.Module):
 
 def drop_path(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
     """Per-sample stochastic depth (``swin.py:256-261``): each image's branch
-    is kept with probability 1 - rate, and scaled by 1 / (1 - rate)."""
+    is kept with probability 1 - rate, and scaled by 1 / (1 - rate).  A
+    :class:`~lc2is_tpu_torch.core.mesh.RowDraws` draws for the global batch."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
+    mask = uniform((x.shape[0],), generator, x.device) < keep
     mask = mask.reshape((-1,) + (1,) * (x.dim() - 1))
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from lc2is_tpu_torch.core.mesh import uniform
 from lc2is_tpu_torch.ops.dispatch import use_kernel
 from lc2is_tpu_torch.ops.flash_attention import flash_attention
 
@@ -34,12 +35,15 @@ FLASH_MIN_LOGITS = 1 << 20  # the gate of lc2is_tpu/ops/attention.py:51
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout (``lc2is_tpu/nn/layers.py:156-164``): each element kept
     with probability 1 − rate and scaled by 1 / (1 − rate), else 0; the mask
-    drawn from ``generator`` (never from a global state).  Identity at rate 0."""
+    drawn from ``generator`` (never from a global state; a
+    :class:`~lc2is_tpu_torch.core.mesh.RowDraws` under a data-parallel step
+    draws the global batch's mask and keeps this rank's rows).  Identity at
+    rate 0."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs a torch.Generator for its masks")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = uniform(x.shape, generator, x.device) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

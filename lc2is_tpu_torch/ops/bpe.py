@@ -11,8 +11,9 @@ ids:
   so that two words never share an id.  The ids are not CLIP's, the shapes
   and SOT/EOT placement are.
 
-``tokenize_batch_padded`` (the HF tokenizer path of the evaluation CLI) is
-not on the ported path and is not ported yet.
+``tokenize_batch_padded`` is the HF tokenizer's path (pad to the longest,
+an attention mask), which ``data/collators.py`` takes for the reference's
+text collators.
 """
 
 from __future__ import annotations

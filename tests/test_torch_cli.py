@@ -10,8 +10,8 @@ with the JAX CLI's argv and ``--device cpu``:
   them, through the port's evaluate module for ``base_with_text`` with a
   JAX-written reference ``.pt``: finite label, GT and dataset mIoU;
 - the parser's dests and defaults equal the JAX CLI's but ``--device``
-  (``cuda``; without a card the CLI raises), and ``--dp`` / ``--tp`` beyond
-  one device raise.
+  (``cuda``; without a card the CLI raises); ``--tp`` beyond 1 and ``--dp 0``
+  raise, ``--dp 2`` parses.
 
 ``tests/test_torch_cli_vs_jax.py`` holds the evaluate CLI to the JAX
 package's on one argv.
@@ -132,8 +132,16 @@ def test_parser_matches_the_jax_cli():
 
 @pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "0"]])
 def test_more_than_one_device_raises(flags):
-    with pytest.raises(ValueError, match=r"ROADMAP.md §1 item 6"):
-        parse_args(["--name", "x"] + flags)
+    """``--tp 2`` and ``--dp 0`` raise; ``--dp 2`` parses, the batch the
+    global one (``tests/test_torch_dp.py`` trains with it)."""
+    argv = ["--name", "x", "--batch_size", "8"] + flags
+    if flags == ["--dp", "2"]:
+        args = parse_args(argv)
+        assert (args.dp, args.tp, args.batch_size) == (2, 1, 8)
+        return
+    with pytest.raises(ValueError, match=r"--tp 2: tensor parallelism is not ported \(ROADMAP"
+                                         r".md §1, 'Tensor parallelism'\)|--dp 0: the data axis"):
+        parse_args(argv)
 
 
 def test_default_device_is_the_card(tmp_path):
