@@ -277,6 +277,22 @@ Phases, in order; any failure raises and the script exits non-zero:
        --resume to step 6, every rank's model and optimizer state equal to
        step-4.pth bit for bit as it starts; on one GPU it prints that it was
        not run.
+17. The model axis (parallel/sharding.py; the optimizer holds each sharded
+    weight's shard and its AdamW moments, the module the whole weight
+    gathered after each step):
+   (a) two ranks on cuda:0 over gloo as the mesh (data 1, model 2): phase
+       6b's bf16 flagship step (global batch 8, drop path 0.1) for 3 steps
+       against the one-process step on the same card: step 1's losses equal
+       bit for bit, its gradients within 1e-3 norm-relative, every loss
+       within 1e-4 relative, the ranks' parameters equal bit for bit, each
+       rank's AdamW moment elements exactly the spec's share, 6b's launches
+       on each rank at every step; the census, each rank's step time (the two
+       ranks share the card) and max_memory_allocated printed;
+   (b) on four GPUs or more, NCCL (2, 2) against one card's step under the
+       same rules (step 1's losses' equality printed, not gated: the four
+       ranks' mean adds in another order);
+   (c) on two GPUs or more, cli.train --dp -1 --tp 2 then --resume, as
+       16c; (b) and (c) print that they were not run on one GPU.
 
 Then a JSON line of the kernels (launches over one run of the path that
 uses each: the served-mask forward, the int8 forward, the training step, the
@@ -4043,26 +4059,30 @@ def ranks_equal(mesh, model):
     return all(torch.equal(parts[0], p) for p in parts[1:])
 
 
-def dp_bf16_stepper(mesh, state):
-    """(model, step) of 16a: the bf16 flagship at the global batch TRAIN_BATCH
-    of 6b's inputs (drop path 0.1, the generator seeded SEED), each step
-    through ``train_step`` on this rank's rows of ``mesh`` (None: no mesh)."""
+def bf16_stepper(mesh, state, device):
+    """(model, optimizer, step) of phases 16a and 17: 6b's bf16 flagship at
+    the global batch TRAIN_BATCH (drop path 0.1, the generator seeded SEED)
+    on ``device``, each step through ``train_step`` on this rank's rows of
+    ``mesh``, the optimizer holding this rank's shards on a model axis
+    (``mesh`` None: one process)."""
     from lc2is_tpu_torch.core.mesh import batch_rows, take_rows
     from lc2is_tpu_torch.engine.engine import train_step
+    from lc2is_tpu_torch.engine.optim import make_optimizer
 
-    dev = "cuda" if mesh is None else mesh.device
-    model, opt = train_models(state, dtype=torch.bfloat16, device=dev)
+    model = model_from(state, return_score_map=True, dtype=torch.bfloat16, device=device)
+    opt = make_optimizer(model, lr=TRAIN_LR, frozen_prefixes=frozen_prefixes("PromptAuxCrossA"),
+                         mesh=mesh)
     x = rand(np.random.RandomState(SEED + 30), TRAIN_BATCH, 3, IMG, IMG, dtype=torch.bfloat16,
-             device=dev)
-    y = seeded_labels(SEED + 31, TRAIN_BATCH, IMG, IMG, device=dev)
+             device=device)
+    y = seeded_labels(SEED + 31, TRAIN_BATCH, IMG, IMG, device=device)
     rows = None if mesh is None else batch_rows(mesh, TRAIN_BATCH)
     if rows is not None:
         x, y = take_rows((x, y), rows)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
 
     def step():
         return train_step(model, opt, {"pixel_values": x}, y, generator=gen, mesh=mesh, rows=rows)
-    return model, step
+    return model, opt, step
 
 
 def recorded_steps(step, n):
@@ -4088,7 +4108,7 @@ def timed_step(step):
 def dp_nccl_rank(mesh, state):
     """16a on one rank of a mesh of several GPUs."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    model, step = dp_bf16_stepper(mesh, state)
+    model, _, step = bf16_stepper(mesh, state, mesh.device)
     losses, counts = recorded_steps(step, DP_STEPS)
     equal = ranks_equal(mesh, model)
     times = [timed_step(step) for _ in range(DP_TIMED_STEPS)]
@@ -4111,9 +4131,9 @@ def check_dp_nccl(smi, state, expected):
     n = min(torch.cuda.device_count(), DP_MAX_GPUS)
     devices = [torch.device("cuda", i) for i in range(n)]
     if n == 1:  # one process: the mesh path and the plain one (twice), in turns
-        m_model, m_step = dp_bf16_stepper(make_mesh(devices=devices), state)
-        p_model, p_step = dp_bf16_stepper(None, state)
-        q_model, q_step = dp_bf16_stepper(None, state)
+        m_model, _, m_step = bf16_stepper(make_mesh(devices=devices), state, devices[0])
+        p_model, _, p_step = bf16_stepper(None, state, devices[0])
+        q_model, _, q_step = bf16_stepper(None, state, devices[0])
         losses, counts = recorded_steps(m_step, 1)
         p_losses, _ = recorded_steps(p_step, 1)
         grad_rel = max(((a.grad - b.grad).norm() / b.grad.norm().clamp_min(1e-30)).item()
@@ -4146,7 +4166,7 @@ def check_dp_nccl(smi, state, expected):
         ranks = spawn(dp_nccl_rank, (state,), data=n, devices=devices, timeout=DP_TIMEOUT)
         losses, counts, m_times = ranks[0]["losses"], ranks[0]["counts"], ranks[0]["times"]
         equal = all(r["equal"] for r in ranks)
-        p_model, p_step = dp_bf16_stepper(None, state)
+        p_model, _, p_step = bf16_stepper(None, state, devices[0])
         p_losses, _ = recorded_steps(p_step, DP_STEPS)
         p_times = [timed_step(p_step) for _ in range(DP_TIMED_STEPS)]
         del p_model, p_step
@@ -4350,9 +4370,10 @@ def dp_resumed_rank(mesh, argv, checkpoint):
     return seen
 
 
-def check_dp_cli(smi):
-    """16c: cli.train --dp -1 on every visible GPU (two at least), then
-    --resume; the state bit for bit on every rank as the resumed run starts."""
+def check_dp_cli(smi, tp=1):
+    """16c (17c with ``tp`` 2): cli.train --dp -1 --tp ``tp`` on every
+    visible GPU (two at least, a multiple of ``tp``), then --resume; the
+    state bit for bit on every rank as the resumed run starts."""
     import shutil
     import tempfile
 
@@ -4360,22 +4381,25 @@ def check_dp_cli(smi):
     from lc2is_tpu_torch.core.mesh import spawn
 
     n = torch.cuda.device_count()
-    if n < 2:
-        print("[dp] (c) cli.train --dp -1 and --resume across GPUs: needs two GPUs, this host "
-              "has one: not run", flush=True)
+    tag, phase = ("[dp] (c)", "16c") if tp == 1 else ("[tp] (c)", "17c")
+    if n < 2 or n % tp:
+        print(f"{tag} cli.train --dp -1 --tp {tp} and --resume across GPUs: needs two GPUs (a "
+              f"multiple of {tp}), this host has {n}: not run", flush=True)
         return
     tmp = tempfile.mkdtemp(prefix="lc2is_dp_")
     try:
-        base = cli_args(tmp, "dp") + ["--dp", "-1", "--exact_steps", "--save_step", "2",
-                                      "--eval_step", str(DP_CLI_STEPS), "--log_step", "1"]
+        base = cli_args(tmp, "dp") + ["--dp", "-1", "--tp", str(tp), "--exact_steps",
+                                      "--save_step", "2", "--eval_step", str(DP_CLI_STEPS),
+                                      "--log_step", "1"]
         t0 = time.time()
         metrics = train_cli.main(base + ["--max_steps", str(DP_CLI_STEPS)])
         t1 = time.time()
         ckpt = os.path.join(tmp, "dp", "checkpoints", f"step-{DP_CLI_STEPS}.pth")
         seen = spawn(dp_resumed_rank, (base + ["--max_steps", str(DP_CLI_RESUMED_STEPS),
                                                "--resume"], ckpt),
-                     devices=[torch.device("cuda", i) for i in range(n)], timeout=DP_TIMEOUT)
-        print(f"[dp] (c) cli.train --dp -1 on {n} GPUs, global batch {TRAIN_BATCH}: "
+                     model=tp, devices=[torch.device("cuda", i) for i in range(n)],
+                     timeout=DP_TIMEOUT)
+        print(f"{tag} cli.train --dp -1 --tp {tp} on {n} GPUs, global batch {TRAIN_BATCH}: "
               f"{DP_CLI_STEPS} steps in {t1 - t0:.1f} s, metrics "
               f"{ {k: round(v, 5) for k, v in metrics.items() if isinstance(v, float)} }; "
               f"--resume to step {DP_CLI_RESUMED_STEPS} in {time.time() - t1:.1f} s: per rank "
@@ -4383,7 +4407,7 @@ def check_dp_cli(smi):
         want = dict(start=DP_CLI_STEPS, model=True, optimizer=True, end=DP_CLI_RESUMED_STEPS)
         if any(s != want for s in seen) or not all(np.isfinite(
                 [v for v in metrics.values() if isinstance(v, float)])):
-            raise AssertionError(f"16c: resumed state {seen} / metrics {metrics}")
+            raise AssertionError(f"{phase}: resumed state {seen} / metrics {metrics}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4400,6 +4424,224 @@ def check_data_parallel(smi, state, train_counts):
     print(f"[dp] seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {time.time() - t2:.1f}",
           flush=True)
     return a
+
+
+# phase 17: the model axis (lc2is_tpu_torch/parallel/sharding.py, the sharded
+# AdamW state of engine/optim.py) on the card: (a) two gloo ranks on cuda:0 as
+# the mesh (data 1, model 2): 6b's bf16 flagship step against one process,
+# and each sharded AdamW step against the same step replayed whole;
+# (b) NCCL (2, 2) on four GPUs against one card's step; (c) cli.train
+# --dp -1 --tp 2 and --resume where two GPUs are visible
+TP = 2
+TP_STEPS, TP_TIMED_STEPS = 3, 4
+TP_GLOO_DEVICES = ("cuda:0", "cuda:0")
+TP_NCCL_GPUS = 4
+# ‖mesh − one process‖ / ‖one process − start‖ over the trainable weights,
+# at every step: a bf16 weight whose update lies at a rounding midpoint
+# moves a whole ulp on one side of f32-atomic noise (two plain runs part so),
+# while a skipped gather leaves the sharded weights where they started
+# (0.86 for the tiny flagship on the CPU)
+TP_UPDATE_REL = 0.1
+
+
+def moment_elements(opt, m):
+    """(AdamW moment elements this rank holds, the spec's share of them,
+    what one device holds), over the parameters that have moments."""
+    state = opt.adamw.state_dict()["state"]
+    held = share = whole = 0
+    for i, (name, p) in enumerate(zip(opt.names, opt.params)):
+        if i in state:
+            held += state[i]["exp_avg"].numel() + state[i]["exp_avg_sq"].numel()
+            share += 2 * (p.numel() // m if name in opt.specs else p.numel())
+            whole += 2 * p.numel()
+    return held, share, whole
+
+
+def replayed_step(model, opt, ref, ref_opt):
+    """The mesh's last AdamW step replayed in one process: ``ref`` holds the
+    mesh's weights and ``ref_opt`` its whole moments from before the step;
+    ``ref_opt`` steps them on the mesh's whole reduced gradients.  Returns
+    (max |Δ| of the mesh's weights from the replay, the max |Δ| a skipped
+    gather would leave: the sharded weights where they were before the
+    step)."""
+    rp = dict(ref.named_parameters())
+    stale = {n: rp[n].detach().clone() for n in opt.specs}
+    for name, p in zip(opt.names, opt.params):
+        rp[name].grad = None if p.grad is None else p.grad.clone()
+    ref_opt.step()
+    gap = max((p.detach() - rp[n].detach()).abs().max().item()
+              for n, p in zip(opt.names, opt.params))
+    skipped = max((t - rp[n].detach()).abs().max().item() for n, t in stale.items())
+    return gap, skipped
+
+
+def update_gap(model, ref, start):
+    """‖model − ref‖ / ‖ref − start‖ over the parameters named in ``start``:
+    how far ``model``'s weights lie from ``ref``'s, against how far
+    ``ref``'s travelled from ``start``."""
+    mp, rp = dict(model.named_parameters()), dict(ref.named_parameters())
+    num = sum((mp[n].detach().float() - rp[n].detach().float()).square().sum() for n in start)
+    den = sum((rp[n].detach().float() - t.float()).square().sum() for n, t in start.items())
+    return (num / den).sqrt().item()
+
+
+def tp_rank(mesh, state):
+    """17a / 17b on one rank: TP_STEPS steps of the flagship on the mesh.
+    Rank 0 also runs the one-process step twice (the second run the
+    distance of two plain runs), compares step 1's losses, gradients and
+    parameters and every step's losses and parameters, and replays each
+    of the mesh's AdamW steps in one process on the mesh's gradients
+    (:func:`replayed_step`; the moments gathered whole, which every rank
+    takes part in).  Returns the losses, launch counts, the ranks'
+    parameters equal, the moments, the census, the step times and the peak
+    memory."""
+    from lc2is_tpu_torch.core.mesh import barrier
+    from lc2is_tpu_torch.engine.optim import make_optimizer
+    from lc2is_tpu_torch.parallel.sharding import spec_census
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, main = mesh.device, mesh.is_main
+    frozen = frozen_prefixes("PromptAuxCrossA")
+    torch.cuda.reset_peak_memory_stats(dev)
+    model, opt, step = bf16_stepper(mesh, state, dev)
+    out = dict(params=[], replay=[])
+    if main:  # the one-process steps first, so their gradients stand beside step 1's
+        p_model, _, p_step = bf16_stepper(None, state, dev)
+        q_model, _, q_step = bf16_stepper(None, state, dev)
+        start = {n: p.detach().clone() for n, p in p_model.named_parameters()
+                 if p.requires_grad}
+        p_losses, _ = recorded_steps(p_step, 1)
+        recorded_steps(q_step, 1)
+        ref = model_from(state, return_score_map=True, dtype=torch.bfloat16, device=dev)
+        ref_opt = make_optimizer(ref, lr=TRAIN_LR, frozen_prefixes=frozen)
+    losses, counts = [], []
+    for i in range(TP_STEPS):
+        whole = opt.state_dict()
+        if main:  # a copy: the replicated moments in ``whole`` are the mesh's own
+            ref.load_state_dict(model.state_dict())
+            ref_opt.load_state_dict(copy.deepcopy(whole))
+        del whole
+        got, got_counts = recorded_steps(step, 1)
+        losses, counts = losses + got, counts + got_counts
+        if i and main:
+            p_losses += recorded_steps(p_step, 1)[0]
+            recorded_steps(q_step, 1)
+        if main:
+            out["replay"].append(replayed_step(model, opt, ref, ref_opt))
+            worst, worst_name, gap = grad_errors(model, p_model, frozen)
+            out["params"].append((gap, grad_errors(q_model, p_model, frozen)[2],
+                                  update_gap(model, p_model, start),
+                                  update_gap(q_model, p_model, start)))
+            if i == 0:
+                out.update(grad_rel=worst, grad_name=worst_name)
+    if main:
+        out["p_losses"] = p_losses
+        del p_model, p_step, q_model, q_step, ref, ref_opt, start
+        gc.collect()
+        torch.cuda.empty_cache()
+    equal = ranks_equal(mesh, model)
+    times = []
+    for _ in range(TP_TIMED_STEPS):
+        barrier(mesh)
+        times.append(timed_step(step))
+    census = {k: len(v) for k, v in spec_census(model, mesh).items()}
+    out.update(losses=losses, counts=counts, equal=equal, times=times,
+               moments=moment_elements(opt, mesh.model), census=census,
+               sharded=len(opt.shards), peak=torch.cuda.max_memory_allocated(dev),
+               coords=(mesh.rank, mesh.data_index, mesh.model_index, str(dev)))
+    return out
+
+
+def check_tp(smi, ranks, label, expected, step_ms, same_rows):
+    """The gates of 17a / 17b on the ranks' results; raises where one
+    fails.  Returns rank 0's median step ms.  ``same_rows``: every rank
+    runs the whole batch (no data axis), so step 1's losses are the
+    one-process step's bit for bit and its gradients within STEP_GRAD_REL.
+    Where a data axis splits the batch, the gradients are printed only, as
+    16a prints its several-GPU steps: a bf16 step split over data ranks
+    parts from one card's in the relative-position-bias gradients with or
+    without a model axis (on H100s: 6.830e-03 on both (2, 1) and (2, 2),
+    1.352e-02 on (4, 1))."""
+    r0 = ranks[0]
+    losses, p_losses = r0["losses"], r0["p_losses"]
+    first = losses[0] == p_losses[0]
+    rel = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(losses, p_losses) for k in b)
+    census = r0["census"]
+    print(f"[tp] ({label}) census on model {TP}: {census} (column + row sharded "
+          f"{census['column'] + census['row']}; trainable sharded {r0['sharded']})", flush=True)
+    ms = statistics.median(r0["times"])
+    for r in ranks:
+        held, share, whole = r["moments"]
+        print(f"[tp] ({label}) rank {r['coords']}: AdamW moment elements {held} (the spec's share "
+              f"{share}, one device {whole}: {held / whole:.4f}); launches per step "
+              f"{r['counts']}; step, host clock, median of {TP_TIMED_STEPS} "
+              f"{statistics.median(r['times']):.2f} ms {[round(t, 2) for t in r['times']]}; "
+              f"max_memory_allocated {r['peak'] / 2 ** 30:.2f} GiB", flush=True)
+    print(f"[tp] ({label}) PromptAuxCrossA bf16, global batch {TRAIN_BATCH}, {IMG}², drop path "
+          f"0.1, {TP_STEPS} steps: losses on the mesh {losses}, one process {p_losses}; step 1's "
+          f"losses bit for bit: {first}; its gradients worst norm-relative "
+          f"{r0['grad_rel']:.3e} ({r0['grad_name']}; "
+          f"{f'bound {STEP_GRAD_REL}' if same_rows else 'the data axis splits the batch'}); "
+          f"every loss relative |Δ| {rel:.3e} (bound {STEP_LOSS_RTOL}); the ranks' parameters "
+          f"bit for bit: "
+          f"{all(r['equal'] for r in ranks)}; step median {ms:.2f} ms on the mesh (6b's "
+          f"{step_ms:.2f} ms) on {smi}", flush=True)
+    for i, ((gap, plain, rel_gap, rel_plain), (replay, skipped)) in enumerate(
+            zip(r0["params"], r0["replay"])):
+        print(f"[tp] ({label}) after step {i + 1}: parameters max |Δ| where |g| >= max(1e-3 "
+              f"max |g|, 1e-6), the mesh against one process {gap:.3e}, two plain runs "
+              f"{plain:.3e} (bound {STEP_PARAM_ATOL:.1e} after step 1); ‖Δ‖ over the "
+              f"trainable weights against ‖one process − start‖: the mesh {rel_gap:.3e}, "
+              f"two plain runs {rel_plain:.3e} (bound {TP_UPDATE_REL}); the mesh's sharded "
+              f"AdamW step and gather against that step replayed whole in one process on the "
+              f"mesh's gradients and moments: max |Δ| {replay:.3e} (bound 0), a gather skipped "
+              f"would leave {skipped:.3e}", flush=True)
+    bad = []
+    if same_rows and not first:
+        bad.append("step 1's losses")
+    if same_rows and r0["grad_rel"] > STEP_GRAD_REL or rel > STEP_LOSS_RTOL:
+        bad.append("gradients or losses")
+    if r0["params"][0][0] > STEP_PARAM_ATOL or any(
+            rel_gap > TP_UPDATE_REL for _, _, rel_gap, _ in r0["params"]):
+        bad.append("parameters against one process")
+    if any(replay != 0 or skipped == 0 for replay, skipped in r0["replay"]):
+        bad.append("the replayed AdamW step")
+    if not all(r["equal"] for r in ranks):
+        bad.append("ranks' parameters")
+    if any(r["moments"][0] != r["moments"][1] for r in ranks):
+        bad.append("moment shares")
+    if any(c != expected for r in ranks for c in r["counts"]):
+        bad.append("launches")
+    if not all(np.isfinite(v) for d in losses for v in d.values()):
+        bad.append("finite losses")
+    if bad:
+        raise AssertionError(f"17{label}: {bad}")
+    return ms
+
+
+def check_model_axis(smi, state, train_counts, step_ms):
+    """Phase 17 (a-c).  Returns 17a's median step ms on the mesh."""
+    from lc2is_tpu_torch.core.mesh import spawn
+
+    t0 = time.time()
+    ranks = spawn(tp_rank, (state,), data=1, model=TP, devices=TP_GLOO_DEVICES, backend="gloo",
+                  timeout=DP_TIMEOUT)
+    a_ms = check_tp(smi, ranks, "a", train_counts, step_ms, same_rows=True)
+    t1 = time.time()
+    n = torch.cuda.device_count()
+    if n >= TP_NCCL_GPUS:
+        devices = [torch.device("cuda", i) for i in range(TP_NCCL_GPUS)]
+        ranks = spawn(tp_rank, (state,), data=TP_NCCL_GPUS // TP, model=TP, devices=devices,
+                      timeout=DP_TIMEOUT)
+        check_tp(smi, ranks, "b", train_counts, step_ms, same_rows=False)
+    else:
+        print(f"[tp] (b) NCCL mesh ({TP_NCCL_GPUS // TP}, {TP}) against one card's step: needs "
+              f"{TP_NCCL_GPUS} GPUs, this host has {n}: not run", flush=True)
+    t2 = time.time()
+    check_dp_cli(smi, tp=TP)
+    print(f"[tp] seconds: (a) {t1 - t0:.1f}, (b) {t2 - t1:.1f}, (c) {time.time() - t2:.1f}",
+          flush=True)
+    return a_ms
 
 
 
@@ -4469,6 +4711,7 @@ def main() -> int:
     evals = phase("14", check_eval, smi, state, sweep_launches)
     phase("15", check_cli, smi, train_counts, step_ms)
     dp_world, dp_ms, dp_plain_ms = phase("16", check_data_parallel, smi, state, train_counts)
+    tp_ms = phase("17", check_model_axis, smi, state, train_counts, step_ms)
     print(f"[time] all phases: {time.time() - t0:.1f} s", flush=True)
 
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
@@ -4516,7 +4759,8 @@ def main() -> int:
           f"{SLIDE_IMAGES} {SLIDE_BASE}² images (ms, peak GiB) "
           f"{tuple(round(v, 2) for v in evals['sliding'])}; data-parallel bf16 "
           f"b{TRAIN_BATCH} step over NCCL on {dp_world} GPU(s) {dp_ms:.2f} ms (plain "
-          f"{dp_plain_ms:.2f} ms) on {smi}")
+          f"{dp_plain_ms:.2f} ms); model axis ({TP} gloo ranks on one GPU) bf16 b{TRAIN_BATCH} "
+          f"step {tp_ms:.2f} ms on {smi}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,12 +4,15 @@ flag for flag with the JAX CLI's defaults, and the dataset, loader, model and
 weight builders.
 
 ``--device`` names the device (``cuda``, the card, by default; ``cpu`` runs
-on the CPU).  ``--dp`` is the data axis of the mesh (``core/mesh.py``): -1
-every visible GPU, n the first n of them (more than are visible raises); on
-the CPU, n gloo processes (-1: one).  :func:`run` starts one process a
-device (one device: this process, no group), or, under ``torchrun``, joins
-its group.  ``--batch_size`` is the global batch, split over the ranks by
-rows.  ``--tp`` takes 1: tensor parallelism is not ported.
+on the CPU).  ``--dp`` and ``--tp`` are the data and model axes of the
+mesh (``core/mesh.py``), ``--dp`` × ``--tp`` devices: ``--dp`` -1 every
+visible GPU over ``--tp`` (which must divide them), n the first n × tp of
+them (more than are visible raises); on the CPU, n × tp gloo processes
+(``--dp`` -1: one a model rank).  :func:`run` starts one process a device
+(one device: this process, no group), or, under ``torchrun``, joins its
+group.  ``--batch_size`` is the global batch, split over the data axis by
+rows; the model axis holds the sharded weights' shards and AdamW moments
+(``parallel/sharding.py``, ``engine/optim.py``).
 """
 
 from __future__ import annotations
@@ -85,7 +88,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=-1,
                    help="data-parallel axis size (-1: all devices; on the CPU, processes)")
     p.add_argument("--tp", type=int, default=1,
-                   help="model-parallel axis size: 1 (tensor parallelism is not ported)")
+                   help="model-parallel axis size (the sharded weights and their AdamW "
+                        "moments split over it)")
     # Sliding-window multi-scale eval (BASELINE config #5)
     p.add_argument("--sliding", action="store_true", help="multi-scale sliding-window eval")
     p.add_argument("--scales", type=str, default="0.75,1.0,1.25")
@@ -100,12 +104,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The parsed argv; ``--dp`` below 1 but -1, or ``--tp`` other than 1,
+    """The parsed argv; ``--dp`` below 1 but -1, or ``--tp`` below 1,
     raises."""
     args = build_arg_parser().parse_args(argv)
-    if args.tp != 1:
-        raise ValueError(f"--tp {args.tp}: tensor parallelism is not ported (ROADMAP.md §1, "
-                         "'Tensor parallelism'); --tp takes 1")
+    if args.tp < 1:
+        raise ValueError(f"--tp {args.tp}: the model axis takes a size of at least 1")
     if args.dp < 1 and args.dp != -1:
         raise ValueError(f"--dp {args.dp}: the data axis takes -1 (every device) or a size "
                          "of at least 1")
@@ -113,19 +116,21 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def mesh_devices(args) -> list:
-    """The devices of ``args``' mesh: ``--dp`` of the visible GPUs (-1: all;
-    a ``--device`` with an index alone), or ``--dp`` CPU processes (-1:
-    one)."""
+    """The devices of ``args``' mesh: ``--dp`` × ``--tp`` of the visible GPUs
+    (``--dp`` -1: all; a ``--device`` with an index alone), or that many CPU
+    processes (``--dp`` -1: one a model rank)."""
     kind = torch.device(args.device).type
     if kind == "cpu":
-        return [torch.device("cpu")] * max(args.dp, 1)
+        return [torch.device("cpu")] * (max(args.dp, 1) * args.tp)
     zoo._model_device(args.device)  # raises without a card
-    if torch.device(args.device).index is not None and args.dp in (-1, 1):
+    if torch.device(args.device).index is not None and args.dp in (-1, 1) and args.tp == 1:
         return [torch.device(args.device)]  # the one device named
     devices = visible_devices()
-    if args.dp > len(devices):
-        raise ValueError(f"--dp {args.dp}: {len(devices)} visible GPUs")
-    return devices if args.dp == -1 else devices[:args.dp]
+    if args.dp == -1:
+        return devices
+    if args.dp * args.tp > len(devices):
+        raise ValueError(f"--dp {args.dp} --tp {args.tp}: {len(devices)} visible GPUs")
+    return devices[:args.dp * args.tp]
 
 
 def run(args, fn):

@@ -1,27 +1,35 @@
-"""The data axis of the mesh, counterpart of ``lc2is_tpu/core/mesh.py``.
+"""The (data, model) mesh, counterpart of ``lc2is_tpu/core/mesh.py``.
 
 The JAX package places each batch over the ``data`` axis of one
-``jax.sharding.Mesh`` and lets GSPMD insert the collectives.  Here the data
-axis is a ``torch.distributed`` process group with one process a device
-(NCCL on GPUs; gloo on the CPU, or where the caller names it): each process
-holds a whole copy of the model and runs its own rows of every global batch,
-and the training step all-reduces the gradients.  A mesh of one device builds
-no group, and everything below is then the single-device code.
+``jax.sharding.Mesh``, the weights over its ``model`` axis
+(``parallel/sharding.py``), and lets GSPMD insert the collectives.  Here the
+mesh is a ``torch.distributed`` process group with one process a device
+(NCCL on GPUs; gloo on the CPU, or where the caller names it).  Rank ``r``
+sits at ``(r // model, r % model)``, as JAX's ``reshape(data, model)`` of
+the device list: each rank has a data group (the ranks of its model index,
+over which the batch is split) and a model group (the ranks of its data
+index, which hold the same rows and split the weights).  Each rank runs its
+data index's rows of every global batch; the training step all-reduces the
+gradients over every rank; the ranks of a model group keep their shards of
+the sharded weights and gather the whole ones (``engine/optim.py``).  A mesh
+of one device builds no group, and everything below is then the
+single-device code.
 
 - :func:`make_mesh` sizes the mesh as JAX's does (``data · model`` equal to
-  the device count, ``data=-1`` every device); it joins the group this
+  the device count, ``data=-1`` the devices over ``model``); it joins the group this
   process is already in, or the one ``torchrun``'s ``RANK``, ``WORLD_SIZE``
   and ``LOCAL_RANK`` describe.  :func:`spawn` starts one process a device
   itself and runs a function on each one's mesh.
-- :func:`shard_batch` keeps this rank's contiguous rows of a global batch,
-  or the whole batch where its rows do not divide by the world size (JAX
-  replicates such a batch, ``lc2is_tpu/engine/engine.py:341-350``).
+- :func:`shard_batch` keeps this rank's contiguous rows of a global batch
+  (its data index's share), or the whole batch where its rows do not divide
+  by the data axis (JAX replicates such a batch,
+  ``lc2is_tpu/engine/engine.py:341-350``).
 - :class:`RowDraws` draws dropout and drop-path masks for the global batch
   and keeps this rank's rows, so a data-parallel step draws the masks of
   the one-process step, as JAX's single key does under its mesh.
-
-The model axis (``--tp``, ``lc2is_tpu/parallel/sharding.py``) is not ported:
-``model`` other than 1 raises.
+- The collectives take an ``axis``: None (every rank), :data:`DATA_AXIS`
+  (this rank's data group: the reductions of metrics, so a row is counted
+  once however many model ranks hold it) or :data:`MODEL_AXIS`.
 """
 
 from __future__ import annotations
@@ -57,17 +65,30 @@ ROWS_KEY = "batch_rows"
 @dataclass
 class Mesh:
     """One process's view of the (data, model) mesh: its sizes, this
-    process's rank and device, and the process group (None for one device)."""
+    process's rank and device, and the process groups (None for one device):
+    every rank; this rank's data group (the ranks of its model index) and
+    model group (the ranks of its data index), each None where its axis has
+    size 1."""
 
     data: int
     model: int
     rank: int
     device: torch.device
     group: Optional[Any] = None
+    data_group: Optional[Any] = None
+    model_group: Optional[Any] = None
 
     @property
     def size(self) -> int:
         return self.data * self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     @property
     def shape(self):
@@ -78,6 +99,12 @@ class Mesh:
     def is_main(self) -> bool:
         """Rank 0: the process that writes checkpoints and logs."""
         return self.rank == 0
+
+    @property
+    def is_data_main(self) -> bool:
+        """Data index 0: the rank of its data group that counts a batch every
+        rank of the group holds whole."""
+        return self.data_index == 0
 
 
 class Rows(NamedTuple):
@@ -104,15 +131,36 @@ def visible_devices() -> List[torch.device]:
 
 
 def _axis_sizes(data: int, model: int, n: int):
-    if model != 1:
-        raise NotImplementedError(
-            f"model axis {model}: tensor parallelism is not ported (ROADMAP.md §1, "
-            "'Tensor parallelism': parallel/sharding.py); use model=1 (--tp 1)")
+    """(data, model) of a mesh over ``n`` devices; ``data`` -1: ``n // model``."""
+    if model < 1 or n % model:
+        raise ValueError(f"model axis {model} does not divide {n} devices")
     if data == -1:
-        data = n
+        data = n // model
     if data < 1 or data * model != n:
         raise ValueError(f"mesh {data}x{model} != {n} devices")
     return data, model
+
+
+def _axis_groups(data: int, model: int):
+    """(data group, model group) of this rank, every rank building every
+    group in one order (``dist.new_group`` is collective): the whole world
+    for an axis that spans it, None for an axis of size 1."""
+    world = dist.group.WORLD
+    if model == 1:
+        return world, None
+    if data == 1:
+        return None, world
+    rank = dist.get_rank()
+    mine = [None, None]
+    for j in range(model):  # data groups: the ranks of model index j
+        g = dist.new_group([i * model + j for i in range(data)])
+        if rank % model == j:
+            mine[0] = g
+    for i in range(data):  # model groups: the ranks of data index i
+        g = dist.new_group([i * model + j for j in range(model)])
+        if rank // model == i:
+            mine[1] = g
+    return mine[0], mine[1]
 
 
 def _joined() -> bool:
@@ -147,19 +195,21 @@ def make_mesh(data: int = -1, model: int = 1, devices: Optional[Sequence] = None
     device = devs[int(os.environ.get("LOCAL_RANK", rank))]
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    return Mesh(data, model, rank, device, dist.group.WORLD)
+    return Mesh(data, model, rank, device, dist.group.WORLD, *_axis_groups(data, model))
 
 
 # --- batches --------------------------------------------------------------
 
 def batch_rows(mesh: Optional[Mesh], total: int) -> Rows:
-    """This rank's rows of a global batch of ``total``: a contiguous
-    ``total / world`` of them, or all where they do not divide."""
+    """This rank's rows of a global batch of ``total``: its data index's
+    contiguous ``total / data`` of them (the ranks of a model group hold the
+    same rows), or all where they do not divide."""
     n = 1 if mesh is None else mesh.data
     if n == 1 or total % n:
         return Rows(0, total, total)
     per = total // n
-    return Rows(mesh.rank * per, (mesh.rank + 1) * per, total)
+    i = mesh.data_index
+    return Rows(i * per, (i + 1) * per, total)
 
 
 def _is_rows_leaf(x) -> bool:
@@ -195,7 +245,7 @@ def take_rows(tree, rows: Rows):
 def shard_batch(mesh: Optional[Mesh], batch):
     """This rank's contiguous rows of the global ``batch`` (a dict, tuple or
     list tree of arrays, tensors and per-image lists), or the whole batch
-    where its leading dimension does not divide by the world size."""
+    where its leading dimension does not divide by the data axis."""
     total = _leading(batch)
     return batch if total is None else take_rows(batch, batch_rows(mesh, total))
 
@@ -236,22 +286,39 @@ def replicate(mesh: Optional[Mesh], module: torch.nn.Module) -> torch.nn.Module:
 
 # --- collectives (no-ops on a mesh of one device) ----------------------------
 
+def axis_group(mesh: Optional[Mesh], axis: Optional[str] = None):
+    """(process group, size) of this rank along ``axis``: None every rank,
+    ``DATA_AXIS`` its data group, ``MODEL_AXIS`` its model group."""
+    if mesh is None or mesh.group is None:
+        return None, 1
+    if axis is None:
+        return mesh.group, mesh.size
+    if axis == DATA_AXIS:
+        return mesh.data_group, mesh.data
+    if axis == MODEL_AXIS:
+        return mesh.model_group, mesh.model
+    raise ValueError(f"no mesh axis {axis!r}")
+
+
 def _group_size(mesh: Optional[Mesh]) -> int:
-    return 1 if mesh is None or mesh.group is None else mesh.size
+    return axis_group(mesh)[1]
 
 
-def all_reduce_sum(mesh: Optional[Mesh], t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks, in place."""
-    if _group_size(mesh) > 1:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
+def all_reduce_sum(mesh: Optional[Mesh], t: torch.Tensor,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """``t`` summed over the ranks along ``axis`` (None: every rank), in
+    place."""
+    group, n = axis_group(mesh, axis)
+    if n > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
 def all_reduce_mean_(mesh: Optional[Mesh], tensors: Sequence[torch.Tensor],
                      bucket_elements: int = BUCKET_ELEMENTS) -> None:
-    """Each tensor replaced by its mean over the ranks, through flattened f32
-    buffers of at most ``bucket_elements`` (a tensor larger than that its own
-    buffer)."""
+    """Each tensor replaced by its mean over every rank, through flattened
+    f32 buffers of at most ``bucket_elements`` (a tensor larger than that its
+    own buffer)."""
     n = _group_size(mesh)
     if n == 1 or not tensors:
         return
@@ -277,24 +344,25 @@ def any_rank(mesh: Optional[Mesh], flag: bool) -> bool:
     return bool(t.item())
 
 
-def all_gather_rows(mesh: Optional[Mesh], t: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``t`` (each of the same shape) concatenated along dim 0
-    in rank order."""
-    n = _group_size(mesh)
+def all_gather_rows(mesh: Optional[Mesh], t: torch.Tensor,
+                    axis: Optional[str] = None) -> torch.Tensor:
+    """Every rank's ``t`` along ``axis`` (each of the same shape)
+    concatenated along dim 0 in rank order."""
+    group, n = axis_group(mesh, axis)
     if n == 1:
         return t
     parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t.contiguous(), group=mesh.group)
+    dist.all_gather(parts, t.contiguous(), group=group)
     return torch.cat(parts)
 
 
-def all_gather_objects(mesh: Optional[Mesh], obj) -> list:
-    """Every rank's picklable ``obj``, in rank order."""
-    n = _group_size(mesh)
+def all_gather_objects(mesh: Optional[Mesh], obj, axis: Optional[str] = None) -> list:
+    """Every rank's picklable ``obj`` along ``axis``, in rank order."""
+    group, n = axis_group(mesh, axis)
     if n == 1:
         return [obj]
     out = [None] * n
-    dist.all_gather_object(out, obj, group=mesh.group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 

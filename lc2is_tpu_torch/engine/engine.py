@@ -23,9 +23,11 @@ engine does.
 :class:`Engine` is the JAX ``Engine`` (:55-550) around them: the same
 constructor, step count, hook cadences, logging, checkpoints and resume, and
 checkpoint-and-stop on SIGTERM and SIGUSR1, on one device (the card unless
-the caller names another) or data-parallel over a ``core/mesh.py`` mesh:
-each rank runs its rows of every global batch, the step all-reduces the mean
-of the gradients, and the metrics are reduced over the ranks.
+the caller names another) or over a ``core/mesh.py`` (data, model) mesh:
+each rank runs its data index's rows of every global batch, the step
+all-reduces the mean of the gradients over every rank, the optimizer keeps
+the model axis's shards of the sharded weights (``engine/optim.py``), and
+the metrics are reduced over the data axis.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from lc2is_tpu_torch.core.mesh import (Mesh, RowDraws, Rows, all_gather_objects,
+from lc2is_tpu_torch.core.mesh import (DATA_AXIS, Mesh, RowDraws, Rows, all_gather_objects,
                                        all_gather_rows, all_reduce_mean_, all_reduce_sum,
                                        any_rank, barrier, broadcast_object, replicate,
                                        tag_rows, unpack_batch)
@@ -91,19 +93,24 @@ def train_step(model: nn.Module, optimizer: Optimizer, inputs: Dict[str, torch.T
     ``train_grad_norm``, the global norm of the trainable gradients before
     the optimizer clips them (``engine.py:305-308``).
 
-    Data-parallel (``mesh``, with ``rows`` this rank's rows of the global
-    batch, split over the ranks): the masks are drawn for the global batch
+    On a mesh of more than one rank (``mesh``, with ``rows`` this rank's rows
+    of the global batch): where the rows are split over the data axis the
+    masks are drawn for the global batch
     (:class:`~lc2is_tpu_torch.core.mesh.RowDraws`; every rank seeds
-    ``generator`` alike), the trainable gradients are replaced by their mean
-    over the ranks before the norm and the optimizer's clip and step, and the
-    losses returned are the ranks' mean.  The default losses are means over
-    equal shards, so the mean of the ranks' means is the global batch's mean
-    and the step is the one-process step on the global batch; a ``criterion``
-    that is no per-sample mean is the caller's business.  Where every rank
-    holds the whole batch (``rows`` not split) the step is the one-process
-    step, with no collective."""
+    ``generator`` alike); the trainable gradients are replaced by their mean
+    over every rank before the norm and the optimizer's clip and step, and
+    the losses returned are the ranks' mean.  The default losses are means
+    over equal shards, so the mean of the ranks' means is the global batch's
+    mean and the step is the one-process step on the global batch; a
+    ``criterion`` that is no per-sample mean is the caller's business.  The
+    ranks of a model group (and every rank, where the rows are not split)
+    ran the same rows: their mean is their gradient, and every rank steps
+    its replicated parameters on the same reduced gradient, never on its own
+    (on the card the backwards' f32 atomics make two ranks' gradients part
+    in the last bits)."""
     model.train()
     split = mesh is not None and rows is not None and rows.split
+    reduce = mesh is not None and mesh.group is not None
     draws = RowDraws(generator, rows) if split and generator is not None else generator
     out = _normalize_output(model(inputs, generator=draws))
     if criterion is None and aux_criterion is None \
@@ -119,7 +126,7 @@ def train_step(model: nn.Module, optimizer: Optimizer, inputs: Dict[str, torch.T
                 out["low_score_map"], labels) * aux_weight
     optimizer.zero_grad()
     sum(losses.values()).backward()
-    if split:
+    if reduce:
         all_reduce_mean_(mesh, [p.grad for p in optimizer.params if p.grad is not None])
         reduced = torch.stack([v.detach().float() for v in losses.values()])
         all_reduce_mean_(mesh, [reduced])
@@ -179,10 +186,11 @@ def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
     Under a ``mesh`` each rank evaluates its rows of every batch (a batch a
     sharded loader gives, or its own cut of a global one); the per-image mIoU
     sum, the image count, each loss times this rank's share of its batch's
-    rows and the int64 confusion counts are summed over the ranks (a batch
-    every rank holds whole counts on rank 0 only), and the kept outputs are
-    gathered to rank 0 in the batches' order, where ``compute_metrics`` runs;
-    every rank returns the same metrics."""
+    rows and the int64 confusion counts are summed over the data axis (the
+    ranks of a model group hold the same rows: each row counts once; a batch
+    every rank holds whole counts on data index 0 only), and the kept outputs
+    are gathered over the data axis to rank 0 in the batches' order, where
+    ``compute_metrics`` runs; every rank returns the same metrics."""
     device = model_device(model)
     # per-image mIoU sum, images; each loss summed over the batches
     sums: Dict[str, float] = dict(miou=0.0, images=0.0)
@@ -190,6 +198,7 @@ def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
     cm_total = torch.zeros((num_classes, num_classes), dtype=torch.int64, device=device)
     all_outputs, all_labels, gt_list, sizes = [], [], [], []
     main = mesh is None or mesh.is_main
+    data_main = mesh is None or mesh.is_data_main
     for data in batches:
         inputs, metas, rows = unpack_batch(mesh, data)
         labels = on_device(inputs.pop("label"), device)
@@ -197,7 +206,7 @@ def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
         losses, miou, cm, logits = eval_step(model, inputs, labels, aux_weight, num_classes)
         n_batches += 1
         b = int(labels.shape[0])
-        counted = rows.split or main  # a batch every rank holds counts once
+        counted = rows.split or data_main  # a batch every rank holds counts once
         if counted:
             sums["miou"] += float(miou) * b
             sums["images"] += b
@@ -206,8 +215,9 @@ def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
             sums[k] = sums.get(k, 0.0) + (float(v) * b / rows.total if counted else 0.0)
         if keep_eval_outputs:
             if rows.split:
-                logits, labels = all_gather_rows(mesh, logits), all_gather_rows(mesh, labels)
-                parts = all_gather_objects(mesh, metas)
+                logits = all_gather_rows(mesh, logits, DATA_AXIS)
+                labels = all_gather_rows(mesh, labels, DATA_AXIS)
+                parts = all_gather_objects(mesh, metas, DATA_AXIS)
                 metas = ([m for part in parts for m in part]
                          if all(isinstance(part, list) for part in parts) else None)
             if not main:
@@ -222,7 +232,7 @@ def evaluate(model: nn.Module, batches: Iterable, aux_weight: float = 0.4,
     keys = list(sums)
     if mesh is not None and mesh.group is not None:
         total = all_reduce_sum(mesh, torch.tensor([sums[k] for k in keys], dtype=torch.float64,
-                                                  device=device))
+                                                  device=device), DATA_AXIS)
         sums = dict(zip(keys, total.tolist()))
         psum_confusion(cm_total, mesh)
     eval_metrics = {k: v / max(n_batches, 1) for k, v in sums.items()
@@ -270,16 +280,21 @@ class Engine:
       :meth:`train` checkpoint and stop at the next step boundary.
 
     Under a mesh of more than one rank every process builds the same Engine:
-    the parameters are broadcast from rank 0; each rank steps on its rows of
-    every global batch (a loader built with the mesh loads only those,
-    another one's global batches are cut here), with :func:`train_step`'s
-    all-reduced gradients; logged losses and ``train_grad_norm`` are the
-    global ones, and ``train_images`` and the img/s count global images.
-    Rank 0 alone writes the logs and checkpoints (the others wait for each);
-    every rank resumes from the same file; a preemption signal on any rank
-    stops every rank after the same step.  A model that mixes images across
-    its batch (``mixes_batch``) computes something else on a split batch, and
-    raises here.
+    the parameters are broadcast from rank 0; each rank steps on its data
+    index's rows of every global batch (a loader built with the mesh loads
+    only those, another one's global batches are cut here), with
+    :func:`train_step`'s all-reduced gradients; on a model axis the optimizer
+    made here holds the sharded weights' shards and AdamW moments
+    (``engine/optim.py``; a given ``optimizer`` is used as it is), and the
+    module holds the whole weights gathered after each step.  Logged losses
+    and ``train_grad_norm`` are the global ones, and ``train_images`` and the
+    img/s count global images.  Rank 0 alone writes the logs and checkpoints
+    (whole parameters and whole moments, the files one device writes; the
+    others wait for each); every rank resumes from the same file, whatever
+    the mesh that wrote it; a preemption signal on any rank stops every rank
+    after the same step.  A model that mixes images across its batch
+    (``mixes_batch``) computes something else on a batch split over the data
+    axis, and raises there.
     """
 
     def __init__(
@@ -320,7 +335,7 @@ class Engine:
     ) -> None:
         self.name = name
         self.mesh = mesh if mesh is not None and mesh.group is not None else None
-        if self.mesh is not None and getattr(model, "mixes_batch", False):
+        if self.mesh is not None and self.mesh.data > 1 and getattr(model, "mixes_batch", False):
             raise ValueError(f"{type(model).__name__} mixes the images of a batch: it has no "
                              "data-parallel form")
         self.main = self.mesh is None or self.mesh.is_main
@@ -360,7 +375,7 @@ class Engine:
         replicate(self.mesh, self.model)
         self.optimizer = optimizer if optimizer is not None else make_optimizer(
             self.model, lr=lr, weight_decay=weight_decay, schedule=lr_scheduler or "constant",
-            total_steps=max(self.train_steps, 1), frozen_prefixes=frozen_prefixes)
+            total_steps=max(self.train_steps, 1), frozen_prefixes=frozen_prefixes, mesh=self.mesh)
 
         self.train_step_count = 0
         self.eval_metrics: Dict = {}
@@ -532,12 +547,13 @@ class Engine:
 
     def save(self) -> str:
         """The model and optimizer state at this step, natively (rank 0
-        writes, the other ranks wait for it); returns the checkpoint
-        directory."""
+        writes whole parameters and moments, the other ranks wait for it);
+        returns the checkpoint directory."""
         checkpoints_dir = os.path.join(self.out_dir, "checkpoints")
+        optimizer = self.optimizer.state_dict()  # gathers sharded moments: every rank calls
         if self.main:
             ckpt.save_checkpoint(checkpoints_dir, dict(model=self.model.state_dict(),
-                                                       optimizer=self.optimizer.state_dict(),
+                                                       optimizer=optimizer,
                                                        step=self.train_step_count),
                                  self.train_step_count)
         barrier(self.mesh)
@@ -553,8 +569,9 @@ class Engine:
 
     def resume(self, fname: Optional[str] = None) -> int:
         """Model, optimizer and step from the latest (or the given) native
-        checkpoint; returns the step (0 where there is none).  The train
-        loader goes on from that step's epoch and batch."""
+        checkpoint, written on a mesh of any shape; returns the step (0 where
+        there is none).  The train loader goes on from that step's epoch and
+        batch."""
         fname = fname or ckpt.latest_checkpoint(os.path.join(self.out_dir, "checkpoints"))
         if fname is None:
             return 0

@@ -10,6 +10,23 @@ of the optimizer and get ``requires_grad_(False)``, so autograd computes no
 gradient for them while still carrying gradients THROUGH them (the prompt
 contexts learn through the frozen text tower, as ``stop_gradient`` on the
 frozen leaves lets them in JAX).
+
+On a mesh with a model axis (``core/mesh.py``, ``--tp``) the optimizer steps
+each trainable parameter that ``parallel/sharding.py::infer_param_specs``
+shards on this rank's shard only, with AdamW moments of the shard's shape
+(JAX's ``infer_opt_specs``): the step cuts the shard from the module's
+weight and from the whole gradient (already reduced over the ranks, and
+clipped by the global norm of the whole gradients), steps AdamW on the
+shard, and all-gathers the shards over the model group into the module's
+whole weight, which the next forward and any evaluation read, as GSPMD
+gathers a weight for a ``pallas_call``.  The module is the only copy of
+the weights: what is written to it between steps (a load, an
+initialisation) is what the next step updates.  Frozen parameters (the
+text towers, the token embedding among them) have no moments and never
+change, so they stay whole on every rank.
+:meth:`Optimizer.state_dict` gathers whole moments and
+:meth:`Optimizer.load_state_dict` re-slices them, so a checkpoint does not
+depend on the mesh.
 """
 
 from __future__ import annotations
@@ -19,6 +36,10 @@ from typing import Callable, Dict, Optional, Sequence
 
 import torch
 from torch import nn
+
+from lc2is_tpu_torch.core.mesh import Mesh
+from lc2is_tpu_torch.parallel.sharding import (REPLICATED, gather, infer_opt_specs,
+                                               infer_param_specs, shard)
 
 
 def frozen_mask(model: nn.Module, frozen_prefixes: Sequence[str]) -> Dict[str, bool]:
@@ -54,28 +75,74 @@ def make_schedule(kind: str, lr: float, total_steps: int, warmup: int = 0
 
 class Optimizer:
     """AdamW over the trainable parameters with a schedule and an optional
-    global-norm clip: ``zero_grad()``, then ``step()`` after the backward."""
+    global-norm clip: ``zero_grad()``, then ``step()`` after the backward.
+
+    ``params`` are the module's parameters (whole: their gradients are what
+    the step reduces, measures and clips), ``names`` their names in the
+    module.  With a ``mesh`` whose model axis is larger than 1, AdamW steps
+    this rank's shard of each parameter that ``infer_param_specs`` shards,
+    and the step gathers the whole parameter back (module docstring)."""
 
     def __init__(self, params: Sequence[nn.Parameter], schedule: Callable[[int], float],
-                 weight_decay: float = 0.0, grad_clip: Optional[float] = None):
+                 weight_decay: float = 0.0, grad_clip: Optional[float] = None,
+                 names: Optional[Sequence[str]] = None, mesh: Optional[Mesh] = None):
         self.params = list(params)
+        self.names = list(names) if names is not None else [str(i) for i in
+                                                             range(len(self.params))]
         self.schedule, self.grad_clip = schedule, grad_clip
         self.count = 0
-        self.adamw = torch.optim.AdamW(self.params, lr=schedule(0), betas=(0.9, 0.999),
+        sharded = mesh is not None and mesh.model > 1 and mesh.group is not None
+        self.mesh = mesh if sharded else None
+        specs = infer_param_specs(dict(zip(self.names, self.params)), mesh) if sharded else {}
+        self.specs = {n: s for n, s in specs.items() if s != REPLICATED}
+        # (the module's whole parameter, this rank's shard of it, its spec)
+        self.shards = []
+        stepped = []
+        for name, p in zip(self.names, self.params):
+            if name in self.specs:
+                s = shard(p.detach(), self.specs[name], mesh.model_index, mesh.model)
+                self.shards.append((p, s, self.specs[name]))
+                stepped.append(s)
+            else:
+                stepped.append(p)
+        self.adamw = torch.optim.AdamW(stepped, lr=schedule(0), betas=(0.9, 0.999),
                                        eps=1e-8, weight_decay=weight_decay)
+
+    def _moment_specs(self, adamw_state: Dict) -> Dict[int, Dict[str, tuple]]:
+        return infer_opt_specs(adamw_state, self.names, self.specs)
 
     def state_dict(self) -> Dict:
         """The AdamW moments and step counts, the count of updates the
-        schedule reads, and the clip (a native checkpoint's ``optimizer``)."""
-        return dict(count=self.count, grad_clip=self.grad_clip, adamw=self.adamw.state_dict())
+        schedule reads, and the clip (a native checkpoint's ``optimizer``).
+        Sharded moments are gathered whole, as one device holds them: on a
+        model axis a collective, which every rank calls."""
+        adamw = self.adamw.state_dict()
+        if self.shards:
+            specs = self._moment_specs(adamw)
+            adamw = dict(adamw, state={
+                i: {k: v if specs[i][k] == REPLICATED else gather(self.mesh, v, specs[i][k])
+                    for k, v in entry.items()}
+                for i, entry in adamw["state"].items()})
+        return dict(count=self.count, grad_clip=self.grad_clip, adamw=adamw)
 
     def load_state_dict(self, state: Dict) -> None:
+        """A :meth:`state_dict` (whole moments, from a mesh of any shape):
+        the moments of sharded parameters re-sliced to this rank's shard."""
         self.count = int(state["count"])
         self.grad_clip = state["grad_clip"]
-        self.adamw.load_state_dict(state["adamw"])
+        adamw = state["adamw"]
+        if self.shards:
+            specs, mesh = self._moment_specs(adamw), self.mesh
+            adamw = dict(adamw, state={
+                i: {k: shard(v, specs[i][k], mesh.model_index, mesh.model)
+                    for k, v in entry.items()}
+                for i, entry in adamw["state"].items()})
+        self.adamw.load_state_dict(adamw)
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
+        for p, _, _ in self.shards:
+            p.grad = None
 
     @torch.no_grad()
     def step(self) -> None:
@@ -87,24 +154,34 @@ class Optimizer:
             scale = torch.where(norm < self.grad_clip, torch.ones_like(norm),
                                 self.grad_clip / norm)
             torch._foreach_mul_(grads, scale)
+        mesh = self.mesh
+        for p, s, spec in self.shards:  # the shard of the module's weight as it is now
+            s.copy_(shard(p.detach(), spec, mesh.model_index, mesh.model))
+            s.grad = None if p.grad is None else shard(p.grad, spec, mesh.model_index,
+                                                       mesh.model)
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
         self.adamw.step()
+        for p, s, spec in self.shards:  # the module's whole weight for the next forward
+            gather(mesh, s, spec, out=p.data)
         self.count += 1
 
 
 def make_optimizer(model: nn.Module, lr: float = 1e-5, weight_decay: float = 0.0,
                    schedule: str = "constant", total_steps: int = 100, warmup: int = 0,
                    frozen_prefixes: Sequence[str] = (),
-                   grad_clip: Optional[float] = None) -> Optimizer:
+                   grad_clip: Optional[float] = None,
+                   mesh: Optional[Mesh] = None) -> Optimizer:
     """AdamW (lr 1e-5, wd 0 by default, ``all_args.sh:14-16`` of the
     reference) over ``model``'s parameters outside ``frozen_prefixes``; the
-    frozen ones get ``requires_grad_(False)``."""
+    frozen ones get ``requires_grad_(False)``.  On a ``mesh`` with a model
+    axis, the parameters ``infer_param_specs`` shards are held as shards."""
     mask = frozen_mask(model, frozen_prefixes)
-    trainable = []
+    trainable, names = [], []
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])
         if mask[name]:
             trainable.append(p)
+            names.append(name)
     return Optimizer(trainable, make_schedule(schedule, lr, total_steps, warmup), weight_decay,
-                     grad_clip)
+                     grad_clip, names=names, mesh=mesh)

@@ -14,8 +14,9 @@ is resized bilinearly back to the base size, and the scales averaged.
 
 Data-parallel (``lc2is_tpu/engine/sliding.py::dp_sliding_miou`` :98-137):
 each rank slides its own rows of the images, and the per-image mIoU sum and
-the image count are summed over the ranks; :func:`evaluate_sliding` runs the
-same way under a mesh.
+the image count are summed over the data axis (the ranks of a model group
+slide the same rows, counted once); :func:`evaluate_sliding` runs the same
+way under a mesh.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 import torch
 from torch import nn
 
-from lc2is_tpu_torch.core.mesh import (Mesh, Rows, all_reduce_sum, batch_rows, take_rows,
-                                       unpack_batch)
+from lc2is_tpu_torch.core.mesh import (DATA_AXIS, Mesh, Rows, all_reduce_sum, batch_rows,
+                                       take_rows, unpack_batch)
 from lc2is_tpu_torch.engine.engine import _normalize_output, model_device, on_device
 from lc2is_tpu_torch.metrics.miou import per_image_miou
 from lc2is_tpu_torch.ops.resize import resize
@@ -91,12 +92,13 @@ def compute_dtype(model: nn.Module) -> torch.dtype:
 def _miou_sums(forward, x: torch.Tensor, labels: torch.Tensor, rows: Rows, mesh, scales,
                crop: int, stride: int, flip: bool, num_classes: int) -> torch.Tensor:
     """[per-image mIoU sum, images] of this rank's images (zeros on a rank
-    other than 0 where every rank holds the whole batch)."""
+    other than its data group's first where every rank holds the whole
+    batch)."""
     probs = multi_scale_sliding_eval(forward, x, scales=scales, crop=crop, stride=stride,
                                      flip=flip)
     vals = per_image_miou(probs.float(), labels, num_classes=num_classes,
                           upsample_logits_to_label=False, reduce=False)
-    counted = rows.split or mesh is None or mesh.is_main
+    counted = rows.split or mesh is None or mesh.is_data_main
     return torch.stack([vals.sum(), torch.tensor(float(len(vals)), device=vals.device)]) \
         * float(counted)
 
@@ -108,13 +110,14 @@ def dp_sliding_miou(forward: Callable[[torch.Tensor], torch.Tensor], images: tor
     """The multi-scale sliding evaluation's mean per-image mIoU over the
     global ``images`` (B, 3, H, W) and ``labels`` (B, H, W): each rank of
     ``mesh`` slides its rows (all of them where B does not divide by the
-    world size) with ``forward`` ((N, 3, c, c) -> (N, K, c, c)), and the
-    per-image values' sum and count are summed over the ranks; f32, the
-    same on every rank."""
+    data axis) with ``forward`` ((N, 3, c, c) -> (N, K, c, c)), and the
+    per-image values' sum and count are summed over the data group (the
+    ranks of a model group slide the same rows); f32, the same on every
+    rank."""
     rows = batch_rows(mesh, len(labels))
     x, y = take_rows((images, labels), rows)
     s = all_reduce_sum(mesh, _miou_sums(forward, x, y, rows, mesh, scales, crop, stride, flip,
-                                        num_classes).double())
+                                        num_classes).double(), DATA_AXIS)
     return (s[0] / s[1]).float()
 
 
@@ -147,5 +150,5 @@ def evaluate_sliding(model: nn.Module, batches: Iterable,
             x = on_device(inputs["pixel_values"], device).to(dtype)
             total += _miou_sums(tile_forward, x, labels, rows, mesh, scales, crop, stride, True,
                                 num_classes).double()
-    total = all_reduce_sum(mesh, total).tolist()
+    total = all_reduce_sum(mesh, total, DATA_AXIS).tolist()
     return dict(eval_mIOU_sliding=total[0] / max(total[1], 1), scales=scales)

@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from lc2is_tpu_torch.core.mesh import all_reduce_sum
+from lc2is_tpu_torch.core.mesh import DATA_AXIS, all_reduce_sum
 from lc2is_tpu_torch.ops.resize import resize, resize_taps
 
 # elements of one chunk of rows of a resized map (64 MB of f32; the bits do
@@ -168,8 +168,8 @@ def batch_confusion(logits, labels, num_classes: int = 151, device=None) -> torc
 def psum_confusion(cm: torch.Tensor, mesh=None) -> torch.Tensor:
     """The confusion counts summed over the ranks of ``mesh``'s data axis, in
     place (JAX ``psum_confusion`` :102; the counts as they are on one
-    device)."""
-    return all_reduce_sum(mesh, cm)
+    device): the ranks of this rank's data group, which hold each row once."""
+    return all_reduce_sum(mesh, cm, DATA_AXIS)
 
 
 def dataset_miou(cm, ignore_index: Optional[int] = 0, device=None) -> torch.Tensor:

@@ -10,8 +10,8 @@ with the JAX CLI's argv and ``--device cpu``:
   them, through the port's evaluate module for ``base_with_text`` with a
   JAX-written reference ``.pt``: finite label, GT and dataset mIoU;
 - the parser's dests and defaults equal the JAX CLI's but ``--device``
-  (``cuda``; without a card the CLI raises); ``--tp`` beyond 1 and ``--dp 0``
-  raise, ``--dp 2`` parses.
+  (``cuda``; without a card the CLI raises); ``--dp 0`` and ``--tp 0``
+  raise, ``--dp 2`` and ``--tp 2`` parse.
 
 ``tests/test_torch_cli_vs_jax.py`` holds the evaluate CLI to the JAX
 package's on one argv.
@@ -130,17 +130,18 @@ def test_parser_matches_the_jax_cli():
     assert args.fp16 is True and args.device == "cuda"
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "0"]])
+@pytest.mark.parametrize("flags", [["--dp", "2"], ["--tp", "2"], ["--dp", "0"], ["--tp", "0"]])
 def test_more_than_one_device_raises(flags):
-    """``--tp 2`` and ``--dp 0`` raise; ``--dp 2`` parses, the batch the
-    global one (``tests/test_torch_dp.py`` trains with it)."""
+    """``--dp 0`` and ``--tp 0`` raise; ``--dp 2`` and ``--tp 2`` parse, the
+    batch the global one (``tests/test_torch_dp.py`` and
+    ``tests/test_torch_tp.py`` train with them)."""
     argv = ["--name", "x", "--batch_size", "8"] + flags
-    if flags == ["--dp", "2"]:
+    if flags[1] == "2":
         args = parse_args(argv)
-        assert (args.dp, args.tp, args.batch_size) == (2, 1, 8)
+        assert (args.dp, args.tp, args.batch_size) == ((2, 1, 8) if flags[0] == "--dp"
+                                                       else (-1, 2, 8))
         return
-    with pytest.raises(ValueError, match=r"--tp 2: tensor parallelism is not ported \(ROADMAP"
-                                         r".md §1, 'Tensor parallelism'\)|--dp 0: the data axis"):
+    with pytest.raises(ValueError, match=r"--dp 0: the data axis|--tp 0: the model axis"):
         parse_args(argv)
 
 

@@ -29,7 +29,10 @@ new = {"lc2is_tpu_torch.nn.clip", "lc2is_tpu_torch.ops.flash_attention",  # the 
        "lc2is_tpu_torch.data.preprocess", "lc2is_tpu_torch.cli.common",
        "lc2is_tpu_torch.cli.train", "lc2is_tpu_torch.cli.evaluate",
        "lc2is_tpu_torch.cli.prepare_data",
-       "lc2is_tpu_torch.core.mesh"}  # the data axis
+       "lc2is_tpu_torch.core.mesh",  # the data axis
+       "lc2is_tpu_torch.parallel.sharding",  # the model axis
+       "lc2is_tpu_torch.models.weights", "lc2is_tpu_torch.data.native_loader",
+       "lc2is_tpu_torch.core.config"}  # the last modules
 assert new <= set(mods), sorted(new - set(mods))
 from lc2is_tpu_torch.models import zoo
 v4 = {"BaseSelfA", "BaseCrossA", "PromptSelfA", "PromptCrossA", "PromptAuxSelfA"}

@@ -2,9 +2,10 @@
 loader's rank rows:
 
 - ``make_mesh``'s sizes and refusals against ``lc2is_tpu.core.mesh.make_mesh``
-  (``data · model`` equal to the device count, ``data=-1`` every device);
-  ``model`` other than 1 names the TP item; one device builds no group, more
-  outside a group raise;
+  (``data · model`` equal to the device count, ``data=-1`` every device over
+  the model axis); a mesh with a model axis sized as JAX's, and refused
+  outside a group as any mesh of several devices; one device builds no
+  group, more outside a group raise;
 - ``shard_batch`` against the JAX engine's ``_put_batch`` on CPU meshes of
   1, 2, 4 and 8 devices: the same rows on each device where the batch
   divides, the whole batch (replicated) where it does not;
@@ -42,7 +43,9 @@ CPU2 = ["cpu", "cpu"]
 
 
 @pytest.mark.parametrize("data,model,n", [(-1, 1, 1), (-1, 1, 2), (2, 1, 2), (-1, 1, 8),
-                                          (4, 1, 4), (3, 1, 2), (2, 1, 4), (0, 1, 2)])
+                                          (4, 1, 4), (3, 1, 2), (2, 1, 4), (0, 1, 2),
+                                          (-1, 2, 4), (2, 2, 4), (1, 4, 4), (-1, 2, 8),
+                                          (4, 2, 8), (-1, 3, 4), (2, 2, 8)])
 def test_mesh_sizes_match_jax(data, model, n):
     try:
         want = dict(jax_make_mesh(data=data, model=model, devices=jax.devices()[:n]).shape)
@@ -55,8 +58,12 @@ def test_mesh_sizes_match_jax(data, model, n):
 
 
 def test_model_axis_names_the_tp_item():
-    jax_make_mesh(data=2, model=2, devices=jax.devices()[:4])  # JAX takes it
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, 'Tensor parallelism'"):
+    """The model axis is taken as JAX takes it; a (2, 2) mesh of four
+    devices needs four processes, as any mesh of several devices."""
+    want = jax_make_mesh(data=2, model=2, devices=jax.devices()[:4])
+    assert dict(want.shape) == {M.DATA_AXIS: 2, M.MODEL_AXIS: 2}
+    assert M._axis_sizes(2, 2, 4) == (2, 2)
+    with pytest.raises(RuntimeError, match="one process a device"):
         M.make_mesh(data=2, model=2, devices=["cpu"] * 4)
 
 
